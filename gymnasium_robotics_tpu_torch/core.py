@@ -1,0 +1,102 @@
+"""Batched environment core (port of gymnasium_robotics_tpu/core.py).
+
+An env here steps its whole batch at once: the env-level leaves of
+``EnvState`` are B-leading (``obs["observation"] (B, 4)``, ``reward (B,)``),
+as JAX's ``BatchedEnv`` returns them, while ``data`` is the batch-last
+physics ``Data``. Where JAX maps per-env functions with ``vmap``, the batch
+dimension is written out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from gymnasium_robotics_tpu_torch.physics import types as T
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Complete state of a batch of env instances."""
+
+    data: Any              # batch-last physics Data
+    obs: Any               # dict of (B, ...) tensors
+    reward: Any            # (B,)
+    terminated: Any        # (B,) bool
+    truncated: Any         # (B,) bool
+    info: Dict[str, Any]   # (B,) tensors
+    goal: Any              # (B, ...)
+    steps: Any             # (B,) int32, steps since the last reset
+
+
+def _where_batch_last(mask, a, b):
+    return torch.where(mask.view((1,) * (a.dim() - 1) + (-1,)), a, b)
+
+
+def _where_batch_first(mask, a, b):
+    return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+def _pick_data(done, fresh: T.Data, stepped: T.Data) -> T.Data:
+    kw = {}
+    for f in dataclasses.fields(T.Data):
+        if f.name == "contact":
+            continue
+        kw[f.name] = _where_batch_last(
+            done, getattr(fresh, f.name), getattr(stepped, f.name)
+        )
+    c1, c2 = fresh.contact, stepped.contact
+    kw["contact"] = dataclasses.replace(
+        c2, **{n: _where_batch_last(done, getattr(c1, n), getattr(c2, n))
+               for n in ("dist", "pos", "frame")}
+    )
+    return T.Data(**kw)
+
+
+def auto_reset(env, state: EnvState, action, generator) -> EnvState:
+    """Step with masked in-step auto-reset: an env whose episode ends on
+    this step (terminated, past ``max_episode_steps``, or diverged) comes
+    back reset, while the transition's reward, terminated and truncated are
+    reported. ``generator`` draws the reset noise."""
+    stepped = env.step(state, action, generator)
+    truncated = stepped.truncated
+    if env.max_episode_steps is not None:
+        truncated = truncated | (stepped.steps >= env.max_episode_steps)
+
+    # divergence guard (the mjWARN_BADQACC analogue), per env over its own
+    # qacc and qpos: a non-finite or exploding state ends the episode
+    data = stepped.data
+    bad = torch.zeros_like(truncated)
+    if data.qacc.numel():
+        q_mag = torch.amax(torch.abs(data.qacc), dim=0) + torch.amax(
+            torch.abs(data.qpos), dim=0
+        )
+        bad = ~torch.isfinite(q_mag) | (q_mag > 1e10)
+        truncated = truncated | bad
+
+    done = stepped.terminated | truncated
+    fresh = env.reset(stepped, generator)
+    info = dict(stepped.info)
+    if "diverged" in state.info:
+        info["diverged"] = bad
+    return EnvState(
+        data=_pick_data(done, fresh.data, data),
+        obs={k: _where_batch_first(done, fresh.obs[k], v)
+             for k, v in stepped.obs.items()},
+        reward=stepped.reward,
+        terminated=stepped.terminated,
+        truncated=truncated,
+        info=info,
+        goal=_where_batch_first(done, fresh.goal, stepped.goal),
+        steps=torch.where(done, fresh.steps, stepped.steps),
+    )
+
+
+def with_diverged(state: EnvState) -> EnvState:
+    """Opt a fresh state into divergence reporting: ``info["diverged"]``,
+    which ``auto_reset`` keeps updated."""
+    info = dict(state.info)
+    info["diverged"] = torch.zeros_like(state.truncated)
+    return dataclasses.replace(state, info=info)

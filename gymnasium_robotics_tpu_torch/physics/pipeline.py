@@ -1,0 +1,158 @@
+"""The batch-last substep (port of gymnasium_robotics_tpu/physics/soa.py
+``_integrate_qpos`` :1989, ``_euler`` :2023, ``forward`` :2078, ``step``
+:2100, ``step_n`` :2237, and ``pipeline.make_data`` :23-81).
+
+``Data`` stays batch-last across steps: there is no transpose in or out per
+step as at the JAX ``custom_vmap`` boundary. Free/ball quaternion
+integration, activation dynamics and RK4 raise until their slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gymnasium_robotics_tpu_torch.physics import collision as COL
+from gymnasium_robotics_tpu_torch.physics import constraint as CST
+from gymnasium_robotics_tpu_torch.physics import math as M
+from gymnasium_robotics_tpu_torch.physics import smooth as SM
+from gymnasium_robotics_tpu_torch.physics import solver
+from gymnasium_robotics_tpu_torch.physics import types as T
+
+
+def make_data(m: T.Model, B: int) -> T.Data:
+    """Fresh batch-last Data at qpos0 for B envs, in the model's dtype and
+    on its device (mujoco.MjData + mj_resetData)."""
+    mt = m.meta
+    like = m.qpos0
+
+    def z(*s):
+        return like.new_zeros(s + (B,))
+
+    ncon = COL.ncon(m)
+    geom1, geom2 = COL.slot_geoms(m)
+    eye = torch.eye(3, dtype=like.dtype, device=like.device)
+    contact = T.Contact(
+        dist=like.new_full((ncon, B), 1e10),
+        pos=z(ncon, 3),
+        frame=eye[None, :, :, None].expand(ncon, 3, 3, B).clone(),
+        geom1=geom1, geom2=geom2,
+    )
+    mocap_pos, mocap_quat = z(mt.nmocap, 3), z(mt.nmocap, 4)
+    mocap_quat[:, 0] = 1.0
+    for b in range(mt.nbody):
+        mid = mt.body_mocapid[b]
+        if mid >= 0:
+            mocap_pos[mid] = m.body_pos[b]
+            mocap_quat[mid] = m.body_quat[b]
+    eq_active = m.plan("eq_active0", lambda m: torch.as_tensor(
+        [bool(x) for x in mt.eq_active0], dtype=torch.bool, device=m.device
+    ))[:, None].expand(mt.neq, B).clone()
+    return T.Data(
+        time=like.new_zeros((B,)),
+        qpos=M.bB(m.qpos0, B).clone(),
+        qvel=z(mt.nv), act=z(mt.na), ctrl=z(mt.nu), qfrc_applied=z(mt.nv),
+        mocap_pos=mocap_pos, mocap_quat=mocap_quat, eq_active=eq_active,
+        xpos=z(mt.nbody, 3), xquat=z(mt.nbody, 4), xmat=z(mt.nbody, 3, 3),
+        xipos=z(mt.nbody, 3), ximat=z(mt.nbody, 3, 3),
+        xanchor=z(mt.njnt, 3), xaxis=z(mt.njnt, 3),
+        geom_xpos=z(mt.ngeom, 3), geom_xmat=z(mt.ngeom, 3, 3),
+        site_xpos=z(mt.nsite, 3), site_xmat=z(mt.nsite, 3, 3),
+        subtree_com=z(mt.nbody, 3),
+        cinert=z(mt.nbody, 10), cdof=z(mt.nv, 6), cvel=z(mt.nbody, 6),
+        cdof_dot=z(mt.nv, 6),
+        ten_length=z(mt.ntendon), ten_velocity=z(mt.ntendon),
+        ten_J=z(mt.ntendon, mt.nv),
+        qM=z(mt.nv, mt.nv),
+        qfrc_bias=z(mt.nv), qfrc_passive=z(mt.nv), qfrc_actuator=z(mt.nv),
+        actuator_length=z(mt.nu), actuator_velocity=z(mt.nu),
+        actuator_force=z(mt.nu),
+        qfrc_smooth=z(mt.nv), qacc_smooth=z(mt.nv),
+        qfrc_constraint=z(mt.nv), qacc=z(mt.nv),
+        contact=contact,
+        con_force=z(ncon, 6),
+        cfrc_ext=z(mt.nbody, 6),
+        sensordata=z(mt.nsensordata),
+    )
+
+
+class _IntPlan:
+    def __init__(self, m: T.Model):
+        mt = m.meta
+        q1, d1 = [], []
+        for j in range(mt.njnt):
+            if mt.jnt_type[j] in (T.FREE, T.BALL):
+                raise NotImplementedError(
+                    "free/ball quaternion integration (soa._integrate_qpos "
+                    ":2002) is not ported yet"
+                )
+            q1.append(mt.jnt_qposadr[j])
+            d1.append(mt.jnt_dofadr[j])
+        self.q = torch.as_tensor(q1, dtype=torch.int64, device=m.device)
+        self.d = torch.as_tensor(d1, dtype=torch.int64, device=m.device)
+
+
+def _integrate_qpos(m: T.Model, qpos, qvel, dt):
+    ip = m.plan("int", _IntPlan)
+    out = qpos.clone()
+    out[ip.q] = qpos[ip.q] + dt * qvel[ip.d]
+    return out
+
+
+def _euler(m: T.Model, d: T.Data) -> T.Data:
+    """Semi-implicit Euler with implicit joint damping:
+    (M + h diag(damping)) v' = M v + h (qfrc_smooth + qfrc_constraint
+    + damping v)."""
+    mt = m.meta
+    B = d.qpos.shape[-1]
+    h = mt.opt.timestep
+    if mt.na:
+        raise NotImplementedError("activation integration is not ported yet")
+    if mt.has_damping:
+        ar = SM._tree(m).diag
+        MhB = d.qM.clone()
+        MhB[ar, ar] += h * M.bB(m.dof_damping, B)
+        rhs = torch.einsum("uvb,vb->ub", d.qM, d.qvel) + h * (
+            d.qfrc_smooth + d.qfrc_constraint + m.dof_damping * d.qvel
+        )
+        qvel = solver.solve_pos(MhB, rhs)
+    else:
+        qvel = d.qvel + h * d.qacc
+    return dataclasses.replace(
+        d, qpos=_integrate_qpos(m, d.qpos, qvel, h), qvel=qvel, time=d.time + h
+    )
+
+
+def forward(m: T.Model, d: T.Data) -> T.Data:
+    d = SM.kinematics(m, d)
+    d = SM.com_pos(m, d)
+    d = SM.tendon(m, d)
+    d = SM.crb(m, d)
+    d = COL.collision(m, d)
+    d = SM.com_vel(m, d)
+    d = SM.rne(m, d)
+    d = SM.fwd_passive(m, d)
+    d = SM.fwd_actuation(m, d)
+    qfrc_smooth = d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator + d.qfrc_applied
+    d = dataclasses.replace(
+        d, qfrc_smooth=qfrc_smooth, qacc_smooth=solver.solve_pos(d.qM, qfrc_smooth)
+    )
+    d = CST.solve_constraints(m, d)
+    return CST.sensors(m, d)
+
+
+def step(m: T.Model, d: T.Data) -> T.Data:
+    d = forward(m, d)
+    if m.meta.opt.integrator == T.RK4:
+        raise NotImplementedError("RK4 integration is not ported yet")
+    return _euler(m, d)
+
+
+def step_n(m: T.Model, d: T.Data, ctrl, n: int) -> T.Data:
+    """n substeps with fixed ctrl (nu, B) (the reference's
+    mj_step(nstep=n))."""
+    d = dataclasses.replace(d, ctrl=ctrl)
+    for _ in range(n):
+        d = step(m, d)
+    return d

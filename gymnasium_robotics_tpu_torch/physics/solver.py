@@ -1,0 +1,250 @@
+"""Per-env dense solves: the two CUDA kernels of csrc/solver.cu, their
+wrappers, and beside each its plain PyTorch version.
+
+Port of gymnasium_robotics_tpu/physics/solver_pallas.py: ``solve_pos``
+replaces ``solve_pos_soa`` (TPU kernel ``_kernel_chol``) and
+``solve_newton`` replaces ``solve_small_soa`` (TPU kernel ``_kernel_nv``),
+with the same batch-last signatures. The kernels read the port's own
+layouts (the full M, J as (ne, nv, B), bool masks, a per-model is_eq), so
+the wrappers copy nothing: the kernels take each input's strides.
+
+A wrapper given CPU tensors computes the plain version; given CUDA tensors
+it launches its kernel or raises. The plain versions serve the CPU tests and
+the on-card check of each kernel; they never stand in for a kernel on CUDA
+tensors. ``LAUNCHES`` counts kernel launches, so a run can show which
+kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+LAUNCHES = {"chol": 0, "newton": 0}
+KERNEL_NV = (2,)  # nv values csrc/solver.cu instantiates
+NEWTON_MAX_ROWS = 64  # largest row cap of newton_kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _tril_index(nv: int, device: torch.device):
+    idx = [i * nv + j for i in range(nv) for j in range(i + 1)]
+    return torch.tensor(idx, device=device)
+
+
+def pack_tril(M):
+    """(nv, nv, B) -> (nv*(nv+1)/2, B): the lower triangle in row order
+    (i, j <= i), as solver_pallas._pack_tril_soa."""
+    nv = M.shape[0]
+    return M.reshape(nv * nv, M.shape[-1])[_tril_index(nv, M.device)]
+
+
+def _chol_solve_rows(H, b, nv):
+    """Solve H x = b with rows of B values: H the packed lower triangle as
+    a list of rows, b a list of nv rows. Unrolled LL^T with the diagonal
+    floored at sqrt(max(s, 1e-20)) (solver_pallas._chol_solve_lanes)."""
+    L = {}
+    r = 0
+    Hd = {}
+    for i in range(nv):
+        for j in range(i + 1):
+            Hd[(i, j)] = H[r]
+            r += 1
+    for i in range(nv):
+        s = Hd[(i, i)]
+        for k in range(i):
+            s = s - L[(i, k)] * L[(i, k)]
+        L[(i, i)] = torch.sqrt(torch.clamp(s, min=1e-20))
+        for j in range(i + 1, nv):
+            s = Hd[(j, i)]
+            for k in range(i):
+                s = s - L[(j, k)] * L[(i, k)]
+            L[(j, i)] = s / L[(i, i)]
+    y = []
+    for i in range(nv):
+        s = b[i]
+        for k in range(i):
+            s = s - L[(i, k)] * y[k]
+        y.append(s / L[(i, i)])
+    x = [None] * nv
+    for i in reversed(range(nv)):
+        s = y[i]
+        for k in range(i + 1, nv):
+            s = s - L[(k, i)] * x[k]
+        x[i] = s / L[(i, i)]
+    return x
+
+
+def solve_pos_plain(M, b):
+    """Batch-last SPD solve M x = b: M (nv, nv, B), b (nv, B) -> (nv, B),
+    through the floored Cholesky of M's lower triangle."""
+    nv = b.shape[0]
+    x = _chol_solve_rows(list(pack_tril(M).unbind(0)), list(b.unbind(0)), nv)
+    return torch.stack(x)
+
+
+def solve_newton_plain(M, a_smooth, a_warm, J, aref, D, active, is_eq,
+                       n_iter: int, n_ls: int):
+    """Batch-last warm-started Newton solve of the soft-constraint problem
+    (the batched formulation of soa.solve_constraints :1757-1808, with the
+    floored Cholesky for every SPD solve): M (nv, nv, B), a_smooth/a_warm
+    (nv, B), J (ne, nv, B), aref/D/active (ne, B), is_eq (ne,) per model
+    row or (ne, B) -> (qacc (nv, B), f (ne, B))."""
+    active = active.bool()
+    is_eq = is_eq.bool()
+    if is_eq.dim() == 1:
+        is_eq = is_eq[:, None]
+
+    def x_of(a):
+        return torch.einsum("evb,vb->eb", J, a) - aref
+
+    def dw_of(x):
+        return torch.where((is_eq | (x < 0.0)) & active, D, torch.zeros_like(D))
+
+    a = a_warm
+    for _ in range(n_iter):
+        x = x_of(a)
+        Dw = dw_of(x)
+        Mda = torch.einsum("uvb,vb->ub", M, a - a_smooth)
+        grad = Mda + torch.einsum("evb,eb->vb", J, Dw * x)
+        H = M + torch.einsum("evb,eb,ewb->vwb", J, Dw, J)
+        p = -solve_pos_plain(H, grad)
+        Jp = torch.einsum("evb,vb->eb", J, p)
+        pMp = torch.sum(p * torch.einsum("uvb,vb->ub", M, p), dim=0)
+        pMa = torch.sum(p * Mda, dim=0)
+        alpha = torch.ones_like(pMp)
+        for _ in range(n_ls):
+            xl = x + alpha * Jp
+            Dl = dw_of(xl)
+            dphi = alpha * pMp + pMa + torch.sum(Dl * xl * Jp, dim=0)
+            ddphi = pMp + torch.sum(Dl * Jp * Jp, dim=0)
+            alpha = alpha - dphi / torch.clamp(ddphi, min=1e-12)
+        a = a + torch.clamp(alpha, 0.0, 4.0) * p
+
+    x = x_of(a)
+    f = -dw_of(x) * x
+    f = torch.where(is_eq, f, torch.clamp(f, min=0.0))
+    qacc = a_smooth + solve_pos_plain(M, torch.einsum("evb,eb->vb", J, f))
+    return qacc, f
+
+
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from gymnasium_robotics_tpu_torch import kernels
+
+    lib = kernels.load("solver")
+    lib.grt_chol_solve_f32.argtypes = [_vp] * 4 + [_i, _i, _vp]
+    lib.grt_chol_solve_f32.restype = _i
+    lib.grt_newton_f32.argtypes = [_vp] * 11 + [_i] * 5 + [_vp]
+    lib.grt_newton_f32.restype = _i
+    return lib
+
+
+def _route_to_kernel(nv, floats, masks=()):
+    """False for CPU tensors (the plain version runs); True for CUDA
+    tensors the kernels take (float32 values, bool masks); raises for
+    anything else."""
+    dev = floats[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if nv not in KERNEL_NV:
+        raise NotImplementedError(
+            f"the CUDA solver kernels are instantiated for nv in {KERNEL_NV}, "
+            f"not nv={nv}; add it to csrc/solver.cu with its slice"
+        )
+    for t in (*floats, *masks):
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+    for t in floats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
+    for t in masks:
+        if t.dtype != torch.bool:
+            raise TypeError(f"the CUDA kernels take bool masks, got {t.dtype}")
+    return True
+
+
+def _check_shapes(named):
+    for name, t, shape in named:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _strides(*ts):
+    """The element strides of the inputs, in order, as the C array the
+    kernels read them through: no input is copied."""
+    st = [s for t in ts for s in t.stride()]
+    return (ctypes.c_longlong * len(st))(*st)
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+
+def solve_pos(M, b):
+    """Batch-last SPD solve M x = b: M (nv, nv, B), b (nv, B) -> (nv, B).
+    CUDA tensors launch chol_solve_kernel; CPU tensors take the plain
+    version."""
+    nv, B = b.shape
+    _check_shapes([("M", M, (nv, nv, B))])
+    if not _route_to_kernel(nv, (M, b)):
+        return solve_pos_plain(M, b)
+    x = torch.empty((nv, B), dtype=torch.float32, device=b.device)
+    rc = _lib().grt_chol_solve_f32(
+        M.data_ptr(), b.data_ptr(), x.data_ptr(), _strides(M, b), nv, B,
+        torch.cuda.current_stream(b.device).cuda_stream,
+    )
+    _raise_on(rc, "chol_solve_kernel")
+    LAUNCHES["chol"] += 1
+    return x
+
+
+def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
+                 n_iter: int, n_ls: int):
+    """Batch-last fused Newton solve (signature of solve_small_soa): M
+    (nv, nv, B), a_smooth/a_warm (nv, B), J (ne, nv, B), aref/D/active
+    (ne, B), is_eq (ne,) per model row or (ne, B) -> (qacc (nv, B),
+    f (ne, B)). CUDA tensors launch newton_kernel; CPU tensors take the
+    plain version."""
+    nv, B = a_smooth.shape
+    ne = aref.shape[0]
+    _check_shapes([
+        ("M", M, (nv, nv, B)), ("a_warm", a_warm, (nv, B)),
+        ("J", J, (ne, nv, B)), ("D", D, (ne, B)), ("active", active, (ne, B)),
+        ("is_eq", is_eq, (ne,) if is_eq.dim() == 1 else (ne, B)),
+    ])
+    if not _route_to_kernel(nv, (M, a_smooth, a_warm, J, aref, D),
+                            (active, is_eq)):
+        return solve_newton_plain(M, a_smooth, a_warm, J, aref, D, active,
+                                  is_eq, n_iter, n_ls)
+    if ne > NEWTON_MAX_ROWS:
+        raise NotImplementedError(
+            f"newton_kernel is instantiated for up to {NEWTON_MAX_ROWS} rows, "
+            f"not {ne}; add a larger row cap to csrc/solver.cu"
+        )
+    dev = a_smooth.device
+    eq = is_eq.expand(B, ne).T if is_eq.dim() == 1 else is_eq  # batch stride 0
+    ins = (M, a_smooth, a_warm, J, aref, D, active, eq)
+    qacc = torch.empty((nv, B), dtype=torch.float32, device=dev)
+    f = torch.empty((ne, B), dtype=torch.float32, device=dev)
+    rc = _lib().grt_newton_f32(
+        *(t.data_ptr() for t in ins), qacc.data_ptr(), f.data_ptr(),
+        _strides(*ins), nv, ne, B, int(n_iter), int(n_ls),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "newton_kernel")
+    LAUNCHES["newton"] += 1
+    return qacc, f

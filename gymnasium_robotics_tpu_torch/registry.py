@@ -1,0 +1,91 @@
+"""Environment registry (port of gymnasium_robotics_tpu/registry.py ``make``
+and envs/__init__.py ``_register_point_maze``).
+
+The port registers the PointMaze IDs; any other ID raises ``KeyError``
+naming the slice of the port that brings its family.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+from gymnasium_robotics_tpu_torch import device as _device
+
+
+@dataclasses.dataclass
+class EnvSpec:
+    id: str
+    entry_point: Callable[..., Any]
+    kwargs: Dict[str, Any]
+    max_episode_steps: Optional[int]
+
+
+def _point_maze_specs() -> Dict[str, EnvSpec]:
+    from gymnasium_robotics_tpu_torch.envs.maze import maps
+    from gymnasium_robotics_tpu_torch.envs.maze.point_maze import PointMazeEnv
+
+    maze_set = {
+        "UMaze": (maps.U_MAZE, 300),
+        "Open": (maps.OPEN, 300),
+        "Open_Diverse_G": (maps.OPEN_DIVERSE_G, 300),
+        "Open_Diverse_GR": (maps.OPEN_DIVERSE_GR, 300),
+        "Medium": (maps.MEDIUM_MAZE, 600),
+        "Medium_Diverse_G": (maps.MEDIUM_MAZE_DIVERSE_G, 600),
+        "Medium_Diverse_GR": (maps.MEDIUM_MAZE_DIVERSE_GR, 600),
+        "Large": (maps.LARGE_MAZE, 800),
+        "Large_Diverse_G": (maps.LARGE_MAZE_DIVERSE_G, 800),
+        "Large_Diverse_GR": (maps.LARGE_MAZE_DIVERSE_GR, 800),
+    }
+    out = {}
+    for name, (mmap, steps) in maze_set.items():
+        for suffix, reward_type in (("", "sparse"), ("Dense", "dense")):
+            id_ = f"PointMaze_{name}{suffix}-v3"
+            out[id_] = EnvSpec(
+                id=id_, entry_point=PointMazeEnv,
+                kwargs={"maze_map": mmap, "reward_type": reward_type},
+                max_episode_steps=steps,
+            )
+    return out
+
+
+_SLICES = (
+    ("Fetch", "the FetchPush slice"),
+    ("HandManipulate", "the HandManipulateBlock slice"),
+    ("HandReach", "the HandManipulateBlock slice"),
+)
+
+
+def spec(id: str) -> EnvSpec:
+    specs = _point_maze_specs()
+    if id not in specs:
+        brings = next(
+            (s for prefix, s in _SLICES if id.startswith(prefix)),
+            "a later slice (ROADMAP queue A)",
+        )
+        raise KeyError(
+            f"{id!r} is not in the port: it registers only the PointMaze "
+            f"IDs so far; this family comes with {brings}"
+        )
+    return specs[id]
+
+
+def ids():
+    return sorted(_point_maze_specs())
+
+
+def make(id: str, num_envs: Optional[int] = None, device=None, **kwargs):
+    """Create an env on ``device`` (the CUDA card unless named; raises when
+    there is none). With ``num_envs``: a ``BatchedEnv`` stepping that many
+    instances in lockstep. Without: the env itself, whose methods act on a
+    batch given to them."""
+    s = spec(id)
+    dev = _device.resolve(device)
+    env = s.entry_point(**{**s.kwargs, **kwargs}, device=dev)
+    if s.max_episode_steps is not None and env.max_episode_steps is None:
+        env.max_episode_steps = s.max_episode_steps
+    if num_envs is None:
+        return env
+    from gymnasium_robotics_tpu_torch.envs.batched import BatchedEnv
+
+    return BatchedEnv(env, num_envs)

@@ -1,0 +1,199 @@
+"""The port's per-env solves (gymnasium_robotics_tpu_torch.physics.solver)
+against the Pallas kernels they replace, run in interpret mode on the CPU:
+solve_pos_plain vs solver_pallas.solve_pos_soa (_kernel_chol) and
+solve_newton_plain vs solver_pallas.solve_small_soa (_kernel_nv).
+
+Tolerance: relative error scaled by max(1, |ref|) <= 1e-9 in float64 (the
+two sides round the same operations in another order). The test marked
+``cuda`` holds each CUDA kernel against its plain version on the card
+(<= 2e-4 in float32); it skips where no card is present. The JAX imports
+sit inside the tests so that the ``cuda`` test also runs where JAX is
+missing."""
+
+import numpy as np
+import pytest
+import torch
+
+from gymnasium_robotics_tpu_torch import registry
+from gymnasium_robotics_tpu_torch.physics import constraint, solver
+
+TOL64 = 1e-9
+TOL32 = 2e-4
+
+
+def rel_err(x, ref):
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(x - ref).max() / max(1.0, np.abs(ref).max()))
+
+
+def _spd(rs, nv, B):
+    """Random non-diagonal SPD matrices (nv, nv, B), plus lanes that hit the
+    1e-20 diagonal floor exactly: a rank-deficient block of ones, a zero
+    diagonal entry and an all-zero matrix (a freshly reset env's qM)."""
+    A = rs.normal(size=(nv, nv, B))
+    M = np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(nv)[:, :, None]
+    M[:, :, 0] = np.eye(nv)
+    M[:2, :2, 0] = 1.0
+    M[:, :, 1] = np.diag(np.arange(nv, dtype=np.float64) % 2)
+    M[:, :, 2] = 0.0
+    return M
+
+
+@pytest.mark.parametrize("nv", [2, 3, 6])
+@pytest.mark.parametrize("B", [5, 130])
+def test_solve_pos_plain_matches_pallas(nv, B):
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import solver_pallas as SP
+
+    rs = np.random.RandomState(nv * 1000 + B)
+    M = _spd(rs, nv, B)
+    b = rs.normal(size=(nv, B))
+    ref = np.asarray(SP.solve_pos_soa(jnp.asarray(M), jnp.asarray(b),
+                                      interpret=True))
+    out = solver.solve_pos_plain(torch.tensor(M), torch.tensor(b)).numpy()
+    floored = np.abs(ref[:, 0]).max()
+    assert floored > 1e8  # the floor was reached on the rank-deficient lane
+    assert rel_err(out, ref) <= TOL64
+    # the wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        solver.solve_pos(torch.tensor(M), torch.tensor(b)).numpy(), out)
+
+
+def test_pack_tril_order():
+    M = torch.arange(9.0).reshape(3, 3, 1)
+    # rows (i, j <= i): (0,0) (1,0) (1,1) (2,0) (2,1) (2,2)
+    assert solver.pack_tril(M)[:, 0].tolist() == [0, 3, 4, 6, 7, 8]
+
+
+def _newton_ref(args, n_iter, n_ls):
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import solver_pallas as SP
+
+    M, asm, a0, J, aref, D, active, is_eq = (np.asarray(a) for a in args)
+    if is_eq.ndim == 1:  # per model row: the Pallas entry takes (ne, B)
+        is_eq = np.broadcast_to(is_eq[:, None], aref.shape)
+    qacc, f = SP.solve_small_soa(
+        jnp.asarray(M), jnp.asarray(asm), jnp.asarray(a0), jnp.asarray(J),
+        jnp.asarray(aref), jnp.asarray(D), jnp.asarray(active),
+        jnp.asarray(is_eq), n_iter=n_iter, n_ls=n_ls, interpret=True,
+    )
+    return np.asarray(qacc), np.asarray(f)
+
+
+def _check_newton(args, n_iter, n_ls):
+    qref, fref = _newton_ref(args, n_iter, n_ls)
+    targs = [torch.tensor(np.asarray(a)) for a in args]
+    qacc, f = solver.solve_newton_plain(*targs, n_iter=n_iter, n_ls=n_ls)
+    assert rel_err(qacc.numpy(), qref) <= TOL64
+    assert rel_err(f.numpy(), fref) <= TOL64
+    qw, fw = solver.solve_newton(*targs, n_iter=n_iter, n_ls=n_ls)
+    np.testing.assert_array_equal(qw.numpy(), qacc.numpy())
+    np.testing.assert_array_equal(fw.numpy(), f.numpy())
+
+
+def _pointmaze_rows(B, steps, dtype=torch.float64, device="cpu"):
+    """(M, a_smooth, a_warm, J, aref, D, active, is_eq (ne,)) of a PointMaze
+    batch pushed into the walls, with the model's (n_iter, n_ls)."""
+    env = registry.make("PointMaze_UMaze-v3", num_envs=B, device=device,
+                        dtype=dtype)
+    env.reset(seed=0)
+    rs = np.random.RandomState(0)
+    dirs = torch.tensor(rs.uniform(-1, 1, (B, 2)), dtype=dtype, device=device)
+    for _ in range(steps):
+        env.step(dirs)
+    m, d = env.env.model, env.state.data
+    J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+    args = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+    return args, min(m.opt.iterations, 20), min(m.opt.ls_iterations, 8)
+
+
+def test_solve_newton_plain_matches_pallas_pointmaze():
+    args, n_iter, n_ls = _pointmaze_rows(B=130, steps=25)
+    J, active = args[3], args[6]
+    assert J.shape[:2] == (19, 2) and (n_iter, n_ls) == (6, 4)
+    assert bool(active[1:].any())  # some balls press on a wall
+    _check_newton([a.numpy() for a in args], n_iter, n_ls)
+
+
+@pytest.mark.parametrize("B", [7, 130])
+def test_solve_newton_plain_matches_pallas_random(B):
+    nv, ne = 3, 8
+    rs = np.random.RandomState(B)
+    args = [
+        _spd(rs, nv, B)[:, :, [3] * 3 + list(range(3, B))],  # no floor lanes
+        rs.normal(size=(nv, B)), rs.normal(size=(nv, B)),
+        rs.normal(size=(ne, nv, B)), rs.normal(size=(ne, B)),
+        np.exp(rs.normal(size=(ne, B))),
+        rs.uniform(size=(ne, B)) < 0.7, rs.uniform(size=(ne, B)) < 0.3,
+    ]
+    _check_newton(args, n_iter=5, n_ls=3)
+
+
+def test_wrappers_route_and_check():
+    M = torch.eye(2)[:, :, None]
+    b = torch.zeros(2, 1)
+    assert solver._route_to_kernel(2, (M, b)) is False  # CPU: plain version
+    with pytest.raises(ValueError, match="unsupported device"):
+        solver._route_to_kernel(2, (M.to("meta"), b.to("meta")))
+    with pytest.raises(ValueError, match="shape"):
+        solver.solve_pos(M, torch.zeros(3, 1))
+    # is_eq is per model row (ne,) or per env (ne, B), nothing else
+    ne = 3
+    rows = (torch.zeros(ne, 2, 1), torch.zeros(ne, 1), torch.ones(ne, 1),
+            torch.ones(ne, 1, dtype=torch.bool))
+    for is_eq, ok in ((torch.ones(ne, dtype=torch.bool), True),
+                      (torch.ones(ne, 1, dtype=torch.bool), True),
+                      (torch.ones(ne + 1, dtype=torch.bool), False)):
+        if ok:
+            solver.solve_newton(M, b, b, *rows, is_eq, n_iter=2, n_ls=2)
+        else:
+            with pytest.raises(ValueError, match="is_eq"):
+                solver.solve_newton(M, b, b, *rows, is_eq, n_iter=2, n_ls=2)
+
+
+def test_kernel_strides_describe_views():
+    """The kernels read each input through its element strides: the array
+    the wrappers pass must rebuild every view from its storage, including
+    the batch-leading views einsum leaves and the per-model is_eq."""
+    B, ne = 5, 3
+    b = torch.arange(2.0 * B).reshape(B, 2).T          # strides (1, 2)
+    is_eq = torch.tensor([True, False, True]).expand(B, ne).T  # (1, 0)
+    M = torch.arange(4.0 * B).reshape(B, 2, 2).permute(1, 2, 0)
+    st = list(solver._strides(M, b, is_eq))
+    assert st == [2, 1, 4, 1, 2, 1, 0]
+    for t, s in ((M, st[:3]), (b, st[3:5]), (is_eq, st[5:])):
+        flat = t.untyped_storage()
+        base = torch.tensor([], dtype=t.dtype).set_(flat)
+        assert torch.equal(base.as_strided(t.shape, s), t)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card(cuda_device):
+    B = 8192
+    rs = np.random.RandomState(0)
+    M = torch.tensor(_spd(rs, 2, B), dtype=torch.float32, device=cuda_device)
+    b = torch.tensor(rs.normal(size=(2, B)), dtype=torch.float32,
+                     device=cuda_device)
+    n0 = dict(solver.LAUNCHES)
+    x = solver.solve_pos(M, b)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES["chol"] == n0["chol"] + 1
+    ok = slice(3, None)  # the floored lanes amplify rounding by 1e10
+    assert rel_err(x[:, ok].cpu(), solver.solve_pos_plain(M, b)[:, ok].cpu()) <= TOL32
+
+    args, n_iter, n_ls = _pointmaze_rows(B, 25, torch.float32, cuda_device)
+    qk, fk = solver.solve_newton(*args, n_iter=n_iter, n_ls=n_ls)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES["newton"] > n0["newton"]
+    qp, fp = solver.solve_newton_plain(*args, n_iter=n_iter, n_ls=n_ls)
+    assert rel_err(qk.cpu(), qp.cpu()) <= TOL32
+    assert rel_err(fk.cpu(), fp.cpu()) <= TOL32
