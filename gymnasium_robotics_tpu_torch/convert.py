@@ -72,7 +72,8 @@ def _to_batch_first(t):
 def data_from_numpy(fields: dict, device=None) -> T.Data:
     """The port's batch-last ``Data`` from B-leading batched leaves (the JAX
     ``BatchedEnv`` layout). ``fields["contact"]`` is a dict of the Contact
-    leaves; its geom ids may be (ncon,) or (B, ncon)."""
+    leaves; its geom ids may be (ncon,) or (B, ncon), and a pair-topk table
+    carries per-env ``src``, ``geom1`` and ``geom2`` (B, ncon)."""
     dev = _device.resolve(device)
     kw = {}
     for f in dataclasses.fields(T.Data):
@@ -80,16 +81,21 @@ def data_from_numpy(fields: dict, device=None) -> T.Data:
             continue
         kw[f.name] = _to_batch_last(fields[f.name], dev)
     c = fields["contact"]
-    if c.get("src") is not None:
-        raise NotImplementedError(
-            "a pruned contact table (pair_topk) comes with the FetchPush slice"
-        )
-    geoms = []
-    for name in ("geom1", "geom2"):
-        g = np.asarray(c[name])
-        geoms.append(torch.tensor(g[0] if g.ndim == 2 else g).to(dev))
+    pruned = c.get("src") is not None
+    ids = {}
+    for name in ("geom1", "geom2", "src"):
+        g = c.get(name)
+        if g is None:
+            ids[name] = None
+        elif pruned:
+            # pair-topk: the slot map is per env, (B, ncon) -> (ncon, B)
+            ids[name] = _to_batch_last(np.asarray(g).astype(np.int64), dev)
+        else:
+            g = np.asarray(g)
+            ids[name] = torch.tensor(
+                (g[0] if g.ndim == 2 else g).astype(np.int64)).to(dev)
     kw["contact"] = T.Contact(
-        *[_to_batch_last(c[name], dev) for name in _CONTACT_FIELDS], *geoms
+        *[_to_batch_last(c[name], dev) for name in _CONTACT_FIELDS], **ids
     )
     return T.Data(**kw)
 
@@ -105,10 +111,14 @@ def data_to_numpy(data: T.Data) -> dict:
     B = data.qpos.shape[-1]
     out["contact"] = {name: _to_batch_first(getattr(c, name))
                       for name in _CONTACT_FIELDS}
+    out["contact"]["src"] = None
+    if c.src is not None:
+        for name in ("geom1", "geom2", "src"):
+            out["contact"][name] = _to_batch_first(getattr(c, name))
+        return out
     for name in ("geom1", "geom2"):
         g = getattr(c, name).cpu().numpy()
         out["contact"][name] = np.broadcast_to(g, (B,) + g.shape).copy()
-    out["contact"]["src"] = None
     return out
 
 

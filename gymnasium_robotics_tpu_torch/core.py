@@ -40,6 +40,10 @@ def _where_batch_first(mask, a, b):
 
 
 def _pick_data(done, fresh: T.Data, stepped: T.Data) -> T.Data:
+    """Per env, the fresh Data where ``done`` and the stepped one elsewhere:
+    every leaf, as JAX's auto_reset picks the whole state tree, including
+    the contact table's per-env slot map (src, geom1, geom2 (ncon, B) under
+    pair-topk pruning); static (ncon,) geom ids are shared and kept."""
     kw = {}
     for f in dataclasses.fields(T.Data):
         if f.name == "contact":
@@ -48,9 +52,12 @@ def _pick_data(done, fresh: T.Data, stepped: T.Data) -> T.Data:
             done, getattr(fresh, f.name), getattr(stepped, f.name)
         )
     c1, c2 = fresh.contact, stepped.contact
+    names = ["dist", "pos", "frame"]
+    names += [n for n in ("src", "geom1", "geom2")
+              if getattr(c2, n) is not None and getattr(c2, n).dim() == 2]
     kw["contact"] = dataclasses.replace(
         c2, **{n: _where_batch_last(done, getattr(c1, n), getattr(c2, n))
-               for n in ("dist", "pos", "frame")}
+               for n in names}
     )
     return T.Data(**kw)
 

@@ -1,13 +1,14 @@
-// Per-env dense solves of the constraint pipeline, one env per thread.
+// Per-env dense solves of the constraint pipeline.
 //
-// chol_solve_kernel<NV> replaces the TPU kernel
-//   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol
+// chol_solve_kernel<NV> (NV = 2, 14; one env per thread) replaces the TPU
+//   kernel gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol
 //   (entered through solve_pos_soa): the batched SPD solve M x = b by an
 //   unrolled LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
-// newton_kernel<NV, NE_CAP> replaces the TPU kernel
-//   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_nv
-//   (entered through solve_small_soa): the warm-started primal Newton
-//   solve of the soft-constraint problem with exact line search.
+// newton_kernel<NV, NE_CAP> (NV = 2; one env per thread) and
+// newton_warp_kernel<NV, RPL> (NV = 14; one env per warp, below) replace
+//   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
+//   _kernel_nv (entered through solve_small_soa): the warm-started primal
+//   Newton solve of the soft-constraint problem with exact line search.
 //
 // Layout. The kernels read the port's own batch-last arrays where they lie,
 // through their element strides, so the caller copies nothing: M is the
@@ -36,6 +37,14 @@
 // NV and NE_CAP are template parameters so every loop over them unrolls
 // into registers, as Pallas unrolls them; ne <= NE_CAP, n_iter and n_ls are
 // runtime values. chip_smoke.py measures both against these bounds.
+// At the AntMaze shapes (NV = 14, ne = 72, 5 Newton and 4 line-search
+// iterations, B = 2048) the Newton function reads 1285 floats and 72 mask
+// bytes and writes 86 floats per env (11.2 MB, 3.4 us) and does about 148k
+// float operations per env (4.5 us at 67 TFLOP/s float32), so operations
+// bound it (chip_smoke.py counts both); one thread per env would need far
+// more than 255 registers, hence the warp-per-env layout of
+// newton_warp_kernel (its note below). The Cholesky at NV = 14 keeps its
+// 105-entry triangle and factor in one thread's registers (in place).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsolver.so solver.cu
@@ -88,21 +97,22 @@ __device__ __forceinline__ void load_tril(const float* __restrict__ M,
     for (int j = 0; j <= i; ++j) H[tri(i, j)] = M[s.at(i, j, e)];
 }
 
-// Solve H x = rhs for one env; H packed lower triangle.
+// Solve H x = rhs for one env; H packed lower triangle, factored in place
+// (left-looking: every sum runs over k in ascending order, as the plain
+// version's).
 template <int NV>
-__device__ __forceinline__ void chol_solve(const float (&H)[tri(NV, 0)],
+__device__ __forceinline__ void chol_solve(float (&L)[tri(NV, 0)],
                                            const float (&rhs)[NV],
                                            float (&x)[NV]) {
-  float L[tri(NV, 0)];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    float s = H[tri(i, i)];
+    float s = L[tri(i, i)];
 #pragma unroll
     for (int k = 0; k < i; ++k) s = s - L[tri(i, k)] * L[tri(i, k)];
     L[tri(i, i)] = sqrtf(nan_max(s, 1e-20f));
 #pragma unroll
     for (int j = i + 1; j < NV; ++j) {
-      float t = H[tri(j, i)];
+      float t = L[tri(j, i)];
 #pragma unroll
       for (int k = 0; k < i; ++k) t = t - L[tri(j, k)] * L[tri(i, k)];
       L[tri(j, i)] = t / L[tri(i, i)];
@@ -285,6 +295,264 @@ newton_kernel(const float* __restrict__ M, const float* __restrict__ a_smooth,
   for (int i = 0; i < NV; ++i) qacc[i * sB + e] = as[i] + dq[i];
 }
 
+// ---------------------------------------------------------------------------
+// newton_warp_kernel<NV, RPL>: one warp per env, for the larger systems
+// (AntMaze: NV = 14, ne = 72). One thread per env would hold each row's x,
+// J p, weight and flag (4 ne values) plus the 105 entries of H's triangle,
+// far past 255 registers. Here rows are striped over the lanes (row
+// r = lane + 32 q, RPL rows a lane), each lane keeping its rows of J in
+// registers; J, the per-iteration weights and M's triangle are also staged
+// once in shared memory, the lanes own the entries of M + J^T D J, the warp
+// factors the 14 x 14 system in shared memory (lane j owns row j) and the
+// sums over rows (gradient, line-search derivatives, J^T f) are warp
+// reductions by __shfl_xor_sync. Vectors of length NV are replicated in
+// every lane.
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 4;  // envs per block
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Solve H x = rhs with H's packed lower triangle in shared memory (factored
+// in place); rhs and x replicated in every lane. Left-looking factor with
+// the same 1e-20 diagonal floor and the same order of every sum as
+// chol_solve; the back substitution subtracts in descending order.
+template <int NV>
+__device__ void warp_chol_solve(float* L, const float (&rhs)[NV],
+                                float (&x)[NV], int lane) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float t = 0.f;
+    if (lane >= i && lane < NV) {
+      t = L[tri(lane, i)];
+      for (int k = 0; k < i; ++k) t = t - L[tri(lane, k)] * L[tri(i, k)];
+    }
+    const float dii = sqrtf(nan_max(__shfl_sync(kFull, t, i), 1e-20f));
+    if (lane == i) L[tri(i, i)] = dii;
+    else if (lane > i && lane < NV) L[tri(lane, i)] = t / dii;
+    __syncwarp();
+  }
+  float r = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane == i) r = rhs[i];
+  float y[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    y[i] = __shfl_sync(kFull, r, i) / L[tri(i, i)];
+    if (lane > i && lane < NV) r = r - L[tri(lane, i)] * y[i];
+  }
+  r = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane == i) r = y[i];
+#pragma unroll
+  for (int i = NV - 1; i >= 0; --i) {
+    x[i] = __shfl_sync(kFull, r, i) / L[tri(i, i)];
+    if (lane < i) r = r - L[tri(i, lane)] * x[i];
+  }
+  __syncwarp();
+}
+
+// Symmetric product from a packed lower triangle in shared memory.
+template <int NV>
+__device__ __forceinline__ void sym_mul_s(const float* Mp, const float (&v)[NV],
+                                          float (&out)[NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      s += Mp[j <= i ? tri(i, j) : tri(j, i)] * v[j];
+    out[i] = s;
+  }
+}
+
+template <int NV, int RPL>
+__global__ void __launch_bounds__(kWarps * 32)
+newton_warp_kernel(const float* __restrict__ M,
+                   const float* __restrict__ a_smooth,
+                   const float* __restrict__ a_warm,
+                   const float* __restrict__ J, const float* __restrict__ aref,
+                   const float* __restrict__ D,
+                   const unsigned char* __restrict__ active,
+                   const unsigned char* __restrict__ is_eq, NewtonStrides s,
+                   float* __restrict__ qacc, float* __restrict__ f, int ne,
+                   int B, int n_iter, int n_ls) {
+  constexpr int NT = tri(NV, 0);
+  constexpr int NEC = 32 * RPL;
+  constexpr int OWN = (NT + 31) / 32;  // triangle entries per lane
+  __shared__ float sJ[kWarps][NEC][NV];
+  __shared__ float sDw[kWarps][NEC];
+  __shared__ float sM[kWarps][NT];
+  __shared__ float sL[kWarps][NT];
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int e = blockIdx.x * kWarps + wid;
+  if (e >= B) return;  // e is uniform across the warp
+  const size_t sB = (size_t)B;
+  float(&Js)[NEC][NV] = sJ[wid];
+  float* Dws = sDw[wid];
+  float* Ms = sM[wid];
+  float* Ls = sL[wid];
+
+  // the triangle entries this lane owns, and M's triangle in shared memory
+  int oi[OWN], oj[OWN];
+#pragma unroll
+  for (int q = 0; q < OWN; ++q) oi[q] = oj[q] = -1;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j)
+      if ((tri(i, j) & 31) == lane) {
+        oi[tri(i, j) >> 5] = i;
+        oj[tri(i, j) >> 5] = j;
+        Ms[tri(i, j)] = M[s.M.at(i, j, e)];
+      }
+  float as[NV], a[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    as[i] = a_smooth[s.a_smooth.at(i, e)];
+    a[i] = a_warm[s.a_warm.at(i, e)];
+  }
+  // this lane's rows: J in registers and in shared memory
+  float Jr[RPL][NV], w[RPL], ar[RPL], x[RPL], Jp[RPL];
+  bool eq[RPL];
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) {
+    const int r = lane + 32 * q;
+    const bool ok = r < ne;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      Jr[q][k] = ok ? J[s.J.at(r, k, e)] : 0.f;
+      Js[r][k] = Jr[q][k];
+    }
+    w[q] = ok && active[s.active.at(r, e)] ? D[s.D.at(r, e)] : 0.f;
+    eq[q] = ok && is_eq[s.is_eq.at(r, e)] != 0;
+    ar[q] = ok ? aref[s.aref.at(r, e)] : 0.f;
+  }
+  __syncwarp();
+  auto dw_of = [&](int q, float xr) { return (eq[q] || xr < 0.f) ? w[q] : 0.f; };
+
+  for (int it = 0; it < n_iter; ++it) {
+    float da[NV], Mda[NV], g[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      da[i] = a[i] - as[i];
+      g[i] = 0.f;
+    }
+    sym_mul_s<NV>(Ms, da, Mda);
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      float xr = -ar[q];
+#pragma unroll
+      for (int k = 0; k < NV; ++k) xr += Jr[q][k] * a[k];
+      x[q] = xr;
+      const float Dw = dw_of(q, xr);
+      Dws[lane + 32 * q] = Dw;
+      const float gx = Dw * xr;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) g[i] += Jr[q][i] * gx;
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) g[i] = warp_sum(g[i]);
+    __syncwarp();
+    // H = M + J^T D J, entry by entry over the rows in order
+#pragma unroll
+    for (int q = 0; q < OWN; ++q) {
+      if (oi[q] < 0) continue;
+      const int i = oi[q], j = oj[q];
+      float acc = 0.f;
+      for (int r = 0; r < ne; ++r) acc += (Dws[r] * Js[r][i]) * Js[r][j];
+      Ls[tri(i, j)] = Ms[tri(i, j)] + acc;
+    }
+    __syncwarp();
+    float mgrad[NV], p[NV], Mpv[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) mgrad[i] = -(Mda[i] + g[i]);
+    warp_chol_solve<NV>(Ls, mgrad, p, lane);
+
+    // exact line search on the piecewise-quadratic 1-D restriction
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < NV; ++k) acc += Jr[q][k] * p[k];
+      Jp[q] = acc;
+    }
+    sym_mul_s<NV>(Ms, p, Mpv);
+    float pMp = 0.f, pMa = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      pMp += p[i] * Mpv[i];
+      pMa += p[i] * Mda[i];
+    }
+    float alpha = 1.f;
+    for (int l = 0; l < n_ls; ++l) {
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < RPL; ++q) {
+        const float x2 = x[q] + alpha * Jp[q];
+        const float Dw2 = dw_of(q, x2);
+        s1 += Dw2 * x2 * Jp[q];
+        s2 += Dw2 * Jp[q] * Jp[q];
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      const float dphi = alpha * pMp + pMa + s1;
+      const float ddphi = pMp + s2;
+      alpha = alpha - dphi / nan_max(ddphi, 1e-12f);
+    }
+    alpha = alpha < 0.f ? 0.f : (alpha > 4.f ? 4.f : alpha);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) a[i] += alpha * p[i];
+  }
+
+  // forces on the final active set; unilateral rows pushed to f >= 0
+  float qfc[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) qfc[i] = 0.f;
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) {
+    const int r = lane + 32 * q;
+    float xr = -ar[q];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) xr += Jr[q][k] * a[k];
+    float fr = -dw_of(q, xr) * xr;
+    if (!eq[q]) fr = nan_max(fr, 0.f);
+    if (r < ne) f[r * sB + e] = fr;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) qfc[i] += Jr[q][i] * fr;
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i) qfc[i] = warp_sum(qfc[i]);
+#pragma unroll
+  for (int q = 0; q < OWN; ++q)
+    if (oi[q] >= 0) Ls[tri(oi[q], oj[q])] = Ms[tri(oi[q], oj[q])];
+  __syncwarp();
+  float dq[NV];
+  warp_chol_solve<NV>(Ls, qfc, dq, lane);
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane == i) qacc[i * sB + e] = as[i] + dq[i];
+}
+
+template <int NV, int RPL>
+void launch_newton_warp(const float* M, const float* a_smooth,
+                        const float* a_warm, const float* J, const float* aref,
+                        const float* D, const unsigned char* active,
+                        const unsigned char* is_eq, const NewtonStrides& st,
+                        float* qacc, float* f, int ne, int B, int n_iter,
+                        int n_ls, cudaStream_t s) {
+  newton_warp_kernel<NV, RPL><<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+      M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
+      n_iter, n_ls);
+}
+
 inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
 
 template <int NV, int NE_CAP>
@@ -315,6 +583,10 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
       chol_solve_kernel<2><<<grid_for(B), kThreads, 0, s>>>(
           M, str3(strides), b, str2(strides + 3), x, B);
       break;
+    case 14:
+      chol_solve_kernel<14><<<grid_for(B), kThreads, 0, s>>>(
+          M, str3(strides), b, str2(strides + 3), x, B);
+      break;
     default:
       return -1;
   }
@@ -323,7 +595,9 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
 
 // strides: the element strides of M (3), a_smooth, a_warm (2 each), J (3),
 // aref, D, active and is_eq (2 each), in that order. Row caps are
-// instantiated per nv: ne is rounded up to the first that holds it.
+// instantiated per nv: ne is rounded up to the first that holds it. nv = 2
+// runs newton_kernel (one env per thread), nv = 14 newton_warp_kernel (one
+// env per warp, up to 96 rows).
 int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
                    const float* J, const float* aref, const float* D,
                    const unsigned char* active, const unsigned char* is_eq,
@@ -341,6 +615,9 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
   } else if (nv == 2 && ne <= 64) {
     launch_newton<2, 64>(M, a_smooth, a_warm, J, aref, D, active, is_eq, st,
                          qacc, f, ne, B, n_iter, n_ls, s);
+  } else if (nv == 14 && ne <= 96) {
+    launch_newton_warp<14, 3>(M, a_smooth, a_warm, J, aref, D, active, is_eq,
+                              st, qacc, f, ne, B, n_iter, n_ls, s);
   } else {
     return -1;
   }

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -94,3 +96,35 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(path)
     return lib
+
+
+def on_card(floats, masks=(), ints=()):
+    """Whether a wrapper launches its kernel: False for CPU tensors (the
+    plain version runs); True for CUDA tensors the kernels take (float32
+    values, bool masks, integer indices, all on one card); raises for
+    anything else."""
+    dev = floats[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for t in (*floats, *masks, *ints):
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+    for t in floats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
+    for t in masks:
+        if t.dtype != torch.bool:
+            raise TypeError(f"the CUDA kernels take bool masks, got {t.dtype}")
+    for t in ints:
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"the CUDA kernels take integer indices, got {t.dtype}")
+    return True
+
+
+def raise_on(rc, what):
+    """Raise if a kernel's entry point returned a CUDA error (a refused
+    launch) or -1 (no instantiation for the shape)."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")

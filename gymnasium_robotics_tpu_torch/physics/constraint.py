@@ -1,12 +1,15 @@
 """Constraint rows and the constraint solve, batch-last (port of
 gymnasium_robotics_tpu/physics/soa.py: ``_impedance`` :1091, ``_kbi``
-:1104, ``_jacp_static`` :1119, ``build_rows`` :1276-1691,
-``solve_constraints`` :1723-1755, ``_decode_contact_forces`` :1811,
-``sensors`` :1938).
+:1104, ``_jacp_static`` :1119, ``_jacs_traced`` :1133, ``build_rows``
+:1276-1691, ``solve_constraints`` :1723-1755, ``_decode_contact_forces``
+:1811-1911, ``sensors`` :1938).
 
-This slice ports unpruned, uncapped frictionless contact rows (condim 1)
-with plain gathers. Equality, joint-limit, tendon-limit and friction-loss
-rows, ``condim > 1``, ``contact_cap``, the contact-force decode and touch
+This port has joint-limit rows (:1413-1461) and pyramidal contact rows of
+condim 1 and 3 (:1618-1667), static or traced: a pair-topk compact table
+(Contact.src) and the ``contact_cap`` selection (:1499-1560, through
+``narrowphase.topk_select``) pick slots per env, and the body ids,
+Jacobians and per-slot parameters are gathered per lane with plain gathers.
+Equality, tendon-limit and friction-loss rows, condim 4 and 6 and touch
 sensors raise ``NotImplementedError`` until their slice.
 """
 
@@ -19,6 +22,7 @@ import torch
 
 from gymnasium_robotics_tpu_torch.physics import collision as COL
 from gymnasium_robotics_tpu_torch.physics import math as M
+from gymnasium_robotics_tpu_torch.physics import narrowphase as NP
 from gymnasium_robotics_tpu_torch.physics import solver
 from gymnasium_robotics_tpu_torch.physics import types as T
 
@@ -63,106 +67,247 @@ def _body_dof_masks(mt: T.Meta) -> np.ndarray:
     return mask
 
 
+def _need_con_force(mt: T.Meta) -> bool:
+    need = mt.opt.need_con_force
+    if need == "auto":
+        need = mt.opt.need_cfrc_ext or any(
+            t == T.SENS_TOUCH for t in mt.sensor_type)
+    return bool(need)
+
+
+@dataclasses.dataclass
+class _ContactGroup:
+    cd: int
+    idx: torch.Tensor      # (g,) compact slot positions of this condim
+    capped: bool           # contact_cap picks `cap` of them per env
+    traced: bool           # body ids and parameters gathered per lane
+    k: int                 # slots that enter the rows
+    cap_row: int = -1      # row of the merged topk_select call
+    static: dict = None    # static groups: their bodies, roots and masks
+
+
 class _RowPlan:
-    """Static row tables: per condim group of contact slots, the slot ids,
-    their bodies' roots and dof masks; and the per-row is_eq flags."""
+    """Static row tables: the joint-limit rows, per condim group of contact
+    slots the slot ids (and for a static group its bodies' roots and dof
+    masks), the merged contact_cap selection and the per-row is_eq flags."""
 
     def __init__(self, m: T.Model):
         mt = m.meta
         dev, dtype = m.device, m.qpos0.dtype
-        if mt.neq:
+        if mt.neq and not mt.opt.disable_equality:
             raise NotImplementedError(
                 "equality rows (soa.build_rows :1297-1411) come with the "
                 "FetchPush slice"
             )
-        lim = not mt.opt.disable_limit and (
-            any(mt.jnt_limited[j] and mt.jnt_type[j] in (T.HINGE, T.SLIDE)
-                for j in range(mt.njnt))
-            or any(mt.tendon_limited)
-        )
-        if lim:
+        if any(mt.tendon_limited) and not mt.opt.disable_limit:
             raise NotImplementedError(
-                "joint and tendon limit rows (soa.build_rows :1413-1461) are "
-                "not ported yet"
+                "tendon limit rows (soa.build_rows :1438-1461) come with the "
+                "HandManipulateBlock slice"
             )
-        cond = np.array(mt.con_condim, dtype=np.int64)
-        gb = mt.geom_bodyid
+
+        def ix(x):
+            return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
+
+        lim = [j for j in range(mt.njnt)
+               if mt.jnt_limited[j] and not mt.opt.disable_limit
+               and mt.jnt_type[j] in (T.HINGE, T.SLIDE)]
+        self.lim = None
+        n_rows = 0
+        if lim:
+            self.lim = dict(
+                j=ix(lim), q=ix([mt.jnt_qposadr[j] for j in lim]),
+                d=ix([mt.jnt_dofadr[j] for j in lim]), n=ix(range(len(lim))),
+            )
+            n_rows += len(lim)
+        self.n_loop = n_rows
+
+        gb = np.array(mt.geom_bodyid)
+        g1s, g2s = COL.slot_geoms_static(mt)
+        b1s, b2s = gb[g1s], gb[g2s]
         roots = np.array(mt.body_rootid)
         masks = _body_dof_masks(mt)
-        g1s, g2s = COL.slot_geoms_static(mt)
-        b1s = np.array([gb[g] for g in g1s], dtype=np.int64)
-        b2s = np.array([gb[g] for g in g2s], dtype=np.int64)
+        self.b1s, self.b2s = ix(b1s), ix(b2s)      # per static slot
+        self.roots = ix(roots)
+        self.masks = torch.as_tensor(masks, dtype=dtype, device=dev)
+        pruned = COL.prune_active(mt)
+        cond = COL.compact_condim(mt) if pruned else np.array(mt.con_condim)
         cap = mt.opt.contact_cap
+        self.cap = cap
         self.groups = []
-        n_rows = 0
-        if COL.ncon(m) and not mt.opt.disable_contact:
+        cap_rows = []
+        if len(cond) and not mt.opt.disable_contact and mt.pairs:
             for cd in sorted(set(cond.tolist())):
+                if cd not in (1, 3):
+                    raise NotImplementedError(
+                        f"condim {cd} contact rows (soa.build_rows :1626-1636)"
+                        " are not ported yet"
+                    )
                 idx = np.nonzero(cond == cd)[0]
-                if cd != 1:
-                    raise NotImplementedError(
-                        f"condim {cd} contact rows (pyramidal friction) are "
-                        "not ported yet"
+                capped = bool(cap) and len(idx) > cap
+                g = _ContactGroup(cd=cd, idx=ix(idx), capped=capped,
+                                  traced=capped or pruned,
+                                  k=cap if capped else len(idx))
+                if capped:
+                    g.cap_row = len(cap_rows)
+                    cap_rows.append(idx)
+                if not g.traced:
+                    b1, b2 = b1s[idx], b2s[idx]
+                    g.static = dict(
+                        b1=ix(b1), b2=ix(b2), root1=ix(roots[b1]),
+                        root2=ix(roots[b2]),
+                        mask1=self.masks[ix(b1)][:, :, None, None],
+                        mask2=self.masks[ix(b2)][:, :, None, None],
                     )
-                if cap and len(idx) > cap:
-                    raise NotImplementedError(
-                        "contact_cap selection (narrowphase_pallas."
-                        "topk_select) comes with the FetchPush slice"
-                    )
-                b1, b2 = b1s[idx], b2s[idx]
-
-                def f(x):
-                    return torch.as_tensor(x, dtype=dtype, device=dev)
-
-                self.groups.append(dict(
-                    idx=torch.as_tensor(idx, device=dev),
-                    b1=torch.as_tensor(b1, device=dev),
-                    b2=torch.as_tensor(b2, device=dev),
-                    root1=torch.as_tensor(roots[b1], device=dev),
-                    root2=torch.as_tensor(roots[b2], device=dev),
-                    mask1=f(masks[b1])[:, :, None, None],
-                    mask2=f(masks[b2])[:, :, None, None],
-                ))
-                n_rows += len(idx)
+                self.groups.append(g)
+                n_rows += g.k * (1 if cd == 1 else 2 * (cd - 1))
+        # the capped groups share one selection (soa.py:1515-1531): their
+        # slot ids padded with the last one to the longest group, masked
+        self.cap_rows = self.cap_mask = None
+        if cap_rows:
+            maxg = max(len(r) for r in cap_rows)
+            self.cap_rows = ix(np.stack([
+                np.concatenate([r, np.full(maxg - len(r), r[-1])])
+                for r in cap_rows]))
+            self.cap_mask = torch.as_tensor(
+                np.stack([np.arange(maxg) < len(r) for r in cap_rows]),
+                device=dev)
         self.is_eq = torch.zeros(n_rows, dtype=torch.bool, device=dev)
 
 
-def _jacp(d, point, root, mask):
-    """Point jacobians (k, nv, 3, B) of ``point`` (k, 3, B) on bodies with
-    roots ``root`` and dof masks ``mask`` (k, nv, 1, 1)."""
+def _lane_take(x, i):
+    """x (n, ..., B) gathered per lane at i (k, B) -> (k, ..., B)."""
+    lane = torch.arange(i.shape[-1], device=i.device)
+    return x[i, ..., lane].movedim(1, -1) if x.dim() > 2 else x[i, lane]
+
+
+def _jacs_traced(d, rp, point, bodies):
+    """(jacp, jacr) for per-lane body ids: point (k, 3, B), bodies (k, B)
+    -> each (k, nv, 3, B) (soa._jacs_traced)."""
+    o = _lane_take(d.subtree_com, rp.roots[bodies])          # (k, 3, B)
+    off = point - o
+    cdof_r = d.cdof[None, :, :3]
+    jacp = d.cdof[None, :, 3:] + M.cross3(cdof_r, off[:, None])
+    mk = rp.masks[bodies].permute(0, 2, 1)[:, :, None, :]    # (k, nv, 1, B)
+    return jacp * mk, cdof_r * mk
+
+
+def _jacs_static(d, point, root, mask):
+    """(jacp, jacr) of ``point`` (k, 3, B) on bodies with roots ``root`` and
+    dof masks ``mask`` (k, nv, 1, 1) (soa._jacp_static)."""
     off = point - d.subtree_com[root]
-    return (d.cdof[None, :, 3:] + M.cross3(d.cdof[None, :, :3], off[:, None])) * mask
+    cdof_r = d.cdof[None, :, :3]
+    return (d.cdof[None, :, 3:] + M.cross3(cdof_r, off[:, None])) * mask, \
+        cdof_r * mask
+
+
+def _param(table, sel):
+    """Per-slot model table (ncon_static, c, 1) read at static slot ids sel
+    (k,) -> (k, c, 1), or per lane (k, B) -> (k, c, B)."""
+    if sel.dim() == 1:
+        return table[sel]
+    return table[:, :, 0][sel].movedim(-1, 1)
 
 
 def build_rows(m: T.Model, d: T.Data):
-    """(J (rows, nv, B), aref, D, R, active (rows, B), is_eq (rows,), layout)."""
+    """(J (rows, nv, B), aref, D, R, active (rows, B), is_eq (rows,),
+    layout): the joint-limit rows, then the contact rows per condim group
+    (soa.build_rows). ``layout`` lists, per contact group, (condim, compact
+    slots, static slot ids, first row) for the force decode."""
     mt = m.meta
     B = d.qpos.shape[-1]
     rp = m.plan("rows", _RowPlan)
-    if not rp.groups:
+    Js, poss, srs, sis, iws, acts, layout = [], [], [], [], [], [], []
+
+    def add(J, pos, sr, si, iw, act):
+        Js.append(J)
+        poss.append(pos)
+        srs.append(M.bB(sr, B))
+        sis.append(M.bB(si, B))
+        iws.append(M.bB(iw, B))
+        acts.append(act)
+
+    if rp.lim is not None:
+        ji, n = rp.lim["j"], len(rp.lim["j"])
+        q = d.qpos[rp.lim["q"]]                               # (k, B)
+        dist_lo = q - m.jnt_range[ji, 0]
+        dist_hi = m.jnt_range[ji, 1] - q
+        lo_closer = dist_lo < dist_hi
+        dist = torch.where(lo_closer, dist_lo, dist_hi)
+        sign = torch.where(lo_closer, 1.0, -1.0).to(q.dtype)
+        margin = m.jnt_margin[ji]
+        rows = q.new_zeros((n, mt.nv, B))
+        rows[rp.lim["n"], rp.lim["d"]] = sign
+        add(rows, dist - margin, m.jnt_solref[ji], m.jnt_solimp[ji],
+            m.dof_invweight0[rp.lim["d"]], dist < margin)
+
+    c = d.contact
+    pruned = c.src is not None
+    if rp.groups:
+        imarg = m.con_includemargin
+        pen_all = c.dist - (imarg[:, 0][c.src] if pruned else imarg)
+        orders = None
+        if rp.cap_rows is not None:
+            orders = NP.topk_select(pen_all[rp.cap_rows], rp.cap_mask, rp.cap)
+        biw = m.body_invweight0[:, 0, 0]                      # (nbody,)
+        base = rp.n_loop
+        for g in rp.groups:
+            if g.capped:
+                # a NaN lane picks index maxg: clamp into the group
+                order = torch.clamp(orders[g.cap_row].long(), max=len(g.idx) - 1)
+                sel_c = g.idx[order]                          # (cap, B)
+                pos_s = _lane_take(c.pos, sel_c)
+                frame_s = _lane_take(c.frame, sel_c)
+                pen = torch.gather(pen_all, 0, sel_c)
+                sel = torch.gather(c.src, 0, sel_c) if pruned else sel_c
+            else:
+                sel_c = g.idx
+                pos_s, frame_s, pen = c.pos[sel_c], c.frame[sel_c], pen_all[sel_c]
+                sel = c.src[sel_c] if pruned else sel_c
+            if g.traced:
+                b1, b2 = rp.b1s[sel], rp.b2s[sel]             # (k, B)
+                iw = biw[b1] + biw[b2]
+                jp1, jr1 = _jacs_traced(d, rp, pos_s, b1)
+                jp2, jr2 = _jacs_traced(d, rp, pos_s, b2)
+            else:
+                st = g.static
+                iw = biw[st["b1"]] + biw[st["b2"]]
+                iw = iw[:, None] if iw.dim() == 1 else iw
+                jp1, jr1 = _jacs_static(d, pos_s, st["root1"], st["mask1"])
+                jp2, jr2 = _jacs_static(d, pos_s, st["root2"], st["mask2"])
+            sr, si = _param(m.con_solref, sel), _param(m.con_solimp, sel)
+            Jp = jp2 - jp1                                    # (k, nv, 3, B)
+            Jn = torch.einsum("kvcb,kcb->kvb", Jp, frame_s[:, 0])
+            act = pen < 0.0
+            k = g.k
+            layout.append((g.cd, sel_c, sel, base))
+            if g.cd == 1:
+                add(Jn, pen, sr, si, iw, act)
+                base += k
+                continue
+            # pyramid edges Jn +- mu * J_tangent, rows [i+, i-] blocks of k
+            nfr = g.cd - 1
+            mu = M.bB(_param(m.con_friction, sel), B)[:, :nfr].transpose(0, 1)
+            ax = torch.stack([torch.einsum("kvcb,kcb->kvb", Jp, frame_s[:, 1 + i])
+                              for i in range(nfr)])           # (nfr, k, nv, B)
+            edge = mu[:, :, None] * ax
+            Jpy = torch.stack([Jn[None] + edge, Jn[None] - edge], dim=1)
+            iwp = 2.0 * mu * mu * (1.0 + mu * mu) * iw       # (nfr, k, B)
+            R2k = 2 * nfr * k
+
+            def rep(x):
+                x = M.bB(x, B)
+                return x[None, None].expand(nfr, 2, *x.shape).reshape(
+                    R2k, *x.shape[1:])
+
+            add(Jpy.reshape(R2k, mt.nv, B), rep(pen), rep(sr), rep(si),
+                iwp[:, None].expand(nfr, 2, k, B).reshape(R2k, B), rep(act))
+            base += R2k
+
+    if not Js:
         z = d.qpos.new_zeros((0, B))
         return (d.qpos.new_zeros((0, mt.nv, B)), z, z, z,
                 torch.zeros((0, B), dtype=torch.bool, device=z.device),
-                rp.is_eq, [])
-
-    c = d.contact
-    pen_all = c.dist - m.con_includemargin                  # (ncon, B)
-    biw = m.body_invweight0[:, 0]                            # (nbody, Bm)
-    Js, poss, srs, sis, iws, acts, layout = [], [], [], [], [], [], []
-    for g in rp.groups:
-        idx = g["idx"]
-        pos_s = c.pos[idx]
-        frame_n = c.frame[idx, 0]                            # normals (k, 3, B)
-        pen = pen_all[idx]
-        jp1 = _jacp(d, pos_s, g["root1"], g["mask1"])
-        jp2 = _jacp(d, pos_s, g["root2"], g["mask2"])
-        Js.append(torch.einsum("kvcb,kcb->kvb", jp2 - jp1, frame_n))
-        poss.append(pen)
-        srs.append(m.con_solref[idx])
-        sis.append(m.con_solimp[idx])
-        iws.append(biw[g["b1"]] + biw[g["b2"]])
-        acts.append(pen < 0.0)
-        layout.append((1, idx))
-
+                rp.is_eq, layout)
     J = torch.cat(Js)
     pos = torch.cat(poss)
     solref, solimp, invw = torch.cat(srs), torch.cat(sis), torch.cat(iws)
@@ -203,24 +348,63 @@ def solve_constraints(m: T.Model, d: T.Data) -> T.Data:
     )
 
 
+def _scatter_rows(out, sel_c, val):
+    """out[sel_c] = val along the slot axis: sel_c (k,) static or (k, B)
+    per lane."""
+    if sel_c.dim() == 1:
+        out[sel_c] = val
+    else:
+        out.scatter_(0, sel_c, val)
+
+
 def _decode_contact_forces(m: T.Model, d: T.Data, f, layout):
-    """Contact-frame forces and body wrenches: zeros when nothing reads them
-    (no touch sensor and Option.need_cfrc_ext off), as in the JAX skip
-    branch :1826-1838. The decode itself is not ported yet."""
+    """Pyramid forces -> contact-frame force per slot, then per-body com
+    wrenches (soa._decode_contact_forces): zeros when nothing reads them (no
+    touch sensor and Option.need_cfrc_ext off, :1826-1838)."""
     mt = m.meta
     B = d.qpos.shape[-1]
-    need_cf = mt.opt.need_con_force
-    if need_cf == "auto":
-        need_cf = mt.opt.need_cfrc_ext or any(
-            t == T.SENS_TOUCH for t in mt.sensor_type
-        )
-    if need_cf:
-        raise NotImplementedError(
-            "the contact-force decode (soa._decode_contact_forces :1839-1911)"
-            " is not ported yet; set Option.need_cfrc_ext=False"
-        )
-    ncon = d.contact.dist.shape[0]
-    return (d.qpos.new_zeros((ncon, 6, B)), d.qpos.new_zeros((mt.nbody, 6, B)))
+    c = d.contact
+    ncon = c.dist.shape[0]
+    con_force = d.qpos.new_zeros((ncon, 6, B))
+    cfrc_ext = d.qpos.new_zeros((mt.nbody, 6, B))
+    if not ncon or not _need_con_force(mt):
+        return con_force, cfrc_ext
+    for cd, sel_c, sel, base in layout:
+        k = sel_c.shape[0]
+        if cd == 1:
+            _scatter_rows(con_force[:, 0], sel_c, f[base:base + k])
+            continue
+        nf = cd - 1
+        lam = f[base:base + 2 * nf * k].reshape(nf, 2, k, B)
+        _scatter_rows(con_force[:, 0], sel_c, torch.sum(lam, dim=(0, 1)))
+        mu = _param(m.con_friction, sel)
+        for i in range(nf):
+            _scatter_rows(con_force[:, 1 + i], sel_c,
+                          M.bB(mu[:, i] * (lam[i, 0] - lam[i, 1]), B))
+    if not mt.opt.need_cfrc_ext:
+        return con_force, cfrc_ext
+
+    rp = m.plan("rows", _RowPlan)
+    frame = c.frame                                         # (ncon, 3, 3, B)
+    F_w = torch.einsum("ckb,ckjb->cjb", con_force[:, :3], frame)
+    T_w = torch.einsum("ckb,ckjb->cjb", con_force[:, 3:], frame)
+    if c.src is not None:
+        b1s, b2s = rp.b1s[c.src], rp.b2s[c.src]              # (ncon, B)
+        o1 = _lane_take(d.subtree_com, rp.roots[b1s])
+        o2 = _lane_take(d.subtree_com, rp.roots[b2s])
+    else:
+        b1s, b2s = rp.b1s, rp.b2s
+        o1, o2 = d.subtree_com[rp.roots[b1s]], d.subtree_com[rp.roots[b2s]]
+    w2 = torch.cat([T_w + M.cross3(c.pos - o2, F_w), F_w], dim=1)
+    w1 = torch.cat([T_w + M.cross3(c.pos - o1, F_w), F_w], dim=1)
+    if c.src is not None:
+        cfrc_ext.scatter_add_(0, b2s[:, None].expand(-1, 6, -1), w2)
+        cfrc_ext.scatter_add_(0, b1s[:, None].expand(-1, 6, -1), -w1)
+    else:
+        cfrc_ext.index_add_(0, b2s, w2)
+        cfrc_ext.index_add_(0, b1s, -w1)
+    cfrc_ext[0] = 0.0
+    return con_force, cfrc_ext
 
 
 def sensors(m: T.Model, d: T.Data) -> T.Data:

@@ -69,6 +69,15 @@ def axis_angle_to_quat(axis, angle):
     )
 
 
+def quat_integrate(q, omega, dt):
+    """Rotate q by the angular velocity omega (..., 3, B) over dt, and
+    renormalise."""
+    angle = torch.sqrt(torch.sum(omega * omega, dim=-2, keepdim=True))
+    axis = omega / torch.where(angle > 1e-12, angle, torch.ones_like(angle))
+    out = quat_mul(q, axis_angle_to_quat(axis, (angle * dt)[..., 0, :]))
+    return out / torch.sqrt(torch.sum(out * out, dim=-2, keepdim=True))
+
+
 def motion_cross(v, u):
     ang = cross3(v[..., :3, :], u[..., :3, :])
     lin = cross3(v[..., :3, :], u[..., 3:, :]) + cross3(

@@ -1,10 +1,12 @@
 """The batch-last substep (port of gymnasium_robotics_tpu/physics/soa.py
-``_integrate_qpos`` :1989, ``_euler`` :2023, ``forward`` :2078, ``step``
-:2100, ``step_n`` :2237, and ``pipeline.make_data`` :23-81).
+``_integrate_qpos`` :1989-2006, ``_euler`` :2023, ``_rk4`` :2044-2070,
+``forward`` :2078, ``step`` :2100, ``step_n`` :2237, ``refresh_kin``
+:2274, and of ``pipeline.make_data`` :23-81 and ``pipeline._int_plan``
+:141).
 
 ``Data`` stays batch-last across steps: there is no transpose in or out per
-step as at the JAX ``custom_vmap`` boundary. Free/ball quaternion
-integration, activation dynamics and RK4 raise until their slice.
+step as at the JAX ``custom_vmap`` boundary. Activation dynamics raise until
+their slice.
 """
 
 from __future__ import annotations
@@ -31,13 +33,20 @@ def make_data(m: T.Model, B: int) -> T.Data:
         return like.new_zeros(s + (B,))
 
     ncon = COL.ncon(m)
-    geom1, geom2 = COL.slot_geoms(m)
+    src = None
+    if COL.prune_active(mt):
+        # per-env compact slot map, all zeros until the first collision (as
+        # the JAX make_data leaves it)
+        src = torch.zeros((ncon, B), dtype=torch.int64, device=like.device)
+        geom1, geom2 = src.clone(), src.clone()
+    else:
+        geom1, geom2 = COL.slot_geoms(m)
     eye = torch.eye(3, dtype=like.dtype, device=like.device)
     contact = T.Contact(
         dist=like.new_full((ncon, B), 1e10),
         pos=z(ncon, 3),
         frame=eye[None, :, :, None].expand(ncon, 3, 3, B).clone(),
-        geom1=geom1, geom2=geom2,
+        geom1=geom1, geom2=geom2, src=src,
     )
     mocap_pos, mocap_quat = z(mt.nmocap, 3), z(mt.nmocap, 4)
     mocap_quat[:, 0] = 1.0
@@ -78,25 +87,43 @@ def make_data(m: T.Model, B: int) -> T.Data:
 
 
 class _IntPlan:
+    """Index tables of the qpos integration (pipeline._int_plan): 1-dof
+    joints, free-joint translations, and the quaternion and angular
+    velocity blocks of free and ball joints."""
+
     def __init__(self, m: T.Model):
         mt = m.meta
-        q1, d1 = [], []
+        q1, d1, qf3, df3, quat4, quatw = [], [], [], [], [], []
         for j in range(mt.njnt):
-            if mt.jnt_type[j] in (T.FREE, T.BALL):
-                raise NotImplementedError(
-                    "free/ball quaternion integration (soa._integrate_qpos "
-                    ":2002) is not ported yet"
-                )
-            q1.append(mt.jnt_qposadr[j])
-            d1.append(mt.jnt_dofadr[j])
-        self.q = torch.as_tensor(q1, dtype=torch.int64, device=m.device)
-        self.d = torch.as_tensor(d1, dtype=torch.int64, device=m.device)
+            jt = mt.jnt_type[j]
+            qa, da = mt.jnt_qposadr[j], mt.jnt_dofadr[j]
+            if jt == T.FREE:
+                qf3 += [qa, qa + 1, qa + 2]
+                df3 += [da, da + 1, da + 2]
+                quat4.append([qa + 3 + k for k in range(4)])
+                quatw.append([da + 3 + k for k in range(3)])
+            elif jt == T.BALL:
+                quat4.append([qa + k for k in range(4)])
+                quatw.append([da + k for k in range(3)])
+            else:
+                q1.append(qa)
+                d1.append(da)
+
+        def ix(x):
+            return torch.as_tensor(x, dtype=torch.int64, device=m.device)
+
+        self.q = ix(q1 + qf3)
+        self.d = ix(d1 + df3)
+        self.quat = ix(quat4).reshape(-1, 4)
+        self.omega = ix(quatw).reshape(-1, 3)
 
 
 def _integrate_qpos(m: T.Model, qpos, qvel, dt):
     ip = m.plan("int", _IntPlan)
     out = qpos.clone()
     out[ip.q] = qpos[ip.q] + dt * qvel[ip.d]
+    if len(ip.quat):
+        out[ip.quat] = M.quat_integrate(qpos[ip.quat], qvel[ip.omega], dt)
     return out
 
 
@@ -142,11 +169,47 @@ def forward(m: T.Model, d: T.Data) -> T.Data:
     return CST.sensors(m, d)
 
 
+def _rk4(m: T.Model, d: T.Data) -> T.Data:
+    """Classic RK4 over (qpos, qvel) from a forwarded ``d``; the post-step
+    Data carries the last RK stage's derived fields (MuJoCo's
+    mj_RungeKutta snapshot, which the Ant observations read)."""
+    if m.meta.na:
+        raise NotImplementedError("activation integration is not ported yet")
+    h = m.meta.opt.timestep
+    A = [0.5, 0.5, 1.0]
+    Bc = [1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6]
+    qpos0, qvel0 = d.qpos, d.qvel
+    kq, kv = [d.qvel], [d.qacc]
+    dd = d
+    for i in range(3):
+        dd = dataclasses.replace(
+            dd, qpos=_integrate_qpos(m, qpos0, kq[i], A[i] * h),
+            qvel=qvel0 + A[i] * h * kv[i],
+        )
+        dd = forward(m, dd)
+        kq.append(dd.qvel)
+        kv.append(dd.qacc)
+    vavg = sum(b * k for b, k in zip(Bc, kq))
+    aavg = sum(b * k for b, k in zip(Bc, kv))
+    return dataclasses.replace(
+        dd, qpos=_integrate_qpos(m, qpos0, vavg, h), qvel=qvel0 + h * aavg,
+        time=d.time + h,
+    )
+
+
 def step(m: T.Model, d: T.Data) -> T.Data:
     d = forward(m, d)
     if m.meta.opt.integrator == T.RK4:
-        raise NotImplementedError("RK4 integration is not ported yet")
+        return _rk4(m, d)
     return _euler(m, d)
+
+
+def refresh_kin(m: T.Model, d: T.Data, com: bool = True) -> T.Data:
+    """Kinematics (and com_pos) of ``d``'s qpos: the refresh the envs make
+    after writing qpos outside the substep loop (reset-state
+    construction)."""
+    d = SM.kinematics(m, d)
+    return SM.com_pos(m, d) if com else d
 
 
 def step_n(m: T.Model, d: T.Data, ctrl, n: int) -> T.Data:

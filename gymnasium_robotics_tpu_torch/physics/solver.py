@@ -22,9 +22,14 @@ import functools
 
 import torch
 
+from gymnasium_robotics_tpu_torch import kernels
+
 LAUNCHES = {"chol": 0, "newton": 0}
-KERNEL_NV = (2,)  # nv values csrc/solver.cu instantiates
-NEWTON_MAX_ROWS = 64  # largest row cap of newton_kernel
+KERNEL_NV = (2, 14)  # nv values csrc/solver.cu instantiates
+# largest row count the Newton kernel takes, per nv: newton_kernel<2, 64>
+# (one env per thread) and newton_warp_kernel<14, 3> (one env per warp,
+# three rows a lane)
+NEWTON_MAX_ROWS = {2: 64, 14: 96}
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,8 +145,6 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    from gymnasium_robotics_tpu_torch import kernels
-
     lib = kernels.load("solver")
     lib.grt_chol_solve_f32.argtypes = [_vp] * 4 + [_i, _i, _vp]
     lib.grt_chol_solve_f32.restype = _i
@@ -151,28 +154,14 @@ def _lib():
 
 
 def _route_to_kernel(nv, floats, masks=()):
-    """False for CPU tensors (the plain version runs); True for CUDA
-    tensors the kernels take (float32 values, bool masks); raises for
-    anything else."""
-    dev = floats[0].device
-    if dev.type == "cpu":
+    """kernels.on_card, and the nv values csrc/solver.cu instantiates."""
+    if not kernels.on_card(floats, masks):
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     if nv not in KERNEL_NV:
         raise NotImplementedError(
             f"the CUDA solver kernels are instantiated for nv in {KERNEL_NV}, "
             f"not nv={nv}; add it to csrc/solver.cu with its slice"
         )
-    for t in (*floats, *masks):
-        if t.device != dev:
-            raise ValueError(f"tensors on {t.device} and {dev}")
-    for t in floats:
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
-    for t in masks:
-        if t.dtype != torch.bool:
-            raise TypeError(f"the CUDA kernels take bool masks, got {t.dtype}")
     return True
 
 
@@ -189,11 +178,6 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(st))(*st)
 
 
-def _raise_on(rc, what):
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
-
-
 def solve_pos(M, b):
     """Batch-last SPD solve M x = b: M (nv, nv, B), b (nv, B) -> (nv, B).
     CUDA tensors launch chol_solve_kernel; CPU tensors take the plain
@@ -207,7 +191,7 @@ def solve_pos(M, b):
         M.data_ptr(), b.data_ptr(), x.data_ptr(), _strides(M, b), nv, B,
         torch.cuda.current_stream(b.device).cuda_stream,
     )
-    _raise_on(rc, "chol_solve_kernel")
+    kernels.raise_on(rc, "chol_solve_kernel")
     LAUNCHES["chol"] += 1
     return x
 
@@ -230,10 +214,11 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
                             (active, is_eq)):
         return solve_newton_plain(M, a_smooth, a_warm, J, aref, D, active,
                                   is_eq, n_iter, n_ls)
-    if ne > NEWTON_MAX_ROWS:
+    if ne > NEWTON_MAX_ROWS[nv]:
         raise NotImplementedError(
-            f"newton_kernel is instantiated for up to {NEWTON_MAX_ROWS} rows, "
-            f"not {ne}; add a larger row cap to csrc/solver.cu"
+            f"the Newton kernel at nv={nv} is instantiated for up to "
+            f"{NEWTON_MAX_ROWS[nv]} rows, not {ne}; add a larger row cap to "
+            "csrc/solver.cu"
         )
     dev = a_smooth.device
     eq = is_eq.expand(B, ne).T if is_eq.dim() == 1 else is_eq  # batch stride 0
@@ -245,6 +230,6 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
         _strides(*ins), nv, ne, B, int(n_iter), int(n_ls),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(rc, "newton_kernel")
+    kernels.raise_on(rc, "newton_kernel")
     LAUNCHES["newton"] += 1
     return qacc, f

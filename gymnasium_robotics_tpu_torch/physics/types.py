@@ -286,7 +286,9 @@ def array_fields():
 class Contact:
     """Fixed-size contact table, batch-last: dist (ncon, B), pos
     (ncon, 3, B), frame (ncon, 3, 3, B) with rows normal, tan1, tan2.
-    geom1/geom2 are the static slot geoms (ncon,)."""
+    geom1/geom2 are the static slot geoms (ncon,); under pair-topk pruning
+    the table is compact and per env: src (ncon, B) maps each slot to its
+    canonical static slot id, and geom1/geom2 are (ncon, B)."""
 
     dist: Any
     pos: Any

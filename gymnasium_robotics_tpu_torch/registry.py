@@ -1,8 +1,9 @@
 """Environment registry (port of gymnasium_robotics_tpu/registry.py ``make``
-and envs/__init__.py ``_register_point_maze``).
+and envs/__init__.py ``_register_point_maze`` and ``_register_ant_maze``
+:53-84).
 
-The port registers the PointMaze IDs; any other ID raises ``KeyError``
-naming the slice of the port that brings its family.
+The port registers the PointMaze and AntMaze IDs; any other ID raises
+``KeyError`` naming the slice of the port that brings its family.
 """
 
 from __future__ import annotations
@@ -21,25 +22,33 @@ class EnvSpec:
     max_episode_steps: Optional[int]
 
 
-def _point_maze_specs() -> Dict[str, EnvSpec]:
+def _maze_sets():
+    """{name: (map, PointMaze step limit, AntMaze step limit)}."""
     from gymnasium_robotics_tpu_torch.envs.maze import maps
+
+    return {
+        "UMaze": (maps.U_MAZE, 300, 700),
+        "Open": (maps.OPEN, 300, 700),
+        "Open_Diverse_G": (maps.OPEN_DIVERSE_G, 300, 700),
+        "Open_Diverse_GR": (maps.OPEN_DIVERSE_GR, 300, 700),
+        "Medium": (maps.MEDIUM_MAZE, 600, 1000),
+        "Medium_Diverse_G": (maps.MEDIUM_MAZE_DIVERSE_G, 600, 1000),
+        "Medium_Diverse_GR": (maps.MEDIUM_MAZE_DIVERSE_GR, 600, 1000),
+        "Large": (maps.LARGE_MAZE, 800, 1000),
+        "Large_Diverse_G": (maps.LARGE_MAZE_DIVERSE_G, 800, 1000),
+        "Large_Diverse_GR": (maps.LARGE_MAZE_DIVERSE_GR, 800, 1000),
+    }
+
+
+_REWARDS = (("", "sparse"), ("Dense", "dense"))
+
+
+def _point_maze_specs() -> Dict[str, EnvSpec]:
     from gymnasium_robotics_tpu_torch.envs.maze.point_maze import PointMazeEnv
 
-    maze_set = {
-        "UMaze": (maps.U_MAZE, 300),
-        "Open": (maps.OPEN, 300),
-        "Open_Diverse_G": (maps.OPEN_DIVERSE_G, 300),
-        "Open_Diverse_GR": (maps.OPEN_DIVERSE_GR, 300),
-        "Medium": (maps.MEDIUM_MAZE, 600),
-        "Medium_Diverse_G": (maps.MEDIUM_MAZE_DIVERSE_G, 600),
-        "Medium_Diverse_GR": (maps.MEDIUM_MAZE_DIVERSE_GR, 600),
-        "Large": (maps.LARGE_MAZE, 800),
-        "Large_Diverse_G": (maps.LARGE_MAZE_DIVERSE_G, 800),
-        "Large_Diverse_GR": (maps.LARGE_MAZE_DIVERSE_GR, 800),
-    }
     out = {}
-    for name, (mmap, steps) in maze_set.items():
-        for suffix, reward_type in (("", "sparse"), ("Dense", "dense")):
+    for name, (mmap, steps, _) in _maze_sets().items():
+        for suffix, reward_type in _REWARDS:
             id_ = f"PointMaze_{name}{suffix}-v3"
             out[id_] = EnvSpec(
                 id=id_, entry_point=PointMazeEnv,
@@ -47,6 +56,27 @@ def _point_maze_specs() -> Dict[str, EnvSpec]:
                 max_episode_steps=steps,
             )
     return out
+
+
+def _ant_maze_specs() -> Dict[str, EnvSpec]:
+    from gymnasium_robotics_tpu_torch.envs.maze.ant_maze import AntMazeEnv
+
+    out = {}
+    for ver in ("v3", "v4", "v5"):
+        for name, (mmap, _, steps) in _maze_sets().items():
+            for suffix, reward_type in _REWARDS:
+                id_ = f"AntMaze_{name}{suffix}-{ver}"
+                out[id_] = EnvSpec(
+                    id=id_, entry_point=AntMazeEnv,
+                    kwargs={"maze_map": mmap, "reward_type": reward_type,
+                            "version": ver},
+                    max_episode_steps=steps,
+                )
+    return out
+
+
+def _specs() -> Dict[str, EnvSpec]:
+    return {**_point_maze_specs(), **_ant_maze_specs()}
 
 
 _SLICES = (
@@ -57,7 +87,7 @@ _SLICES = (
 
 
 def spec(id: str) -> EnvSpec:
-    specs = _point_maze_specs()
+    specs = _specs()
     if id not in specs:
         brings = next(
             (s for prefix, s in _SLICES if id.startswith(prefix)),
@@ -65,13 +95,13 @@ def spec(id: str) -> EnvSpec:
         )
         raise KeyError(
             f"{id!r} is not in the port: it registers only the PointMaze "
-            f"IDs so far; this family comes with {brings}"
+            f"and AntMaze IDs so far; this family comes with {brings}"
         )
     return specs[id]
 
 
 def ids():
-    return sorted(_point_maze_specs())
+    return sorted(_specs())
 
 
 def make(id: str, num_envs: Optional[int] = None, device=None, **kwargs):

@@ -42,9 +42,10 @@ def test_building_the_env_imports_no_jax():
     code = (
         "import sys, torch\n"
         "from gymnasium_robotics_tpu_torch import registry\n"
-        "env = registry.make('PointMaze_UMaze-v3', num_envs=4, device='cpu')\n"
-        "env.reset(seed=0)\n"
-        "env.step(torch.zeros(4, 2))\n"
+        "for id_, nu in (('PointMaze_UMaze-v3', 2), ('AntMaze_UMaze-v5', 8)):\n"
+        "    env = registry.make(id_, num_envs=4, device='cpu')\n"
+        "    env.reset(seed=0)\n"
+        "    env.step(torch.zeros(4, nu))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'gymnasium_robotics_tpu')]\n"
         "assert not bad, bad\n"
@@ -71,3 +72,4 @@ def test_unported_id_names_its_slice():
         registry.make("FetchPush-v4", num_envs=4, device="cpu")
     assert "PointMaze_UMaze-v3" in registry.ids()
     assert registry.spec("PointMaze_UMaze-v3").max_episode_steps == 300
+    assert registry.spec("AntMaze_UMaze-v5").max_episode_steps == 700

@@ -1,6 +1,6 @@
 """The port's model loader (gymnasium_robotics_tpu_torch.mjcf.serialize)
 against the JAX package's serialize.load_model, for every shipped PointMaze
-model. Tolerance: exact equality of every field and of Meta (both sides
+and AntMaze model. Tolerance: exact equality of every field and of Meta (both sides
 cast the same stored arrays)."""
 
 import dataclasses
@@ -16,15 +16,21 @@ from gymnasium_robotics_tpu.physics import types as JT
 from gymnasium_robotics_tpu_torch.mjcf import serialize as tser
 from gymnasium_robotics_tpu_torch.physics import types as TT
 
-ASSETS = sorted(glob.glob(os.path.join(jser.ASSETS_DIR, "point_maze", "*.npz")))
+def _assets(family):
+    return sorted(glob.glob(os.path.join(jser.ASSETS_DIR, family, "*.npz")))
+
+
+ASSETS = _assets("point_maze")
+ANT_ASSETS = _assets("ant_maze")
 
 
 def test_port_reads_the_jax_assets():
     assert os.path.samefile(tser.ASSETS_DIR, jser.ASSETS_DIR)
     assert len(ASSETS) == 12
+    assert len(ANT_ASSETS) == 10
 
 
-@pytest.mark.parametrize("path", ASSETS, ids=os.path.basename)
+@pytest.mark.parametrize("path", ASSETS + ANT_ASSETS, ids=os.path.basename)
 def test_load_model_matches_jax(path):
     jm, jextra = jser.load_model(path)
     tm, textra = tser.load_model(path, device="cpu")

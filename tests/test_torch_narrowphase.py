@@ -1,0 +1,348 @@
+"""The pruned narrowphase of the port (gymnasium_robotics_tpu_torch.physics
+.narrowphase and the primitive formulas of physics.collision) against the
+JAX functions they replace.
+
+- topk_select_plain vs the Pallas narrowphase_pallas.topk_select in
+  interpret mode, at the AntMaze shapes (2, 216, B) -> K = 8 and
+  (1, 57, B) -> K = 16: indices equal exactly, on ranks with forced ties,
+  masks, +-inf, lanes with fewer finite ranks than K, and NaN lanes.
+- each formula vs its collision_vec function in float64 (1e-12), with the
+  degenerate poses: a capsule standing on the plane (NaN tangent) and a
+  capsule parallel to a box face.
+- narrowphase_plain vs the Pallas narrowphase_megakernel in interpret mode
+  on the same selected operands in float32 (2e-4, frames with equal_nan).
+- the pruned core on a NaN lane: the narrowphase clamps maxk picks itself,
+  and the slot ids fall back to each group's last pair.
+
+The tests marked ``cuda`` hold each CUDA kernel against its plain version
+on the card at B = 2048 (indices exactly, the table within 2e-4); they skip
+where no card is present. The JAX imports sit inside the tests so that the
+``cuda`` tests also run where JAX is missing."""
+
+import numpy as np
+import pytest
+import torch
+
+from gymnasium_robotics_tpu_torch.envs.maze import maps, maze_core
+from gymnasium_robotics_tpu_torch.physics import collision as tcol
+from gymnasium_robotics_tpu_torch.physics import narrowphase as tnp
+from gymnasium_robotics_tpu_torch.physics import pipeline as tpipe
+from gymnasium_robotics_tpu_torch.physics import smooth as tsm
+
+TOL64 = 1e-12
+TOL32 = 2e-4
+SHAPES = [((2, 216), 8), ((1, 57), 16)]
+
+
+def rel_err(x, ref):
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return float(np.nanmax(np.abs(x - ref)) / max(1.0, np.nanmax(np.abs(ref))))
+
+
+def tie_ranks(rs, G, maxk, B):
+    """Ranks on a coarse grid (many ties), with -inf and +inf entries, a
+    mask that cuts group 0 short, and a lane with fewer finite ranks than
+    any K."""
+    rank = rs.randint(-4, 5, (G, maxk, B)).astype(np.float32) * 0.5
+    rank[rs.uniform(size=rank.shape) < 0.03] = -np.inf
+    rank[rs.uniform(size=rank.shape) < 0.05] = np.inf
+    rank[:, 5:, 1] = np.inf                         # 5 finite ranks at most
+    mask = np.ones((G, maxk), bool)
+    mask[0, maxk // 3:] = False
+    return rank, mask
+
+
+def pallas_topk(rank, mask, K):
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import narrowphase_pallas as NPK
+
+    return np.asarray(NPK.topk_select(jnp.asarray(rank), mask, K,
+                                      interpret=True))
+
+
+@pytest.mark.parametrize("shape,K", SHAPES)
+def test_topk_select_plain_matches_pallas(shape, K):
+    rs = np.random.RandomState(K)
+    rank, mask = tie_ranks(rs, *shape, 8)
+    ref = pallas_topk(rank, mask, K)
+    got = tnp.topk_select_plain(torch.tensor(rank), torch.tensor(mask), K)
+    assert got.dtype == torch.int32 and got.shape == (shape[0], K, 8)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    # the wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        tnp.topk_select(torch.tensor(rank), torch.tensor(mask), K).numpy(), ref)
+    assert (ref[:, 5:, 1] == 0).all()       # exhausted lane: index 0 again
+
+
+def test_topk_select_nan_lane():
+    """Pinned NaN behaviour (the Pallas kernel's): a lane with an unmasked
+    NaN rank gives maxk in every round; a masked NaN is ignored. The
+    pruned narrowphase clamps maxk to the group's last pair."""
+    rs = np.random.RandomState(1)
+    G, maxk, B, K = 2, 216, 4, 8
+    rank = rs.normal(size=(G, maxk, B)).astype(np.float32)
+    mask = np.ones((G, maxk), bool)
+    mask[0, 18:] = False
+    rank[1, 100, 0] = np.nan                 # unmasked: lane 0 of group 1
+    rank[0, 50, 2] = np.nan                  # masked: ignored
+    ref = pallas_topk(rank, mask, K)
+    got = tnp.topk_select_plain(torch.tensor(rank), torch.tensor(mask), K).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert (got[1, :, 0] == maxk).all() and (got[0, :, 0] < 18).all()
+    assert (got[0, :, 2] < 18).all()
+
+
+def _rot(rs, n):
+    q = rs.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)]),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)]),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]),
+    ])                                                   # (3, 3, n)
+
+
+def _operands(rs, k, B, size):
+    """p (3, k, B), R (3, 3, k, B), s (3, k, 1) as numpy."""
+    p = rs.normal(0, 0.6, (3, k, B))
+    R = _rot(rs, k * B).reshape(3, 3, k, B)
+    return p, R, np.asarray(size, np.float64).reshape(3, 1, 1).repeat(k, 1)
+
+
+def _both(jfn, tfn, *args):
+    import jax.numpy as jnp
+
+    ref = jfn(*[jnp.asarray(a) for a in args])
+    got = tfn(*[torch.tensor(a) for a in args])
+    return [np.asarray(r) for r in ref], [g.numpy() for g in got]
+
+
+def _assert_close(got, ref):
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(r))
+        assert rel_err(g, r) <= TOL64
+
+
+def test_plane_capsule_matches():
+    from gymnasium_robotics_tpu.physics import collision_vec as CV
+
+    rs = np.random.RandomState(0)
+    k, B = 3, 6
+    p1, R1, s1 = _operands(rs, k, B, [40, 40, 40])
+    R1[:] = np.eye(3)[:, :, None, None]                  # the floor
+    p2, R2, s2 = _operands(rs, k, B, [0.08, 0.28, 0])
+    R2[:, :, 0, 0] = np.eye(3)                           # a standing leg
+    R2[:, :, 1, 0] = np.diag([1.0, -1.0, -1.0])          # upside down
+    ref, got = _both(CV._plane_capsule, tcol._plane_capsule, p1, R1, s1, p2, R2, s2)
+    assert np.isnan(ref[3][:, :, 0, 0]).all() and np.isnan(ref[3][:, :, 1, 0]).all()
+    _assert_close(got, ref)
+
+
+def test_closest_on_seg_matches():
+    from gymnasium_robotics_tpu.physics import collision_vec as CV
+
+    rs = np.random.RandomState(1)
+    p, a, b = rs.normal(size=(3, 3, 4, 5))
+    b[:, 0, 0] = a[:, 0, 0]                              # a point segment
+    ref, got = _both(lambda *x: [CV._closest_on_seg(*x)],
+                     lambda *x: [tcol._closest_on_seg(*x)], p, a, b)
+    _assert_close(got, ref)
+
+
+def test_sphere_box_at_matches():
+    from gymnasium_robotics_tpu.physics import collision_vec as CV
+
+    rs = np.random.RandomState(2)
+    k, B = 4, 8
+    p2, R2, s2 = _operands(rs, k, B, [0.5, 0.5, 0.3])
+    loc = rs.uniform(-1.0, 1.0, (3, k, B))
+    loc[:, 0, 0] = 0.0                                   # the box centre
+    loc[:, 0, 1] = [0.2, 0.2, 0.0]                       # face-distance tie
+    loc[:, 0, 2] = [0.5, 0.1, 0.0]                       # on a face
+    c1 = p2 + np.einsum("ijkb,jkb->ikb", R2, loc)
+    r1 = rs.uniform(0.05, 0.3, (k, B))
+    ref, got = _both(CV._sphere_box_at, tcol._sphere_box_at, c1, r1, p2, R2, s2)
+    _assert_close(got, ref)
+
+
+def test_capsule_box_matches():
+    from gymnasium_robotics_tpu.physics import collision_vec as CV
+
+    rs = np.random.RandomState(3)
+    k, B = 3, 8
+    p1, R1, s1 = _operands(rs, k, B, [0.08, 0.28, 0])
+    p2, R2, s2 = _operands(rs, k, B, [2, 2, 1])
+    # a leg lying parallel to the box's top face, just above it
+    R2[:, :, 0, :2] = np.eye(3)[:, :, None]
+    R1[:, :, 0, :2] = np.array([[0, 0, 1.0], [0, 1, 0], [-1, 0, 0]])[:, :, None]
+    p1[:, 0, :2] = p2[:, 0, :2] + np.array([0.3, -0.2, 1.05])[:, None]
+    ref, got = _both(CV._capsule_box, tcol._capsule_box, p1, R1, s1, p2, R2, s2)
+    assert ref[0].shape == (3, k, B)
+    _assert_close(got, ref)
+
+
+def test_contact_frame_matches():
+    from gymnasium_robotics_tpu.physics import collision_vec as CV
+
+    rs = np.random.RandomState(4)
+    n = rs.normal(size=(3, 5, 4))
+    n /= np.linalg.norm(n, axis=0)
+    n[:, 0, 0] = [0.0, 1.0, 0.0]                         # |n_y| >= 0.99
+    t = rs.normal(size=(3, 5, 4))
+    t[:, :2] = np.nan                                    # no explicit tangent
+    t[1, 2, 0] = np.inf
+    ref, got = _both(lambda *x: [CV._contact_frame_soa(*x)],
+                     lambda *x: [tcol.contact_frame(*x)], n, t)
+    _assert_close(got, ref)
+
+
+def test_local_aabb_half_matches():
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import collision_vec as CV
+
+    m, _ = maze_core.build_ant_maze_model(maps.U_MAZE, dtype=torch.float64,
+                                          device="cpu")
+    _, ref = CV._local_aabbs(m.meta, jnp.asarray(m.geom_size.numpy()), None,
+                             jnp.float64)
+    got = tcol._local_aabb_half(m.meta, m.geom_size)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def ant_inputs(B, seed, dtype=torch.float32, device="cpu"):
+    """(model, Data after kinematics) of AntMaze ants pressed into the top
+    left cell's walls and the floor."""
+    m, _ = maze_core.build_ant_maze_model(maps.U_MAZE, dtype=dtype,
+                                          device=device)
+    m = m.with_options(pair_topk=8, contact_cap=16)
+    rs = np.random.RandomState(seed)
+    qpos = np.tile(m.qpos0.cpu().numpy()[:, 0], (B, 1))
+    u = rs.uniform(0.5, 1.0, B)
+    along = rs.uniform(-5.0, -3.0, B)
+    top = np.arange(B) % 2 == 0
+    qpos[:, 0] = np.where(top, along, -6.0 + u)
+    qpos[:, 1] = np.where(top, 6.0 - u, along + 8.0)
+    qpos[:, 2] = rs.uniform(0.25, 0.55, B)
+    lo, hi = m.jnt_range.cpu().numpy()[1:, :, 0].T
+    qpos[:, 7:] = rs.uniform(lo, hi, (B, len(lo)))
+    d = tpipe.make_data(m, B)
+    d.qpos[:] = torch.as_tensor(qpos.T, dtype=dtype, device=device)
+    return m, tsm.kinematics(m, d)
+
+
+def _jax_megakernel(table, plan, P, Rm, sizes, sel):
+    """The Pallas megakernel in interpret mode on operands gathered as
+    collision_vec's take_static / take_sel gather them."""
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import narrowphase_pallas as NPK
+
+    B = P.shape[-1]
+    lane = np.arange(B)
+    specs, arrays = [], []
+    for g, grp in zip(plan.groups, table.groups):
+        ops = []
+        for gl in (grp.g1.numpy(), grp.g2.numpy()):
+            if grp.sel_group < 0:
+                ops += [P[gl].transpose(1, 0, 2),
+                        np.moveaxis(Rm[gl], 0, 2), sizes[gl].transpose(1, 0, 2)]
+            else:
+                gid = gl[sel[grp.sel_group]]                 # (K, B)
+                ops += [P[gid, :, lane].transpose(2, 0, 1),
+                        Rm[gid, :, :, lane].transpose(2, 3, 0, 1),
+                        sizes[gid, :, 0].transpose(2, 0, 1)]
+        specs.append(NPK.GroupSpec(t1=g.tp[0], t2=g.tp[1], S=g.S, k=g.K,
+                                   row_off=g.base_c, n_arrays=6, use_mpr=False))
+        arrays += [jnp.asarray(a) for a in ops]
+    out = NPK.narrowphase_megakernel(tuple(specs), arrays, plan.ncon_c, B,
+                                     jnp.float32, interpret=True)
+    return [np.asarray(o) for o in out]
+
+
+def test_narrowphase_plain_matches_megakernel():
+    B = 8
+    m, d = ant_inputs(B, seed=0)
+    tp = m.plan("pruned", tcol._PrunedPlan)
+    rs = np.random.RandomState(0)
+    sel = np.stack([rs.randint(0, len(g.g1), (tp.K, B))
+                    for g in tp.table.groups if g.sel_group >= 0])
+    args = (d.geom_xpos, d.geom_xmat, m.geom_size)
+    got = tnp.narrowphase_plain(tp.table, *args, torch.as_tensor(sel))
+    ref = _jax_megakernel(tp.table, tcol.prune_plan(m.meta),
+                          *[a.numpy() for a in args], sel)
+    for g, r, name in zip(got, ref, ("dist", "pos", "frame")):
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=TOL32 * max(
+            1.0, np.nanmax(np.abs(r))), equal_nan=True, err_msg=name)
+    assert (got[0] < 0).any()                           # some legs touch
+
+
+def test_narrowphase_clamps_out_of_range_picks():
+    """The pruned core hands the narrowphase topk_select's raw picks: a NaN
+    lane's maxk must give the same table as the pick clamped to its
+    group's last pair."""
+    B = 4
+    m, d = ant_inputs(B, seed=3)
+    tp = m.plan("pruned", tcol._PrunedPlan)
+    sel = tnp.topk_select(tcol.broadphase_rank(m, d, tp), tp.mask, tp.K)
+    sel[:, :, 0] = tp.mask.shape[1]                     # maxk on lane 0
+    args = (tp.table, d.geom_xpos, d.geom_xmat, m.geom_size)
+    got = tnp.narrowphase(*args, sel)
+    ref = tnp.narrowphase(*args, torch.minimum(sel, tp.sel_max))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+
+
+def test_pruned_core_nan_lane_slot_ids():
+    """A lane whose poses are NaN ranks NaN everywhere, so topk_select
+    gives maxk; the pruned core clamps it to each group's last pair, and
+    the slot and geom ids stay in range."""
+    B = 4
+    m, d = ant_inputs(B, seed=3)
+    d.geom_xpos[:, :, 1] = float("nan")
+    tp = m.plan("pruned", tcol._PrunedPlan)
+    c = tcol._collision_pruned(m, d)
+    g1s, _ = tcol.slot_geoms(m)
+    assert c.src.dtype == torch.int64
+    assert bool(((c.src >= 0) & (c.src < len(g1s))).all())
+    for base, n, ids, _ in tp.src_sel:
+        assert torch.equal(c.src[base:base + n, 1], ids[-1].repeat(n // ids.shape[1]))
+    assert torch.equal(c.geom1, g1s[c.src])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card(cuda_device):
+    B = 2048
+    rs = np.random.RandomState(0)
+    for shape, K in SHAPES:
+        rank, mask = tie_ranks(rs, *shape, B)
+        r, mk = (torch.tensor(x, device=cuda_device) for x in (rank, mask))
+        n0 = tnp.LAUNCHES["topk"]
+        got = tnp.topk_select(r, mk, K)
+        torch.cuda.synchronize()
+        assert tnp.LAUNCHES["topk"] == n0 + 1
+        assert torch.equal(got.cpu(), tnp.topk_select_plain(r, mk, K).cpu())
+
+    m, d = ant_inputs(B, seed=1, device=cuda_device)
+    tp = m.plan("pruned", tcol._PrunedPlan)
+    sel = tnp.topk_select(tcol.broadphase_rank(m, d, tp), tp.mask, tp.K)
+    sel = torch.minimum(sel, tp.sel_max)
+    args = (tp.table, d.geom_xpos, d.geom_xmat, m.geom_size, sel)
+    got = tnp.narrowphase(*args)
+    torch.cuda.synchronize()
+    ref = tnp.narrowphase_plain(*args)
+    for g, r in zip(got, ref):
+        r = r.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), r, rtol=0, atol=TOL32 * max(
+            1.0, np.nanmax(np.abs(r))), equal_nan=True)
+    assert bool((got[0][33:] < 0).any())           # capsule-box rows touch

@@ -209,7 +209,8 @@ def test_reset_target_respawns_far_goal():
     np.testing.assert_array_equal(obs["desired_goal"].numpy(), new_goal)
 
 
-@pytest.mark.parametrize("env_id", registry.ids())
+@pytest.mark.parametrize(
+    "env_id", [i for i in registry.ids() if i.startswith("PointMaze")])
 def test_every_point_maze_id_steps(env_id):
     env = registry.make(env_id, num_envs=3, device="cpu")
     env.reset(seed=0)

@@ -131,6 +131,40 @@ def test_solve_newton_plain_matches_pallas_random(B):
     _check_newton(args, n_iter=5, n_ls=3)
 
 
+def test_solve_pos_plain_matches_pallas_nv14():
+    """The AntMaze system size, with the floored lanes of _spd."""
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import solver_pallas as SP
+
+    nv, B = 14, 5
+    rs = np.random.RandomState(14)
+    M = _spd(rs, nv, B)
+    b = rs.normal(size=(nv, B))
+    ref = np.asarray(SP.solve_pos_soa(jnp.asarray(M), jnp.asarray(b),
+                                      interpret=True))
+    out = solver.solve_pos_plain(torch.tensor(M), torch.tensor(b)).numpy()
+    assert rel_err(out, ref) <= TOL64
+
+
+def _antmaze_rows(rs, B):
+    """Random rows at the AntMaze shapes (nv = 14, ne = 72: 8 limit rows
+    and 16 capped condim-3 contacts x 4 pyramid edges), per-model is_eq."""
+    nv, ne = 14, 72
+    M = _spd(rs, nv, B)[:, :, [3] * 3 + list(range(3, B))]  # no floor lanes
+    return [
+        M, rs.normal(size=(nv, B)), rs.normal(size=(nv, B)),
+        rs.normal(size=(ne, nv, B)), rs.normal(size=(ne, B)),
+        np.exp(rs.normal(size=(ne, B))), rs.uniform(size=(ne, B)) < 0.6,
+        np.zeros(ne, bool),
+    ]
+
+
+def test_solve_newton_plain_matches_pallas_antmaze():
+    args = _antmaze_rows(np.random.RandomState(72), 4)
+    _check_newton(args, n_iter=5, n_ls=4)
+
+
 def test_wrappers_route_and_check():
     M = torch.eye(2)[:, :, None]
     b = torch.zeros(2, 1)
@@ -197,3 +231,41 @@ def test_kernels_match_plain_on_card(cuda_device):
     qp, fp = solver.solve_newton_plain(*args, n_iter=n_iter, n_ls=n_ls)
     assert rel_err(qk.cpu(), qp.cpu()) <= TOL32
     assert rel_err(fk.cpu(), fp.cpu()) <= TOL32
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card_nv14(cuda_device):
+    """nv = 14: chol_solve_kernel<14> on random SPD systems, and
+    newton_warp_kernel on random rows and on an AntMaze batch's own rows
+    (B = 2048)."""
+    B = 2048
+    rs = np.random.RandomState(1)
+
+    def cuda(x):
+        x = np.asarray(x)
+        return torch.tensor(x, dtype=torch.bool if x.dtype == bool
+                            else torch.float32, device=cuda_device)
+
+    M, b = cuda(_spd(rs, 14, B)), cuda(rs.normal(size=(14, B)))
+    n0 = dict(solver.LAUNCHES)
+    x = solver.solve_pos(M, b)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES["chol"] == n0["chol"] + 1
+    ok = slice(3, None)
+    assert rel_err(x[:, ok].cpu(), solver.solve_pos_plain(M, b)[:, ok].cpu()) <= TOL32
+
+    env = registry.make("AntMaze_UMaze-v5", num_envs=B, device=cuda_device)
+    env.reset(seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(10):
+        env.step(torch.rand((B, 8), generator=gen, device=cuda_device) * 2 - 1)
+    m, d = env.env.model, env.state.data
+    J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+    real = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+    rand = [cuda(a) for a in _antmaze_rows(rs, B)]
+    for args in (rand, real):
+        qk, fk = solver.solve_newton(*args, n_iter=5, n_ls=4)
+        torch.cuda.synchronize()
+        qp, fp = solver.solve_newton_plain(*args, n_iter=5, n_ls=4)
+        assert rel_err(qk.cpu(), qp.cpu()) <= TOL32
+        assert rel_err(fk.cpu(), fp.cpu()) <= TOL32

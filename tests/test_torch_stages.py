@@ -159,9 +159,9 @@ def test_build_rows_matches_soa(models, state):
 def test_unported_pair_type_raises(models):
     _, _, _, tm = models
     gt = list(tm.meta.geom_type)
-    # the ball becomes a capsule: plane-capsule and capsule-box pairs
-    gt[tm.meta.geom_names.index("particle_geom")] = TT.CAPSULE
+    # the ball becomes a cylinder: plane-cylinder and cylinder-box pairs
+    gt[tm.meta.geom_names.index("particle_geom")] = TT.CYLINDER
     m2 = dataclasses.replace(tm, meta=dataclasses.replace(tm.meta, geom_type=tuple(gt)))
     d = tpipe.make_data(m2, 2)
-    with pytest.raises(NotImplementedError, match="plane-capsule"):
+    with pytest.raises(NotImplementedError, match="plane-cylinder"):
         tcol.collision(m2, tsm.kinematics(m2, d))
