@@ -40,8 +40,25 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      state with the legs pressed into the walls (some capsule-box rows
      must penetrate), with CUDA-event times of the kernel, the plain version
      and, where one PyTorch call computes the same function, that call;
+  FetchPush-v4 (the narrowphase with plane-hull, plane-box and box-box,
+  topk_select at (3, 85) -> 8 and (2, 169) -> 24, chol and Newton at
+  nv = 21; box-hull and hull-hull run with MPR as plain PyTorch):
+  11. main path: registry.make("FetchPush-v4", num_envs=2048,
+     max_episode_steps=5), reset, 8 steps with random actions, so every env
+     auto-resets; per step 40 chol, 20 Newton, 40 topk_select (20 of each
+     shape) and 20 narrowphase launches; prints ms/step and env-steps/s;
+  12. trace: 1 step traced, as in phase 4 (device activity only);
+  13. reference: 4 envs on the card and on the CPU plain path from one
+     carried-across state: within 2e-4 after 1 env step; the error after 3
+     steps is printed, not gated;
+  14. kernels: each FetchPush kernel against its plain version at B = 2048,
+     on the main path's arrays and on a pressed state (the object against
+     the fingers, the arm in the table, on the floor and folded onto
+     itself), printing per group kind how many envs have a penetrating
+     row; every kernel row of the table is compared (distances on their own
+     scale, frames NaN-equal); with the times as in phase 10;
   then a JSON line of the kernels, the card line, and the last line
-  {"ok": true, "device": {...}}.
+  {"ok": true, "device": {...}}. Each phase prints its wall time.
 """
 
 import json
@@ -56,15 +73,22 @@ STEPS = 320
 ANT_B = 2048
 ANT_STEPS = 60
 ANT_LIMIT = 50
+FETCH_B = 2048
+FETCH_STEPS = 8
+FETCH_LIMIT = 5       # max_episode_steps cut from 50: every env resets
 TOL = 2e-4            # relative error, scaled by max(1, |ref|), float32
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 FP32_OPS_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 NP_SRC = "gymnasium_robotics_tpu_torch/csrc/narrowphase.cu"
 SOLVER_SRC = "gymnasium_robotics_tpu_torch/csrc/solver.cu"
 # float operations of one pair of each narrowphase group kind (plane-sphere,
-# plane-capsule, sphere-box, capsule-box), counted from the formulas of
-# csrc/narrowphase.cu, each slot's frame included
-NARROW_OPS = (40, 90, 115, 366)
+# plane-capsule, sphere-box, capsule-box, plane-box, box-box, plane-hull at
+# 24 vertices), counted from the formulas of csrc/narrowphase.cu, each
+# slot's frame included
+NARROW_OPS = (40, 90, 115, 366, 624, 4442, 1104)
+BIG = 1e9             # contact distances above this: slots far from touching
+GEOMS = ("plane", "hfield", "sphere", "capsule", "ellipsoid", "cylinder",
+         "box", "hull")
 
 
 def card_line():
@@ -80,10 +104,23 @@ def rel_err(x, ref):
     return float((x - ref).abs().max() / max(1.0, float(ref.abs().max())))
 
 
-def time_ms(torch, fn, n=50, reps=5):
+def time_ms(torch, fn, n=50, reps=5, graph=True):
     """Device time of one call of fn: n calls captured in a CUDA graph, so
     the host's launch cost is left out, replayed reps times between CUDA
-    events."""
+    events. A call that cannot be captured (graph=False: it waits on the
+    host inside) is timed as n * reps calls between CUDA events."""
+    if not graph:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n * reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / (n * reps)
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
@@ -163,10 +200,11 @@ def zero_counters(solver, narrowphase):
     narrowphase.TOPK_SHAPES.clear()
 
 
-def trace(torch, run, n, card, label):
+def trace(torch, run, n, card, label, cpu=True):
     """n steps of ``run`` timed on the host clock, then n traced with
-    torch.profiler: prints the per-step device numbers and the kernels by
-    device time."""
+    torch.profiler (host operators too unless cpu=False, which keeps a
+    trace of ~200k kernels a step quick to read): prints the per-step
+    device numbers and the kernels by device time."""
     from torch.autograd import DeviceType
 
     torch.cuda.synchronize()
@@ -174,8 +212,9 @@ def trace(torch, run, n, card, label):
     run(n)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / n * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run(n)
@@ -197,8 +236,8 @@ def trace(torch, run, n, card, label):
         "device_busy_ms_per_step": busy_ms / n,
         "device_idle_share": 1.0 - busy_ms / traced_ms,
         "kernels_per_step": len(events) / n, "card": card}), flush=True)
-    ported = ("chol_solve_kernel", "newton_kernel", "newton_warp_kernel",
-              "topk_select_kernel", "narrowphase_kernel")
+    ported = ("chol_solve_kernel", "chol_warp_kernel", "newton_kernel",
+              "newton_warp_kernel", "topk_select_kernel", "narrowphase_kernel")
     for i, (name, (c, ms)) in enumerate(top):
         if i < 15 or any(k in name for k in ported):
             print(f"  {ms / n:9.4f} ms/step {c / n:6.1f}x {name[:110]}")
@@ -522,9 +561,10 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
         narrowphase.narrowphase, narrowphase.narrowphase_plain,
         ((tp.table, d_rand.geom_xpos, d_rand.geom_xmat, m.geom_size, sel_rand),
          real_np))
-    np_ms = time_ms(torch, lambda: narrowphase.narrowphase(*real_np))
-    np_plain_ms = time_ms(torch, lambda: narrowphase.narrowphase_plain(*real_np),
-                          n=10)
+    out = tuple(torch.empty_like(x) for x in narrowphase.narrowphase(*real_np))
+    np_ms = time_ms(torch, lambda: narrowphase.narrowphase(*real_np, out=out))
+    np_plain_ms = time_ms(torch, lambda: narrowphase.narrowphase_plain(
+        *real_np, out=out), n=10)
     ngeom = m.meta.ngeom
     pair_ops = sum(NARROW_OPS[g.kind] * g.k for g in tp.table.groups)
     np_bound = bound((ngeom * 12 + sel_real.shape[0] * tp.K) * 4 * ANT_B
@@ -593,6 +633,331 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
     return rows
 
 
+def arm_poses(env, n, seed):
+    """(qpos (nq, n), mocap_pos (1, 3, n), mocap_quat (1, 4, n)) of Fetch
+    arms pressed into things, cycling through five poses: the object on the
+    table pressed 4 mm into the fingers' front; the arm lowered 0.1 into
+    the table; the object between the fingers, up against the gripper link;
+    the wrist folded back into the forearm; the robot off the table and
+    lowered onto the floor, the object on the floor. The mocap body sits
+    1-3 cm from the gripper link."""
+    rs = np.random.RandomState(seed)
+    oq = env._obj_qadr
+    qpos = np.tile(env._init_qpos.cpu().numpy(), (n, 1))
+    for i in range(n):
+        yaw = rs.uniform(-0.3, 0.3)
+        qpos[i, oq + 3:oq + 7] = [np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)]
+        pose = i % 5
+        if pose == 0:
+            qpos[i, oq:oq + 3] = [1.4215, 0.7486, 0.4244]
+        elif pose == 1:
+            qpos[i, 2] -= 0.1
+        elif pose == 2:
+            qpos[i, oq:oq + 3] = [1.362, 0.7486, 0.47]
+        elif pose == 3:
+            qpos[i, 6:13] += [0.235, 0.835, -0.117, 0.7, 0.029, 0.204, 0.426]
+        else:
+            qpos[i, 1] += 0.45
+            qpos[i, 2] -= 0.422
+            qpos[i, oq:oq + 3] = [0.9, 1.3, 0.02]
+    mp = env._init_mocap_pos.cpu().numpy()[..., None] + rs.uniform(-0.03, 0.03, (1, 3, n))
+    mq = env._init_mocap_quat.cpu().numpy()[..., None] + rs.normal(0, 0.1, (1, 4, n))
+    return qpos.T, mp, mq
+
+
+def newton_check(torch, solver, args, n_iter, n_ls):
+    """(max rel err, max abs err, qacc's plain rel err) of the Newton kernel
+    against its plain version. f is compared on its own largest entry;
+    qacc = a_smooth + M^-1 J^T f is the small difference of large
+    constraint terms (the weld and the contacts push the arm against each
+    other), so float32 leaves it an error of eps times those terms: it is
+    compared on the largest term a dof receives, max(1, |qacc|,
+    sum_e |J_ev f_e| / M_vv)."""
+    qk, fk = solver.solve_newton(*args, n_iter=n_iter, n_ls=n_ls)
+    qp, fp = solver.solve_newton_plain(*args, n_iter=n_iter, n_ls=n_ls)
+    rel, ab = newton_err(torch, (qk, fk), (qp, fp), args[0], args[3])
+    return rel, ab, rel_err(qk, qp)
+
+
+def newton_err(torch, got, ref, M, J):
+    """(rel err, abs err) of a Newton result (qacc, f) against a reference,
+    on the scales of newton_check."""
+    (qk, fk), (qp, fp) = got, ref
+    terms = torch.einsum("evb,eb->vb", J.abs().double(), fp.abs().double()) \
+        / torch.diagonal(M, dim1=0, dim2=1).T.double()
+    scale = max(1.0, float(qp.abs().max()), float(terms.max()))
+    dq = float((qk.double() - qp.double()).abs().max())
+    ab = max(dq, float((fk.double() - fp.double()).abs().max()))
+    return max(dq / scale, rel_err(fk.double(), fp.double())), ab
+
+
+def table_err(got, ref, rows):
+    """(max rel err, max abs err) of a contact table's kernel rows: the
+    distances on their own scale (a slot far from touching, 1e10, must be so
+    in both), positions and frames against their largest entry, NaN-equal."""
+    rel = ab = 0.0
+    for name, g, r in zip(("dist", "pos", "frame"), got, ref):
+        g, r = g[rows].double(), r[rows].double()
+        if name == "dist":
+            far = r >= BIG
+            assert bool(((g >= BIG) == far).all()), "a slot far from touching in one only"
+            g, r = g[~far], r[~far]
+        else:
+            nan = r.isnan()
+            assert bool((g.isnan() == nan).all()), f"{name}: NaN rows differ"
+            g, r = g[~nan], r[~nan]
+        rel = max(rel, rel_err(g, r))
+        ab = max(ab, float((g - r).abs().max()))
+    return rel, ab
+
+
+def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
+              pipeline, convert, registry):
+    """Phases 11-14; returns the kernels' JSON rows."""
+    t_phase = time.perf_counter()
+    # --- 11. main path
+    env = registry.make("FetchPush-v4", num_envs=FETCH_B,
+                        max_episode_steps=FETCH_LIMIT)
+    obs, info = env.reset(seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    finite = torch.ones(FETCH_B, dtype=torch.bool, device=dev)
+    was_reset = torch.zeros(FETCH_B, dtype=torch.bool, device=dev)
+    diverged = torch.zeros(FETCH_B, dtype=torch.bool, device=dev)
+    warm = 2
+    zero_counters(solver, narrowphase)
+    for i in range(FETCH_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        a = torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1
+        obs, _, terminated, truncated, info = env.step(a)
+        finite &= torch.isfinite(obs["observation"]).all(dim=1)
+        was_reset |= terminated | truncated
+        diverged |= info["diverged"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = {**solver.LAUNCHES, **narrowphase.LAUNCHES}
+    shapes = dict(narrowphase.TOPK_SHAPES)
+    ms_step = wall / (FETCH_STEPS - warm) * 1e3
+    n = FETCH_STEPS
+    assert obs["observation"].shape == (FETCH_B, 25), obs["observation"].shape
+    assert bool(finite.all()), "non-finite observations"
+    assert bool(was_reset.all()), f"{int((~was_reset).sum())} envs never reset"
+    assert launches == {"chol": 40 * n, "newton": 20 * n, "topk": 40 * n,
+                        "narrowphase": 20 * n}, launches
+    assert shapes == {(3, 85, 8): 20 * n, (2, 169, 24): 20 * n}, shapes
+    print(f"main path: FetchPush-v4 x{FETCH_B}, {n} steps, limit "
+          f"{FETCH_LIMIT}, launches {launches}; {ms_step:.4f} ms/step, "
+          f"{FETCH_B / ms_step * 1e3:.1f} env-steps/s over steps {warm}-{n}; "
+          f"{int(diverged.sum())} envs truncated as diverged [{card}] "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 12. trace
+    t_phase = time.perf_counter()
+
+    def run(k):
+        for _ in range(k):
+            env.step(torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1)
+
+    trace(torch, run, 1, card, "fetch trace", cpu=False)
+    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 13. the card against the CPU plain path from one state
+    t_phase = time.perf_counter()
+    small = 4
+    env_g = registry.make("FetchPush-v4", num_envs=small)
+    env_c = registry.make("FetchPush-v4", num_envs=small, device="cpu")
+    env_g.reset(seed=3)
+    env_c.reset(seed=3)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        env_g.step(torch.as_tensor(rng.uniform(-1, 1, (small, 4)),
+                                   dtype=torch.float32, device=dev))
+    env_c.state = convert.env_state_from_numpy(
+        convert.env_state_to_numpy(env_g.state), "cpu")
+    errs = []
+    for _ in range(3):
+        a = rng.uniform(-1, 1, (small, 4)).astype(np.float32)
+        og = env_g.step(torch.as_tensor(a, device=dev))[0]
+        oc = env_c.step(torch.as_tensor(a))[0]
+        errs.append(max(rel_err(og[k].cpu(), oc[k]) for k in oc))
+    assert errs[0] <= TOL, f"card vs CPU path after 1 step: relerr {errs[0]:.3e}"
+    print(f"fetch reference: card vs CPU plain path, {small} envs, relerr "
+          f"{errs[0]:.3e} after 1 step (gated), per step {errs} (3 steps, not "
+          f"gated) ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 14. kernels against their plain versions, B = 2048
+    t_phase = time.perf_counter()
+    fenv = env.env
+    m = fenv.model
+    rs = np.random.RandomState(0)
+
+    def cuda(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    d_main = pipeline.forward(m, env.state.data)
+    qpos, mp, mq = arm_poses(fenv, FETCH_B, 1)
+    d_press = pipeline.make_data(m, FETCH_B)
+    d_press.qpos[:] = cuda(qpos)
+    d_press.mocap_pos[:] = cuda(mp)
+    d_press.mocap_quat[:] = cuda(mq)
+    d_press = pipeline.forward(m, d_press)
+    tp = m.plan("pruned", collision._PrunedPlan)
+    rp = m.plan("rows", constraint._RowPlan)
+    table = tp.table
+    # envs with a penetrating row, per group of the table: the kernel's
+    # groups, then the hull groups run with MPR outside it
+    spans = [(GEOMS[narrowphase.KINDS[g.kind][0]] + "-"
+              + GEOMS[narrowphase.KINDS[g.kind][1]], g.row_off, g.k * g.S)
+             for g in table.groups]
+    spans += [(f"{GEOMS[r.tp[0]]}-{GEOMS[r.tp[1]]} (MPR)", r.row0, r.k * r.S)
+              for r in tp.runs]
+    counts = {f"{name}@{r0}": [int((d.contact.dist[r0:r0 + k] < 0).any(dim=0).sum())
+                               for d in (d_main, d_press)]
+              for name, r0, k in spans}
+    print(f"fetch kernels: envs with a penetrating row per group, (main path, "
+          f"pressed state): {counts}", flush=True)
+    assert all(sum(c) > 0 for c in counts.values()), "a group never penetrates"
+    rows = []
+
+    # topk_select: the broadphase (3, 85) -> 8 and the contact cap
+    # (2, 169) -> 24, forced ties and the main path's ranks
+    pen = d_main.contact.dist - m.con_includemargin[:, 0][d_main.contact.src]
+    real_topk = {
+        (3, 85, 8): (collision.broadphase_rank(m, d_main, tp), tp.mask),
+        (2, 169, 24): (pen[rp.cap_rows], rp.cap_mask),
+    }
+    for (G, maxk, K), (rank, mask) in real_topk.items():
+        r_rand, m_rand = tie_ranks(rs, G, maxk, FETCH_B)
+        for r, mk in ((cuda(r_rand), cuda(m_rand, torch.bool)), (rank, mask)):
+            got = narrowphase.topk_select(r, mk, K)
+            assert torch.equal(got, narrowphase.topk_select_plain(r, mk, K)), \
+                f"topk_select {(G, maxk, K)} indices differ"
+        ms = time_ms(torch, lambda: narrowphase.topk_select(rank, mask, K))
+        plain_ms = time_ms(torch, lambda: narrowphase.topk_select_plain(
+            rank, mask, K), n=10)
+        masked = torch.where(mask[:, :, None], rank, float("inf"))
+        lib_ms = time_ms(torch, lambda: torch.topk(masked, K, dim=1,
+                                                   largest=False))
+        bnd = bound(G * maxk * FETCH_B * 4 + G * maxk + G * K * FETCH_B * 4,
+                    G * maxk * FETCH_B)
+        rows.append(kernel_row(
+            f"topk_select_{G}x{maxk}_k{K}", NP_SRC,
+            "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:155",
+            shapes[(G, maxk, K)], 0.0, 0.0, ms, plain_ms, bnd, lib_ms,
+            [G, maxk, FETCH_B, K]))
+
+    # narrowphase: the main path's and the pressed state's tables
+    np_rel = np_abs = 0.0
+    for d in (d_main, d_press):
+        sel = torch.minimum(narrowphase.topk_select(
+            collision.broadphase_rank(m, d, tp), tp.mask, tp.K), tp.sel_max)
+        args = (table, d.geom_xpos, d.geom_xmat, m.geom_size, sel, m.hull_vert)
+        rel, ab = table_err(narrowphase.narrowphase(*args),
+                            narrowphase.narrowphase_plain(*args), table.rows)
+        np_rel, np_abs = max(np_rel, rel), max(np_abs, ab)
+    out = tuple(torch.empty_like(x) for x in (d_main.contact.dist,
+                                              d_main.contact.pos,
+                                              d_main.contact.frame))
+    sel = torch.minimum(narrowphase.topk_select(
+        collision.broadphase_rank(m, d_main, tp), tp.mask, tp.K), tp.sel_max)
+    args = (table, d_main.geom_xpos, d_main.geom_xmat, m.geom_size, sel,
+            m.hull_vert)
+    np_ms = time_ms(torch, lambda: narrowphase.narrowphase(*args, out=out))
+    np_plain_ms = time_ms(torch, lambda: narrowphase.narrowphase_plain(
+        *args, out=out), n=10)
+    n_rows = int(table.rows.numel())
+    pair_ops = sum(NARROW_OPS[g.kind] * g.k for g in table.groups)
+    np_bound = bound((m.meta.ngeom * 12 + m.hull_vert.numel()) * 4 * FETCH_B
+                     + n_rows * 13 * 4 * FETCH_B, pair_ops * FETCH_B)
+    assert np_rel <= TOL, f"narrowphase (fetch): relerr {np_rel:.3e}"
+    rows.append(kernel_row(
+        "narrowphase_fetch", NP_SRC,
+        "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:201",
+        launches["narrowphase"], np_abs, np_rel, np_ms, np_plain_ms, np_bound,
+        None, [n_rows, FETCH_B]))
+
+    # Cholesky at nv = 21: random SPD systems, the real qM, the Euler's
+    # M + h diag(damping)
+    nv = m.nv
+    A = rs.normal(size=(nv, nv, FETCH_B))
+    M = cuda(np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(nv)[:, :, None])
+    b = cuda(rs.normal(size=(nv, FETCH_B)))
+    real = (d_main.qM, d_main.qfrc_smooth)
+    chol_err, chol_abs = check_pair(solver.solve_pos, solver.solve_pos_plain,
+                                    ((M, b), real, (d_press.qM, d_press.qfrc_smooth)))
+    chol_ms = time_ms(torch, lambda: solver.solve_pos(*real))
+    chol_plain_ms = time_ms(torch, lambda: solver.solve_pos_plain(*real), n=10)
+    Mb = d_main.qM.permute(2, 0, 1).contiguous()
+    bb = d_main.qfrc_smooth.T.contiguous()[:, :, None]
+    # at nv = 21 solve_ex waits on the host inside: not capturable
+    chol_lib_ms = time_ms(torch, lambda: torch.linalg.solve_ex(Mb, bb),
+                          graph=False)
+    nm = nv * (nv + 1) // 2
+    assert chol_err <= TOL, f"chol_solve nv=21: relerr {chol_err:.3e}"
+    rows.append(kernel_row(
+        "chol_solve_nv21", SOLVER_SRC,
+        "gymnasium_robotics_tpu/physics/solver_pallas.py:455",
+        launches["chol"], chol_abs, chol_err, chol_ms, chol_plain_ms,
+        bound((nm + 2 * nv) * 4 * FETCH_B, chol_ops(nv) * FETCH_B),
+        chol_lib_ms, [nv, FETCH_B]))
+
+    # Newton at nv = 21, 255 rows: random rows, the main path's, the pressed
+    n_iter = min(m.opt.iterations, 20)
+    n_ls = min(m.opt.ls_iterations, 8)
+    sets = []
+    for d in (d_main, d_press):
+        J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+        sets.append((d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq))
+    ne = sets[0][3].shape[0]
+    sets.insert(0, (M, cuda(rs.normal(size=(nv, FETCH_B))),
+                    cuda(rs.normal(size=(nv, FETCH_B))),
+                    cuda(rs.normal(size=(ne, nv, FETCH_B))),
+                    cuda(rs.normal(size=(ne, FETCH_B))),
+                    cuda(np.exp(rs.normal(size=(ne, FETCH_B)))),
+                    cuda(rs.uniform(size=(ne, FETCH_B)) < 0.6, torch.bool),
+                    sets[0][7]))
+    per_set = [newton_check(torch, solver, x, n_iter, n_ls) for x in sets[:2]]
+    print("fetch newton nv=21 (random, main): (relerr of qacc on the "
+          "constraint scale and of f, abs err, unscaled relerr of qacc): "
+          f"{per_set}", flush=True)
+    # The pressed state drives the arm and the object into the table and the
+    # floor: contact forces reach 1e8 and float32 alone moves the answer, so
+    # it is not gated; the kernel and the plain version in float32 are
+    # printed against the plain version in float64.
+    x64 = [x.double() if x.is_floating_point() else x for x in sets[2]]
+    ref64 = solver.solve_newton_plain(*x64, n_iter=n_iter, n_ls=n_ls)
+    M2, J2 = sets[2][0], sets[2][3]
+    k_err = newton_err(torch, solver.solve_newton(
+        *sets[2], n_iter=n_iter, n_ls=n_ls), ref64, M2, J2)
+    p_err = newton_err(torch, solver.solve_newton_plain(
+        *sets[2], n_iter=n_iter, n_ls=n_ls), ref64, M2, J2)
+    print(f"fetch newton nv=21, pressed state against the float64 plain "
+          f"version (rel, abs; not gated): kernel {k_err}, float32 plain "
+          f"{p_err}", flush=True)
+    newton_rel = max(e for e, _, _ in per_set)
+    newton_abs = max(a for _, a, _ in per_set)
+    real = sets[1]
+    newton_ms = time_ms(torch, lambda: solver.solve_newton(
+        *real, n_iter=n_iter, n_ls=n_ls))
+    newton_plain_ms = time_ms(torch, lambda: solver.solve_newton_plain(
+        *real, n_iter=n_iter, n_ls=n_ls), n=5)
+    assert newton_rel <= TOL, f"newton nv=21: relerr {newton_rel:.3e}"
+    rows.append(kernel_row(
+        "newton_nv21", SOLVER_SRC,
+        "gymnasium_robotics_tpu/physics/solver_pallas.py:249",
+        launches["newton"], newton_abs, newton_rel, newton_ms,
+        newton_plain_ms,
+        bound((nm + 2 * nv + ne * nv + 3 * ne + nv) * 4 * FETCH_B
+              + ne * FETCH_B + ne, newton_ops(nv, ne, n_iter, n_ls) * FETCH_B),
+        None, [nv, ne, FETCH_B, n_iter, n_ls]))
+    n_active = [int(s[6].any(dim=0).sum()) for s in sets[1:]]
+    print(f"fetch kernels: {ne} rows; envs with active rows (main, pressed) "
+          f"{n_active} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return rows
+
+
 def main():
     import torch
 
@@ -619,10 +984,18 @@ def main():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("   ", line.strip())
 
+    t0 = time.perf_counter()
     kern = pointmaze(torch, dev, card, solver, constraint, narrowphase,
                      convert, registry)
+    print(f"pointmaze phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     kern += antmaze(torch, dev, card, solver, constraint, narrowphase,
                     collision, pipeline, convert, registry)
+    print(f"antmaze phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    kern += fetchpush(torch, dev, card, solver, constraint, narrowphase,
+                      collision, pipeline, convert, registry)
+    print(f"fetchpush phases: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

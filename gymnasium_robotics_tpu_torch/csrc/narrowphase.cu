@@ -1,6 +1,6 @@
 // The pruned narrowphase's two kernels, one thread per (row, env).
 //
-// topk_select_kernel<KCAP> replaces the TPU kernel
+// topk_select_kernel<KCAP> (KCAP = 8, 16, 24) replaces the TPU kernel
 //   gymnasium_robotics_tpu/physics/narrowphase_pallas.py::topk_select
 //   (K rounds of masked min + first-index argmin over the pair axis): per
 //   (group, env), the indices of the K smallest ranks in ascending order,
@@ -10,32 +10,41 @@
 //   every round; this kernel returns the same.
 // narrowphase_kernel replaces the TPU kernel
 //   gymnasium_robotics_tpu/physics/narrowphase_pallas.py::
-//   narrowphase_megakernel (with GroupSpec/_emit_group) for the primitive
-//   groups plane-sphere, plane-capsule, sphere-box and capsule-box: the
-//   contact formulas of collision_vec.py (_plane_sphere :88,
-//   _plane_capsule :95, _sphere_box_at :221, _capsule_box :375) and the
-//   frame of _contact_frame_soa :806, written out for one pair.
+//   narrowphase_megakernel (with GroupSpec/_emit_group) for the groups
+//   plane-sphere, plane-capsule, sphere-box, capsule-box, plane-box,
+//   box-box and plane-hull: the contact formulas of collision_vec.py
+//   (_plane_sphere :88, _plane_capsule :95, _plane_box :152 with
+//   _take_smallest :135, _sphere_box_at :221, _capsule_box :375, _box_box
+//   :388 with _box_box_edge :427 and _seg_seg_closest :344,
+//   _make_plane_hull :673) and the frame of _contact_frame_soa :806,
+//   written out for one pair. The box-hull and hull-hull groups run with MPR
+//   outside both the TPU kernel and this one.
 //
 // Layout. Every array is batch-last and contiguous, element (r, ..., b) at
 // r * (...) * B + b, so the 32 threads of a warp, one env each, read and
 // write 128 contiguous bytes. topk_select reads rank (G, maxk, B) float32
 // and mask (G, maxk) bool and writes (G, K, B) int32. narrowphase reads
 // geom_xpos (ngeom, 3, B), geom_xmat (ngeom, 3, 3, B), geom_size
-// (ngeom, 3, Bm) through its strides, and the pruned groups' picks sel
-// (G, K, B) int32; it writes the compact table dist (ncon, B),
-// pos (ncon, 3, B) and frame (ncon, 3, 3, B), rows group-major and
-// pair-major (row = pair * S + slot). Its static group table is one int32
-// column per evaluated pair (kind, first row, row of sel or -1, offset of
-// the group's pair list) plus the lists of geom ids.
+// (ngeom, 3, Bm) through its strides, the pruned groups' picks sel
+// (G, K, B) int32 and the hull vertex table (nhull, V, 3); it writes its
+// groups' rows of the compact table dist (ncon, B), pos (ncon, 3, B) and
+// frame (ncon, 3, 3, B), rows group-major and pair-major (row = pair * S +
+// slot), in place. Its static group table is one int32 column per
+// evaluated pair (kind, first row, row of sel or -1, offset of the group's
+// pair list) plus the lists of geom ids and each geom's hull id.
 //
-// What bounds them. At the AntMaze shapes (B = 2048) both move a few MB at
-// most and do a few hundred operations per thread, so neither fills the
-// card: 2 x 2048 and 29 x 2048 threads. The TPU kernel rescanned the
+// What bounds them. At the AntMaze and FetchPush shapes (B = 2048) both
+// move a few MB at most; narrowphase does a few hundred (primitives) to a
+// few thousand (box-box) operations per thread, topk_select one pass over
+// maxk per thread, so neither fills the card. The TPU kernel rescanned the
 // VMEM-resident table K times; here one pass over maxk keeps a sorted
 // K-list in registers (strict (rank, index) order), so the table is read
 // once, coalesced. Where the TPU kernel took operand blocks gathered by
 // XLA (Mosaic serialises per-lane gathers), each thread here reads its
-// pair's geom ids and gathers the 12 floats of each geom's pose itself.
+// pair's geom ids and gathers the 12 floats of each geom's pose (and a
+// hull's vertices, read alike by every thread of a warp) itself. Every
+// array a formula indexes at a runtime face, axis or corner is written as
+// selects or recomputed at the picked index, so it stays in registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libnarrowphase.so narrowphase.cu
@@ -237,6 +246,234 @@ __device__ void frame_of(V n, V t1, V (&F)[3]) {
   F[2] = {n.y * t.z - n.z * t.y, n.z * t.x - n.x * t.z, n.x * t.y - n.y * t.x};
 }
 
+
+__device__ __forceinline__ V cross(V a, V b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+// One slot of the compact table: dist (ncon, B), pos (ncon, 3, B) and the
+// frame (ncon, 3, 3, B) of row r, env b.
+struct Out {
+  float *dist, *pos, *frame;
+  size_t sB;
+  int b;
+  __device__ void store(int r, float d, V p, V n, V t) const {
+    const size_t rr = (size_t)r;
+    dist[rr * sB + b] = d;
+    float* po = pos + rr * 3 * sB + b;
+    po[0] = p.x;
+    po[sB] = p.y;
+    po[2 * sB] = p.z;
+    V F[3];
+    frame_of(n, t, F);
+    float* fo = frame + rr * 9 * sB + b;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) fo[(i * 3 + q) * sB] = comp(F[i], q);
+  }
+};
+
+constexpr float kBig = 1e10f;
+
+// collision_vec._take_smallest on N values held in registers: M rounds of
+// jnp.argmin (the first index of the minimum, the first NaN before all),
+// each pick pushed up by 2 * _BIG. pick[r] is the index, val[r] the value
+// before the push (a NaN is picked in every later round, as there).
+template <int N, int M>
+__device__ __forceinline__ void take_smallest(const float (&d)[N], int (&pick)[M],
+                                              float (&val)[M]) {
+  float w[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) w[i] = d[i];
+#pragma unroll
+  for (int r = 0; r < M; ++r) {
+    int k = 0;
+    float best = w[0];
+#pragma unroll
+    for (int i = 1; i < N; ++i) {
+      if (best == best && (w[i] < best || w[i] != w[i])) {
+        k = i;
+        best = w[i];
+      }
+    }
+    pick[r] = k;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i == k) {
+        val[r] = d[i];
+        w[i] = w[i] + 2.f * kBig;
+      }
+    }
+  }
+}
+
+// Corner c of a box in its own frame: sign -1/+1 per component from the
+// bits of c (x the high bit), as collision_vec._CORNER_SIGNS orders them.
+__device__ __forceinline__ V corner_off(int c, V s) {
+  return {(c & 4 ? 1.f : -1.f) * s.x, (c & 2 ? 1.f : -1.f) * s.y,
+          (c & 1 ? 1.f : -1.f) * s.z};
+}
+
+// plane-box (collision_vec._plane_box): the 4 deepest box corners.
+__device__ void plane_box(V p1, const Mat& R1, V p2, const Mat& R2, V s2,
+                          const Out& o, int row) {
+  const V n = R1.col(2);
+  const float pn = dot(p1, n);
+  float d[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) d[c] = dot(p2 + R2.mul(corner_off(c, s2)), n) - pn;
+  int pick[4];
+  float val[4];
+  take_smallest<8, 4>(d, pick, val);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const V w = p2 + R2.mul(corner_off(pick[s], s2));
+    o.store(row + s, val[s], w - n * (0.5f * val[s]), n, nan3());
+  }
+}
+
+// plane-hull (collision_vec._make_plane_hull): the 4 deepest of the hull's
+// V <= kHullV vertices, hv = (V, 3) in the mesh geom's frame.
+constexpr int kHullV = 32;
+
+__device__ void plane_hull(V p1, const Mat& R1, V p2, const Mat& R2,
+                           const float* __restrict__ hv, int nv, const Out& o,
+                           int row) {
+  const V n = R1.col(2);
+  const float pn = dot(p1, n);
+  float d[kHullV];
+#pragma unroll
+  for (int v = 0; v < kHullV; ++v) {
+    d[v] = INFINITY;
+    if (v < nv) {
+      const V l = {hv[3 * v], hv[3 * v + 1], hv[3 * v + 2]};
+      d[v] = dot(p2 + R2.mul(l), n) - pn;
+    }
+  }
+  int pick[4];
+  float val[4];
+  take_smallest<kHullV, 4>(d, pick, val);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int v = pick[s];
+    const V w = p2 + R2.mul({hv[3 * v], hv[3 * v + 1], hv[3 * v + 2]});
+    o.store(row + s, val[s], w - n * (0.5f * val[s]), n, nan3());
+  }
+}
+
+// One corner of box a against box b's faces: the face distance (positive
+// inside), and the normal of the nearest face (first index, NaN first).
+__device__ __forceinline__ float corner_in_box(V w, V pb, const Mat& Rb, V sb,
+                                               V* n_world) {
+  const V l = Rb.mulT(w - pb);
+  const float fd[3] = {sb.x - fabsf(l.x), sb.y - fabsf(l.y), sb.z - fabsf(l.z)};
+  int k = 0;
+#pragma unroll
+  for (int i = 1; i < 3; ++i)
+    if (fd[k] == fd[k] && (fd[i] < fd[k] || fd[i] != fd[i])) k = i;
+  const float sgn = jsign(k == 0 ? l.x : (k == 1 ? l.y : l.z));
+  *n_world = (k == 0 ? Rb.col(0) : (k == 1 ? Rb.col(1) : Rb.col(2))) * sgn;
+  return jmin(jmin(fd[0], fd[1]), fd[2]);
+}
+
+// Corners of box a inside box b, the 4 deepest: vertex-face contacts with
+// normals sign * box b's outward face normal (collision_vec._box_box).
+__device__ void verts_in_box(V pa, const Mat& Ra, V sa, V pb, const Mat& Rb,
+                             V sb, float sign, const Out& o, int row) {
+  float d[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    V nw;
+    const float pen = corner_in_box(pa + Ra.mul(corner_off(c, sa)), pb, Rb, sb, &nw);
+    d[c] = pen > 0.f ? -pen : kBig;
+  }
+  int pick[4];
+  float val[4];
+  take_smallest<8, 4>(d, pick, val);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const V w = pa + Ra.mul(corner_off(pick[s], sa));
+    V nw;
+    corner_in_box(w, pb, Rb, sb, &nw);
+    const V n = nw * sign;
+    const float depth = val[s] < 0.f ? val[s] : 0.f;
+    o.store(row + s, val[s], w - n * (0.5f * depth), n, nan3());
+  }
+}
+
+__device__ __forceinline__ float clip01(float x) { return jmin(jmax(x, 0.f), 1.f); }
+
+// collision_vec._seg_seg_closest
+__device__ void seg_seg_closest(V a1, V b1, V a2, V b2, V* q1, V* q2) {
+  const V d1 = b1 - a1, d2 = b2 - a2, r = a1 - a2;
+  const float A = dot(d1, d1), e = dot(d2, d2), f = dot(d2, r);
+  const float c = dot(d1, r), b = dot(d1, d2);
+  const float denom = A * e - b * b;
+  float s = fabsf(denom) > 1e-12f ? (b * f - c * e) / (denom == 0.f ? 1.f : denom) : 0.f;
+  s = clip01(s);
+  float t = e > 1e-12f ? (b * s + f) / jmax(e, 1e-12f) : 0.f;
+  t = clip01(t);
+  s = clip01(A > 1e-12f ? (b * t - c) / jmax(A, 1e-12f) : 0.f);
+  *q1 = a1 + d1 * s;
+  *q2 = a2 + d2 * t;
+}
+
+__device__ __forceinline__ float support(const Mat& R, V s, V a) {
+  return fabsf(dot(a, R.col(0))) * s.x + fabsf(dot(a, R.col(1))) * s.y +
+         fabsf(dot(a, R.col(2))) * s.z;
+}
+
+// The edge-edge slot of box-box (collision_vec._box_box_edge): SAT over the
+// 9 edge cross axes, kept only where an edge axis separates no less than
+// every face axis.
+__device__ void box_box_edge(V p1, const Mat& R1, V s1, V p2, const Mat& R2,
+                             V s2, const Out& o, int row) {
+  const V d12 = p2 - p1;
+  float face_sep = 0.f;
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const V a = f < 3 ? R1.col(f) : R2.col(f - 3);
+    const float sep = fabsf(dot(a, d12)) - (support(R1, s1, a) + support(R2, s2, a));
+    face_sep = f == 0 ? sep : jmax(face_sep, sep);
+  }
+  float best_sep = 0.f;
+  V best_pos = {0.f, 0.f, 0.f}, best_n = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const V e1 = R1.col(i), e2 = R2.col(j);
+      float alen;
+      V a = normalize(cross(e1, e2), &alen);
+      a = a * (dot(a, d12) >= 0.f ? 1.f : -1.f);  // from box1 into box2
+      float sep = dot(a, d12) - (support(R1, s1, a) + support(R2, s2, a));
+      sep = alen > 1e-6f ? sep : -kBig;
+      // supporting edge centres (zero-sign components stay centred)
+      V c1 = p1, c2 = p2;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (k != i) c1 = c1 + R1.col(k) * (jsign(dot(a, R1.col(k))) * comp(s1, k));
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (k != j) c2 = c2 - R2.col(k) * (jsign(dot(a, R2.col(k))) * comp(s2, k));
+      }
+      const float h1 = comp(s1, i), h2 = comp(s2, j);
+      V q1, q2;
+      seg_seg_closest(c1 - e1 * h1, c1 + e1 * h1, c2 - e2 * h2, c2 + e2 * h2, &q1, &q2);
+      if ((i == 0 && j == 0) || sep > best_sep) {
+        best_sep = sep;
+        best_pos = (q1 + q2) * 0.5f;
+        best_n = a;
+      }
+    }
+  }
+  float dist = best_sep >= face_sep ? best_sep : kBig;
+  dist = best_sep <= -kBig / 2.f ? kBig : dist;
+  o.store(row, dist, best_pos, best_n, nan3());
+}
+
 __device__ __forceinline__ V load_v(const float* __restrict__ P, int g, int b,
                                     size_t sB) {
   const float* p = P + (size_t)g * 3 * sB + b;
@@ -258,6 +495,8 @@ narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
                    long long ss1, long long ssb, const int* __restrict__ sel,
                    const int* __restrict__ pairs, const int* __restrict__ lens,
                    const int* __restrict__ lists, int L, int C,
+                   const int* __restrict__ geom_hull,
+                   const float* __restrict__ hull_vert, int nhv,
                    float* __restrict__ dist, float* __restrict__ pos,
                    float* __restrict__ frame, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -283,47 +522,47 @@ narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
                 size[g1 * ss0 + 2 * ss1 + b * ssb]};
   const V s2 = {size[g2 * ss0 + b * ssb], size[g2 * ss0 + ss1 + b * ssb],
                 size[g2 * ss0 + 2 * ss1 + b * ssb]};
+  const Out o{dist, pos, frame, sB, b};
 
-  Slot out[3];
-  int S;
   switch (kind) {
-    case 0:  // plane-sphere
-      out[0] = plane_sphere(p1, R1, p2, s2);
-      S = 1;
+    case 0: {  // plane-sphere
+      const Slot s = plane_sphere(p1, R1, p2, s2);
+      o.store(row, s.dist, s.pos, s.n, s.t);
       break;
-    case 1:  // plane-capsule
-      plane_capsule(p1, R1, p2, R2, s2, out);
-      S = 2;
+    }
+    case 1: {  // plane-capsule
+      Slot s[2];
+      plane_capsule(p1, R1, p2, R2, s2, s);
+      o.store(row, s[0].dist, s[0].pos, s[0].n, s[0].t);
+      o.store(row + 1, s[1].dist, s[1].pos, s[1].n, s[1].t);
       break;
-    case 2:  // sphere-box
-      out[0] = sphere_box_at(p1, s1.x, p2, R2, s2);
-      S = 1;
+    }
+    case 2: {  // sphere-box
+      const Slot s = sphere_box_at(p1, s1.x, p2, R2, s2);
+      o.store(row, s.dist, s.pos, s.n, s.t);
       break;
-    default: {  // capsule-box: spheres at the capsule's ends and centre
+    }
+    case 3: {  // capsule-box: spheres at the capsule's ends and centre
       const V ax = R1.col(2);
 #pragma unroll
-      for (int s = 0; s < 3; ++s)
-        out[s] = sphere_box_at(p1 + ax * ((float)(s - 1) * s1.y), s1.x, p2,
-                               R2, s2);
-      S = 3;
+      for (int k = 0; k < 3; ++k) {
+        const Slot s = sphere_box_at(p1 + ax * ((float)(k - 1) * s1.y), s1.x,
+                                     p2, R2, s2);
+        o.store(row + k, s.dist, s.pos, s.n, s.t);
+      }
+      break;
     }
-  }
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    if (s >= S) break;
-    const size_t r = (size_t)(row + s);
-    dist[r * sB + b] = out[s].dist;
-    float* po = pos + r * 3 * sB + b;
-    po[0] = out[s].pos.x;
-    po[sB] = out[s].pos.y;
-    po[2 * sB] = out[s].pos.z;
-    V F[3];
-    frame_of(out[s].n, out[s].t, F);
-    float* fo = frame + r * 9 * sB + b;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int q = 0; q < 3; ++q) fo[(i * 3 + q) * sB] = comp(F[i], q);
+    case 4:  // plane-box
+      plane_box(p1, R1, p2, R2, s2, o, row);
+      break;
+    case 5:  // box-box: box2's corners in box1, box1's in box2, the edges
+      verts_in_box(p2, R2, s2, p1, R1, s1, 1.f, o, row);
+      verts_in_box(p1, R1, s1, p2, R2, s2, -1.f, o, row + 4);
+      box_box_edge(p1, R1, s1, p2, R2, s2, o, row + 8);
+      break;
+    default:  // plane-hull
+      plane_hull(p1, R1, p2, R2, hull_vert + (size_t)geom_hull[g2] * nhv * 3,
+                 nhv, o, row);
   }
 }
 
@@ -345,6 +584,9 @@ int grt_topk_select_f32(const float* rank, const unsigned char* mask, int* out,
   } else if (K > 8 && K <= 16) {
     topk_select_kernel<16><<<grid_for(B, G), kThreads, 0, s>>>(rank, mask, out,
                                                                maxk, B, K);
+  } else if (K > 16 && K <= 24) {
+    topk_select_kernel<24><<<grid_for(B, G), kThreads, 0, s>>>(rank, mask, out,
+                                                               maxk, B, K);
   } else {
     return -1;
   }
@@ -352,17 +594,20 @@ int grt_topk_select_f32(const float* rank, const unsigned char* mask, int* out,
 }
 
 // size strides: geom, component and batch (0 for a model table of Bm = 1).
-// pairs: (4, C) int32, lens: (C,), lists: (2, L).
+// pairs: (4, C) int32, lens: (C,), lists: (2, L), geom_hull: (ngeom,) hull
+// id per geom, hull_vert: (nhull, nhv, 3) (null without hull groups).
 int grt_narrowphase_f32(const float* P, const float* Rm, const float* size,
                         long long ss0, long long ss1, long long ssb,
                         const int* sel, const int* pairs, const int* lens,
-                        const int* lists, int L, int C, float* dist, float* pos,
-                        float* frame, int B, void* stream) {
+                        const int* lists, int L, int C, const int* geom_hull,
+                        const float* hull_vert, int nhv, float* dist,
+                        float* pos, float* frame, int B, void* stream) {
   if (B <= 0 || C <= 0) return 0;
+  if (nhv > kHullV) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   narrowphase_kernel<<<grid_for(B, C), kThreads, 0, s>>>(
-      P, Rm, size, ss0, ss1, ssb, sel, pairs, lens, lists, L, C, dist, pos,
-      frame, B);
+      P, Rm, size, ss0, ss1, ssb, sel, pairs, lens, lists, L, C, geom_hull,
+      hull_vert, nhv, dist, pos, frame, B);
   return static_cast<int>(cudaGetLastError());
 }
 

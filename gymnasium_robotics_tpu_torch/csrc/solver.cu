@@ -1,11 +1,12 @@
 // Per-env dense solves of the constraint pipeline.
 //
-// chol_solve_kernel<NV> (NV = 2, 14; one env per thread) replaces the TPU
+// chol_solve_kernel<NV> (NV = 2, 14; one env per thread) and
+// chol_warp_kernel<NV> (NV = 21; one env per warp, below) replace the TPU
 //   kernel gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol
 //   (entered through solve_pos_soa): the batched SPD solve M x = b by an
 //   unrolled LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
 // newton_kernel<NV, NE_CAP> (NV = 2; one env per thread) and
-// newton_warp_kernel<NV, RPL> (NV = 14; one env per warp, below) replace
+// newton_warp_kernel<NV, RPL> (NV = 14, 21; one env per warp, below) replace
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
@@ -45,6 +46,11 @@
 // more than 255 registers, hence the warp-per-env layout of
 // newton_warp_kernel (its note below). The Cholesky at NV = 14 keeps its
 // 105-entry triangle and factor in one thread's registers (in place).
+// At the FetchPush shapes (NV = 21, ne = 255, 4 and 4 iterations,
+// B = 2048) the Newton function reads 6393 floats and 255 mask bytes and
+// writes 276 floats per env (54.8 MB, 16 us) and does about 0.6M float
+// operations per env (18 us), so bytes and operations bound it about
+// equally; the Cholesky moves 273 floats per env (2.2 MB, 0.7 us).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsolver.so solver.cu
@@ -297,16 +303,24 @@ newton_kernel(const float* __restrict__ M, const float* __restrict__ a_smooth,
 
 // ---------------------------------------------------------------------------
 // newton_warp_kernel<NV, RPL>: one warp per env, for the larger systems
-// (AntMaze: NV = 14, ne = 72). One thread per env would hold each row's x,
-// J p, weight and flag (4 ne values) plus the 105 entries of H's triangle,
-// far past 255 registers. Here rows are striped over the lanes (row
-// r = lane + 32 q, RPL rows a lane), each lane keeping its rows of J in
-// registers; J, the per-iteration weights and M's triangle are also staged
-// once in shared memory, the lanes own the entries of M + J^T D J, the warp
-// factors the 14 x 14 system in shared memory (lane j owns row j) and the
-// sums over rows (gradient, line-search derivatives, J^T f) are warp
-// reductions by __shfl_xor_sync. Vectors of length NV are replicated in
-// every lane.
+// (AntMaze: NV = 14, ne = 72; FetchPush: NV = 21, ne = 255). One thread per
+// env would hold each row's x, J p, weight and flag (4 ne values) plus H's
+// triangle, far past 255 registers. Here rows are striped over the lanes
+// (row r = lane + 32 q, RPL rows a lane); J, the per-iteration weights and
+// M's triangle are staged once in dynamic shared memory, and where they fit
+// (RPL * NV <= 48: NV = 14) each lane also keeps its rows of J in
+// registers; at NV = 21 with 8 rows a lane (168 floats) J is read from
+// shared memory only (row stride 21 floats: the 32 lanes hit 32 banks). The
+// lanes own the entries of M + J^T D J, the warp factors the NV x NV system
+// in shared memory (lane j owns row j) and the sums over rows (gradient,
+// line-search derivatives, J^T f) are warp reductions by __shfl_xor_sync.
+// Vectors of length NV are replicated in every lane. Shared memory per env:
+// (32 RPL (NV + 1) + NV (NV + 1)) floats, 6.1 KB at NV = 14 and 24.4 KB at
+// NV = 21 (97.5 KB per block of 4 envs, past the 48 KB of static shared
+// memory, hence dynamic).
+// chol_warp_kernel<NV> (NV = 21): the Cholesky solve with one warp per env
+// (a thread's registers cannot hold the 231-entry triangle): the lanes stage
+// M's lower triangle in shared memory and the warp factors it as above.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;  // envs per block
@@ -374,7 +388,18 @@ __device__ __forceinline__ void sym_mul_s(const float* Mp, const float (&v)[NV],
 }
 
 template <int NV, int RPL>
-__global__ void __launch_bounds__(kWarps * 32)
+struct WarpSmem {  // floats of shared memory per env (warp)
+  static constexpr int NEC = 32 * RPL, NT = tri(NV, 0);
+  static constexpr int J = 0, DW = NEC * NV, M = DW + NEC, L = M + NT,
+                       total = L + NT;
+  static constexpr size_t block_bytes = sizeof(float) * total * kWarps;
+};
+
+// Where J sits in registers, 3 blocks an SM (at most 170 registers a
+// thread), as at NV = 14 before J moved to dynamic shared memory; at NV = 21
+// the 97.5 KB of shared memory a block allows 2 blocks an SM anyway.
+template <int NV, int RPL>
+__global__ void __launch_bounds__(kWarps * 32, RPL * NV <= 48 ? 3 : 1)
 newton_warp_kernel(const float* __restrict__ M,
                    const float* __restrict__ a_smooth,
                    const float* __restrict__ a_warm,
@@ -384,21 +409,20 @@ newton_warp_kernel(const float* __restrict__ M,
                    const unsigned char* __restrict__ is_eq, NewtonStrides s,
                    float* __restrict__ qacc, float* __restrict__ f, int ne,
                    int B, int n_iter, int n_ls) {
-  constexpr int NT = tri(NV, 0);
-  constexpr int NEC = 32 * RPL;
-  constexpr int OWN = (NT + 31) / 32;  // triangle entries per lane
-  __shared__ float sJ[kWarps][NEC][NV];
-  __shared__ float sDw[kWarps][NEC];
-  __shared__ float sM[kWarps][NT];
-  __shared__ float sL[kWarps][NT];
+  using SM = WarpSmem<NV, RPL>;
+  constexpr int NT = SM::NT;
+  constexpr int OWN = (NT + 31) / 32;    // triangle entries per lane
+  constexpr bool kJReg = RPL * NV <= 48;  // this lane's rows of J in registers
+  extern __shared__ float smem[];
   const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int e = blockIdx.x * kWarps + wid;
   if (e >= B) return;  // e is uniform across the warp
   const size_t sB = (size_t)B;
-  float(&Js)[NEC][NV] = sJ[wid];
-  float* Dws = sDw[wid];
-  float* Ms = sM[wid];
-  float* Ls = sL[wid];
+  float* base = smem + wid * SM::total;
+  float* Js = base + SM::J;  // (NEC, NV), row-major
+  float* Dws = base + SM::DW;
+  float* Ms = base + SM::M;
+  float* Ls = base + SM::L;
 
   // the triangle entries this lane owns, and M's triangle in shared memory
   int oi[OWN], oj[OWN];
@@ -419,8 +443,9 @@ newton_warp_kernel(const float* __restrict__ M,
     as[i] = a_smooth[s.a_smooth.at(i, e)];
     a[i] = a_warm[s.a_warm.at(i, e)];
   }
-  // this lane's rows: J in registers and in shared memory
-  float Jr[RPL][NV], w[RPL], ar[RPL], x[RPL], Jp[RPL];
+  // this lane's rows: J in shared memory (and registers where they fit)
+  float Jr[kJReg ? RPL : 1][kJReg ? NV : 1];
+  float w[RPL], ar[RPL], x[RPL], Jp[RPL];
   bool eq[RPL];
 #pragma unroll
   for (int q = 0; q < RPL; ++q) {
@@ -428,14 +453,19 @@ newton_warp_kernel(const float* __restrict__ M,
     const bool ok = r < ne;
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
-      Jr[q][k] = ok ? J[s.J.at(r, k, e)] : 0.f;
-      Js[r][k] = Jr[q][k];
+      const float v = ok ? J[s.J.at(r, k, e)] : 0.f;
+      Js[r * NV + k] = v;
+      if constexpr (kJReg) Jr[q][k] = v;
     }
     w[q] = ok && active[s.active.at(r, e)] ? D[s.D.at(r, e)] : 0.f;
     eq[q] = ok && is_eq[s.is_eq.at(r, e)] != 0;
     ar[q] = ok ? aref[s.aref.at(r, e)] : 0.f;
   }
   __syncwarp();
+  auto Jq = [&](int q, int k) {
+    if constexpr (kJReg) return Jr[q][k];
+    else return Js[(lane + 32 * q) * NV + k];
+  };
   auto dw_of = [&](int q, float xr) { return (eq[q] || xr < 0.f) ? w[q] : 0.f; };
 
   for (int it = 0; it < n_iter; ++it) {
@@ -450,13 +480,13 @@ newton_warp_kernel(const float* __restrict__ M,
     for (int q = 0; q < RPL; ++q) {
       float xr = -ar[q];
 #pragma unroll
-      for (int k = 0; k < NV; ++k) xr += Jr[q][k] * a[k];
+      for (int k = 0; k < NV; ++k) xr += Jq(q, k) * a[k];
       x[q] = xr;
       const float Dw = dw_of(q, xr);
       Dws[lane + 32 * q] = Dw;
       const float gx = Dw * xr;
 #pragma unroll
-      for (int i = 0; i < NV; ++i) g[i] += Jr[q][i] * gx;
+      for (int i = 0; i < NV; ++i) g[i] += Jq(q, i) * gx;
     }
 #pragma unroll
     for (int i = 0; i < NV; ++i) g[i] = warp_sum(g[i]);
@@ -467,7 +497,7 @@ newton_warp_kernel(const float* __restrict__ M,
       if (oi[q] < 0) continue;
       const int i = oi[q], j = oj[q];
       float acc = 0.f;
-      for (int r = 0; r < ne; ++r) acc += (Dws[r] * Js[r][i]) * Js[r][j];
+      for (int r = 0; r < ne; ++r) acc += (Dws[r] * Js[r * NV + i]) * Js[r * NV + j];
       Ls[tri(i, j)] = Ms[tri(i, j)] + acc;
     }
     __syncwarp();
@@ -481,7 +511,7 @@ newton_warp_kernel(const float* __restrict__ M,
     for (int q = 0; q < RPL; ++q) {
       float acc = 0.f;
 #pragma unroll
-      for (int k = 0; k < NV; ++k) acc += Jr[q][k] * p[k];
+      for (int k = 0; k < NV; ++k) acc += Jq(q, k) * p[k];
       Jp[q] = acc;
     }
     sym_mul_s<NV>(Ms, p, Mpv);
@@ -521,12 +551,12 @@ newton_warp_kernel(const float* __restrict__ M,
     const int r = lane + 32 * q;
     float xr = -ar[q];
 #pragma unroll
-    for (int k = 0; k < NV; ++k) xr += Jr[q][k] * a[k];
+    for (int k = 0; k < NV; ++k) xr += Jq(q, k) * a[k];
     float fr = -dw_of(q, xr) * xr;
     if (!eq[q]) fr = nan_max(fr, 0.f);
     if (r < ne) f[r * sB + e] = fr;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) qfc[i] += Jr[q][i] * fr;
+    for (int i = 0; i < NV; ++i) qfc[i] += Jq(q, i) * fr;
   }
 #pragma unroll
   for (int i = 0; i < NV; ++i) qfc[i] = warp_sum(qfc[i]);
@@ -542,15 +572,47 @@ newton_warp_kernel(const float* __restrict__ M,
 }
 
 template <int NV, int RPL>
-void launch_newton_warp(const float* M, const float* a_smooth,
-                        const float* a_warm, const float* J, const float* aref,
-                        const float* D, const unsigned char* active,
-                        const unsigned char* is_eq, const NewtonStrides& st,
-                        float* qacc, float* f, int ne, int B, int n_iter,
-                        int n_ls, cudaStream_t s) {
-  newton_warp_kernel<NV, RPL><<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+int launch_newton_warp(const float* M, const float* a_smooth,
+                       const float* a_warm, const float* J, const float* aref,
+                       const float* D, const unsigned char* active,
+                       const unsigned char* is_eq, const NewtonStrides& st,
+                       float* qacc, float* f, int ne, int B, int n_iter,
+                       int n_ls, cudaStream_t s) {
+  constexpr size_t bytes = WarpSmem<NV, RPL>::block_bytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      newton_warp_kernel<NV, RPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  newton_warp_kernel<NV, RPL><<<(B + kWarps - 1) / kWarps, kWarps * 32, bytes, s>>>(
       M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
       n_iter, n_ls);
+  return 0;
+}
+
+template <int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+chol_warp_kernel(const float* __restrict__ M, Str3 sM,
+                 const float* __restrict__ b, Str2 sb, float* __restrict__ x,
+                 int B) {
+  constexpr int NT = tri(NV, 0);
+  __shared__ float sL[kWarps][NT];
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int e = blockIdx.x * kWarps + wid;
+  if (e >= B) return;  // e is uniform across the warp
+  float* Ls = sL[wid];
+  for (int t = lane; t < NT; t += 32) {
+    int i = 0;
+    while (tri(i + 1, 0) <= t) ++i;
+    Ls[t] = M[sM.at(i, t - tri(i, 0), e)];
+  }
+  float rhs[NV], out[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) rhs[i] = b[sb.at(i, e)];
+  __syncwarp();
+  warp_chol_solve<NV>(Ls, rhs, out, lane);
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane == i) x[i * (size_t)B + e] = out[i];
 }
 
 inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
@@ -587,6 +649,10 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
       chol_solve_kernel<14><<<grid_for(B), kThreads, 0, s>>>(
           M, str3(strides), b, str2(strides + 3), x, B);
       break;
+    case 21:
+      chol_warp_kernel<21><<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+          M, str3(strides), b, str2(strides + 3), x, B);
+      break;
     default:
       return -1;
   }
@@ -596,8 +662,8 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
 // strides: the element strides of M (3), a_smooth, a_warm (2 each), J (3),
 // aref, D, active and is_eq (2 each), in that order. Row caps are
 // instantiated per nv: ne is rounded up to the first that holds it. nv = 2
-// runs newton_kernel (one env per thread), nv = 14 newton_warp_kernel (one
-// env per warp, up to 96 rows).
+// runs newton_kernel (one env per thread), nv = 14 and 21
+// newton_warp_kernel (one env per warp, up to 96 and 256 rows).
 int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
                    const float* J, const float* aref, const float* D,
                    const unsigned char* active, const unsigned char* is_eq,
@@ -616,8 +682,15 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
     launch_newton<2, 64>(M, a_smooth, a_warm, J, aref, D, active, is_eq, st,
                          qacc, f, ne, B, n_iter, n_ls, s);
   } else if (nv == 14 && ne <= 96) {
-    launch_newton_warp<14, 3>(M, a_smooth, a_warm, J, aref, D, active, is_eq,
-                              st, qacc, f, ne, B, n_iter, n_ls, s);
+    const int rc = launch_newton_warp<14, 3>(M, a_smooth, a_warm, J, aref, D,
+                                             active, is_eq, st, qacc, f, ne, B,
+                                             n_iter, n_ls, s);
+    if (rc) return rc;
+  } else if (nv == 21 && ne <= 256) {
+    const int rc = launch_newton_warp<21, 8>(M, a_smooth, a_warm, J, aref, D,
+                                             active, is_eq, st, qacc, f, ne, B,
+                                             n_iter, n_ls, s);
+    if (rc) return rc;
   } else {
     return -1;
   }

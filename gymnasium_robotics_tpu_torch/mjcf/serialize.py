@@ -1,5 +1,6 @@
 """Load the compiled models the JAX package ships (port of
-gymnasium_robotics_tpu/mjcf/serialize.py:61-99, reading only).
+gymnasium_robotics_tpu/mjcf/serialize.py:61-99: ``load_model`` and
+``load_asset``, reading only).
 
 The model files are data: numeric fields as npz arrays, the static Meta as
 JSON in ``__meta__``. They are read by path and never written.
@@ -39,3 +40,14 @@ def load_model(path: str, dtype=torch.float32, device=None):
             else:
                 arrays[k] = z[k]
     return convert.model_from_numpy(arrays, meta_json, dtype, device), extra
+
+
+def load_asset(name: str, dtype=torch.float32, device=None):
+    """(Model, extra) of a shipped compiled asset, e.g. ``"fetch/push"``:
+    the model as ``load_model`` gives it (convex-hull tables per hull,
+    (nhull, V, 3) and (nhull, F, 4)) and the file's extras (initial qpos,
+    mocap pose, ...) as numpy."""
+    path = asset_path(name)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"compiled asset {name!r} not found at {path}")
+    return load_model(path, dtype=dtype, device=device)

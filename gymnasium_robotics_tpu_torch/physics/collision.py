@@ -4,18 +4,18 @@ Host tables: port of gymnasium_robotics_tpu/physics/collision.py (slot
 counts, ``ncon``, the pair-topk ``prune_plan`` :102-175) and of
 ``collision_vec.slot_geoms_static`` :1341. Device part: the unpruned core
 ``collision_vec._make_narrowphase_core`` :932-1060 and the pair-topk core
-``_make_narrowphase_core_pruned`` :1063-1334 (AABB gap ranking,
-per-group selection through ``narrowphase.topk_select``, the contact
-formulas through ``narrowphase.narrowphase``, ``src`` and the compact
-group-major table), driven like ``soa.collision`` :1018-1081, with the
-primitives the ported slices reach: plane-sphere :88, plane-capsule :95,
-sphere-box :221-251 and capsule-box :375, and the contact frame
-``_contact_frame_soa`` :806.
+``_make_narrowphase_core_pruned`` :1063-1334 (AABB gap ranking, hull-aware
+per-lane gathers, per-group selection through ``narrowphase.topk_select``,
+the hybrid routing :1249-1323, ``src`` and the compact group-major table),
+driven like ``soa.collision`` :1018-1081. The formulas the ported slices
+reach: plane-sphere :88, plane-capsule :95, plane-box :152, sphere-box
+:221-251, capsule-box :375, box-box :388-499, and the convex-hull formulas
+:510-781 (plane-hull, and box-hull and hull-hull with the MPR upgrade of
+``physics/mpr.py``), with the contact frame ``_contact_frame_soa`` :806.
 
 Every slot reports a signed distance; slots far from touching simply carry
 a large positive one. Any other geom-type pair raises
-``NotImplementedError`` naming it; mesh (convex hull) groups name the
-FetchPush slice that brings them.
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -183,6 +183,14 @@ def _dot(a, b):
     return torch.sum(a * b, dim=0)
 
 
+def _cross(a, b):
+    return torch.stack([
+        a[1] * b[2] - a[2] * b[1],
+        a[2] * b[0] - a[0] * b[2],
+        a[0] * b[1] - a[1] * b[0],
+    ])
+
+
 def _normalize(a, eps=1e-12):
     n = torch.sqrt(torch.clamp(_dot(a, a), min=0.0))
     return a / torch.clamp(n, min=eps)[None], n
@@ -266,28 +274,328 @@ def _capsule_box(p1, R1, s1, p2, R2, s2):
     return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
 
 
+_CORNER_SIGNS = np.array(
+    [[i, j, k] for i in (-1, 1) for j in (-1, 1) for k in (-1, 1)], np.float64)
+
+
+def _sign01(c, like):
+    """+1 where c, else -1, in the dtype of ``like``."""
+    return 2.0 * c.to(like.dtype) - 1.0
+
+
+def _box_corners(p, R, s):
+    """(8, 3, k, B) world-space corners."""
+    outs = []
+    for sg in _CORNER_SIGNS:
+        off = torch.stack([sg[0] * s[0], sg[1] * s[1], sg[2] * s[2]])
+        outs.append(p + _matvec(R, off.expand((3,) + p.shape[1:])))
+    return torch.stack(outs)
+
+
+def _take_smallest(dist, payloads, m):
+    """The m smallest rows of dist (S, k, B), payload rows (S, ..., k, B)
+    taken alike: m rounds of first-index argmin, each pick pushed up by
+    2 * _BIG (collision_vec._take_smallest)."""
+    d = dist
+    iota = torch.arange(dist.shape[0], device=dist.device).view(-1, 1, 1)
+    out_d, out_p = [], [[] for _ in payloads]
+    for _ in range(m):
+        onehot = (iota == torch.argmin(d, dim=0)[None]).to(dist.dtype)
+        out_d.append(torch.sum(dist * onehot, dim=0))
+        for pi, p in enumerate(payloads):
+            out_p[pi].append(torch.sum(p * onehot[:, None], dim=0))
+        d = d + onehot * (2.0 * _BIG)
+    return torch.stack(out_d), [torch.stack(p) for p in out_p]
+
+
+def _plane_box(p1, R1, s1, p2, R2, s2):
+    n = R1[:, 2]
+    corners = _box_corners(p2, R2, s2)                   # (8, 3, k, B)
+    pn = _dot(p1, n)
+    dist = torch.stack([_dot(corners[c], n) - pn for c in range(8)])
+    d4, (c4,) = _take_smallest(dist, [corners], 4)
+    pos = c4 - 0.5 * d4[:, None] * n[None]
+    return d4, pos, n[None].expand((4,) + n.shape)
+
+
+def _seg_seg_closest(a1, b1, a2, b2):
+    d1 = b1 - a1
+    d2 = b2 - a2
+    r = a1 - a2
+    A = _dot(d1, d1)
+    e = _dot(d2, d2)
+    f = _dot(d2, r)
+    c = _dot(d1, r)
+    b = _dot(d1, d2)
+    denom = A * e - b * b
+    zero = torch.zeros_like(denom)
+    s = torch.where(torch.abs(denom) > 1e-12,
+                    (b * f - c * e) / torch.where(denom == 0, zero + 1.0, denom),
+                    zero)
+    s = torch.clamp(s, 0.0, 1.0)
+    t = torch.where(e > 1e-12, (b * s + f) / torch.clamp(e, min=1e-12), zero)
+    t = torch.clamp(t, 0.0, 1.0)
+    s = torch.clamp(torch.where(A > 1e-12, (b * t - c) / torch.clamp(A, min=1e-12),
+                                zero), 0.0, 1.0)
+    return a1 + s[None] * d1, a2 + t[None] * d2
+
+
+def _verts_in_box(pa, Ra, sa, pb, Rb, sb, sign):
+    """Corners of box a against box b's faces, 4 deepest: vertex-face
+    contacts with normals sign * box b's outward face normal."""
+    corners = _box_corners(pa, Ra, sa)                   # (8, 3, k, B)
+    sbb = sb.expand(corners.shape[1:])
+    iota3 = torch.arange(3, device=pa.device).view(3, 1, 1)
+    dists, normals = [], []
+    for c in range(8):
+        loc = _matTvec(Rb, corners[c] - pb)
+        face_dist = sbb - torch.abs(loc)
+        pen = torch.amin(face_dist, dim=0)
+        onehot = (iota3 == torch.argmin(face_dist, dim=0)[None]).to(loc.dtype)
+        sgn = torch.sign(torch.sum(loc * onehot, dim=0))
+        dists.append(torch.where(pen > 0, -pen, torch.full_like(pen, _BIG)))
+        normals.append(sign * _matvec(Rb, onehot * sgn[None]))
+    d4, (c4, n4) = _take_smallest(torch.stack(dists),
+                                  [corners, torch.stack(normals)], 4)
+    depth = torch.where(d4 < 0, d4, torch.zeros_like(d4))
+    return d4, c4 - 0.5 * depth[:, None] * n4, n4
+
+
+def _box_box_edge(p1, R1, s1, p2, R2, s2):
+    """Edge-edge contact: SAT over the 9 edge cross axes picks the least
+    penetrating edge pair, the contact point is the midpoint of the two
+    supporting edges' closest points, and the slot exists only where an
+    edge axis separates no less than every face axis."""
+    d12 = p2 - p1
+    s1b = s1.expand((3,) + d12.shape[1:])
+    s2b = s2.expand((3,) + d12.shape[1:])
+
+    def support(R, sb, a):
+        return sum(torch.abs(_dot(a, R[:, k])) * sb[k] for k in range(3))
+
+    face_sep = None
+    for R in (R1, R2):
+        for k in range(3):
+            a = R[:, k]
+            sep = torch.abs(_dot(a, d12)) - (support(R1, s1b, a) + support(R2, s2b, a))
+            face_sep = sep if face_sep is None else torch.maximum(face_sep, sep)
+
+    best = None
+    for i in range(3):
+        e1 = R1[:, i]
+        for j in range(3):
+            e2 = R2[:, j]
+            a, alen = _normalize(_cross(e1, e2), 1e-12)
+            a = a * _sign01(_dot(a, d12) >= 0, a)[None]   # from box1 into box2
+            sep = _dot(a, d12) - (support(R1, s1b, a) + support(R2, s2b, a))
+            sep = torch.where(alen > 1e-6, sep, torch.full_like(sep, -_BIG))
+            # supporting edge centres (zero-sign components stay centred)
+            c1 = p1
+            for k in range(3):
+                if k != i:
+                    c1 = c1 + R1[:, k] * (torch.sign(_dot(a, R1[:, k])) * s1b[k])[None]
+            c2 = p2
+            for k in range(3):
+                if k != j:
+                    c2 = c2 - R2[:, k] * (torch.sign(_dot(a, R2[:, k])) * s2b[k])[None]
+            q1, q2 = _seg_seg_closest(
+                c1 - e1 * s1b[i][None], c1 + e1 * s1b[i][None],
+                c2 - e2 * s2b[j][None], c2 + e2 * s2b[j][None])
+            cand = (sep, 0.5 * (q1 + q2), a)
+            if best is None:
+                best = cand
+            else:
+                take = cand[0] > best[0]
+                best = (torch.where(take, cand[0], best[0]),
+                        torch.where(take[None], cand[1], best[1]),
+                        torch.where(take[None], cand[2], best[2]))
+    sep, pos, n = best
+    big = torch.full_like(sep, _BIG)
+    dist = torch.where(sep >= face_sep, sep, big)
+    dist = torch.where(sep <= -_BIG / 2, big, dist)
+    return dist[None], pos[None], n[None]
+
+
+def _box_box(p1, R1, s1, p2, R2, s2):
+    """Vertex-face contacts both ways, 4 deepest each, then the edge-edge
+    slot: 9 slots (collision_vec._box_box)."""
+    outs = (_verts_in_box(p2, R2, s2, p1, R1, s1, 1.0),
+            _verts_in_box(p1, R1, s1, p2, R2, s2, -1.0),
+            _box_box_edge(p1, R1, s1, p2, R2, s2))
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+# ---------------------------------------------------------------------------
+# Convex hulls (mesh geoms): static-feature SAT over the hull tables. Per
+# pair: vertices hv (V, 3, k, Bm) in the hull's geom frame, face normals fn
+# (F, 3, k, Bm) and offsets fd (F, k, Bm), signed distance n.x + d (padding
+# faces have d = -1e10 and never win the max; padding vertices repeat a real
+# one). Bm is 1 for a static group and B where each lane gathered its hull.
+# ---------------------------------------------------------------------------
+
+
+def _point_hull_depth(x_l, fn, fd):
+    """Deepest-face signed distance of a point (hull frame) and that face's
+    local normal (collision_vec._point_hull_depth, first-index argmax)."""
+    dists = torch.sum(fn * x_l[None], dim=1) + fd           # (F, k, B)
+    iota = torch.arange(dists.shape[0], device=dists.device).view(-1, 1, 1)
+    onehot = (iota == torch.argmax(dists, dim=0)[None]).to(x_l.dtype)
+    return torch.sum(dists * onehot, dim=0), torch.sum(fn * onehot[:, None], dim=0)
+
+
+def _rot_many(R, v, transpose=False):
+    """R (3, 3, k, B) applied to many vectors v (V, 3, k, B) (or R^T)."""
+    rows = []
+    for i in range(3):
+        a, b, c = R[:, i] if transpose else R[i]
+        rows.append(a[None] * v[:, 0] + b[None] * v[:, 1] + c[None] * v[:, 2])
+    return torch.stack(rows, dim=1)
+
+
+def _hull_world_verts(p, R, hv):
+    """World-space hull vertices (V, 3, k, B)."""
+    c0, c1, c2 = hv[:, 0], hv[:, 1], hv[:, 2]               # (V, k, Bm)
+    return torch.stack([
+        p[i][None] + (R[i, 0][None] * c0 + R[i, 1][None] * c1 + R[i, 2][None] * c2)
+        for i in range(3)], dim=1)
+
+
+def _points_hull_depth_max(xl, fn, fd):
+    """Deepest-face signed distance of many points xl (V, 3, k, B), hull
+    frame -> (V, k, B). (The reference takes the max over face chunks of
+    16; the max is exact, so one pass gives the same values.)"""
+    dc = (xl[:, None, 0] * fn[None, :, 0] + xl[:, None, 1] * fn[None, :, 1]
+          + xl[:, None, 2] * fn[None, :, 2] + fd[None])     # (V, F, k, B)
+    return torch.amax(dc, dim=1)
+
+
+def _verts_world_vs_hull(w, ph, Rh, fn, fd, sign, m_out):
+    """The m_out deepest of world points w (V, 3, k, B) against a hull at
+    (ph, Rh): dist (m, k, B), pos and normal (m, 3, k, B), the normal sign *
+    the hull's outward one."""
+    xl = _rot_many(Rh, w - ph[None], transpose=True)
+    best = _points_hull_depth_max(xl, fn, fd)
+    d_m, (w_m, xl_m) = _take_smallest(best, [w, xl], m_out)
+    n = torch.stack([sign * _matvec(Rh, _point_hull_depth(xl_m[i], fn, fd)[1])
+                     for i in range(m_out)])
+    return d_m, w_m - 0.5 * d_m[:, None] * n, n
+
+
+def _make_plane_hull(hv):
+    def f(p1, R1, s1, p2, R2, s2):
+        n = R1[:, 2]
+        pn = _dot(p1, n)
+        w = _hull_world_verts(p2, R2, hv)                    # (V, 3, k, B)
+        d = torch.sum(w * n[None], dim=1) - pn[None]         # (V, k, B)
+        d4, (c4,) = _take_smallest(d, [w], 4)
+        pos = c4 - 0.5 * d4[:, None] * n[None]
+        return d4, pos, n[None].expand((4,) + n.shape)
+
+    return f
+
+
+def _corner_table(s):
+    """(8, 3, k, Bm) box corners in the box frame, from per-component
+    scalar signs."""
+    return torch.stack([torch.stack([float(sg[j]) * s[j] for j in range(3)])
+                        for sg in _CORNER_SIGNS])
+
+
+def _mpr_upgrade(dA, pA, nA, p1, R1, hv1, p2, R2, hv2):
+    """Slot 0 of dA/pA/nA replaced by MPR's answer where MPR confirms a
+    deeper penetration (edge-edge features the face-SAT probes miss)."""
+    from gymnasium_robotics_tpu_torch.physics import mpr
+
+    dep, n_m, pos_m, okm = mpr.penetration(p1, R1, hv1, p2, R2, hv2)
+    dm = -dep
+    use = okm & (dm < dA[0])
+    return (torch.cat([torch.where(use, dm, dA[0])[None], dA[1:]]),
+            torch.cat([torch.where(use[None], pos_m, pA[0])[None], pA[1:]]),
+            torch.cat([torch.where(use[None], n_m, nA[0])[None], nA[1:]]))
+
+
+def _make_box_hull(hull):
+    """Box (geom1) vs hull (geom2): box corners against the hull's faces
+    (4 deepest) and hull vertices inside the box (4 deepest, penetrating
+    only), with the MPR upgrade of the corner slot 0."""
+    (fn, fd), hv = hull
+
+    def f(p1, R1, s1, p2, R2, s2):
+        corners = _corner_table(s1)                          # (8, 3, k, Bm)
+        cw = torch.stack([
+            p1[i][None] + R1[i, 0][None] * corners[:, 0]
+            + R1[i, 1][None] * corners[:, 1] + R1[i, 2][None] * corners[:, 2]
+            for i in range(3)], dim=1)                       # (8, 3, k, B)
+        dA, pA, nA = _verts_world_vs_hull(cw, p2, R2, fn, fd, -1.0, 4)
+        w = _hull_world_verts(p2, R2, hv)
+        loc = _rot_many(R1, w - p1[None], transpose=True)
+        face_dist = s1[None].expand(loc.shape) - torch.abs(loc)  # (V, 3, k, B)
+        pen = torch.amin(face_dist, dim=1)
+        iota3 = torch.arange(3, device=loc.device).view(1, 3, 1, 1)
+        onehot = (iota3 == torch.argmin(face_dist, dim=1)[:, None]).to(loc.dtype)
+        sgn = torch.sign(torch.sum(loc * onehot, dim=1))
+        n_w = _rot_many(R1, onehot * sgn[:, None])           # box outward
+        dB0 = torch.where(pen > 0, -pen, torch.full_like(pen, _BIG))
+        dB, (pB, nB) = _take_smallest(dB0, [w, n_w], 4)
+        dA, pA, nA = _mpr_upgrade(dA, pA, nA, p1, R1, corners, p2, R2, hv)
+        return torch.cat([dA, dB]), torch.cat([pA, pB]), torch.cat([nA, nB])
+
+    return f
+
+
+def _make_hull_hull(hull1, hull2):
+    """Hull-hull: each hull's vertices against the other's faces, 2 deepest
+    each way, with the MPR upgrade of slot 0."""
+    (fn1, fd1), hv1 = hull1
+    (fn2, fd2), hv2 = hull2
+
+    def f(p1, R1, s1, p2, R2, s2):
+        w1 = _hull_world_verts(p1, R1, hv1)
+        dA, pA, nA = _verts_world_vs_hull(w1, p2, R2, fn2, fd2, -1.0, 2)
+        w2 = _hull_world_verts(p2, R2, hv2)
+        dB, pB, nB = _verts_world_vs_hull(w2, p1, R1, fn1, fd1, 1.0, 2)
+        dA, pA, nA = _mpr_upgrade(dA, pA, nA, p1, R1, hv1, p2, R2, hv2)
+        return torch.cat([dA, dB]), torch.cat([pA, pB]), torch.cat([nA, nB])
+
+    return f
+
+
 PRIMITIVES = {
     (T.PLANE, T.SPHERE): _plane_sphere,
     (T.PLANE, T.CAPSULE): _plane_capsule,
+    (T.PLANE, T.BOX): _plane_box,
     (T.SPHERE, T.BOX): _sphere_box,
     (T.CAPSULE, T.BOX): _capsule_box,
+    (T.BOX, T.BOX): _box_box,
 }
+# hull groups by their first geom's type; box and mesh run with MPR
+HULL_GROUPS = (T.PLANE, T.BOX, T.MESH)
 
 
-def _check_ported(t1, t2):
+def use_mpr(meta: T.Meta) -> bool:
+    """Option.mpr gate (collision_vec.use_mpr_xla): on unless set False."""
+    v = meta.opt.mpr
+    return v is True or v in ("force", "auto")
+
+
+def _check_ported(meta: T.Meta, t1, t2):
     if (t1, t2) in PRIMITIVES:
         return
+    name = f"{_TYPE_NAMES[t1]}-{_TYPE_NAMES[t2]}"
+    if t2 == T.MESH and t1 in HULL_GROUPS:
+        if t1 == T.PLANE or use_mpr(meta):
+            return
+        raise NotImplementedError(
+            f"{name} pairs with Option.mpr=False run face-SAT inside the "
+            "narrowphase kernel, which is not ported yet (ROADMAP B4)")
     if T.MESH in (t1, t2):
         raise NotImplementedError(
-            f"narrowphase for {_TYPE_NAMES[t1]}-{_TYPE_NAMES[t2]} pairs "
-            "(convex hulls, collision_vec.py:510-783, and MPR) comes with "
-            "the FetchPush slice"
-        )
+            f"narrowphase for {name} pairs (convex hulls) is not ported yet "
+            "(ROADMAP B4)")
     raise NotImplementedError(
-        f"narrowphase for {_TYPE_NAMES[t1]}-{_TYPE_NAMES[t2]} pairs is not "
-        "ported yet (the port has plane-sphere, plane-capsule, sphere-box "
-        "and capsule-box)"
-    )
+        f"narrowphase for {name} pairs is not ported yet (the port has "
+        "plane-sphere, plane-capsule, plane-box, sphere-box, capsule-box, "
+        "box-box and plane, box and mesh against convex hulls)")
 
 
 def contact_frame(n, t1=None):
@@ -344,16 +652,13 @@ def cat_rows(groups):
     return torch.cat(dist), torch.cat(pos), torch.cat(normal), tan
 
 
-def _local_aabb_half(meta: T.Meta, sizes3):
+def _local_aabb_half(meta: T.Meta, sizes3, hull_vert=None):
     """Per-geom local AABB half extents (ngeom, 3, Bm) for the pair-topk
     bound (collision_vec._local_aabbs :884-931): every primitive's extent
-    is linear in its size components. Local centres are all zero without
-    mesh geoms; plane rows are zeros (plane groups never prune)."""
+    is linear in its size components; a mesh geom takes its hull's vertex
+    bounds; plane rows are zeros (plane groups never prune)."""
     coef = np.zeros((meta.ngeom, 3, 3))
     for g, t in enumerate(meta.geom_type):
-        if t == T.MESH:
-            raise NotImplementedError(
-                "mesh AABBs from hull tables come with the FetchPush slice")
         if t == T.SPHERE:
             coef[g, :, 0] = 1.0
         elif t == T.CAPSULE:
@@ -365,7 +670,37 @@ def _local_aabb_half(meta: T.Meta, sizes3):
         elif t in (T.BOX, T.ELLIPSOID):
             coef[g] = np.eye(3)
     c = torch.as_tensor(coef, dtype=sizes3.dtype, device=sizes3.device)
-    return torch.einsum("gij,gjb->gib", c, sizes3)
+    half = torch.einsum("gij,gjb->gib", c, sizes3)
+    bounds = _hull_bounds(meta, hull_vert)
+    if bounds is None:
+        return half
+    mesh, _, half_h = bounds
+    return torch.where(mesh, half_h.expand(half.shape), half)
+
+
+def _hull_bounds(meta: T.Meta, hull_vert):
+    """(mesh mask (ngeom, 1, 1), centre, half extents (ngeom, 3, 1)) of
+    each geom's hull vertex bounds, or None without mesh geoms."""
+    is_mesh = [t == T.MESH for t in meta.geom_type]
+    if not any(is_mesh):
+        return None
+    if hull_vert is None:
+        raise ValueError("the model has mesh geoms but no hull tables")
+    lo, hi = torch.amin(hull_vert, dim=1), torch.amax(hull_vert, dim=1)
+    hid = torch.as_tensor([max(h, 0) for h in meta.geom_hullid],
+                          device=hull_vert.device)
+    mesh = torch.as_tensor(is_mesh, device=hull_vert.device)[:, None, None]
+    return mesh, ((lo + hi) * 0.5)[hid][..., None], ((hi - lo) * 0.5)[hid][..., None]
+
+
+def _local_aabb_ctr(meta: T.Meta, hull_vert):
+    """Per-geom local AABB centres (ngeom, 3, 1): the hull bounds' centre
+    for mesh geoms, zero elsewhere; None without mesh geoms."""
+    bounds = _hull_bounds(meta, hull_vert)
+    if bounds is None:
+        return None
+    mesh, ctr, _ = bounds
+    return torch.where(mesh, ctr, torch.zeros_like(ctr))
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +720,11 @@ class _NarrowPlan:
             tp = (meta.geom_type[g1], meta.geom_type[g2])
             groups.setdefault(tp, []).append((g1, g2))
         for tp in groups:
-            _check_ported(*tp)
+            _check_ported(meta, *tp)
+            if tp not in PRIMITIVES:
+                raise NotImplementedError(
+                    f"{_TYPE_NAMES[tp[0]]}-{_TYPE_NAMES[tp[1]]} pairs run only "
+                    "on the pair-topk table (Option.pair_topk > 0) so far")
         self.groups = []
         group_base, offset = {}, 0
         for tp, entries in groups.items():
@@ -416,6 +755,33 @@ def take_static(P, Rm, sizes3, i):
             sizes3[i].transpose(0, 1))
 
 
+def take_sel(P, Rm, sizes3, gid):
+    """Per-lane operands of geoms ``gid`` (K, B): p (3, K, B),
+    R (3, 3, K, B), s (3, K, B)."""
+    lane = torch.arange(gid.shape[1], device=gid.device)
+    p = P[gid, :, lane].permute(2, 0, 1)
+    R = Rm[gid, :, :, lane].permute(2, 3, 0, 1)
+    s = sizes3.expand(-1, -1, gid.shape[1])[gid, :, lane].permute(2, 0, 1)
+    return p, R, s
+
+
+def take_hull(m: T.Model, hid):
+    """Per-lane hull operands ((fn, fd), hv) of hull ids ``hid`` (K, B):
+    fn (F, 3, K, B), fd (F, K, B), hv (V, 3, K, B)."""
+    hv, hf = m.hull_vert[hid], m.hull_face[hid]
+    return ((hf[..., :3].permute(2, 3, 0, 1), hf[..., 3].permute(2, 0, 1)),
+            hv.permute(2, 3, 0, 1))
+
+
+def mesh_group_fn(t1, hull1, hull2):
+    """The formula of a box-hull or hull-hull group, the groups that run
+    outside the narrowphase kernel, on hull operands
+    (collision_vec._mesh_group_fn with MPR)."""
+    if t1 == T.BOX:
+        return _make_box_hull(hull2)
+    return _make_hull_hull(hull1, hull2)
+
+
 def _collision_static(m: T.Model, d: T.Data):
     B = d.qpos.shape[-1]
     plan = m.plan("narrow", _NarrowPlan)
@@ -434,15 +800,30 @@ def _collision_static(m: T.Model, d: T.Data):
 
 
 # ---------------------------------------------------------------------------
-# Pair-topk pruned table (the AntMaze path)
+# Pair-topk pruned table (the AntMaze and Fetch paths)
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _HullRun:
+    """Consecutive pruned groups of one hull formula that run outside the
+    narrowphase kernel (box-hull and hull-hull with MPR): their pair lists,
+    hull ids and rows of ``sel``, and the compact rows [row0, row0 + k * S)
+    they fill."""
+
+    tp: tuple
+    S: int
+    row0: int
+    k: int
+    members: list      # of (sel row, g1 (n,), g2 (n,), hull1 (n,), hull2 (n,), k)
 
 
 class _PrunedPlan:
     """Host tables of the pruned core: the merged broadphase of every pruned
     group (one rank chain over the concatenated pairs, padded to (G, maxk)
-    with a mask), each group's canonical slot ids, and the megakernel's
-    group table (narrowphase.GroupTable)."""
+    with a mask), each group's canonical slot ids, the narrowphase kernel's
+    group table (narrowphase.GroupTable) and the hull groups that run
+    outside it."""
 
     def __init__(self, m: T.Model):
         from gymnasium_robotics_tpu_torch.physics import narrowphase as NP
@@ -451,7 +832,7 @@ class _PrunedPlan:
         dev = m.device
         plan = prune_plan(meta)
         for g in plan.groups:
-            _check_ported(*g.tp)
+            _check_ported(meta, *g.tp)
         slot_base = _pair_slot_base(meta)
         pruned = [g for g in plan.groups if g.pruned]
         self.K = pruned[0].K
@@ -471,19 +852,45 @@ class _PrunedPlan:
         # group's last pair, so every gather stays in range
         self.sel_max = torch.as_tensor(
             [len(g.idx) - 1 for g in pruned], device=dev)[:, None, None]
-        self.half = _local_aabb_half(meta, m.geom_size)     # (ngeom, 3, Bm)
+        self.half = _local_aabb_half(meta, m.geom_size, m.hull_vert)
+        self.ctr = _local_aabb_ctr(meta, m.hull_vert)
         self.table = NP.GroupTable.build(meta, plan, dev)
-        self.src_static, self.src_sel = [], []
+        self.src_static, self.src_sel, self.runs = [], [], []
         gi = 0
         for g in plan.groups:
             ids = slot_base[np.asarray(g.idx)][:, None] + np.arange(g.S)[None]
             ids = torch.as_tensor(ids, device=dev)          # (k, S)
+            srow = gi if g.pruned else -1
             if g.pruned:
                 self.src_sel.append((g.base_c, g.n_slots_c, ids, gi))
                 gi += 1
             else:
                 self.src_static.append((g.base_c, g.n_slots_c, ids.reshape(-1)))
+            if g.tp not in NP.KINDS:
+                self._add_hull_group(meta, g, srow, dev)
         self.ncon = plan.ncon_c
+
+    def _add_hull_group(self, meta, g, srow, dev):
+        if srow < 0:
+            raise NotImplementedError(
+                f"{_TYPE_NAMES[g.tp[0]]}-{_TYPE_NAMES[g.tp[1]]} groups of at "
+                "most pair_topk pairs (not pruned) are not ported yet")
+
+        def ix(geoms):
+            return torch.as_tensor(geoms, device=dev)
+
+        g1 = [meta.pairs[j][0] for j in g.idx]
+        g2 = [meta.pairs[j][1] for j in g.idx]
+        hull1 = ix([meta.geom_hullid[x] for x in g1]) if g.tp[0] == T.MESH else None
+        member = (srow, ix(g1), ix(g2), hull1,
+                  ix([meta.geom_hullid[x] for x in g2]), g.K)
+        last = self.runs[-1] if self.runs else None
+        if (last is not None and last.tp == g.tp
+                and last.row0 + last.k * last.S == g.base_c):
+            last.members.append(member)
+            last.k += g.K
+        else:
+            self.runs.append(_HullRun(g.tp, g.S, g.base_c, g.K, [member]))
 
 
 def broadphase_rank(m: T.Model, d: T.Data, tp: _PrunedPlan):
@@ -492,6 +899,8 @@ def broadphase_rank(m: T.Model, d: T.Data, tp: _PrunedPlan):
     B = d.qpos.shape[-1]
     P, Rm = d.geom_xpos, d.geom_xmat
     hw = torch.einsum("gijb,gjb->gib", torch.abs(Rm), tp.half.expand(-1, -1, B))
+    if tp.ctr is not None:
+        P = P + torch.einsum("gijb,gjb->gib", Rm, tp.ctr.expand(-1, -1, B))
     i1, i2 = tp.i1c, tp.i2c
     gap = torch.amax(torch.abs(P[i1] - P[i2]) - hw[i1] - hw[i2], dim=1)
     gm = m.geom_margin
@@ -499,25 +908,65 @@ def broadphase_rank(m: T.Model, d: T.Data, tp: _PrunedPlan):
     return rank[tp.rows]
 
 
+def _run_hull_groups(m: T.Model, d: T.Data, run: _HullRun, sel, out):
+    """One run of hull groups as plain PyTorch (on the card, where the
+    reference runs these formulas as XLA ops): operands of every member
+    concatenated along the pair axis, one formula call, rows written into
+    the compact table ``out`` in place."""
+    P, Rm, sizes3 = d.geom_xpos, d.geom_xmat, m.geom_size
+    B = P.shape[-1]
+    ops = []
+    for srow, g1, g2, h1, h2, _ in run.members:
+        pick = sel[srow]                                      # (K, B)
+        ops.append(((*take_sel(P, Rm, sizes3, g1[pick]),
+                     *take_sel(P, Rm, sizes3, g2[pick])),
+                    (None if h1 is None else take_hull(m, h1[pick]),
+                     take_hull(m, h2[pick]))))
+    if len(ops) == 1:
+        o, (h1, h2) = ops[0]
+    else:   # every operand has its pair axis second to last
+        o = [torch.cat(x, dim=-2) for x in zip(*(op[0] for op in ops))]
+        h2 = ((torch.cat([op[1][1][0][0] for op in ops], dim=-2),
+               torch.cat([op[1][1][0][1] for op in ops], dim=-2)),
+              torch.cat([op[1][1][1] for op in ops], dim=-2))
+        h1 = None
+        if run.tp[0] == T.MESH:
+            h1 = ((torch.cat([op[1][0][0][0] for op in ops], dim=-2),
+                   torch.cat([op[1][0][0][1] for op in ops], dim=-2)),
+                  torch.cat([op[1][0][1] for op in ops], dim=-2))
+    fn = mesh_group_fn(run.tp[0], h1, h2)
+    dist, pos, normal, _ = rows_of(fn(*o), run.k, run.S, B)
+    r0, r1 = run.row0, run.row0 + run.k * run.S
+    out[0][r0:r1] = dist
+    out[1][r0:r1] = pos
+    out[2][r0:r1] = frame_rows(normal, None)
+
+
 def _collision_pruned(m: T.Model, d: T.Data):
     from gymnasium_robotics_tpu_torch.physics import narrowphase as NP
 
-    B = d.qpos.shape[-1]
+    P = d.geom_xpos
+    B = P.shape[-1]
     tp = m.plan("pruned", _PrunedPlan)
     sel = NP.topk_select(broadphase_rank(m, d, tp), tp.mask, tp.K)  # int32
-    # the narrowphase clamps the picks itself; for the slot-id gather below
-    # one op clamps them into each group and widens them to int64
-    dist, pos, frame = NP.narrowphase(tp.table, d.geom_xpos, d.geom_xmat,
-                                      m.geom_size, sel)
+    n = tp.ncon
+    out = (P.new_empty((n, B)), P.new_empty((n, 3, B)), P.new_empty((n, 3, 3, B)))
+    # the kernel writes its groups' rows and clamps the picks itself; the
+    # hull groups fill theirs below. For the gathers one op clamps the
+    # picks into each group and widens them to int64
+    NP.narrowphase(tp.table, P, d.geom_xmat, m.geom_size, sel, m.hull_vert,
+                   out=out)
     sel = torch.minimum(sel, tp.sel_max)                    # (G, K, B)
-    src = torch.empty((tp.ncon, B), dtype=torch.int64, device=sel.device)
-    for base, n, ids in tp.src_static:
-        src[base:base + n] = ids[:, None]
-    for base, n, ids, gi in tp.src_sel:
+    for run in tp.runs:
+        _run_hull_groups(m, d, run, sel, out)
+    src = torch.empty((n, B), dtype=torch.int64, device=sel.device)
+    for base, k, ids in tp.src_static:
+        src[base:base + k] = ids[:, None]
+    for base, k, ids, gi in tp.src_sel:
         # (K, B) pair picks -> (K, S, B) slot ids, pair-major rows
-        src[base:base + n] = ids[sel[gi]].transpose(1, 2).reshape(n, B)
+        src[base:base + k] = ids[sel[gi]].transpose(1, 2).reshape(k, B)
     g1s, g2s = slot_geoms(m)
-    return T.Contact(dist=dist, pos=pos, frame=frame, geom1=g1s[src],
+    return T.Contact(dist=out[0], pos=out[1], frame=out[2], geom1=g1s[src],
                      geom2=g2s[src], src=src)
 
 

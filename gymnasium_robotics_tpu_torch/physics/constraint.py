@@ -4,13 +4,15 @@ gymnasium_robotics_tpu/physics/soa.py: ``_impedance`` :1091, ``_kbi``
 :1276-1691, ``solve_constraints`` :1723-1755, ``_decode_contact_forces``
 :1811-1911, ``sensors`` :1938).
 
-This port has joint-limit rows (:1413-1461) and pyramidal contact rows of
-condim 1 and 3 (:1618-1667), static or traced: a pair-topk compact table
-(Contact.src) and the ``contact_cap`` selection (:1499-1560, through
-``narrowphase.topk_select``) pick slots per env, and the body ids,
-Jacobians and per-slot parameters are gathered per lane with plain gathers.
-Equality, tendon-limit and friction-loss rows, condim 4 and 6 and touch
-sensors raise ``NotImplementedError`` until their slice.
+This port has weld equality rows (:1324-1376), joint-limit rows
+(:1413-1436) and pyramidal contact rows of condim 1, 3 and 4
+(:1618-1667), static or traced: a pair-topk compact table (Contact.src)
+and the ``contact_cap`` selection (:1499-1560, one
+``narrowphase.topk_select`` call for every capped condim group) pick slots
+per env, and the body ids, Jacobians and per-slot parameters are gathered
+per lane with plain gathers. The other equality types, tendon-limit and
+friction-loss rows, condim 6 and touch sensors raise
+``NotImplementedError`` until their slice.
 """
 
 from __future__ import annotations
@@ -87,18 +89,22 @@ class _ContactGroup:
 
 
 class _RowPlan:
-    """Static row tables: the joint-limit rows, per condim group of contact
-    slots the slot ids (and for a static group its bodies' roots and dof
-    masks), the merged contact_cap selection and the per-row is_eq flags."""
+    """Static row tables: the weld rows' bodies, the joint-limit rows, per
+    condim group of contact slots the slot ids (and for a static group its
+    bodies' roots and dof masks), the merged contact_cap selection and the
+    per-row is_eq flags."""
 
     def __init__(self, m: T.Model):
         mt = m.meta
         dev, dtype = m.device, m.qpos0.dtype
-        if mt.neq and not mt.opt.disable_equality:
+        eq_on = mt.neq > 0     # soa.build_rows reads no disable_equality
+        other = sorted({t for t in mt.eq_type if t != T.EQ_WELD}) if eq_on else []
+        if other:
             raise NotImplementedError(
-                "equality rows (soa.build_rows :1297-1411) come with the "
-                "FetchPush slice"
-            )
+                "equality rows of type "
+                + ", ".join(T.EQ_NAMES[t] for t in other)
+                + " (soa.build_rows :1301-1323, :1377-1411) are not ported "
+                "yet; the port has weld rows")
         if any(mt.tendon_limited) and not mt.opt.disable_limit:
             raise NotImplementedError(
                 "tendon limit rows (soa.build_rows :1438-1461) come with the "
@@ -108,11 +114,23 @@ class _RowPlan:
         def ix(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
 
+        masks = _body_dof_masks(mt)
+        roots = np.array(mt.body_rootid)
+        self.masks = torch.as_tensor(masks, dtype=dtype, device=dev)
+        welds = [e for e in range(mt.neq) if eq_on and mt.eq_type[e] == T.EQ_WELD]
+        self.weld = None
+        n_rows = 6 * len(welds)
+        if welds:
+            b1 = np.array([mt.eq_obj1id[e] for e in welds])
+            b2 = np.array([mt.eq_obj2id[e] for e in welds])
+            self.weld = dict(
+                e=ix(welds), b1=ix(b1), b2=ix(b2), root1=ix(roots[b1]),
+                root2=ix(roots[b2]), mask1=self.masks[ix(b1)][:, :, None, None],
+                mask2=self.masks[ix(b2)][:, :, None, None])
         lim = [j for j in range(mt.njnt)
                if mt.jnt_limited[j] and not mt.opt.disable_limit
                and mt.jnt_type[j] in (T.HINGE, T.SLIDE)]
         self.lim = None
-        n_rows = 0
         if lim:
             self.lim = dict(
                 j=ix(lim), q=ix([mt.jnt_qposadr[j] for j in lim]),
@@ -124,11 +142,8 @@ class _RowPlan:
         gb = np.array(mt.geom_bodyid)
         g1s, g2s = COL.slot_geoms_static(mt)
         b1s, b2s = gb[g1s], gb[g2s]
-        roots = np.array(mt.body_rootid)
-        masks = _body_dof_masks(mt)
         self.b1s, self.b2s = ix(b1s), ix(b2s)      # per static slot
         self.roots = ix(roots)
-        self.masks = torch.as_tensor(masks, dtype=dtype, device=dev)
         pruned = COL.prune_active(mt)
         cond = COL.compact_condim(mt) if pruned else np.array(mt.con_condim)
         cap = mt.opt.contact_cap
@@ -137,10 +152,10 @@ class _RowPlan:
         cap_rows = []
         if len(cond) and not mt.opt.disable_contact and mt.pairs:
             for cd in sorted(set(cond.tolist())):
-                if cd not in (1, 3):
+                if cd not in (1, 3, 4):
                     raise NotImplementedError(
-                        f"condim {cd} contact rows (soa.build_rows :1626-1636)"
-                        " are not ported yet"
+                        f"condim {cd} contact rows (soa.build_rows :1630-1636)"
+                        " are not ported yet (the port has condim 1, 3, 4)"
                     )
                 idx = np.nonzero(cond == cd)[0]
                 capped = bool(cap) and len(idx) > cap
@@ -172,6 +187,7 @@ class _RowPlan:
                 np.stack([np.arange(maxg) < len(r) for r in cap_rows]),
                 device=dev)
         self.is_eq = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+        self.is_eq[:6 * len(welds)] = True
 
 
 def _lane_take(x, i):
@@ -208,23 +224,76 @@ def _param(table, sel):
     return table[:, :, 0][sel].movedim(-1, 1)
 
 
+def _weld_rows(m: T.Model, d: T.Data, w):
+    """The 6 rows of each weld (soa.build_rows :1324-1376): the anchor
+    points' offset and the quaternion error against the relative pose,
+    scaled by torquescale, with the error's Jacobian; the impedance reads
+    the norm of the whole 6-vector. -> (J, pos, solref, solimp, invweight,
+    active, pos for the impedance)."""
+    B = d.qpos.shape[-1]
+    nv = m.meta.nv
+    b1, b2, e = w["b1"], w["b2"], w["e"]
+    k = len(e)
+    eqd = m.eq_data[e]                                        # (k, 11, Bm)
+    anchor1, anchor2 = M.bB(eqd[:, 0:3], B), M.bB(eqd[:, 3:6], B)
+    relpose_q = M.bB(eqd[:, 6:10], B)
+    torquescale = eqd[:, 10]                                  # (k, Bm)
+    p1 = d.xpos[b1] + torch.einsum("kijb,kjb->kib", d.xmat[b1], anchor1)
+    p2 = d.xpos[b2] + torch.einsum("kijb,kjb->kib", d.xmat[b2], anchor2)
+    jp1, jr1 = _jacs_static(d, p1, w["root1"], w["mask1"])
+    jp2, jr2 = _jacs_static(d, p2, w["root2"], w["mask2"])
+    Jp = (jp1 - jp2).transpose(1, 2)                          # (k, 3, nv, B)
+    err_p = p1 - p2
+    q1 = d.xquat[b1]
+    q2t = M.quat_mul(d.xquat[b2], relpose_q)
+    q2c = M.quat_conj(q2t)
+    err_q = M.quat_mul(q2c, q1)[:, 1:4] * torquescale[:, None]
+    # A[:, :, j] = vec(conj(q2t) e_j q1): the quaternion error's Jacobian
+    cols = []
+    for j in range(3):
+        ej = torch.zeros_like(q1)
+        ej[:, 1 + j] = 1.0
+        cols.append(M.quat_mul(M.quat_mul(q2c, ej), q1)[:, 1:4])
+    A = torch.stack(cols, dim=2)                              # (k, 3, 3, B)
+    Jr = 0.5 * torquescale[:, None, None] * torch.einsum(
+        "kijb,kjvb->kivb", A, (jr1 - jr2).transpose(1, 2))
+    nrm = torch.sqrt(torch.sum(err_p * err_p, dim=1) + torch.sum(err_q * err_q, dim=1))
+    biw = m.body_invweight0
+    iw_t = biw[b1, 0] + biw[b2, 0]
+    iw_r = biw[b1, 1] + biw[b2, 1]
+    iw6 = torch.stack([iw_t] * 3 + [iw_r] * 3, dim=1).reshape(k * 6, -1)
+
+    def rep(x):
+        return torch.repeat_interleave(x, 6, dim=0)
+
+    return (torch.cat([Jp, Jr], dim=1).reshape(k * 6, nv, B),
+            torch.cat([err_p, err_q], dim=1).reshape(k * 6, B),
+            rep(m.eq_solref[e]), rep(m.eq_solimp[e]), iw6,
+            rep(d.eq_active[e]), rep(nrm))
+
+
 def build_rows(m: T.Model, d: T.Data):
     """(J (rows, nv, B), aref, D, R, active (rows, B), is_eq (rows,),
-    layout): the joint-limit rows, then the contact rows per condim group
-    (soa.build_rows). ``layout`` lists, per contact group, (condim, compact
-    slots, static slot ids, first row) for the force decode."""
+    layout): the weld rows, the joint-limit rows, then the contact rows per
+    condim group (soa.build_rows). ``layout`` lists, per contact group,
+    (condim, compact slots, static slot ids, first row) for the force
+    decode."""
     mt = m.meta
     B = d.qpos.shape[-1]
     rp = m.plan("rows", _RowPlan)
-    Js, poss, srs, sis, iws, acts, layout = [], [], [], [], [], [], []
+    Js, poss, pimps, srs, sis, iws, acts, layout = ([] for _ in range(8))
 
-    def add(J, pos, sr, si, iw, act):
+    def add(J, pos, sr, si, iw, act, p_imp=None):
         Js.append(J)
         poss.append(pos)
+        pimps.append(pos if p_imp is None else p_imp)
         srs.append(M.bB(sr, B))
         sis.append(M.bB(si, B))
         iws.append(M.bB(iw, B))
         acts.append(act)
+
+    if rp.weld is not None:
+        add(*_weld_rows(m, d, rp.weld))
 
     if rp.lim is not None:
         ji, n = rp.lim["j"], len(rp.lim["j"])
@@ -284,11 +353,13 @@ def build_rows(m: T.Model, d: T.Data):
                 add(Jn, pen, sr, si, iw, act)
                 base += k
                 continue
-            # pyramid edges Jn +- mu * J_tangent, rows [i+, i-] blocks of k
+            # pyramid edges Jn +- mu * J_axis, rows [i+, i-] blocks of k: the
+            # two tangents, and for condim 4 the torsion about the normal
             nfr = g.cd - 1
             mu = M.bB(_param(m.con_friction, sel), B)[:, :nfr].transpose(0, 1)
-            ax = torch.stack([torch.einsum("kvcb,kcb->kvb", Jp, frame_s[:, 1 + i])
-                              for i in range(nfr)])           # (nfr, k, nv, B)
+            axes = [(Jp, 1), (Jp, 2)] + ([(jr2 - jr1, 0)] if g.cd > 3 else [])
+            ax = torch.stack([torch.einsum("kvcb,kcb->kvb", Jx, frame_s[:, r])
+                              for Jx, r in axes])             # (nfr, k, nv, B)
             edge = mu[:, :, None] * ax
             Jpy = torch.stack([Jn[None] + edge, Jn[None] - edge], dim=1)
             iwp = 2.0 * mu * mu * (1.0 + mu * mu) * iw       # (nfr, k, B)
@@ -313,7 +384,9 @@ def build_rows(m: T.Model, d: T.Data):
     solref, solimp, invw = torch.cat(srs), torch.cat(sis), torch.cat(iws)
     active = torch.cat(acts)
 
-    imp, b_, k_ = _kbi(solref, solimp, pos, mt.opt.timestep)
+    # the impedance reads a weld's 6-vector norm, every other row its pos
+    pos_imp = pos if rp.weld is None else torch.cat(pimps)
+    imp, b_, k_ = _kbi(solref, solimp, pos_imp, mt.opt.timestep)
     vel = torch.einsum("evb,vb->eb", J, d.qvel)
     aref = -b_ * vel - k_ * imp * pos
     R = torch.clamp((1.0 - imp) / torch.clamp(imp, min=1e-8) * invw, min=1e-10)

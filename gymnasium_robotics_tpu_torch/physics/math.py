@@ -38,6 +38,10 @@ def quat_mul(u, v):
     )
 
 
+def quat_conj(q):
+    return torch.cat([q[..., :1, :], -q[..., 1:, :]], dim=-2)
+
+
 def quat_rot(q, v):
     qv = q[..., 1:, :]
     w = q[..., 0:1, :]

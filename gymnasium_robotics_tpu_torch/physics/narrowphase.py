@@ -5,10 +5,13 @@ Port of gymnasium_robotics_tpu/physics/narrowphase_pallas.py:
 ``topk_select`` replaces the TPU kernel ``topk_select`` :155-198 (K rounds
 of masked min + first-index argmin) and ``narrowphase`` replaces
 ``narrowphase_megakernel`` :201-287 (every group's contact formula in one
-dispatch, ``GroupSpec``/``_emit_group`` :64-152) for the primitive groups
-the port has (plane-sphere, plane-capsule, sphere-box, capsule-box). Where
-the TPU kernel took operand blocks gathered by XLA, this kernel reads the
-selected geom ids and gathers geom_xpos/geom_xmat/geom_size itself.
+dispatch, ``GroupSpec``/``_emit_group`` :64-152) for the groups the port
+has (plane-sphere, plane-capsule, plane-box, sphere-box, capsule-box,
+box-box and plane-hull). Where the TPU kernel took operand blocks gathered
+by XLA, this kernel reads the selected geom ids and gathers
+geom_xpos/geom_xmat/geom_size and the hull vertex table itself. The
+box-hull and hull-hull groups run with MPR outside the kernel, as they do
+outside the TPU kernel (collision._run_hull_groups).
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches its kernel or raises. ``LAUNCHES`` counts kernel launches.
@@ -30,10 +33,11 @@ from gymnasium_robotics_tpu_torch.physics import types as T
 LAUNCHES = {"topk": 0, "narrowphase": 0}
 # topk_select launches by shape (G, maxk, K), counted beside LAUNCHES["topk"]
 TOPK_SHAPES = collections.Counter()
-TOPK_MAX_K = 16          # largest K csrc/narrowphase.cu instantiates
+TOPK_MAX_K = 24          # largest K csrc/narrowphase.cu instantiates
 # group kinds, in the order csrc/narrowphase.cu numbers them
 KINDS = ((T.PLANE, T.SPHERE), (T.PLANE, T.CAPSULE), (T.SPHERE, T.BOX),
-         (T.CAPSULE, T.BOX))
+         (T.CAPSULE, T.BOX), (T.PLANE, T.BOX), (T.BOX, T.BOX),
+         (T.PLANE, T.MESH))
 
 
 # ---------------------------------------------------------------------------
@@ -102,117 +106,145 @@ class Group:
     g1: torch.Tensor   # (n,) geom ids of the group's pair list
     g2: torch.Tensor
     sel_group: int     # row block of ``sel`` for a pruned group, else -1
+    hull2: torch.Tensor = None   # (n,) hull ids of g2 for a hull group
 
 
 @dataclasses.dataclass
 class GroupTable:
-    """Static description of the compact table: the groups (for the plain
-    version) and, for the kernel, one int32 column per evaluated pair:
-    ``pairs`` (4, C) = kind, first output row, row of ``sel`` that picks the
-    pair (-1: a static pair) and offset of the group's pair list in
-    ``lists``; ``lens`` (C,) = that list's length; ``lists`` (2, L) = the
-    geom ids of every group's pair list, concatenated."""
+    """Static description of the kernel's groups in the compact table of
+    ``ncon`` rows (the rows of the groups that run outside the kernel are
+    left to their caller): the groups (for the plain version) and, for the
+    kernel, one int32 column per evaluated pair: ``pairs`` (4, C) = kind,
+    first output row, row of ``sel`` that picks the pair (-1: a static
+    pair) and offset of the group's pair list in ``lists``; ``lens`` (C,) =
+    that list's length; ``lists`` (2, L) = the geom ids of every group's
+    pair list, concatenated; ``geom_hull`` (ngeom,) = each geom's hull id
+    (-1 for a primitive); ``rows`` = the compact rows the kernel writes."""
 
     groups: list
     pairs: torch.Tensor
     lens: torch.Tensor
     lists: torch.Tensor
+    geom_hull: torch.Tensor
+    rows: torch.Tensor
     ncon: int
 
     @staticmethod
     def build(meta: T.Meta, plan, dev) -> "GroupTable":
-        groups, pairs, lens, l1, l2 = [], [], [], [], []
-        sel_group = 0
+        groups, pairs, lens, l1, l2, rows = [], [], [], [], [], []
+        hull_of = (list(meta.geom_hullid) if meta.geom_hullid
+                   else [-1] * meta.ngeom)
+        sel_group = -1
         for g in plan.groups:
+            sel_group += g.pruned
+            if g.tp not in KINDS:
+                continue
             kind = KINDS.index(g.tp)
+            srow = sel_group if g.pruned else -1
             g1 = [meta.pairs[j][0] for j in g.idx]
             g2 = [meta.pairs[j][1] for j in g.idx]
             base = len(l1)
             for p in range(g.K):
                 pairs.append((kind, g.base_c + p * g.S,
-                              sel_group * g.K + p if g.pruned else -1,
+                              srow * g.K + p if g.pruned else -1,
                               base if g.pruned else base + p))
                 lens.append(len(g1))
-            groups.append(Group(kind, g.S, g.K, g.base_c,
-                                torch.as_tensor(g1, device=dev),
-                                torch.as_tensor(g2, device=dev),
-                                sel_group if g.pruned else -1))
-            if g.pruned:
-                sel_group += 1
+            groups.append(Group(
+                kind, g.S, g.K, g.base_c, torch.as_tensor(g1, device=dev),
+                torch.as_tensor(g2, device=dev), srow,
+                torch.as_tensor([hull_of[x] for x in g2], device=dev)
+                if g.tp[1] == T.MESH else None))
+            rows += range(g.base_c, g.base_c + g.n_slots_c)
             l1 += g1
             l2 += g2
         i32 = dict(dtype=torch.int32, device=dev)
         return GroupTable(
             groups=groups,
-            pairs=torch.as_tensor(pairs, **i32).T.contiguous(),
+            pairs=torch.as_tensor(pairs, **i32).reshape(-1, 4).T.contiguous(),
             lens=torch.as_tensor(lens, **i32),
-            lists=torch.as_tensor([l1, l2], **i32),
+            lists=torch.as_tensor([l1, l2], **i32).reshape(2, -1),
+            geom_hull=torch.as_tensor(hull_of, **i32),
+            rows=torch.as_tensor(rows, dtype=torch.int64, device=dev),
             ncon=plan.ncon_c,
         )
 
 
-def _take_sel(P, Rm, sizes3, gid):
-    """Per-lane operands of geoms ``gid`` (K, B): p (3, K, B),
-    R (3, 3, K, B), s (3, K, B)."""
-    lane = torch.arange(gid.shape[1], device=gid.device)
-    p = P[gid, :, lane].permute(2, 0, 1)
-    R = Rm[gid, :, :, lane].permute(2, 3, 0, 1)
-    s = sizes3.expand(-1, -1, gid.shape[1])[gid, :, lane].permute(2, 0, 1)
-    return p, R, s
-
-
-def narrowphase_plain(table: GroupTable, P, Rm, sizes3, sel):
-    """The compact contact table: geom_xpos P (ngeom, 3, B), geom_xmat Rm
-    (ngeom, 3, 3, B), geom_size sizes3 (ngeom, 3, Bm), sel (G, K, B) picks of
-    the pruned groups -> dist (ncon, B), pos (ncon, 3, B), frame
-    (ncon, 3, 3, B), rows group-major and pair-major (row = pair*S + slot)
-    as collision_vec's pruned core emits them."""
+def _nan_table(n, P):
     B = P.shape[-1]
-    rows = []
+    return tuple(torch.full((n, *shape, B), float("nan"), dtype=P.dtype,
+                            device=P.device) for shape in ((), (3,), (3, 3)))
+
+
+def narrowphase_plain(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
+                      out=None):
+    """The kernel's rows of the compact contact table: geom_xpos P
+    (ngeom, 3, B), geom_xmat Rm (ngeom, 3, 3, B), geom_size sizes3
+    (ngeom, 3, Bm), sel (G, K, B) picks of the pruned groups, hull_vert
+    (nhull, V, 3) -> dist (ncon, B), pos (ncon, 3, B), frame
+    (ncon, 3, 3, B), rows group-major and pair-major (row = pair*S + slot)
+    as collision_vec's pruned core emits them. The rows are written into
+    ``out`` (dist, pos, frame) when given; a new table has NaN in the rows
+    of the groups that run outside the kernel."""
+    B = P.shape[-1]
+    out = _nan_table(table.ncon, P) if out is None else out
     for g in table.groups:
         if g.sel_group < 0:
             ops1 = COL.take_static(P, Rm, sizes3, g.g1)
             ops2 = COL.take_static(P, Rm, sizes3, g.g2)
         else:
             pick = torch.clamp(sel[g.sel_group].long(), 0, len(g.g1) - 1)
-            ops1 = _take_sel(P, Rm, sizes3, g.g1[pick])
-            ops2 = _take_sel(P, Rm, sizes3, g.g2[pick])
-        res = COL.PRIMITIVES[KINDS[g.kind]](*ops1, *ops2)
-        rows.append(COL.rows_of(res, g.k, g.S, B))
-    dist, pos, normal, tan = COL.cat_rows(rows)
-    return dist, pos, COL.frame_rows(normal, tan)
+            ops1 = COL.take_sel(P, Rm, sizes3, g.g1[pick])
+            ops2 = COL.take_sel(P, Rm, sizes3, g.g2[pick])
+        if g.hull2 is None:
+            fn = COL.PRIMITIVES[KINDS[g.kind]]
+        else:   # plane-hull: plane groups are never pruned
+            fn = COL._make_plane_hull(hull_vert[g.hull2].permute(1, 2, 0)[..., None])
+        dist, pos, normal, tan = COL.rows_of(fn(*ops1, *ops2), g.k, g.S, B)
+        r0, r1 = g.row_off, g.row_off + g.k * g.S
+        out[0][r0:r1] = dist
+        out[1][r0:r1] = pos
+        out[2][r0:r1] = COL.frame_rows(normal, tan)
+    return out
 
 
-def narrowphase(table: GroupTable, P, Rm, sizes3, sel):
-    """The compact contact table (see narrowphase_plain). CUDA tensors
-    launch narrowphase_kernel (float32); CPU tensors take the plain
-    version."""
+def narrowphase(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
+                out=None):
+    """The kernel's rows of the compact contact table (see
+    narrowphase_plain). CUDA tensors launch narrowphase_kernel (float32);
+    CPU tensors take the plain version."""
     ngeom, _, B = P.shape
     if tuple(Rm.shape) != (ngeom, 3, 3, B) or sizes3.shape[:2] != (ngeom, 3):
         raise ValueError("geom_xpos, geom_xmat and geom_size disagree on shape")
-    if not kernels.on_card((P, Rm, sizes3), (), ints=(sel,)):
-        return narrowphase_plain(table, P, Rm, sizes3, sel)
+    floats = (P, Rm, sizes3) + (() if hull_vert is None else (hull_vert,))
+    if not kernels.on_card(floats, (), ints=(sel,)):
+        return narrowphase_plain(table, P, Rm, sizes3, sel, hull_vert, out)
     if sizes3.shape[-1] not in (1, B):
         raise ValueError(f"geom_size has batch axis {sizes3.shape[-1]}, not 1 or {B}")
+    if hull_vert is None and any(g.hull2 is not None for g in table.groups):
+        raise ValueError("a hull group needs the hull vertex table")
+    n = table.ncon
+    out = _nan_table(n, P) if out is None else out
+    for t, shape in zip(out, ((n, B), (n, 3, B), (n, 3, 3, B))):
+        if tuple(t.shape) != shape or not t.is_contiguous() or t.dtype != P.dtype:
+            raise ValueError(f"out table of shape {tuple(t.shape)}, expected "
+                             f"a contiguous {shape}")
     P, Rm = P.contiguous(), Rm.contiguous()
     sel = sel.to(torch.int32).contiguous()
-    n = table.ncon
-    dev = P.device
-    dist = torch.empty((n, B), dtype=torch.float32, device=dev)
-    pos = torch.empty((n, 3, B), dtype=torch.float32, device=dev)
-    frame = torch.empty((n, 3, 3, B), dtype=torch.float32, device=dev)
+    hv = None if hull_vert is None else hull_vert.contiguous()
     ss = sizes3.stride()
     rc = _lib().grt_narrowphase_f32(
         P.data_ptr(), Rm.data_ptr(), sizes3.data_ptr(), ss[0], ss[1],
         ss[2] if sizes3.shape[-1] == B else 0,
         sel.data_ptr(), table.pairs.data_ptr(), table.lens.data_ptr(),
         table.lists.data_ptr(), table.lists.shape[1], table.pairs.shape[1],
-        dist.data_ptr(), pos.data_ptr(), frame.data_ptr(), B,
-        torch.cuda.current_stream(dev).cuda_stream,
+        table.geom_hull.data_ptr(), None if hv is None else hv.data_ptr(),
+        0 if hv is None else hv.shape[1],
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B,
+        torch.cuda.current_stream(P.device).cuda_stream,
     )
     kernels.raise_on(rc, "narrowphase_kernel")
     LAUNCHES["narrowphase"] += 1
-    return dist, pos, frame
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +260,7 @@ def _lib():
     lib.grt_topk_select_f32.argtypes = [_vp] * 3 + [_i] * 4 + [_vp]
     lib.grt_topk_select_f32.restype = _i
     lib.grt_narrowphase_f32.argtypes = (
-        [_vp] * 3 + [_ll] * 3 + [_vp] * 4 + [_i] * 2 + [_vp] * 3 + [_i, _vp])
+        [_vp] * 3 + [_ll] * 3 + [_vp] * 4 + [_i] * 2 + [_vp] * 2 + [_i]
+        + [_vp] * 3 + [_i, _vp])
     lib.grt_narrowphase_f32.restype = _i
     return lib

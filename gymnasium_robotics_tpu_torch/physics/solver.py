@@ -25,11 +25,11 @@ import torch
 from gymnasium_robotics_tpu_torch import kernels
 
 LAUNCHES = {"chol": 0, "newton": 0}
-KERNEL_NV = (2, 14)  # nv values csrc/solver.cu instantiates
+KERNEL_NV = (2, 14, 21)  # nv values csrc/solver.cu instantiates
 # largest row count the Newton kernel takes, per nv: newton_kernel<2, 64>
-# (one env per thread) and newton_warp_kernel<14, 3> (one env per warp,
-# three rows a lane)
-NEWTON_MAX_ROWS = {2: 64, 14: 96}
+# (one env per thread), newton_warp_kernel<14, 3> and <21, 8> (one env per
+# warp, three or eight rows a lane)
+NEWTON_MAX_ROWS = {2: 64, 14: 96, 21: 256}
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,6 +26,9 @@ GAIN_FIXED, GAIN_AFFINE, GAIN_MUSCLE = 0, 1, 2
 BIAS_NONE, BIAS_AFFINE, BIAS_MUSCLE = 0, 1, 2
 DYN_NONE, DYN_INTEGRATOR, DYN_FILTER, DYN_FILTEREXACT = 0, 1, 2, 3
 SENS_TOUCH = 0
+# Equality constraint types (mjtEq)
+EQ_CONNECT, EQ_WELD, EQ_JOINT, EQ_TENDON = 0, 1, 2, 3
+EQ_NAMES = ("connect", "weld", "joint", "tendon")
 
 
 @dataclasses.dataclass(frozen=True)

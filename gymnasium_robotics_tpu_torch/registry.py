@@ -1,9 +1,10 @@
 """Environment registry (port of gymnasium_robotics_tpu/registry.py ``make``
-and envs/__init__.py ``_register_point_maze`` and ``_register_ant_maze``
-:53-84).
+and envs/__init__.py ``_register_point_maze``, ``_register_ant_maze`` and
+``_register_fetch`` :53-109).
 
-The port registers the PointMaze and AntMaze IDs; any other ID raises
-``KeyError`` naming the slice of the port that brings its family.
+The port registers the PointMaze, AntMaze, FetchPush and FetchPickAndPlace
+IDs; any other ID raises ``KeyError`` naming the slice of the port that
+brings its family.
 """
 
 from __future__ import annotations
@@ -75,12 +76,32 @@ def _ant_maze_specs() -> Dict[str, EnvSpec]:
     return out
 
 
+def _fetch_specs() -> Dict[str, EnvSpec]:
+    """FetchPush and FetchPickAndPlace, v1 (the reference's mujoco_py twin
+    of v4) and v4, sparse and dense, 50 steps an episode."""
+    from gymnasium_robotics_tpu_torch.envs.fetch.fetch import (
+        FetchPickAndPlaceEnv, FetchPushEnv)
+
+    out = {}
+    for name, cls in (("FetchPush", FetchPushEnv),
+                      ("FetchPickAndPlace", FetchPickAndPlaceEnv)):
+        for ver in ("v1", "v4"):
+            for suffix, reward_type in _REWARDS:
+                id_ = f"{name}{suffix}-{ver}"
+                out[id_] = EnvSpec(id=id_, entry_point=cls,
+                                   kwargs={"reward_type": reward_type},
+                                   max_episode_steps=50)
+    return out
+
+
 def _specs() -> Dict[str, EnvSpec]:
-    return {**_point_maze_specs(), **_ant_maze_specs()}
+    return {**_point_maze_specs(), **_ant_maze_specs(), **_fetch_specs()}
 
 
 _SLICES = (
-    ("Fetch", "the FetchPush slice"),
+    ("FetchReach", "the FetchReach slice (the solver kernels at nv = 15)"),
+    ("FetchSlide", "the FetchSlide slice (the plane-cylinder, "
+                   "cylinder-hull and cylinder-box groups)"),
     ("HandManipulate", "the HandManipulateBlock slice"),
     ("HandReach", "the HandManipulateBlock slice"),
 )
@@ -94,8 +115,9 @@ def spec(id: str) -> EnvSpec:
             "a later slice (ROADMAP queue A)",
         )
         raise KeyError(
-            f"{id!r} is not in the port: it registers only the PointMaze "
-            f"and AntMaze IDs so far; this family comes with {brings}"
+            f"{id!r} is not in the port: it registers only the PointMaze, "
+            f"AntMaze, FetchPush and FetchPickAndPlace IDs so far; this "
+            f"family comes with {brings}"
         )
     return specs[id]
 

@@ -228,5 +228,5 @@ def test_mesh_group_names_its_slice(models):
     meta = dataclasses.replace(meta, con_condim=(3,) * tcol.ncon_static(meta))
     m2 = dataclasses.replace(tm, meta=meta)
     d = tsm.kinematics(m2, tpipe.make_data(m2, 2))
-    with pytest.raises(NotImplementedError, match="FetchPush slice"):
+    with pytest.raises(NotImplementedError, match="convex hulls"):
         tcol.collision(m2, d)

@@ -42,7 +42,8 @@ def test_building_the_env_imports_no_jax():
     code = (
         "import sys, torch\n"
         "from gymnasium_robotics_tpu_torch import registry\n"
-        "for id_, nu in (('PointMaze_UMaze-v3', 2), ('AntMaze_UMaze-v5', 8)):\n"
+        "for id_, nu in (('PointMaze_UMaze-v3', 2), ('AntMaze_UMaze-v5', 8),\n"
+        "                ('FetchPush-v4', 4)):\n"
         "    env = registry.make(id_, num_envs=4, device='cpu')\n"
         "    env.reset(seed=0)\n"
         "    env.step(torch.zeros(4, nu))\n"
@@ -68,8 +69,8 @@ def test_make_without_device_needs_a_card():
 def test_unported_id_names_its_slice():
     from gymnasium_robotics_tpu_torch import registry
 
-    with pytest.raises(KeyError, match="FetchPush slice"):
-        registry.make("FetchPush-v4", num_envs=4, device="cpu")
+    with pytest.raises(KeyError, match="FetchSlide slice"):
+        registry.make("FetchSlide-v4", num_envs=4, device="cpu")
     assert "PointMaze_UMaze-v3" in registry.ids()
     assert registry.spec("PointMaze_UMaze-v3").max_episode_steps == 300
     assert registry.spec("AntMaze_UMaze-v5").max_episode_steps == 700

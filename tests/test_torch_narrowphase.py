@@ -4,13 +4,16 @@ JAX functions they replace.
 
 - topk_select_plain vs the Pallas narrowphase_pallas.topk_select in
   interpret mode, at the AntMaze shapes (2, 216, B) -> K = 8 and
-  (1, 57, B) -> K = 16: indices equal exactly, on ranks with forced ties,
+  (1, 57, B) -> K = 16 and the FetchPush shapes (3, 85, B) -> 8 and
+  (2, 169, B) -> 24: indices equal exactly, on ranks with forced ties,
   masks, +-inf, lanes with fewer finite ranks than K, and NaN lanes.
 - each formula vs its collision_vec function in float64 (1e-12), with the
-  degenerate poses: a capsule standing on the plane (NaN tangent) and a
-  capsule parallel to a box face.
+  degenerate poses: a capsule standing on the plane (NaN tangent), a
+  capsule parallel to a box face, boxes with parallel edges.
 - narrowphase_plain vs the Pallas narrowphase_megakernel in interpret mode
-  on the same selected operands in float32 (2e-4, frames with equal_nan).
+  on the same selected operands in float32 (2e-4, frames with equal_nan),
+  for the AntMaze groups and FetchPush's plane-hull, plane-box and box-box
+  (distances on their own scale: a slot far from touching carries 1e10).
 - the pruned core on a NaN lane: the narrowphase clamps maxk picks itself,
   and the slot ids fall back to each group's last pair.
 
@@ -25,13 +28,15 @@ import torch
 
 from gymnasium_robotics_tpu_torch.envs.maze import maps, maze_core
 from gymnasium_robotics_tpu_torch.physics import collision as tcol
+from gymnasium_robotics_tpu_torch.physics import constraint as tcst
 from gymnasium_robotics_tpu_torch.physics import narrowphase as tnp
 from gymnasium_robotics_tpu_torch.physics import pipeline as tpipe
 from gymnasium_robotics_tpu_torch.physics import smooth as tsm
 
 TOL64 = 1e-12
 TOL32 = 2e-4
-SHAPES = [((2, 216), 8), ((1, 57), 16)]
+SHAPES = [((2, 216), 8), ((1, 57), 16), ((3, 85), 8), ((2, 169), 24)]
+BIG = 1e9
 
 
 def rel_err(x, ref):
@@ -313,6 +318,138 @@ def test_pruned_core_nan_lane_slot_ids():
     assert torch.equal(c.geom1, g1s[c.src])
 
 
+def test_box_box_matches():
+    """box-box (vertex-face both ways and the edge slot) with boxes pressed
+    together at random poses and axis-aligned ones, whose edge axes are
+    parallel or fall on a face axis."""
+    from gymnasium_robotics_tpu.physics import collision_vec as CV
+
+    rs = np.random.RandomState(5)
+    k, B = 3, 8
+    p1, R1, s1 = _operands(rs, k, B, [0.3, 0.2, 0.1])
+    p2, R2, s2 = _operands(rs, k, B, [0.025, 0.025, 0.025])
+    p2[:] = p1 + rs.normal(0, 0.15, p1.shape)
+    R1[:, :, 0] = R2[:, :, 0] = np.eye(3)[:, :, None]      # axis-aligned
+    p2[:, 0] = p1[:, 0] + np.array([0.05, -0.1, 0.12])[:, None]
+    ref, got = _both(CV._box_box, tcol._box_box, p1, R1, s1, p2, R2, s2)
+    assert ref[0].shape == (9, k, B)
+    assert (ref[0] < 0).any() and (ref[0] > BIG).any()
+    _assert_close(got, ref)
+
+
+def test_plane_box_and_hull_match():
+    from gymnasium_robotics_tpu.physics import collision_vec as CV
+
+    rs = np.random.RandomState(6)
+    k, B = 2, 6
+    p1, R1, s1 = _operands(rs, k, B, [1, 1, 1])
+    R1[:] = np.eye(3)[:, :, None, None]
+    p2, R2, s2 = _operands(rs, k, B, [0.03, 0.05, 0.02])
+    p2[2] = rs.uniform(-0.02, 0.06, (k, B))
+    ref, got = _both(CV._plane_box, tcol._plane_box, p1, R1, s1, p2, R2, s2)
+    _assert_close(got, ref)
+    hv = rs.normal(0, 0.05, (24, 3, k, 1))
+    hv[20:] = hv[:4]                                      # padding rows
+    ref, got = _both(lambda *x: CV._make_plane_hull(x[0])(*x[1:]),
+                     lambda *x: tcol._make_plane_hull(x[0])(*x[1:]),
+                     hv, p1, R1, s1, p2, R2, s2)
+    assert (ref[0] < 0).any()
+    _assert_close(got, ref)
+
+
+def fetch_inputs(B, dtype=torch.float32, device="cpu"):
+    """(model, Data after kinematics) of Fetch arms pressed into things,
+    five poses in turn: the object on the table 4 mm into the fingers'
+    front, the arm 0.1 into the table, the object between the fingers, the
+    wrist folded into the forearm, the robot on the floor."""
+    from gymnasium_robotics_tpu_torch.envs.fetch.fetch import FetchPushEnv
+
+    env = FetchPushEnv(dtype=dtype, device=device)
+    m, oq = env.model, env._obj_qadr
+    qpos = np.tile(env._init_qpos.cpu().numpy(), (B, 1))
+    for i in range(B):
+        pose = i % 5
+        if pose == 0:
+            qpos[i, oq:oq + 3] = [1.4215, 0.7486, 0.4244]
+        elif pose == 1:
+            qpos[i, 2] -= 0.1
+        elif pose == 2:
+            qpos[i, oq:oq + 3] = [1.362, 0.7486, 0.47]
+        elif pose == 3:
+            qpos[i, 6:13] += [0.235, 0.835, -0.117, 0.7, 0.029, 0.204, 0.426]
+        else:
+            qpos[i, 1:3] += [0.45, -0.422]
+            qpos[i, oq:oq + 3] = [0.9, 1.3, 0.02]
+    d = tpipe.make_data(m, B)
+    d.qpos[:] = torch.as_tensor(qpos.T, dtype=dtype, device=device)
+    return m, tsm.kinematics(m, d)
+
+
+def assert_table_close(got, ref, rows, tol):
+    """The kernel rows of two contact tables: distances on their own scale
+    (a slot far from touching must be so in both), positions and frames on
+    their largest entry, NaN-equal."""
+    for name, g, r in zip(("dist", "pos", "frame"), got, ref):
+        g, r = np.asarray(g)[rows], np.asarray(r)[rows]
+        if name == "dist":
+            far = r >= BIG
+            np.testing.assert_array_equal(g >= BIG, far)
+            g, r = g[~far], r[~far]
+        np.testing.assert_allclose(g, r, rtol=0, atol=tol * max(
+            1.0, np.nanmax(np.abs(r))), equal_nan=True, err_msg=name)
+
+
+def test_narrowphase_plain_matches_megakernel_fetch():
+    """FetchPush's kernel groups (plane-hull, plane-box twice, box-box
+    twice) against the Pallas megakernel in interpret mode, the groups'
+    rows laid end to end."""
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import narrowphase_pallas as NPK
+
+    B = 5
+    m, d = fetch_inputs(B)
+    tp = m.plan("pruned", tcol._PrunedPlan)
+    table = tp.table
+    P, Rm, sizes = (x.numpy() for x in (d.geom_xpos, d.geom_xmat, m.geom_size))
+    hull_vert, hull_face = m.hull_vert.numpy(), m.hull_face.numpy()
+    specs, arrays, row = [], [], 0
+    for g in table.groups:
+        t1, t2 = tnp.KINDS[g.kind]
+        ops = []
+        for gl in (g.g1.numpy(), g.g2.numpy()):
+            ops += [P[gl].transpose(1, 0, 2), np.moveaxis(Rm[gl], 0, 2),
+                    sizes[gl].transpose(1, 0, 2)]
+        if g.hull2 is not None:
+            h = g.hull2.numpy()
+            ops += [hull_face[h][..., :3].transpose(1, 2, 0)[..., None],
+                    hull_face[h][..., 3].T[..., None],
+                    hull_vert[h].transpose(1, 2, 0)[..., None]]
+        specs.append(NPK.GroupSpec(t1=t1, t2=t2, S=g.S, k=g.k, row_off=row,
+                                   n_arrays=len(ops), use_mpr=False))
+        arrays += [jnp.asarray(a) for a in ops]
+        row += g.k * g.S
+    ref = NPK.narrowphase_megakernel(tuple(specs), arrays, row, B, jnp.float32,
+                                     interpret=True)
+    sel = torch.zeros((3, tp.K, B), dtype=torch.int32)
+    got = tnp.narrowphase_plain(table, d.geom_xpos, d.geom_xmat, m.geom_size,
+                                sel, m.hull_vert)
+    rows = table.rows.numpy()
+    assert len(rows) == row == 117
+    assert_table_close([g.numpy() for g in got],
+                       [_spread(np.asarray(o), rows, tp.ncon) for o in ref],
+                       rows, TOL32)
+    for g in table.groups:                             # every kind touches
+        assert (got[0][g.row_off:g.row_off + g.k * g.S] < 0).any(), g.kind
+
+
+def _spread(x, rows, n):
+    """Rows laid end to end -> a table of n rows with them at ``rows``."""
+    out = np.full((n,) + x.shape[1:], np.nan, x.dtype)
+    out[rows] = x
+    return out
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -346,3 +483,31 @@ def test_kernels_match_plain_on_card(cuda_device):
         np.testing.assert_allclose(g.cpu().numpy(), r, rtol=0, atol=TOL32 * max(
             1.0, np.nanmax(np.abs(r))), equal_nan=True)
     assert bool((got[0][33:] < 0).any())           # capsule-box rows touch
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card_fetch(cuda_device):
+    """FetchPush's kernel groups at B = 2048 on arms pressed into things:
+    every kernel row of the table (distances on their own scale, frames
+    NaN-equal), and topk_select at K = 24 on the contact-cap ranks."""
+    B = 2048
+    m, d = fetch_inputs(B, device=cuda_device)
+    tp = m.plan("pruned", tcol._PrunedPlan)
+    sel = torch.minimum(tnp.topk_select(tcol.broadphase_rank(m, d, tp),
+                                        tp.mask, tp.K), tp.sel_max)
+    args = (tp.table, d.geom_xpos, d.geom_xmat, m.geom_size, sel, m.hull_vert)
+    n0 = tnp.LAUNCHES["narrowphase"]
+    got = tnp.narrowphase(*args)
+    torch.cuda.synchronize()
+    assert tnp.LAUNCHES["narrowphase"] == n0 + 1
+    ref = tnp.narrowphase_plain(*args)
+    rows = tp.table.rows.cpu().numpy()
+    assert_table_close([g.cpu().numpy() for g in got],
+                       [r.cpu().numpy() for r in ref], rows, TOL32)
+    for g in tp.table.groups:
+        assert bool((ref[0][g.row_off:g.row_off + g.k * g.S] < 0).any()), g.kind
+    c = tcol.collision(m, d).contact
+    rp = m.plan("rows", tcst._RowPlan)
+    pen = (c.dist - m.con_includemargin[:, 0][c.src])[rp.cap_rows]
+    assert torch.equal(tnp.topk_select(pen, rp.cap_mask, 24),
+                       tnp.topk_select_plain(pen, rp.cap_mask, 24))

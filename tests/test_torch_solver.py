@@ -165,6 +165,42 @@ def test_solve_newton_plain_matches_pallas_antmaze():
     _check_newton(args, n_iter=5, n_ls=4)
 
 
+def test_solve_pos_plain_matches_pallas_nv21():
+    """The FetchPush system size, with the floored lanes of _spd."""
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import solver_pallas as SP
+
+    nv, B = 21, 5
+    rs = np.random.RandomState(21)
+    M = _spd(rs, nv, B)
+    b = rs.normal(size=(nv, B))
+    ref = np.asarray(SP.solve_pos_soa(jnp.asarray(M), jnp.asarray(b),
+                                      interpret=True))
+    out = solver.solve_pos_plain(torch.tensor(M), torch.tensor(b)).numpy()
+    assert rel_err(out, ref) <= TOL64
+
+
+def _fetch_rows(rs, B):
+    """Random rows at the FetchPush shapes (nv = 21, ne = 255: 6 weld rows,
+    equality, then 9 limit rows and 24 capped contacts x 4 and x 6 pyramid
+    edges), per-model is_eq."""
+    nv, ne = 21, 255
+    M = _spd(rs, nv, B)[:, :, [3] * 3 + list(range(3, B))]  # no floor lanes
+    is_eq = np.zeros(ne, bool)
+    is_eq[:6] = True
+    return [
+        M, rs.normal(size=(nv, B)), rs.normal(size=(nv, B)),
+        rs.normal(size=(ne, nv, B)), rs.normal(size=(ne, B)),
+        np.exp(rs.normal(size=(ne, B))), rs.uniform(size=(ne, B)) < 0.6, is_eq,
+    ]
+
+
+def test_solve_newton_plain_matches_pallas_fetch():
+    args = _fetch_rows(np.random.RandomState(255), 4)
+    _check_newton(args, n_iter=4, n_ls=4)
+
+
 def test_wrappers_route_and_check():
     M = torch.eye(2)[:, :, None]
     b = torch.zeros(2, 1)
@@ -269,3 +305,56 @@ def test_kernels_match_plain_on_card_nv14(cuda_device):
         qp, fp = solver.solve_newton_plain(*args, n_iter=5, n_ls=4)
         assert rel_err(qk.cpu(), qp.cpu()) <= TOL32
         assert rel_err(fk.cpu(), fp.cpu()) <= TOL32
+
+
+def newton_errs(args, n_iter, n_ls):
+    """(qacc, f) errors of the Newton kernel against its plain version: f
+    on its largest entry; qacc = a_smooth + M^-1 J^T f, the small
+    difference of large constraint terms, on the largest term a dof
+    receives, max(1, |qacc|, sum_e |J_ev f_e| / M_vv) (float32 leaves it an
+    error of eps times those terms)."""
+    qk, fk = solver.solve_newton(*args, n_iter=n_iter, n_ls=n_ls)
+    torch.cuda.synchronize()
+    qp, fp = solver.solve_newton_plain(*args, n_iter=n_iter, n_ls=n_ls)
+    M, J = args[0], args[3]
+    terms = torch.einsum("evb,eb->vb", J.abs(), fp.abs()) / torch.diagonal(
+        M, dim1=0, dim2=1).T
+    scale = max(1.0, float(qp.abs().max()), float(terms.max()))
+    dq = float((qk.double() - qp.double()).abs().max())
+    return dq / scale, rel_err(fk.cpu(), fp.cpu())
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card_nv21(cuda_device):
+    """nv = 21: chol_warp_kernel<21> on random SPD systems, and
+    newton_warp_kernel<21, 8> on random rows and on a FetchPush batch's own
+    rows (B = 2048)."""
+    B = 2048
+    rs = np.random.RandomState(2)
+
+    def cuda(x):
+        x = np.asarray(x)
+        return torch.tensor(x, dtype=torch.bool if x.dtype == bool
+                            else torch.float32, device=cuda_device)
+
+    M, b = cuda(_spd(rs, 21, B)), cuda(rs.normal(size=(21, B)))
+    n0 = dict(solver.LAUNCHES)
+    x = solver.solve_pos(M, b)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES["chol"] == n0["chol"] + 1
+    ok = slice(3, None)
+    assert rel_err(x[:, ok].cpu(), solver.solve_pos_plain(M, b)[:, ok].cpu()) <= TOL32
+
+    env = registry.make("FetchPush-v4", num_envs=B, device=cuda_device)
+    env.reset(seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(3):
+        env.step(torch.rand((B, 4), generator=gen, device=cuda_device) * 2 - 1)
+    m, d = env.env.model, env.state.data
+    J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+    assert J.shape[:2] == (255, 21)
+    real = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+    rand = [cuda(a) for a in _fetch_rows(rs, B)]
+    for args in (rand, real):
+        for err in newton_errs(args, 4, 4):
+            assert err <= TOL32
