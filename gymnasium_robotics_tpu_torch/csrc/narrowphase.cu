@@ -150,11 +150,43 @@ struct Mat {  // rows x cols
             m[2][0] * v.x + m[2][1] * v.y + m[2][2] * v.z};
   }
   __device__ V mulT(V v) const { return {dot(col(0), v), dot(col(1), v), dot(col(2), v)}; }
+  __device__ V mul_rn(V v) const;
+  __device__ V mulT_rn(V v) const;
 };
+
+// The _rn forms round every product on its own (__fmul_rn is never fused
+// into a multiply-add), as the plain version's separate PyTorch operators
+// do. The box and hull formulas order candidates that tie in exact
+// arithmetic (the corners of a box resting flat, an edge axis along a face
+// axis), and a fused multiply-add would order them otherwise; the sphere
+// and capsule formulas keep it.
+__device__ __forceinline__ V scale_rn(V a, float s) {
+  return {__fmul_rn(a.x, s), __fmul_rn(a.y, s), __fmul_rn(a.z, s)};
+}
+__device__ __forceinline__ float dot_rn(V a, V b) {
+  return __fmul_rn(a.x, b.x) + __fmul_rn(a.y, b.y) + __fmul_rn(a.z, b.z);
+}
+__device__ __forceinline__ V cross_rn(V a, V b) {
+  return {__fmul_rn(a.y, b.z) - __fmul_rn(a.z, b.y),
+          __fmul_rn(a.z, b.x) - __fmul_rn(a.x, b.z),
+          __fmul_rn(a.x, b.y) - __fmul_rn(a.y, b.x)};
+}
+__device__ V Mat::mul_rn(V v) const {
+  return {dot_rn({m[0][0], m[0][1], m[0][2]}, v), dot_rn({m[1][0], m[1][1], m[1][2]}, v),
+          dot_rn({m[2][0], m[2][1], m[2][2]}, v)};
+}
+__device__ V Mat::mulT_rn(V v) const {
+  return {dot_rn(col(0), v), dot_rn(col(1), v), dot_rn(col(2), v)};
+}
 
 // a / max(|a|, eps) and |a| (collision_vec._normalize)
 __device__ __forceinline__ V normalize(V a, float* n) {
   *n = sqrtf(jmax(dot(a, a), 0.f));
+  const float d = jmax(*n, 1e-12f);
+  return {a.x / d, a.y / d, a.z / d};
+}
+__device__ __forceinline__ V normalize_rn(V a, float* n) {
+  *n = sqrtf(jmax(dot_rn(a, a), 0.f));
   const float d = jmax(*n, 1e-12f);
   return {a.x / d, a.y / d, a.z / d};
 }
@@ -246,11 +278,6 @@ __device__ void frame_of(V n, V t1, V (&F)[3]) {
   F[2] = {n.y * t.z - n.z * t.y, n.z * t.x - n.x * t.z, n.x * t.y - n.y * t.x};
 }
 
-
-__device__ __forceinline__ V cross(V a, V b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-
 // One slot of the compact table: dist (ncon, B), pos (ncon, 3, B) and the
 // frame (ncon, 3, 3, B) of row r, env b.
 struct Out {
@@ -319,10 +346,10 @@ __device__ __forceinline__ V corner_off(int c, V s) {
 __device__ void plane_box(V p1, const Mat& R1, V p2, const Mat& R2, V s2,
                           const Out& o, int row) {
   const V n = R1.col(2);
-  const float pn = dot(p1, n);
+  const float pn = dot_rn(p1, n);
   float d[8];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) d[c] = dot(p2 + R2.mul(corner_off(c, s2)), n) - pn;
+  for (int c = 0; c < 8; ++c) d[c] = dot_rn(p2 + R2.mul_rn(corner_off(c, s2)), n) - pn;
   int pick[4];
   float val[4];
   take_smallest<8, 4>(d, pick, val);
@@ -341,14 +368,14 @@ __device__ void plane_hull(V p1, const Mat& R1, V p2, const Mat& R2,
                            const float* __restrict__ hv, int nv, const Out& o,
                            int row) {
   const V n = R1.col(2);
-  const float pn = dot(p1, n);
+  const float pn = dot_rn(p1, n);
   float d[kHullV];
 #pragma unroll
   for (int v = 0; v < kHullV; ++v) {
     d[v] = INFINITY;
     if (v < nv) {
       const V l = {hv[3 * v], hv[3 * v + 1], hv[3 * v + 2]};
-      d[v] = dot(p2 + R2.mul(l), n) - pn;
+      d[v] = dot_rn(p2 + R2.mul_rn(l), n) - pn;
     }
   }
   int pick[4];
@@ -366,7 +393,7 @@ __device__ void plane_hull(V p1, const Mat& R1, V p2, const Mat& R2,
 // inside), and the normal of the nearest face (first index, NaN first).
 __device__ __forceinline__ float corner_in_box(V w, V pb, const Mat& Rb, V sb,
                                                V* n_world) {
-  const V l = Rb.mulT(w - pb);
+  const V l = Rb.mulT_rn(w - pb);
   const float fd[3] = {sb.x - fabsf(l.x), sb.y - fabsf(l.y), sb.z - fabsf(l.z)};
   int k = 0;
 #pragma unroll
@@ -385,7 +412,7 @@ __device__ void verts_in_box(V pa, const Mat& Ra, V sa, V pb, const Mat& Rb,
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     V nw;
-    const float pen = corner_in_box(pa + Ra.mul(corner_off(c, sa)), pb, Rb, sb, &nw);
+    const float pen = corner_in_box(pa + Ra.mul_rn(corner_off(c, sa)), pb, Rb, sb, &nw);
     d[c] = pen > 0.f ? -pen : kBig;
   }
   int pick[4];
@@ -393,7 +420,7 @@ __device__ void verts_in_box(V pa, const Mat& Ra, V sa, V pb, const Mat& Rb,
   take_smallest<8, 4>(d, pick, val);
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    const V w = pa + Ra.mul(corner_off(pick[s], sa));
+    const V w = pa + Ra.mul_rn(corner_off(pick[s], sa));
     V nw;
     corner_in_box(w, pb, Rb, sb, &nw);
     const V n = nw * sign;
@@ -407,26 +434,30 @@ __device__ __forceinline__ float clip01(float x) { return jmin(jmax(x, 0.f), 1.f
 // collision_vec._seg_seg_closest
 __device__ void seg_seg_closest(V a1, V b1, V a2, V b2, V* q1, V* q2) {
   const V d1 = b1 - a1, d2 = b2 - a2, r = a1 - a2;
-  const float A = dot(d1, d1), e = dot(d2, d2), f = dot(d2, r);
-  const float c = dot(d1, r), b = dot(d1, d2);
-  const float denom = A * e - b * b;
-  float s = fabsf(denom) > 1e-12f ? (b * f - c * e) / (denom == 0.f ? 1.f : denom) : 0.f;
+  const float A = dot_rn(d1, d1), e = dot_rn(d2, d2), f = dot_rn(d2, r);
+  const float c = dot_rn(d1, r), b = dot_rn(d1, d2);
+  const float denom = __fmul_rn(A, e) - __fmul_rn(b, b);
+  float s = fabsf(denom) > 1e-12f
+                ? (__fmul_rn(b, f) - __fmul_rn(c, e)) / (denom == 0.f ? 1.f : denom)
+                : 0.f;
   s = clip01(s);
-  float t = e > 1e-12f ? (b * s + f) / jmax(e, 1e-12f) : 0.f;
+  float t = e > 1e-12f ? (__fmul_rn(b, s) + f) / jmax(e, 1e-12f) : 0.f;
   t = clip01(t);
-  s = clip01(A > 1e-12f ? (b * t - c) / jmax(A, 1e-12f) : 0.f);
-  *q1 = a1 + d1 * s;
-  *q2 = a2 + d2 * t;
+  s = clip01(A > 1e-12f ? (__fmul_rn(b, t) - c) / jmax(A, 1e-12f) : 0.f);
+  *q1 = a1 + scale_rn(d1, s);
+  *q2 = a2 + scale_rn(d2, t);
 }
 
 __device__ __forceinline__ float support(const Mat& R, V s, V a) {
-  return fabsf(dot(a, R.col(0))) * s.x + fabsf(dot(a, R.col(1))) * s.y +
-         fabsf(dot(a, R.col(2))) * s.z;
+  return __fmul_rn(fabsf(dot_rn(a, R.col(0))), s.x) +
+         __fmul_rn(fabsf(dot_rn(a, R.col(1))), s.y) +
+         __fmul_rn(fabsf(dot_rn(a, R.col(2))), s.z);
 }
 
 // The edge-edge slot of box-box (collision_vec._box_box_edge): SAT over the
 // 9 edge cross axes, kept only where an edge axis separates no less than
-// every face axis.
+// every face axis. All in the _rn forms: an edge axis along a face axis
+// ties with it in exact arithmetic.
 __device__ void box_box_edge(V p1, const Mat& R1, V s1, V p2, const Mat& R2,
                              V s2, const Out& o, int row) {
   const V d12 = p2 - p1;
@@ -434,7 +465,7 @@ __device__ void box_box_edge(V p1, const Mat& R1, V s1, V p2, const Mat& R2,
 #pragma unroll
   for (int f = 0; f < 6; ++f) {
     const V a = f < 3 ? R1.col(f) : R2.col(f - 3);
-    const float sep = fabsf(dot(a, d12)) - (support(R1, s1, a) + support(R2, s2, a));
+    const float sep = fabsf(dot_rn(a, d12)) - (support(R1, s1, a) + support(R2, s2, a));
     face_sep = f == 0 ? sep : jmax(face_sep, sep);
   }
   float best_sep = 0.f;
@@ -445,23 +476,23 @@ __device__ void box_box_edge(V p1, const Mat& R1, V s1, V p2, const Mat& R2,
     for (int j = 0; j < 3; ++j) {
       const V e1 = R1.col(i), e2 = R2.col(j);
       float alen;
-      V a = normalize(cross(e1, e2), &alen);
-      a = a * (dot(a, d12) >= 0.f ? 1.f : -1.f);  // from box1 into box2
-      float sep = dot(a, d12) - (support(R1, s1, a) + support(R2, s2, a));
+      V a = normalize_rn(cross_rn(e1, e2), &alen);
+      a = a * (dot_rn(a, d12) >= 0.f ? 1.f : -1.f);  // from box1 into box2
+      float sep = dot_rn(a, d12) - (support(R1, s1, a) + support(R2, s2, a));
       sep = alen > 1e-6f ? sep : -kBig;
       // supporting edge centres (zero-sign components stay centred)
       V c1 = p1, c2 = p2;
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        if (k != i) c1 = c1 + R1.col(k) * (jsign(dot(a, R1.col(k))) * comp(s1, k));
+        if (k != i) c1 = c1 + scale_rn(R1.col(k), jsign(dot_rn(a, R1.col(k))) * comp(s1, k));
       }
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        if (k != j) c2 = c2 - R2.col(k) * (jsign(dot(a, R2.col(k))) * comp(s2, k));
+        if (k != j) c2 = c2 - scale_rn(R2.col(k), jsign(dot_rn(a, R2.col(k))) * comp(s2, k));
       }
-      const float h1 = comp(s1, i), h2 = comp(s2, j);
+      const V o1 = scale_rn(e1, comp(s1, i)), o2 = scale_rn(e2, comp(s2, j));
       V q1, q2;
-      seg_seg_closest(c1 - e1 * h1, c1 + e1 * h1, c2 - e2 * h2, c2 + e2 * h2, &q1, &q2);
+      seg_seg_closest(c1 - o1, c1 + o1, c2 - o2, c2 + o2, &q1, &q2);
       if ((i == 0 && j == 0) || sep > best_sep) {
         best_sep = sep;
         best_pos = (q1 + q2) * 0.5f;

@@ -26,11 +26,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Per source: the narrowphase rounds every product and sum on its own (no
-# fused multiply-add), as its plain PyTorch version does, so that candidates
-# that tie in exact arithmetic (a box's edge axis along a face axis) are
-# ordered alike by both.
-EXTRA_FLAGS = {"narrowphase": ("-fmad=false",)}
 
 _LIBS: dict = {}
 
@@ -52,13 +47,8 @@ def _nvcc() -> str:
     return path
 
 
-def flags(name: str) -> tuple:
-    """The nvcc flags of ``csrc/<name>.cu``."""
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-
-
 def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(flags(name)).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in [os.path.join(CSRC, name + ".cu")] + sorted(
         glob.glob(os.path.join(CSRC, "*.cuh"))
     ):
@@ -80,7 +70,7 @@ def build(names=None) -> dict:
             report[name] = (0.0, "cached")
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *flags(name), "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out, time.perf_counter())

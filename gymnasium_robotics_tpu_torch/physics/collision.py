@@ -908,6 +908,16 @@ def broadphase_rank(m: T.Model, d: T.Data, tp: _PrunedPlan):
     return rank[tp.rows]
 
 
+def _cat_pairs(trees):
+    """Operand trees (nested tuples of tensors, or None) of several groups
+    concatenated leaf by leaf along the pair axis, second to last."""
+    if trees[0] is None:
+        return None
+    if isinstance(trees[0], tuple):
+        return tuple(_cat_pairs(leaves) for leaves in zip(*trees))
+    return torch.cat(trees, dim=-2)
+
+
 def _run_hull_groups(m: T.Model, d: T.Data, run: _HullRun, sel, out):
     """One run of hull groups as plain PyTorch (on the card, where the
     reference runs these formulas as XLA ops): operands of every member
@@ -920,20 +930,9 @@ def _run_hull_groups(m: T.Model, d: T.Data, run: _HullRun, sel, out):
         pick = sel[srow]                                      # (K, B)
         ops.append(((*take_sel(P, Rm, sizes3, g1[pick]),
                      *take_sel(P, Rm, sizes3, g2[pick])),
-                    (None if h1 is None else take_hull(m, h1[pick]),
-                     take_hull(m, h2[pick]))))
-    if len(ops) == 1:
-        o, (h1, h2) = ops[0]
-    else:   # every operand has its pair axis second to last
-        o = [torch.cat(x, dim=-2) for x in zip(*(op[0] for op in ops))]
-        h2 = ((torch.cat([op[1][1][0][0] for op in ops], dim=-2),
-               torch.cat([op[1][1][0][1] for op in ops], dim=-2)),
-              torch.cat([op[1][1][1] for op in ops], dim=-2))
-        h1 = None
-        if run.tp[0] == T.MESH:
-            h1 = ((torch.cat([op[1][0][0][0] for op in ops], dim=-2),
-                   torch.cat([op[1][0][0][1] for op in ops], dim=-2)),
-                  torch.cat([op[1][0][1] for op in ops], dim=-2))
+                    None if h1 is None else take_hull(m, h1[pick]),
+                    take_hull(m, h2[pick])))
+    o, h1, h2 = _cat_pairs(ops)
     fn = mesh_group_fn(run.tp[0], h1, h2)
     dist, pos, normal, _ = rows_of(fn(*o), run.k, run.S, B)
     r0, r1 = run.row0, run.row0 + run.k * run.S

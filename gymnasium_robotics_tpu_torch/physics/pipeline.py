@@ -127,23 +127,27 @@ def _integrate_qpos(m: T.Model, qpos, qvel, dt):
     return out
 
 
+def damped_system(m: T.Model, d: T.Data):
+    """(M + h diag(damping), M v + h (qfrc_smooth + qfrc_constraint
+    + damping v)): the SPD system of the Euler step's new velocity."""
+    h = m.meta.opt.timestep
+    ar = SM._tree(m).diag
+    MhB = d.qM.clone()
+    MhB[ar, ar] += h * M.bB(m.dof_damping, d.qpos.shape[-1])
+    rhs = torch.einsum("uvb,vb->ub", d.qM, d.qvel) + h * (
+        d.qfrc_smooth + d.qfrc_constraint + m.dof_damping * d.qvel
+    )
+    return MhB, rhs
+
+
 def _euler(m: T.Model, d: T.Data) -> T.Data:
-    """Semi-implicit Euler with implicit joint damping:
-    (M + h diag(damping)) v' = M v + h (qfrc_smooth + qfrc_constraint
-    + damping v)."""
+    """Semi-implicit Euler with implicit joint damping (damped_system)."""
     mt = m.meta
-    B = d.qpos.shape[-1]
     h = mt.opt.timestep
     if mt.na:
         raise NotImplementedError("activation integration is not ported yet")
     if mt.has_damping:
-        ar = SM._tree(m).diag
-        MhB = d.qM.clone()
-        MhB[ar, ar] += h * M.bB(m.dof_damping, B)
-        rhs = torch.einsum("uvb,vb->ub", d.qM, d.qvel) + h * (
-            d.qfrc_smooth + d.qfrc_constraint + m.dof_damping * d.qvel
-        )
-        qvel = solver.solve_pos(MhB, rhs)
+        qvel = solver.solve_pos(*damped_system(m, d))
     else:
         qvel = d.qvel + h * d.qacc
     return dataclasses.replace(
