@@ -60,6 +60,49 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      system; the Newton solve is held on each set to the plain version run
      in float64 (within 2e-4, or no further than twice the float32 plain
      version); with the times as in phase 10;
+  FetchPush-v4 under Option.fk_kernel=True (the FK kernel beside the four
+  above):
+  15. main path: registry.make("FetchPush-v4", num_envs=2048,
+     max_episode_steps=2) with the env's model set to
+     with_options(fk_kernel=True), reset, 3 steps with random actions, so
+     every env auto-resets; per step 22 FK launches (the 20 substeps'
+     forwards, the blocked gripper's refresh, the auto-reset's fresh
+     state) beside 40 chol, 20 Newton, 40 topk_select and 20 narrowphase;
+     prints ms/step and env-steps/s, then a 1-step trace as in phase 12;
+     Each FK call site (a forward, the gripper refresh, the auto-reset's
+     state, a whole env step) is then traced on its own, alone and after
+     one leading kernel, the fk_kernel launches in the trace printed
+     beside those counted, and the poses the site's last FK wrote held
+     within 2e-4 of the plain version; then 50 launches traced back to
+     back;
+  16. reference and kernel: for two states (the main path's, then that
+     state one env step on) and two action seeds, one physics step with
+     the FK kernel, the default (pointer-jumping) FK and the level pass,
+     held on 64 envs to the default path run in float64 on the CPU: the FK
+     kernel path's median env within 2e-4 and its largest env error no
+     more than twice the level pass's (which it computes operation for
+     operation; FetchPush's float32 solve moves a few envs far for
+     rounding-sized input changes), or 2e-4; one env step (20 substeps),
+     FK kernel against default FK, at least 90 % of envs within 2e-4, the
+     level pass's share and every spread printed; the FK kernel against
+     its plain version (the level pass) on the main path's poses and on
+     random poses, all eleven fields, every env within 2e-4, with
+     CUDA-event times of both;
+  The single env (registry.make_gym, the per-env path: the closed-form
+  nv = 2 Newton):
+  17. main path: make_gym("PointMaze_UMaze-v3") on the card, a seeded
+     parity reset, 310 steps with random actions (past the 300-step limit:
+     truncated from step 300 on, no auto-reset); per step 2 chol and 1
+     newton_nv2 launch and no newton launch; prints ms/step;
+  18. reference: the card's single env against the CPU's (device="cpu")
+     over 30 steps from the same parity reset, pushed into a wall;
+  19. AntMaze_UMaze-v5 and FetchPush-v4 through make_gym, 3 steps each, with
+     their kernels' launches counted (Newton at nv = 14 and 21: the per-env
+     path keeps the fused Newton there);
+  20. kernel: newton2_closed_kernel against its plain version at B = 8192
+     on the rows of phase 3's PointMaze batch (the rows the per-env path
+     builds) and on random rows, held to the plain version run in float64
+     as the nv = 21 Newton is, with CUDA-event times;
   then a JSON line of the kernels, the card line, and the last line
   {"ok": true, "device": {...}}. Each phase prints its wall time.
 """
@@ -79,12 +122,22 @@ ANT_LIMIT = 50
 FETCH_B = 2048
 FETCH_STEPS = 8
 FETCH_LIMIT = 5       # max_episode_steps cut from 50: every env resets
+FK_STEPS = 3
+FK_LIMIT = 2          # max_episode_steps cut from 50: every env resets
+FK_PER_STEP = 22      # 20 substeps' forwards, the gripper refresh, the reset
+FK_STEP_SHARE = 0.9   # envs within TOL after one env step, FK kernel vs not
+FK_LEVEL_SLACK = 2    # FK kernel path's largest error vs float64 <= 2x level's
+FK_REF_ENVS = 64      # envs stepped in float64 on the CPU as the reference
+FK_SEEDS = (1, 2)     # the env-step action's seed: two states are checked
+FK_BURST = 50         # fk_kernel launches traced back to back
+GYM_STEPS = 310       # past PointMaze's 300-step limit
 TOL = 2e-4            # relative error, scaled by max(1, |ref|), float32
 NEWTON_SLACK = 2      # nv = 21: kernel's error vs float64 <= 2x float32 plain's
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 FP32_OPS_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 NP_SRC = "gymnasium_robotics_tpu_torch/csrc/narrowphase.cu"
 SOLVER_SRC = "gymnasium_robotics_tpu_torch/csrc/solver.cu"
+FK_SRC = "gymnasium_robotics_tpu_torch/csrc/kinematics.cu"
 # float operations of one pair of each narrowphase group kind (plane-sphere,
 # plane-capsule, sphere-box, capsule-box, plane-box, box-box, plane-hull at
 # 24 vertices), counted from the formulas of csrc/narrowphase.cu, each
@@ -170,6 +223,39 @@ def newton_ops(nv, ne, n_iter, n_ls):
     return n_iter * it + final
 
 
+def fk_ops(mt):
+    """Floating-point operations of one env's forward kinematics, as
+    csrc/kinematics.cu does them: a quaternion rotation 30, a product 28, a
+    child frame (rotation, add, product) 61, a normalisation 13, a rotation
+    matrix 30; per joint type free 43, ball 137, slide 70, hinge 131 (sine
+    and cosine counted as one operation each)."""
+    joint = {0: 43, 1: 137, 2: 70, 3: 131}
+    return ((mt.nbody - 1) * 61 + sum(joint[t] for t in mt.jnt_type)
+            + 13 * sum(1 for i in mt.body_mocapid if i >= 0)
+            + mt.nbody * (30 + 61 + 30) + (mt.ngeom + mt.nsite) * (61 + 30))
+
+
+def fk_bound(mt, nb):
+    """Bound of one FK call over nb envs: qpos and the mocap poses read and
+    the eleven pose fields written per env (the model's tables, shared by
+    every env, once), or fk_ops."""
+    out = (mt.nbody * 28 + mt.njnt * 6 + (mt.ngeom + mt.nsite) * 12)
+    tables = mt.nbody * 14 + mt.njnt * 6 + mt.nq + (mt.ngeom + mt.nsite) * 7
+    ints = mt.nbody * 4 + mt.njnt * 2 + mt.ngeom + mt.nsite
+    nbytes = (mt.nq + 7 * mt.nmocap + out) * 4 * nb + (tables + ints) * 4
+    return bound(nbytes, fk_ops(mt) * nb)
+
+
+def newton2_ops(ne, n_iter, n_ls):
+    """Floating-point operations of the closed-form nv = 2 Newton solve for
+    one env (solver_pallas._kernel): per iteration and row x, the weight,
+    the gradient and the three Hessian sums (19) and J p (3); the 2x2 step
+    and the quadratic forms (52); per line-search step and row 9, and 7;
+    the final forces 12 a row and the M solve 13."""
+    it = ne * 22 + 52 + n_ls * (9 * ne + 7)
+    return n_iter * it + 12 * ne + 13
+
+
 def union_us(intervals):
     total, end = 0.0, None
     for s, e in sorted(intervals):
@@ -217,17 +303,36 @@ def kernel_row(name, source, replaces, launches, abs_err, rel, ms, plain_ms,
 
 
 def zero_counters(solver, narrowphase):
-    for c in (solver.LAUNCHES, narrowphase.LAUNCHES):
+    from gymnasium_robotics_tpu_torch.physics import kinematics
+
+    for c in (solver.LAUNCHES, narrowphase.LAUNCHES, kinematics.LAUNCHES):
         for k in c:
             c[k] = 0
     narrowphase.TOPK_SHAPES.clear()
 
 
-def trace(torch, run, n, card, label, cpu=True):
+def launch_counts(solver, narrowphase):
+    """Every kernel's launch count: chol, newton, newton_nv2, topk,
+    narrowphase and fk."""
+    from gymnasium_robotics_tpu_torch.physics import kinematics
+
+    return {**solver.LAUNCHES, **narrowphase.LAUNCHES, **kinematics.LAUNCHES}
+
+
+def per_step(n, chol=0, newton=0, newton_nv2=0, topk=0, narrowphase=0, fk=0):
+    """The launch counts n steps must show, every kernel named."""
+    return {"chol": chol * n, "newton": newton * n,
+            "newton_nv2": newton_nv2 * n, "topk": topk * n,
+            "narrowphase": narrowphase * n, "fk": fk * n}
+
+
+def trace(torch, run, n, card, label, cpu=True, counts=None):
     """n steps of ``run`` timed on the host clock, then n traced with
     torch.profiler (host operators too unless cpu=False, which keeps a
     trace of ~200k kernels a step quick to read): prints the per-step
-    device numbers and the kernels by device time."""
+    device numbers and the kernels by device time; with ``counts`` (a
+    function reading the launch counters) also the launches the wrappers
+    counted during the traced run, per step."""
     from torch.autograd import DeviceType
 
     torch.cuda.synchronize()
@@ -238,11 +343,13 @@ def trace(torch, run, n, card, label, cpu=True):
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if cpu:
         acts.append(torch.profiler.ProfilerActivity.CPU)
+    c0 = counts() if counts else {}
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run(n)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
+    counted = {k: (v - c0[k]) / n for k, v in counts().items()} if counts else None
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert events, "the trace holds no device time"
     busy_ms = union_us([(e.time_range.start, e.time_range.end)
@@ -258,9 +365,12 @@ def trace(torch, run, n, card, label, cpu=True):
         "traced_ms_per_step": traced_ms / n,
         "device_busy_ms_per_step": busy_ms / n,
         "device_idle_share": 1.0 - busy_ms / traced_ms,
-        "kernels_per_step": len(events) / n, "card": card}), flush=True)
+        "kernels_per_step": len(events) / n,
+        **({"counted_launches_per_step": counted} if counted else {}),
+        "card": card}), flush=True)
     ported = ("chol_solve_kernel", "chol_warp_kernel", "newton_kernel",
-              "newton_warp_kernel", "topk_select_kernel", "narrowphase_kernel")
+              "newton_warp_kernel", "topk_select_kernel", "narrowphase_kernel",
+              "fk_kernel", "newton2_closed_kernel")
     for i, (name, (c, ms)) in enumerate(top):
         if i < 15 or any(k in name for k in ported):
             print(f"  {ms / n:9.4f} ms/step {c / n:6.1f}x {name[:110]}")
@@ -282,7 +392,8 @@ def check_pair(fn, plain, inputs, outs=None):
 
 def pointmaze(torch, dev, card, solver, constraint, narrowphase, convert,
               registry):
-    """Phases 3-6; returns the kernels' JSON rows."""
+    """Phases 3-6; returns the kernels' JSON rows and (model, data) of the
+    main path's last state."""
     # --- 3. main path
     env = registry.make("PointMaze_UMaze-v3", num_envs=B)
     obs, info = env.reset(seed=0)
@@ -302,15 +413,13 @@ def pointmaze(torch, dev, card, solver, constraint, narrowphase, convert,
         was_reset |= terminated | truncated
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = dict(solver.LAUNCHES)
-    np_launches = dict(narrowphase.LAUNCHES)
+    launches = launch_counts(solver, narrowphase)
     ms_step = wall / (STEPS - warm) * 1e3
     assert obs["observation"].shape == (B, 4), obs["observation"].shape
     assert bool(finite.all()), "non-finite observations"
     assert bool(was_reset.all()), f"{int((~was_reset).sum())} envs never reset"
     assert not bool(info["diverged"].any()), "diverged envs"
-    assert launches == {"chol": 2 * STEPS, "newton": STEPS}, launches
-    assert not any(np_launches.values()), np_launches
+    assert launches == per_step(STEPS, chol=2, newton=1), launches
     print(f"main path: PointMaze_UMaze-v3 x{B}, {STEPS} steps, launches "
           f"{launches}; {ms_step:.4f} ms/step, "
           f"{B / ms_step * 1e3:.1f} env-steps/s over steps {warm}-{STEPS} "
@@ -414,7 +523,7 @@ def pointmaze(torch, dev, card, solver, constraint, narrowphase, convert,
                    launches["newton"], newton_abs, newton_err, newton_ms,
                    newton_plain_ms, newton_bound, None,
                    [nv, ne, B, n_iter, n_ls]),
-    ]
+    ], (m, d)
 
 
 def pressed_state(torch, pipeline, m, n, seed, dev):
@@ -476,15 +585,15 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
         diverged |= info["diverged"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = {**solver.LAUNCHES, **narrowphase.LAUNCHES}
+    launches = launch_counts(solver, narrowphase)
     shapes = dict(narrowphase.TOPK_SHAPES)
     ms_step = wall / (ANT_STEPS - warm) * 1e3
     n = ANT_STEPS
     assert obs["observation"].shape == (ANT_B, 105), obs["observation"].shape
     assert bool(finite.all()), "non-finite observations"
     assert bool(was_reset.all()), f"{int((~was_reset).sum())} envs never reset"
-    assert launches == {"chol": 20 * n, "newton": 20 * n, "topk": 40 * n,
-                        "narrowphase": 20 * n}, launches
+    assert launches == per_step(n, chol=20, newton=20, topk=40,
+                                narrowphase=20), launches
     assert shapes == {(2, 216, 8): 20 * n, (1, 57, 16): 20 * n}, shapes
     print(f"main path: AntMaze_UMaze-v5 x{ANT_B}, {n} steps, limit "
           f"{ANT_LIMIT}, launches {launches}; {ms_step:.4f} ms/step, "
@@ -688,21 +797,37 @@ def arm_poses(env, n, seed):
     return qpos.T, mp, mq
 
 
-def newton_vs_f64(torch, solver, args, n_iter, n_ls):
-    """The Newton kernel on one input set against the plain version run in
-    float64 on the same inputs, beside the float32 plain version against
-    the same: (kernel's rel err, float32 plain's rel err, kernel's abs err
-    against the float32 plain version). The rel errs of qacc and of f are
-    each on its own max(1, |ref|), as in check_pair."""
+def newton_vs_f64(torch, solver, args, n_iter, n_ls, kernel=None, plain=None):
+    """A Newton kernel (solve_newton unless named) on one input set against
+    its plain version run in float64 on the same inputs, beside the float32
+    plain version against the same: (kernel's rel err, float32 plain's rel
+    err, kernel's abs err against the float32 plain version). The rel errs
+    of qacc and of f are each on its own max(1, |ref|), as in check_pair."""
+    kernel = kernel or solver.solve_newton
+    plain_fn = plain or solver.solve_newton_plain
     x64 = [x.double() if x.is_floating_point() else x for x in args]
-    ref = solver.solve_newton_plain(*x64, n_iter=n_iter, n_ls=n_ls)
-    got = solver.solve_newton(*args, n_iter=n_iter, n_ls=n_ls)
-    plain = solver.solve_newton_plain(*args, n_iter=n_iter, n_ls=n_ls)
+    ref = plain_fn(*x64, n_iter=n_iter, n_ls=n_ls)
+    got = kernel(*args, n_iter=n_iter, n_ls=n_ls)
+    plain = plain_fn(*args, n_iter=n_iter, n_ls=n_ls)
     k_rel = max(rel_err(g, r) for g, r in zip(got, ref))
     p_rel = max(rel_err(q, r) for q, r in zip(plain, ref))
     ab = max(float((g.double() - q.double()).abs().max())
              for g, q in zip(got, plain))
     return k_rel, p_rel, ab
+
+
+def envs_f64(convert, data, n):
+    """The first n envs of a batch-last Data, in float64 on the CPU."""
+    def cut(x):
+        if x is None:
+            return None
+        x = np.asarray(x)[:n]
+        return x.astype(np.float64) if x.dtype.kind == "f" else x
+
+    f = convert.data_to_numpy(data)
+    f = {k: ({c: cut(v) for c, v in f[k].items()} if k == "contact"
+             else cut(f[k])) for k in f}
+    return convert.data_from_numpy(f, "cpu")
 
 
 def table_err(got, ref, rows):
@@ -751,15 +876,15 @@ def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
         diverged |= info["diverged"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = {**solver.LAUNCHES, **narrowphase.LAUNCHES}
+    launches = launch_counts(solver, narrowphase)
     shapes = dict(narrowphase.TOPK_SHAPES)
     ms_step = wall / (FETCH_STEPS - warm) * 1e3
     n = FETCH_STEPS
     assert obs["observation"].shape == (FETCH_B, 25), obs["observation"].shape
     assert bool(finite.all()), "non-finite observations"
     assert bool(was_reset.all()), f"{int((~was_reset).sum())} envs never reset"
-    assert launches == {"chol": 40 * n, "newton": 20 * n, "topk": 40 * n,
-                        "narrowphase": 20 * n}, launches
+    assert launches == per_step(n, chol=40, newton=20, topk=40,
+                                narrowphase=20), launches
     assert shapes == {(3, 85, 8): 20 * n, (2, 169, 24): 20 * n}, shapes
     print(f"main path: FetchPush-v4 x{FETCH_B}, {n} steps, limit "
           f"{FETCH_LIMIT}, launches {launches}; {ms_step:.4f} ms/step, "
@@ -973,6 +1098,365 @@ def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
     return rows
 
 
+def fk_sites(torch, dev, kinematics, m, sites):
+    """Each FK call site traced on its own, twice: as it is, then after one
+    leading elementwise kernel in the same profiling session. Prints the
+    fk_kernel launches the wrapper counted beside those each trace holds,
+    with the number of narrowphase launches before each fk_kernel event
+    (one a forward). ``sites`` maps a name to (the call, the launches it
+    must count); the call returns the Data its last FK wrote, whose eleven
+    pose fields are held within TOL of the plain version on that Data's
+    own qpos and mocap poses, so every counted launch is shown to have
+    run whatever the trace keeps. Then FK_BURST launches traced back to
+    back."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    lead = torch.zeros(1, device=dev)
+    for name, (fn, expect) in sites.items():
+        row = {}
+        for label, first in (("alone", None), ("after_lead", lead.add_)):
+            torch.cuda.synchronize()
+            n0 = kinematics.LAUNCHES["fk"]
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                if first is not None:
+                    first(1.0)
+                d = fn()
+                torch.cuda.synchronize()
+            ev = sorted((e.time_range.start, e.name) for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+            fk_at = [sum("narrowphase_kernel" in nm for _, nm in ev[:i])
+                     for i, (_, nm) in enumerate(ev) if "fk_kernel" in nm]
+            row["counted"] = kinematics.LAUNCHES["fk"] - n0
+            assert row["counted"] == expect, (name, row)
+            row[f"traced_{label}"] = len(fk_at)
+            row[f"narrowphase_before_each_{label}"] = fk_at
+            ref = kinematics.kinematics_plain(m, d)
+            err = max(rel_err(getattr(d, f), getattr(ref, f))
+                      for f in kinematics.FIELDS)
+            assert err <= TOL, (name, label, err)
+            row["relerr_vs_plain"] = max(row.get("relerr_vs_plain", 0.0), err)
+        out[name] = row
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(FK_BURST):
+            kinematics.kinematics(m, d)
+        torch.cuda.synchronize()
+    out[f"{FK_BURST} launches back to back"] = {"traced": sum(
+        "fk_kernel" in e.name for e in prof.events()
+        if e.device_type == DeviceType.CUDA)}
+    print(f"fk sites: {json.dumps(out)}", flush=True)
+
+
+def fk_step_checks(torch, dev, pipeline, kinematics, convert, m64, fenv,
+                   default, level, state, seed):
+    """One FK_SEEDS reading: one physics step with the FK kernel, the
+    default (pointer-jumping) FK and the level pass, each held on
+    FK_REF_ENVS envs to the default path run in float64 on the CPU (the
+    kernel path's median env within TOL, its largest env error no more
+    than FK_LEVEL_SLACK times the level pass's, or TOL); then one env step
+    (20 substeps) with a seeded action, the share of envs within TOL of the
+    default-FK step at least FK_STEP_SHARE, the level pass's share printed
+    beside it. Returns the readings and the default path's next state."""
+    m = fenv.model
+    n0 = kinematics.LAUNCHES["fk"]
+    d_fk = pipeline.step(m, state.data)
+    assert kinematics.LAUNCHES["fk"] == n0 + 1
+    d_def = pipeline.step(default.model, state.data)
+    d_lvl = pipeline.step(level.model, state.data)
+    assert kinematics.LAUNCHES["fk"] == n0 + 1
+    d_ref = pipeline.step(m64, envs_f64(convert, state.data, FK_REF_ENVS))
+    phys = {}
+    for k in ("qpos", "qvel", "qacc"):
+        ref = getattr(d_ref, k)
+        scale = max(1.0, float(ref.abs().max()))
+        errs = [(getattr(d, k)[..., :FK_REF_ENVS].cpu().double() - ref).abs()
+                .amax(dim=0) / scale for d in (d_fk, d_def, d_lvl)]
+        phys[k] = {name: (float(e.max()), float(e.median()))
+                   for name, e in zip(("kernel", "jump", "level"), errs)}
+        kmax, kmed = phys[k]["kernel"]
+        assert kmed <= TOL, (
+            f"fk_kernel, seed {seed}, one physics step, {k}: median env "
+            f"relerr {kmed:.3e} against float64 ({phys[k]})")
+        assert kmax <= max(TOL, FK_LEVEL_SLACK * phys[k]["level"][0]), (
+            f"fk_kernel, seed {seed}, one physics step, {k}: largest env "
+            f"relerr {kmax:.3e} against float64, past {FK_LEVEL_SLACK}x the "
+            f"level pass's ({phys[k]})")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    a = torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1
+    s_fk = fenv.step(state, a)
+    assert kinematics.LAUNCHES["fk"] == n0 + 1 + 21   # no auto-reset here
+    s_def = default.step(state, a)
+    s_lvl = level.step(state, a)
+    scale = max(max(1.0, float(s_def.obs[k].abs().max())) for k in s_def.obs)
+
+    def env_err(s):
+        return torch.stack([(s.obs[k] - s_def.obs[k]).abs().amax(dim=1)
+                            for k in s.obs]).amax(dim=0).double() / scale
+
+    e_fk, e_lvl = env_err(s_fk), env_err(s_lvl)
+    share = float((e_fk <= TOL).double().mean())
+    share_lvl = float((e_lvl <= TOL).double().mean())
+    assert share >= FK_STEP_SHARE, (
+        f"fk_kernel, seed {seed}, one env step: {share:.4f} of envs within "
+        f"{TOL} of the default FK (level pass {share_lvl:.4f})")
+    return {"seed": seed, "physics_step_vs_f64_max_median": phys,
+            "env_step_share_within_tol": {"kernel": share, "level": share_lvl},
+            "env_step_relerr_median_max": {
+                "kernel": (float(e_fk.median()), float(e_fk.max())),
+                "level": (float(e_lvl.median()), float(e_lvl.max()))},
+            "next_state": s_def}
+
+
+def fetchpush_fk(torch, dev, card, solver, constraint, narrowphase,
+                 pipeline, kinematics, convert, registry):
+    """Phases 15-16; returns the FK kernel's JSON row."""
+    t_phase = time.perf_counter()
+    # --- 15. main path: FetchPush with Option.fk_kernel=True
+    env = registry.make("FetchPush-v4", num_envs=FETCH_B,
+                        max_episode_steps=FK_LIMIT)
+    env.env.model = env.env.model.with_options(fk_kernel=True)
+    obs, info = env.reset(seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    finite = torch.ones(FETCH_B, dtype=torch.bool, device=dev)
+    was_reset = torch.zeros(FETCH_B, dtype=torch.bool, device=dev)
+    warm = 1
+    zero_counters(solver, narrowphase)
+    for i in range(FK_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        a = torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1
+        obs, _, terminated, truncated, info = env.step(a)
+        finite &= torch.isfinite(obs["observation"]).all(dim=1)
+        was_reset |= terminated | truncated
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts(solver, narrowphase)
+    n = FK_STEPS
+    ms_step = wall / (n - warm) * 1e3
+    assert obs["observation"].shape == (FETCH_B, 25), obs["observation"].shape
+    assert bool(finite.all()), "non-finite observations"
+    assert bool(was_reset.all()), f"{int((~was_reset).sum())} envs never reset"
+    assert launches == per_step(n, chol=40, newton=20, topk=40,
+                                narrowphase=20, fk=FK_PER_STEP), launches
+    print(f"main path: FetchPush-v4 fk_kernel=True x{FETCH_B}, {n} steps, "
+          f"limit {FK_LIMIT}, launches {launches} ({FK_PER_STEP} fk a step: "
+          f"20 forwards, the gripper refresh, the auto-reset); "
+          f"{ms_step:.4f} ms/step, {FETCH_B / ms_step * 1e3:.1f} env-steps/s "
+          f"over steps {warm}-{n} [{card}] "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    def run(k):
+        for _ in range(k):
+            env.step(torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1)
+
+    trace(torch, run, 1, card, "fk trace", cpu=False,
+          counts=lambda: launch_counts(solver, narrowphase))
+    fenv = env.env
+    m = fenv.model
+    state = env.state
+    a = torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1
+
+    def env_step():
+        env.step(a)
+        return env.state.data
+
+    fk_sites(torch, dev, kinematics, m, {
+        "forward": (lambda: pipeline.forward(m, state.data), 1),
+        "gripper refresh": (lambda: pipeline.refresh_kin(m, state.data), 1),
+        "auto-reset state": (lambda: fenv.reset(state, gen).data, 1),
+        "env step": (env_step, FK_PER_STEP)})
+
+    # --- 16. FetchPush's float32 solve moves qvel and qacc far, in a few
+    # envs, for rounding-sized changes of its input (hence the nv = 21
+    # Newton's float64 gate); the FK kernel computes the level pass's
+    # operations, so its path is held per env to what the level pass's
+    # shows, for FK_SEEDS states: the main path's, then that state after
+    # one env step
+    t_phase = time.perf_counter()
+    default = registry.make("FetchPush-v4")
+    assert default.model.opt.fk_kernel is False
+    level = registry.make("FetchPush-v4")
+    level.model = level.model.with_options(fk_jump=False)
+    m64 = registry.make("FetchPush-v4", device="cpu", dtype=torch.float64).model
+    readings = []
+    s = state
+    for seed in FK_SEEDS:
+        readings.append(fk_step_checks(torch, dev, pipeline, kinematics,
+                                       convert, m64, fenv, default, level,
+                                       s, seed))
+        s = readings[-1].pop("next_state")
+    print(f"fk reference per seed {json.dumps(readings)} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # the kernel against the level pass: the main path's and random poses
+    rs = np.random.RandomState(0)
+    mt = m.meta
+    rand = pipeline.make_data(m, FETCH_B)
+    q = m.qpos0[:, 0].cpu().numpy()[:, None] + rs.normal(0, 0.5, (mt.nq, FETCH_B))
+    oq = fenv._obj_qadr + 3
+    q[oq:oq + 4] = rs.normal(0, 1, (4, FETCH_B))      # unnormalised
+    rand.qpos[:] = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    rand.mocap_pos[:] = torch.as_tensor(rs.normal(0, 1, (1, 3, FETCH_B)),
+                                        dtype=torch.float32, device=dev)
+    rand.mocap_quat[:] = torch.as_tensor(rs.normal(0, 1, (1, 4, FETCH_B)),
+                                         dtype=torch.float32, device=dev)
+    rel = ab = 0.0
+    per_field = {}
+    for d in (state.data, rand):
+        got = kinematics.kinematics(m, d)
+        ref = kinematics.kinematics_plain(m, d)
+        for f in kinematics.FIELDS:
+            g, r = getattr(got, f), getattr(ref, f)
+            e = rel_err(g, r)
+            per_field[f] = max(per_field.get(f, 0.0), e)
+            rel = max(rel, e)
+            ab = max(ab, float((g.double() - r.double()).abs().max()))
+    assert rel <= TOL, f"fk_kernel: relerr {rel:.3e} {per_field}"
+    d = state.data
+    fk_ms = time_ms(torch, lambda: kinematics.kinematics(m, d))
+    fk_plain_ms = time_ms(torch, lambda: kinematics.kinematics_plain(m, d),
+                          n=10)
+    print(f"fk_kernel vs the level pass (main path's and random poses) "
+          f"relerr {rel:.3e}, abs {ab:.3e}, per field {per_field}", flush=True)
+    return [kernel_row(
+        "fk", FK_SRC,
+        "gymnasium_robotics_tpu/physics/kinematics_pallas.py:104",
+        launches["fk"], ab, rel, fk_ms, fk_plain_ms, fk_bound(mt, FETCH_B),
+        None, [mt.nbody, mt.njnt, mt.ngeom, mt.nsite, FETCH_B])]
+
+
+def single_env(torch, dev, card, solver, constraint, narrowphase, registry,
+               pm_state):
+    """Phases 17-20; returns the closed-form Newton's JSON row."""
+    # --- 17. main path: the Gymnasium single env on the card
+    t_phase = time.perf_counter()
+    env = registry.make_gym("PointMaze_UMaze-v3", parity=True)
+    assert env.device == dev
+    env.reset(seed=0)
+    rng = np.random.default_rng(0)
+    zero_counters(solver, narrowphase)
+    truncs = []
+    warm = 10
+    for i in range(GYM_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        obs, reward, terminated, truncated, info = env.step(
+            rng.uniform(-1, 1, 2))
+        truncs.append(truncated)
+        assert all(np.isfinite(v).all() for v in obs.values()), "non-finite"
+        assert obs["observation"].shape == (4,)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts(solver, narrowphase)
+    ms_step = wall / (GYM_STEPS - warm) * 1e3
+    assert launches == per_step(GYM_STEPS, chol=2, newton_nv2=1), launches
+    assert truncs.index(True) == 299 and all(truncs[299:]), "truncation"
+    print(f"main path: make_gym PointMaze_UMaze-v3, {GYM_STEPS} steps, "
+          f"launches {launches}; truncated from step 300 on; {ms_step:.4f} "
+          f"ms/step over steps {warm}-{GYM_STEPS} [{card}] "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    nv2_launches = launches["newton_nv2"]
+
+    # --- 18. the card against the CPU over 30 steps, into a wall
+    t_phase = time.perf_counter()
+    env_c = registry.make_gym("PointMaze_UMaze-v3", parity=True, device="cpu")
+    env.reset(seed=5)
+    env_c.reset(seed=5)
+    rs = np.random.RandomState(0)
+    err, touched = 0.0, 0
+    for _ in range(30):
+        a = np.clip(np.array([0.3, -1.0]) + rs.uniform(-0.3, 0.3, 2), -1, 1)
+        og, oc = env.step(a)[0], env_c.step(a)[0]
+        err = max(err, max(rel_err(torch.as_tensor(og[k]),
+                                   torch.as_tensor(oc[k])) for k in og))
+        touched += bool(env_c._state.data.qfrc_constraint.abs().max() > 0)
+    assert err <= TOL, f"single env, card vs CPU: relerr {err:.3e}"
+    assert touched > 0, "the ball never met a wall"
+    print(f"single-env reference: card vs CPU, 30 steps, relerr {err:.3e}; "
+          f"{touched} steps with constraint forces "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 19. AntMaze and FetchPush through make_gym
+    t_phase = time.perf_counter()
+    for id_, nu, want in (
+            ("AntMaze_UMaze-v5", 8, dict(chol=20, newton=20, topk=40,
+                                         narrowphase=20)),
+            ("FetchPush-v4", 4, dict(chol=40, newton=20, topk=40,
+                                     narrowphase=20))):
+        genv = registry.make_gym(id_, parity=True)
+        genv.reset(seed=1)
+        zero_counters(solver, narrowphase)
+        for _ in range(3):
+            obs = genv.step(rng.uniform(-1, 1, nu))[0]
+            assert all(np.isfinite(v).all() for v in obs.values()), id_
+        torch.cuda.synchronize()
+        launches = launch_counts(solver, narrowphase)
+        assert launches == per_step(3, **want), (id_, launches)
+        print(f"single env {id_}: 3 steps, launches {launches}", flush=True)
+    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 20. newton2_closed_kernel against its plain version, B = 8192
+    t_phase = time.perf_counter()
+    m, d = pm_state
+    m = m.with_options(soa=False)
+    n_iter = min(m.opt.iterations, 20)
+    n_ls = min(m.opt.ls_iterations, 8)
+    J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+    ne = J.shape[0]
+    real = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+    nb = d.qpos.shape[-1]
+    rs = np.random.RandomState(5)
+
+    def cuda(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    A = rs.normal(size=(2, 2, nb))
+    rand = (cuda(np.einsum("ikb,jkb->ijb", A, A) + 0.1 * np.eye(2)[:, :, None]),
+            cuda(rs.normal(size=(2, nb))), cuda(rs.normal(size=(2, nb))),
+            cuda(rs.normal(size=(ne, 2, nb))), cuda(rs.normal(size=(ne, nb))),
+            cuda(np.exp(rs.normal(size=(ne, nb)))),
+            cuda(rs.uniform(size=(ne, nb)) < 0.7, torch.bool),
+            cuda(rs.uniform(size=(ne, nb)) < 0.2, torch.bool))
+    errs = [newton_vs_f64(torch, solver, x, n_iter, n_ls,
+                          solver.solve_newton_nv2, solver.solve_newton_nv2_plain)
+            for x in (rand, real)]
+    print("newton_nv2 (random, main) against the float64 plain version: "
+          "(kernel relerr, float32 plain relerr, kernel vs float32 plain abs "
+          f"err) {errs}", flush=True)
+    for name, (k, p, _) in zip(("random", "main"), errs):
+        assert k <= max(TOL, NEWTON_SLACK * p), (
+            f"newton_nv2 ({name}): relerr {k:.3e} against float64, the "
+            f"float32 plain version's {p:.3e}")
+    ms = time_ms(torch, lambda: solver.solve_newton_nv2(
+        *real, n_iter=n_iter, n_ls=n_ls))
+    plain_ms = time_ms(torch, lambda: solver.solve_newton_nv2_plain(
+        *real, n_iter=n_iter, n_ls=n_ls), n=10)
+    # bytes: M's three entries, a_smooth, a_warm, J, aref, D and f, qacc as
+    # floats; active as bytes; is_eq one byte per model row
+    bnd = bound((3 + 4 + 2 * ne + 3 * ne + 2) * 4 * nb + ne * nb + ne,
+                newton2_ops(ne, n_iter, n_ls) * nb)
+    n_touching = int(active[1:].any(dim=0).sum())
+    print(f"newton_nv2 kernel: {n_touching} of {nb} envs with active wall "
+          f"rows, {ne} rows ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+    return [kernel_row(
+        "newton_nv2", SOLVER_SRC,
+        "gymnasium_robotics_tpu/physics/solver_pallas.py:42",
+        nv2_launches, max(a for _, _, a in errs), max(k for k, _, _ in errs),
+        ms, plain_ms, bnd, None, [2, ne, nb, n_iter, n_ls],
+        plain32_rel_err=max(p for _, p, _ in errs),
+        gate="max_rel_err and plain32_rel_err against the plain version in "
+             "float64; max_abs_err against it in float32; max_rel_err <= "
+             f"max(tolerance, {NEWTON_SLACK} x plain32_rel_err) per set")]
+
+
 def main():
     import torch
 
@@ -985,7 +1469,7 @@ def main():
 
     from gymnasium_robotics_tpu_torch import convert, kernels, registry
     from gymnasium_robotics_tpu_torch.physics import (
-        collision, constraint, narrowphase, pipeline, solver)
+        collision, constraint, kinematics, narrowphase, pipeline, solver)
 
     dev = torch.device("cuda")
 
@@ -1000,8 +1484,8 @@ def main():
                 print("   ", line.strip())
 
     t0 = time.perf_counter()
-    kern = pointmaze(torch, dev, card, solver, constraint, narrowphase,
-                     convert, registry)
+    kern, pm_state = pointmaze(torch, dev, card, solver, constraint,
+                               narrowphase, convert, registry)
     print(f"pointmaze phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     kern += antmaze(torch, dev, card, solver, constraint, narrowphase,
@@ -1011,6 +1495,14 @@ def main():
     kern += fetchpush(torch, dev, card, solver, constraint, narrowphase,
                       collision, pipeline, convert, registry)
     print(f"fetchpush phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    kern += fetchpush_fk(torch, dev, card, solver, constraint, narrowphase,
+                         pipeline, kinematics, convert, registry)
+    print(f"fetchpush fk phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    kern += single_env(torch, dev, card, solver, constraint, narrowphase,
+                       registry, pm_state)
+    print(f"single-env phases: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
+// newton2_closed_kernel<NE_CAP> (one env per thread, below) replaces the TPU
+//   kernel gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel
+//   (entered through _solve_block / solve_small_nv2): the same Newton solve
+//   at nv = 2 with each 2x2 system solved in closed form, by determinant.
 //
 // Layout. The kernels read the port's own batch-last arrays where they lie,
 // through their element strides, so the caller copies nothing: M is the
@@ -299,6 +303,144 @@ newton_kernel(const float* __restrict__ M, const float* __restrict__ a_smooth,
   chol_solve<NV>(Mp, qfc, dq);
 #pragma unroll
   for (int i = 0; i < NV; ++i) qacc[i * sB + e] = as[i] + dq[i];
+}
+
+// ---------------------------------------------------------------------------
+// newton2_closed_kernel<NE_CAP>: the nv = 2 Newton solve of the per-env path
+// (constraint.solve_constraints with Option.soa False; the JAX package's
+// single env), as solver_pallas._kernel computes it: per iteration
+// x = J0 a0 + J1 a1 - aref, the active set (equality rows, or x < 0, on
+// active rows), the gradient and the three Hessian entries h00, h01, h11 as
+// row sums, the step p by the 2x2 determinant, n_ls exact line-search steps
+// (ddphi floored at 1e-12), alpha clipped to [0, 4]; then the forces on the
+// final active set with unilateral rows clamped at 0, and
+// qacc = a_smooth + M^-1 J^T f by M's determinant. M is read at (0,0),
+// (0,1) and (1,1), as the TPU kernel's M3 rows.
+//
+// What bounds it. At the single env's shapes (B = 1) nothing but the launch
+// and the thread's dependent chain. At B = 8192 and the U-maze's 19 rows
+// (6 Newton, 4 line-search iterations) it reads 83 floats and 19 mask
+// bytes and writes 21 floats per env (3.6 MB, 1.1 us at 3.35 TB/s) and
+// does ~7.3k float operations per env (0.9 us at 67 TFLOP/s), so bytes
+// and operations bound it about equally; one thread per env is again
+// latency-bound. The design is newton_kernel<2, NE_CAP>'s: each row's x, J p, weight and equality flag
+// live in registers (NE_CAP of each), so the line search reads no memory;
+// each iteration reads J twice and aref once, from L2. Without a Cholesky
+// the chain per iteration is shorter than newton_kernel<2>'s.
+// ---------------------------------------------------------------------------
+
+template <int NE_CAP>
+__global__ void __launch_bounds__(kThreads)
+newton2_closed_kernel(const float* __restrict__ M,
+                      const float* __restrict__ a_smooth,
+                      const float* __restrict__ a_warm,
+                      const float* __restrict__ J,
+                      const float* __restrict__ aref,
+                      const float* __restrict__ D,
+                      const unsigned char* __restrict__ active,
+                      const unsigned char* __restrict__ is_eq, NewtonStrides s,
+                      float* __restrict__ qacc, float* __restrict__ f, int ne,
+                      int B, int n_iter, int n_ls) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= B) return;
+  const size_t sB = (size_t)B;
+  const float m00 = M[s.M.at(0, 0, e)], m01 = M[s.M.at(0, 1, e)],
+              m11 = M[s.M.at(1, 1, e)];
+  const float as0 = a_smooth[s.a_smooth.at(0, e)];
+  const float as1 = a_smooth[s.a_smooth.at(1, e)];
+  float a0 = a_warm[s.a_warm.at(0, e)], a1 = a_warm[s.a_warm.at(1, e)];
+
+  float w[NE_CAP], x[NE_CAP], Jp[NE_CAP];
+  bool eq[NE_CAP];
+#pragma unroll
+  for (int r = 0; r < NE_CAP; ++r) {
+    if (r >= ne) break;
+    w[r] = active[s.active.at(r, e)] ? D[s.D.at(r, e)] : 0.f;
+    eq[r] = is_eq[s.is_eq.at(r, e)] != 0;
+  }
+  auto dw_of = [&](int r, float xr) { return (eq[r] || xr < 0.f) ? w[r] : 0.f; };
+  auto J0 = [&](int r) { return J[s.J.at(r, 0, e)]; };
+  auto J1 = [&](int r) { return J[s.J.at(r, 1, e)]; };
+
+  for (int it = 0; it < n_iter; ++it) {
+    float sg0 = 0.f, sg1 = 0.f, s00 = 0.f, s01 = 0.f, s11 = 0.f;
+#pragma unroll
+    for (int r = 0; r < NE_CAP; ++r) {
+      if (r >= ne) break;
+      const float j0 = J0(r), j1 = J1(r);
+      const float xr = j0 * a0 + j1 * a1 - aref[s.aref.at(r, e)];
+      x[r] = xr;
+      const float Dw = dw_of(r, xr);
+      const float gx = Dw * xr;
+      sg0 += j0 * gx;
+      sg1 += j1 * gx;
+      s00 += Dw * j0 * j0;
+      s01 += Dw * j0 * j1;
+      s11 += Dw * j1 * j1;
+    }
+    const float da0 = a0 - as0, da1 = a1 - as1;
+    const float grad0 = m00 * da0 + m01 * da1 + sg0;
+    const float grad1 = m01 * da0 + m11 * da1 + sg1;
+    const float h00 = m00 + s00, h01 = m01 + s01, h11 = m11 + s11;
+    const float det = h00 * h11 - h01 * h01;
+    const float p0 = -(h11 * grad0 - h01 * grad1) / det;
+    const float p1 = -(-h01 * grad0 + h00 * grad1) / det;
+
+    // exact line search on the piecewise-quadratic 1-D restriction
+#pragma unroll
+    for (int r = 0; r < NE_CAP; ++r) {
+      if (r >= ne) break;
+      Jp[r] = J0(r) * p0 + J1(r) * p1;
+    }
+    const float pMp = p0 * (m00 * p0 + m01 * p1) + p1 * (m01 * p0 + m11 * p1);
+    const float pMa = p0 * (m00 * da0 + m01 * da1) + p1 * (m01 * da0 + m11 * da1);
+    float alpha = 1.f;
+    for (int l = 0; l < n_ls; ++l) {
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int r = 0; r < NE_CAP; ++r) {
+        if (r >= ne) break;
+        const float x2 = x[r] + alpha * Jp[r];
+        const float Dw2 = dw_of(r, x2);
+        s1 += Dw2 * x2 * Jp[r];
+        s2 += Dw2 * Jp[r] * Jp[r];
+      }
+      const float dphi = alpha * pMp + pMa + s1;
+      const float ddphi = pMp + s2;
+      alpha = alpha - dphi / nan_max(ddphi, 1e-12f);
+    }
+    alpha = alpha < 0.f ? 0.f : (alpha > 4.f ? 4.f : alpha);
+    a0 += alpha * p0;
+    a1 += alpha * p1;
+  }
+
+  // forces on the final active set; unilateral rows pushed to f >= 0
+  float qfc0 = 0.f, qfc1 = 0.f;
+#pragma unroll
+  for (int r = 0; r < NE_CAP; ++r) {
+    if (r >= ne) break;
+    const float j0 = J0(r), j1 = J1(r);
+    const float xr = j0 * a0 + j1 * a1 - aref[s.aref.at(r, e)];
+    float fr = -dw_of(r, xr) * xr;
+    if (!eq[r]) fr = nan_max(fr, 0.f);
+    f[r * sB + e] = fr;
+    qfc0 += j0 * fr;
+    qfc1 += j1 * fr;
+  }
+  const float detM = m00 * m11 - m01 * m01;
+  qacc[e] = as0 + (m11 * qfc0 - m01 * qfc1) / detM;
+  qacc[sB + e] = as1 + (-m01 * qfc0 + m00 * qfc1) / detM;
+}
+
+template <int NE_CAP>
+void launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
+                    const float* J, const float* aref, const float* D,
+                    const unsigned char* active, const unsigned char* is_eq,
+                    const NewtonStrides& st, float* qacc, float* f, int ne,
+                    int B, int n_iter, int n_ls, cudaStream_t s) {
+  newton2_closed_kernel<NE_CAP><<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
+      n_iter, n_ls);
 }
 
 // ---------------------------------------------------------------------------
@@ -691,6 +833,31 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
                                              active, is_eq, st, qacc, f, ne, B,
                                              n_iter, n_ls, s);
     if (rc) return rc;
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The nv = 2 closed-form solve (newton2_closed_kernel); strides and
+// arguments as grt_newton_f32 without nv. Row caps 32 and 64.
+int grt_newton2_f32(const float* M, const float* a_smooth, const float* a_warm,
+                    const float* J, const float* aref, const float* D,
+                    const unsigned char* active, const unsigned char* is_eq,
+                    float* qacc, float* f, const long long* strides, int ne,
+                    int B, int n_iter, int n_ls, void* stream) {
+  if (B <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* p = strides;
+  const NewtonStrides st{str3(p), str2(p + 3), str2(p + 5), str3(p + 7),
+                         str2(p + 10), str2(p + 12), str2(p + 14),
+                         str2(p + 16)};
+  if (ne <= 32) {
+    launch_newton2<32>(M, a_smooth, a_warm, J, aref, D, active, is_eq, st,
+                       qacc, f, ne, B, n_iter, n_ls, s);
+  } else if (ne <= 64) {
+    launch_newton2<64>(M, a_smooth, a_warm, J, aref, D, active, is_eq, st,
+                       qacc, f, ne, B, n_iter, n_ls, s);
   } else {
     return -1;
   }

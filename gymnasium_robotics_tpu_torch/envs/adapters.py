@@ -1,0 +1,181 @@
+"""Gymnasium-API adapter (port of gymnasium_robotics_tpu/envs/adapters.py):
+one env instance, stateful, with numpy in and out, so code written against
+the reference (``gym.make`` -> ``reset``/``step``, the GoalEnv dict
+observations, seeding through ``np_random``) runs unchanged on the port.
+
+The instance is a batch of one of the port's env, on the env's device.
+Its model runs the per-env path (``Option.soa=False``), as the JAX
+package's single env does; there the nv = 2 constraint solve is the closed
+form (solver.solve_newton_nv2). A step does not auto-reset: it reports
+``truncated`` once ``max_episode_steps`` steps have passed, as gymnasium's
+TimeLimit does. Rendering is not ported yet (ROADMAP A.12), so a
+``render_mode`` other than None raises.
+
+gymnasium is optional: with it installed the adapter is a ``gymnasium.Env``
+with Box spaces; without it the spaces are None and observations are cast
+to the dtype those spaces declare.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gymnasium_robotics_tpu_torch import convert
+from gymnasium_robotics_tpu_torch.utils import parity as P
+
+try:
+    import gymnasium as gym
+except ImportError:  # an optional dependency of the adapter only
+    gym = None
+
+# the dtypes every ported family's spaces declare (the reference's)
+OBS_DTYPE, ACTION_DTYPE = np.float64, np.float32
+
+
+def _spaces(env):
+    """(observation_space, action_space) of ``env``: a Dict of
+    observation / achieved_goal / desired_goal Boxes and a [-1, 1] action
+    Box; (None, None) without gymnasium."""
+    if gym is None:
+        return None, None
+    from gymnasium import spaces
+
+    def box(n):
+        return spaces.Box(-np.inf, np.inf, (n,), OBS_DTYPE)
+
+    obs = spaces.Dict(dict(observation=box(env.obs_dim),
+                           achieved_goal=box(env.goal_dim),
+                           desired_goal=box(env.goal_dim)))
+    return obs, spaces.Box(-1.0, 1.0, (env.action_dim,), ACTION_DTYPE)
+
+
+class GymAdapter(gym.Env if gym else object):
+    metadata = {"render_modes": [], "render_fps": 25}
+
+    def __init__(self, env, render_mode: Optional[str] = None,
+                 parity: bool = False):
+        if render_mode is not None:
+            raise NotImplementedError(
+                f"render_mode={render_mode!r}: rendering (render/) is not "
+                "ported yet (ROADMAP A.12)")
+        env.model = env.model.with_options(soa=False)
+        self.env = env
+        self.parity = parity
+        self.render_mode = None
+        self.device = env.device
+        self.observation_space, self.action_space = _spaces(env)
+        self._state = None
+        self._np_random = None
+        self._gen = torch.Generator(device=env.device)
+
+    @property
+    def np_random(self) -> np.random.Generator:
+        """The instance's NumPy generator (gymnasium's: PCG64 from the reset
+        seed's SeedSequence); an unseeded one until reset(seed=...)."""
+        if self._np_random is None:
+            self._np_random = np.random.default_rng()
+        return self._np_random
+
+    @np_random.setter
+    def np_random(self, value: np.random.Generator):
+        self._np_random = value
+
+    def reset(self, *, seed: Optional[int] = None,
+              options: Optional[dict] = None):
+        """A fresh episode: with ``parity`` the reset values are drawn from
+        ``np_random`` in the reference's order (utils/parity.py), else from
+        a torch Generator seeded from it; ``options`` may name a maze
+        ``goal_cell`` / ``reset_cell`` and an ``initial_state_dict`` (a
+        ``get_env_state`` result) to start from."""
+        if seed is not None:
+            self._np_random = np.random.default_rng(seed)
+        else:
+            seed = int(self.np_random.integers(2 ** 31))
+        self._gen.manual_seed(seed)
+        options = dict(options or {})
+        init_state = options.pop("initial_state_dict", None)
+        if self.parity:
+            values = P.sample_reset_values(self.env, self.np_random, options)
+            self._state = self.env.reset_with_values(
+                self.env.initial(1, self._gen),
+                {k: np.asarray(v)[None] for k, v in values.items()})
+        elif options and hasattr(self.env, "initial_with_options"):
+            self._state = self.env.initial_with_options(1, self._gen, options)
+        else:
+            self._state = self.env.initial(1, self._gen)
+        if init_state is not None:
+            self.set_env_state(init_state)
+        return self._obs(), self._info()
+
+    def step(self, action):
+        if self._state is None:
+            raise RuntimeError("call reset() before step()")
+        a = torch.as_tensor(np.asarray(action, np.float64), dtype=self.env.dtype,
+                            device=self.device).reshape(1, -1)
+        self._state = s = self.env.step(self._state, a, self._gen)
+        limit = self.env.max_episode_steps
+        truncated = bool(s.truncated[0]) or (
+            limit is not None and int(s.steps[0]) >= limit)
+        return (self._obs(), float(s.reward[0]), bool(s.terminated[0]),
+                truncated, self._info())
+
+    def _obs(self):
+        space = self.observation_space
+        return {k: np.asarray(v[0].detach().cpu().numpy(),
+                              OBS_DTYPE if space is None else space[k].dtype)
+                for k, v in self._state.obs.items()}
+
+    def _info(self):
+        return {k: v[0].detach().cpu().numpy()
+                for k, v in self._state.info.items()}
+
+    # GoalEnv contract, numpy in and out
+    def _goal_fn(self, fn, achieved_goal, desired_goal, info):
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float64),
+                                   dtype=self.env.dtype, device=self.device)
+
+        return fn(t(achieved_goal), t(desired_goal), info).cpu().numpy()
+
+    def compute_reward(self, achieved_goal, desired_goal, info=None):
+        return self._goal_fn(self.env.compute_reward, achieved_goal,
+                             desired_goal, info)
+
+    def compute_terminated(self, achieved_goal, desired_goal, info=None):
+        return self._goal_fn(self.env.compute_terminated, achieved_goal,
+                             desired_goal, info)
+
+    def compute_truncated(self, achieved_goal, desired_goal, info=None):
+        """No ported family truncates on its goal (GoalEnv's default)."""
+        return np.zeros(np.shape(achieved_goal)[:-1], bool)
+
+    def render(self):
+        return None  # render_mode is None
+
+    def close(self):
+        pass
+
+    @property
+    def unwrapped(self):
+        return self
+
+    def __reduce__(self):
+        # envs made by registry.make_gym pickle as their make_gym arguments
+        # and are rebuilt on load; the live episode is not carried
+        spec = getattr(self, "_make_spec", None)
+        if spec is None:
+            raise TypeError("only envs made by registry.make_gym pickle")
+        from gymnasium_robotics_tpu_torch import registry
+
+        return (registry.remake, (spec,))
+
+    # env-state checkpointing: the whole EnvState round-trips
+    def get_env_state(self) -> dict:
+        """The instance's EnvState as B-leading numpy leaves (B = 1)."""
+        return convert.env_state_to_numpy(self._state)
+
+    def set_env_state(self, state: dict):
+        self._state = convert.env_state_from_numpy(state, self.device)

@@ -78,7 +78,7 @@ class FetchEnv:
         self._dof_mask = {b: t(masks[b])[:, None, None]
                           for b in {self._grip_body, self._obj_body}}
         self.dt = mt.opt.timestep * self.n_substeps
-        self.obs_dim = 25
+        self.obs_dim, self.goal_dim, self.action_dim = 25, 3, 4
 
     # --- GoalEnv contract (fetch_env.py:74-80 in the reference) ---
     def compute_reward(self, achieved_goal, desired_goal, info=None):

@@ -55,6 +55,7 @@ class AntMazeEnv(maze_core.MazeTask):
         mt = self.model.meta
         self.obs_dim = mt.nq + mt.nv - 2 + (
             (mt.nbody - 1) * 6 if include_cfrc else 0)
+        self.goal_dim, self.action_dim = 2, 8
 
     def _ant_obs(self, data):
         """(B, nq + nv [+ (nbody - 1) * 6]) inner-ant observation."""

@@ -396,7 +396,12 @@ def build_rows(m: T.Model, d: T.Data):
 
 def solve_constraints(m: T.Model, d: T.Data) -> T.Data:
     """The fused branch of soa.solve_constraints: one warm-started Newton
-    solve per env (solver.solve_newton), then qfrc_constraint = J^T f."""
+    solve per env, then qfrc_constraint = J^T f. The solve is
+    solver.solve_newton, or at nv = 2 on the per-env path (Option.soa
+    False, as the single env of envs/adapters.py runs) the closed-form
+    solver.solve_newton_nv2, as constraint.solve_constraints takes
+    solve_small_nv2 there (constraint.py:500-512); at other nv the per-env
+    path keeps solve_newton, as solve_small there."""
     mt = m.meta
     B = d.qpos.shape[-1]
     J, aref, D, _, active, is_eq, layout = build_rows(m, d)
@@ -410,7 +415,9 @@ def solve_constraints(m: T.Model, d: T.Data) -> T.Data:
             f"nv={mt.nv} with {n_rows} rows is past the fused Newton gate "
             "(soa.py:1738); the dense generic solve is not ported yet"
         )
-    qacc, f = solver.solve_newton(
+    solve = (solver.solve_newton_nv2 if mt.nv == 2 and mt.opt.soa is False
+             else solver.solve_newton)
+    qacc, f = solve(
         d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq,
         n_iter=min(mt.opt.iterations, 20), n_ls=min(mt.opt.ls_iterations, 8),
     )

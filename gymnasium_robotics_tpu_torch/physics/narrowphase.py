@@ -87,8 +87,9 @@ def topk_select(rank, mask, K: int):
         torch.cuda.current_stream(rank.device).cuda_stream,
     )
     kernels.raise_on(rc, "topk_select_kernel")
-    LAUNCHES["topk"] += 1
-    TOPK_SHAPES[(G, maxk, K)] += 1
+    launched = B > 0 and G > 0      # the entry point launches nothing else
+    LAUNCHES["topk"] += launched
+    TOPK_SHAPES[(G, maxk, K)] += launched
     return out
 
 
@@ -243,7 +244,7 @@ def narrowphase(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
         torch.cuda.current_stream(P.device).cuda_stream,
     )
     kernels.raise_on(rc, "narrowphase_kernel")
-    LAUNCHES["narrowphase"] += 1
+    LAUNCHES["narrowphase"] += B > 0 and table.pairs.shape[1] > 0
     return out
 
 

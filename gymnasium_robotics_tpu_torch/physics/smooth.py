@@ -1,11 +1,12 @@
 """Batch-last smooth dynamics (port of gymnasium_robotics_tpu/physics/soa.py
-:206-391 jump FK, com_pos :572, com_vel :642, crb :661, rne :681, tendon
-:713, transmission :787, fwd_actuation :837, fwd_passive :923).
+:206-391 jump FK, the FK routing of ``kinematics`` :392-411, com_pos :572,
+com_vel :642, crb :661, rne :681, tendon :713, transmission :787,
+fwd_actuation :837, fwd_passive :923).
 
 Each stage takes and returns a batch-last ``Data``. Static index tables and
 the 0/1 tree matrices are built once per model (``Model.plan``) on the
-model's device. Stages a later slice brings (the level-pass FK, tendons,
-fluid forces, tendon and free/ball actuation, activation dynamics) raise
+model's device. Stages a later slice brings (tendons, fluid forces, tendon
+and free/ball actuation, activation dynamics) raise
 ``NotImplementedError`` when a model needs them.
 """
 
@@ -16,6 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from gymnasium_robotics_tpu_torch import kernels
+from gymnasium_robotics_tpu_torch.physics import kinematics as KIN
 from gymnasium_robotics_tpu_torch.physics import math as M
 from gymnasium_robotics_tpu_torch.physics import types as T
 
@@ -43,11 +46,10 @@ class _JumpPlan:
                     ok = False
             if mt.body_mocapid[b] >= 0 and parent[b] != 0:
                 ok = False
+        # a free joint or a mocap body below the root takes the level pass
+        self.ok = ok
         if not ok:
-            raise NotImplementedError(
-                "this model's topology needs the level-pass FK "
-                "(soa.kinematics :412-503), which no ported slice reaches"
-            )
+            return
         self.ancs = []
         anc = parent.copy()
         while anc.any():
@@ -88,6 +90,26 @@ class _JumpPlan:
 
 
 def kinematics(m: T.Model, d: T.Data) -> T.Data:
+    """Forward kinematics, routed as soa.kinematics routes it: the FK kernel
+    (kinematics.kinematics) when ``Option.fk_kernel`` is True or "force",
+    or "auto" on a CUDA tensor (the card in the TPU's place); else the
+    pointer-jumping pass (``Option.fk_jump``, on by default) where the tree
+    allows it; else the level pass (kinematics.kinematics_plain). On CUDA
+    tensors the kernel's wrapper is called whatever the model, so a model
+    it does not support raises there; on CPU tensors such a model takes
+    the other passes, as soa.kinematics does off the TPU."""
+    opt = m.meta.opt
+    fk = opt.fk_kernel
+    if fk is True or fk == "force" or (fk == "auto" and d.qpos.is_cuda):
+        if kernels.on_card((d.qpos,)) or KIN.supported(m):
+            return KIN.kinematics(m, d)
+    fj = opt.fk_jump
+    if (fj is True or fj in ("force", "auto")) and m.plan("jump", _JumpPlan).ok:
+        return kinematics_jump(m, d)
+    return KIN.kinematics_plain(m, d)
+
+
+def kinematics_jump(m: T.Model, d: T.Data) -> T.Data:
     """Pointer-jumping forward kinematics (soa._kinematics_jump): local
     transforms of all bodies in one pass, then world poses by ancestor
     doubling. Writes in place into freshly made tensors."""

@@ -2,8 +2,10 @@
 wrappers, and beside each its plain PyTorch version.
 
 Port of gymnasium_robotics_tpu/physics/solver_pallas.py: ``solve_pos``
-replaces ``solve_pos_soa`` (TPU kernel ``_kernel_chol``) and
-``solve_newton`` replaces ``solve_small_soa`` (TPU kernel ``_kernel_nv``),
+replaces ``solve_pos_soa`` (TPU kernel ``_kernel_chol``),
+``solve_newton`` replaces ``solve_small_soa`` (TPU kernel ``_kernel_nv``)
+and ``solve_newton_nv2`` replaces ``solve_small_nv2`` (TPU kernel
+``_kernel``, the nv = 2 Newton with its 2x2 systems solved in closed form),
 with the same batch-last signatures. The kernels read the port's own
 layouts (the full M, J as (ne, nv, B), bool masks, a per-model is_eq), so
 the wrappers copy nothing: the kernels take each input's strides.
@@ -24,12 +26,13 @@ import torch
 
 from gymnasium_robotics_tpu_torch import kernels
 
-LAUNCHES = {"chol": 0, "newton": 0}
+LAUNCHES = {"chol": 0, "newton": 0, "newton_nv2": 0}
 KERNEL_NV = (2, 14, 21)  # nv values csrc/solver.cu instantiates
 # largest row count the Newton kernel takes, per nv: newton_kernel<2, 64>
 # (one env per thread), newton_warp_kernel<14, 3> and <21, 8> (one env per
 # warp, three or eight rows a lane)
 NEWTON_MAX_ROWS = {2: 64, 14: 96, 21: 256}
+NEWTON_NV2_MAX_ROWS = 64  # newton2_closed_kernel<32> and <64>
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,6 +137,62 @@ def solve_newton_plain(M, a_smooth, a_warm, J, aref, D, active, is_eq,
     return qacc, f
 
 
+def solve_newton_nv2_plain(M, a_smooth, a_warm, J, aref, D, active, is_eq,
+                           n_iter: int, n_ls: int):
+    """The nv = 2 Newton solve in closed form (solver_pallas._kernel
+    :42-110): the same problem and iteration as solve_newton_plain, with
+    the 2x2 Hessian and the final M solve by determinant instead of
+    Cholesky. Shapes as solve_newton_plain, nv = 2."""
+    active = active.bool()
+    is_eq = is_eq.bool()
+    if is_eq.dim() == 1:
+        is_eq = is_eq[:, None]
+    m00, m01, m11 = M[0, 0], M[0, 1], M[1, 1]
+    as0, as1 = a_smooth[0], a_smooth[1]
+    J0, J1 = J[:, 0], J[:, 1]
+    a0, a1 = a_warm[0], a_warm[1]
+
+    def dw_of(x):
+        return torch.where((is_eq | (x < 0.0)) & active, D, torch.zeros_like(D))
+
+    def rsum(x):
+        return torch.sum(x, dim=0)
+
+    for _ in range(n_iter):
+        x = J0 * a0 + J1 * a1 - aref
+        Dw = dw_of(x)
+        gx = Dw * x
+        da0, da1 = a0 - as0, a1 - as1
+        grad0 = m00 * da0 + m01 * da1 + rsum(J0 * gx)
+        grad1 = m01 * da0 + m11 * da1 + rsum(J1 * gx)
+        h00 = m00 + rsum(Dw * J0 * J0)
+        h01 = m01 + rsum(Dw * J0 * J1)
+        h11 = m11 + rsum(Dw * J1 * J1)
+        det = h00 * h11 - h01 * h01
+        p0 = -(h11 * grad0 - h01 * grad1) / det
+        p1 = -(-h01 * grad0 + h00 * grad1) / det
+        Jp = J0 * p0 + J1 * p1
+        pMp = p0 * (m00 * p0 + m01 * p1) + p1 * (m01 * p0 + m11 * p1)
+        pMa = p0 * (m00 * da0 + m01 * da1) + p1 * (m01 * da0 + m11 * da1)
+        alpha = torch.ones_like(p0)
+        for _ in range(n_ls):
+            x2 = x + alpha * Jp
+            Dw2 = dw_of(x2)
+            dphi = alpha * pMp + pMa + rsum(Dw2 * x2 * Jp)
+            ddphi = pMp + rsum(Dw2 * Jp * Jp)
+            alpha = alpha - dphi / torch.clamp(ddphi, min=1e-12)
+        alpha = torch.clamp(alpha, 0.0, 4.0)
+        a0 = a0 + alpha * p0
+        a1 = a1 + alpha * p1
+
+    x = J0 * a0 + J1 * a1 - aref
+    f = -dw_of(x) * x
+    f = torch.where(is_eq, f, torch.clamp(f, min=0.0))
+    qfc0, qfc1 = rsum(J0 * f), rsum(J1 * f)
+    detM = m00 * m11 - m01 * m01
+    q0 = as0 + (m11 * qfc0 - m01 * qfc1) / detM
+    q1 = as1 + (-m01 * qfc0 + m00 * qfc1) / detM
+    return torch.stack([q0, q1]), f
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +209,8 @@ def _lib():
     lib.grt_chol_solve_f32.restype = _i
     lib.grt_newton_f32.argtypes = [_vp] * 11 + [_i] * 5 + [_vp]
     lib.grt_newton_f32.restype = _i
+    lib.grt_newton2_f32.argtypes = [_vp] * 11 + [_i] * 4 + [_vp]
+    lib.grt_newton2_f32.restype = _i
     return lib
 
 
@@ -192,7 +253,7 @@ def solve_pos(M, b):
         torch.cuda.current_stream(b.device).cuda_stream,
     )
     kernels.raise_on(rc, "chol_solve_kernel")
-    LAUNCHES["chol"] += 1
+    LAUNCHES["chol"] += B > 0         # the entry point launches nothing at B = 0
     return x
 
 
@@ -203,13 +264,8 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
     (ne, B), is_eq (ne,) per model row or (ne, B) -> (qacc (nv, B),
     f (ne, B)). CUDA tensors launch newton_kernel; CPU tensors take the
     plain version."""
-    nv, B = a_smooth.shape
-    ne = aref.shape[0]
-    _check_shapes([
-        ("M", M, (nv, nv, B)), ("a_warm", a_warm, (nv, B)),
-        ("J", J, (ne, nv, B)), ("D", D, (ne, B)), ("active", active, (ne, B)),
-        ("is_eq", is_eq, (ne,) if is_eq.dim() == 1 else (ne, B)),
-    ])
+    nv, ne, B = _check_newton_shapes(M, a_smooth, a_warm, J, aref, D,
+                                     active, is_eq)
     if not _route_to_kernel(nv, (M, a_smooth, a_warm, J, aref, D),
                             (active, is_eq)):
         return solve_newton_plain(M, a_smooth, a_warm, J, aref, D, active,
@@ -220,16 +276,68 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
             f"{NEWTON_MAX_ROWS[nv]} rows, not {ne}; add a larger row cap to "
             "csrc/solver.cu"
         )
+    qacc, f, rc = _launch_newton(_lib().grt_newton_f32, (nv,), M, a_smooth,
+                                 a_warm, J, aref, D, active, is_eq, n_iter,
+                                 n_ls)
+    kernels.raise_on(rc, "newton_kernel")
+    LAUNCHES["newton"] += B > 0
+    return qacc, f
+
+
+def solve_newton_nv2(M, a_smooth, a_warm, J, aref, D, active, is_eq,
+                     n_iter: int, n_ls: int):
+    """The nv = 2 Newton solve in closed form (signature of solve_newton,
+    nv = 2): the per-env path's solve (constraint.solve_constraints with
+    Option.soa False). CUDA tensors launch newton2_closed_kernel; CPU
+    tensors take solve_newton_nv2_plain."""
+    nv, ne, B = _check_newton_shapes(M, a_smooth, a_warm, J, aref, D, active,
+                                     is_eq)
+    if nv != 2:
+        raise ValueError(f"solve_newton_nv2 takes nv = 2, not nv={nv}")
+    if not kernels.on_card((M, a_smooth, a_warm, J, aref, D), (active, is_eq)):
+        return solve_newton_nv2_plain(M, a_smooth, a_warm, J, aref, D, active,
+                                      is_eq, n_iter, n_ls)
+    if ne > NEWTON_NV2_MAX_ROWS:
+        raise NotImplementedError(
+            f"newton2_closed_kernel is instantiated for up to "
+            f"{NEWTON_NV2_MAX_ROWS} rows, not {ne}; add a larger row cap to "
+            "csrc/solver.cu"
+        )
+    qacc, f, rc = _launch_newton(_lib().grt_newton2_f32, (), M, a_smooth,
+                                 a_warm, J, aref, D, active, is_eq, n_iter,
+                                 n_ls)
+    kernels.raise_on(rc, "newton2_closed_kernel")
+    LAUNCHES["newton_nv2"] += B > 0
+    return qacc, f
+
+
+def _check_newton_shapes(M, a_smooth, a_warm, J, aref, D, active, is_eq):
+    """(nv, ne, B) of a Newton solve's operands, raising on any other
+    shape."""
+    nv, B = a_smooth.shape
+    ne = aref.shape[0]
+    _check_shapes([
+        ("M", M, (nv, nv, B)), ("a_warm", a_warm, (nv, B)),
+        ("J", J, (ne, nv, B)), ("D", D, (ne, B)), ("active", active, (ne, B)),
+        ("is_eq", is_eq, (ne,) if is_eq.dim() == 1 else (ne, B)),
+    ])
+    return nv, ne, B
+
+
+def _launch_newton(entry, nv_arg, M, a_smooth, a_warm, J, aref, D, active,
+                   is_eq, n_iter, n_ls):
+    """Launch one of the Newton entry points on the operands where they lie
+    (a per-model is_eq gets batch stride 0): (qacc, f, its return code)."""
+    nv, B = a_smooth.shape
+    ne = aref.shape[0]
     dev = a_smooth.device
     eq = is_eq.expand(B, ne).T if is_eq.dim() == 1 else is_eq  # batch stride 0
     ins = (M, a_smooth, a_warm, J, aref, D, active, eq)
     qacc = torch.empty((nv, B), dtype=torch.float32, device=dev)
     f = torch.empty((ne, B), dtype=torch.float32, device=dev)
-    rc = _lib().grt_newton_f32(
+    rc = entry(
         *(t.data_ptr() for t in ins), qacc.data_ptr(), f.data_ptr(),
-        _strides(*ins), nv, ne, B, int(n_iter), int(n_ls),
+        _strides(*ins), *nv_arg, ne, B, int(n_iter), int(n_ls),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    kernels.raise_on(rc, "newton_kernel")
-    LAUNCHES["newton"] += 1
-    return qacc, f
+    return qacc, f, rc

@@ -34,10 +34,19 @@ EQ_NAMES = ("connect", "weld", "joint", "tendon")
 @dataclasses.dataclass(frozen=True)
 class Option:
     """Simulation options. Every key the shipped model files carry is
-    accepted, including the TPU-only switches of the JAX package
+    accepted, including the TPU switches of the JAX package
     (``fused_solver``, ``soa``, ``slot_pack``, ``gather_mode``,
-    ``narrowphase_kernel``, ``fk_kernel``, ``fk_jump``, ``mpr``); the port
-    reads them for nothing but ``need_con_force``/``need_cfrc_ext``."""
+    ``narrowphase_kernel``, ``fk_kernel``, ``fk_jump``, ``mpr``). Of those
+    the port reads:
+    - ``fk_kernel``: True or "force" takes the FK kernel
+      (physics/kinematics.py), "auto" takes it on a CUDA tensor, False
+      (the default) never, as soa.kinematics :392-404 reads it with the
+      card in the TPU's place;
+    - ``fk_jump``: the pointer-jumping FK unless False;
+    - ``soa``: False names the per-env path, whose nv = 2 constraint solve
+      is the closed form (solver.solve_newton_nv2);
+    - ``need_con_force``/``need_cfrc_ext``: whether the contact forces are
+      decoded."""
 
     timestep: float = 0.002
     gravity: Tuple[float, float, float] = (0.0, 0.0, -9.81)

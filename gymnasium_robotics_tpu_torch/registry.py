@@ -1,6 +1,7 @@
-"""Environment registry (port of gymnasium_robotics_tpu/registry.py ``make``
-and envs/__init__.py ``_register_point_maze``, ``_register_ant_maze`` and
-``_register_fetch`` :53-109).
+"""Environment registry (port of gymnasium_robotics_tpu/registry.py ``make``,
+``make_gym`` and ``remake``, and of envs/__init__.py
+``_register_point_maze``, ``_register_ant_maze`` and ``_register_fetch``
+:53-109).
 
 The port registers the PointMaze, AntMaze, FetchPush and FetchPickAndPlace
 IDs; any other ID raises ``KeyError`` naming the slice of the port that
@@ -141,3 +142,28 @@ def make(id: str, num_envs: Optional[int] = None, device=None, **kwargs):
     from gymnasium_robotics_tpu_torch.envs.batched import BatchedEnv
 
     return BatchedEnv(env, num_envs)
+
+
+def make_gym(id: str, parity: bool = False, render_mode=None, device=None,
+             **kwargs):
+    """A Gymnasium-API env (numpy in and out, one instance, stateful) on
+    ``device`` (the CUDA card unless named): envs/adapters.GymAdapter.
+    ``parity=True`` draws the reset randomness on the host in the
+    reference's NumPy order (utils/parity.py), so a seeded reset gives the
+    reference's state."""
+    from gymnasium_robotics_tpu_torch.envs.adapters import GymAdapter
+
+    env = GymAdapter(make(id, device=device, **kwargs), render_mode=render_mode,
+                     parity=parity)
+    env._make_spec = (id, dict(kwargs), parity, render_mode,
+                      None if device is None else str(device))
+    return env
+
+
+def remake(spec):
+    """The env a ``make_gym`` spec (id, kwargs, parity, render_mode, device)
+    describes: the pickle path, where such envs pickle as their arguments
+    and are rebuilt on load."""
+    id, kwargs, parity, render_mode, device = spec
+    return make_gym(id, parity=parity, render_mode=render_mode, device=device,
+                    **kwargs)

@@ -47,6 +47,12 @@ def test_building_the_env_imports_no_jax():
         "    env = registry.make(id_, num_envs=4, device='cpu')\n"
         "    env.reset(seed=0)\n"
         "    env.step(torch.zeros(4, nu))\n"
+        "from gymnasium_robotics_tpu_torch.physics import kinematics, pipeline\n"
+        "m = env.env.model.with_options(fk_kernel=True)\n"
+        "kinematics.kinematics(m, pipeline.make_data(m, 2))\n"
+        "gym = registry.make_gym('PointMaze_UMaze-v3', parity=True, device='cpu')\n"
+        "gym.reset(seed=0)\n"
+        "gym.step([0.0, 0.0])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'gymnasium_robotics_tpu')]\n"
         "assert not bad, bad\n"
@@ -64,6 +70,8 @@ def test_make_without_device_needs_a_card():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         registry.make("PointMaze_UMaze-v3", num_envs=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.make_gym("PointMaze_UMaze-v3")
 
 
 def test_unported_id_names_its_slice():

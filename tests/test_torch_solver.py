@@ -1,14 +1,18 @@
 """The port's per-env solves (gymnasium_robotics_tpu_torch.physics.solver)
 against the Pallas kernels they replace, run in interpret mode on the CPU:
-solve_pos_plain vs solver_pallas.solve_pos_soa (_kernel_chol) and
-solve_newton_plain vs solver_pallas.solve_small_soa (_kernel_nv).
+solve_pos_plain vs solver_pallas.solve_pos_soa (_kernel_chol),
+solve_newton_plain vs solver_pallas.solve_small_soa (_kernel_nv) and
+solve_newton_nv2_plain vs solver_pallas.solve_small_nv2 (_kernel).
 
 Tolerance: relative error scaled by max(1, |ref|) <= 1e-9 in float64 (the
-two sides round the same operations in another order). The test marked
+two sides round the same operations in another order); the closed-form
+nv = 2 solve is held in float32, at 2e-4. The test marked
 ``cuda`` holds each CUDA kernel against its plain version on the card
 (<= 2e-4 in float32); it skips where no card is present. The JAX imports
 sit inside the tests so that the ``cuda`` test also runs where JAX is
 missing."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -93,6 +97,7 @@ def _check_newton(args, n_iter, n_ls):
     np.testing.assert_array_equal(fw.numpy(), f.numpy())
 
 
+@functools.lru_cache(maxsize=None)
 def _pointmaze_rows(B, steps, dtype=torch.float64, device="cpu"):
     """(M, a_smooth, a_warm, J, aref, D, active, is_eq (ne,)) of a PointMaze
     batch pushed into the walls, with the model's (n_iter, n_ls)."""
@@ -199,6 +204,63 @@ def _fetch_rows(rs, B):
 def test_solve_newton_plain_matches_pallas_fetch():
     args = _fetch_rows(np.random.RandomState(255), 4)
     _check_newton(args, n_iter=4, n_ls=4)
+
+
+def _nv2_ref(args, n_iter, n_ls):
+    """solver_pallas.solve_small_nv2 (interpret mode) over the batch of the
+    port's batch-last operands, vmapped as the per-env path vmaps it."""
+    import jax
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import solver_pallas as SP
+
+    M, asm, a0, J, aref, D, active, is_eq = (np.asarray(a) for a in args)
+    lead = [np.moveaxis(x, -1, 0) for x in (M, asm, a0, J, aref, D, active)]
+    eq_axis = None if is_eq.ndim == 1 else 0
+    if eq_axis == 0:
+        is_eq = np.moveaxis(is_eq, -1, 0)
+    qacc, f = jax.vmap(
+        lambda *a: SP.solve_small_nv2(*a, n_iter=n_iter, n_ls=n_ls,
+                                      interpret=True),
+        in_axes=(0,) * 7 + (eq_axis,))(*map(jnp.asarray, lead),
+                                      jnp.asarray(is_eq))
+    return np.moveaxis(np.asarray(qacc), 0, -1), np.moveaxis(np.asarray(f), 0, -1)
+
+
+def _random_nv2_rows(rs, B, ne=19):
+    return [
+        _spd(rs, 2, B)[:, :, [3] * 3 + list(range(3, B))],  # no floor lanes
+        rs.normal(size=(2, B)), rs.normal(size=(2, B)),
+        rs.normal(size=(ne, 2, B)), rs.normal(size=(ne, B)),
+        np.exp(rs.normal(size=(ne, B))),
+        rs.uniform(size=(ne, B)) < 0.7, rs.uniform(size=(ne, B)) < 0.3,
+    ]
+
+
+@pytest.mark.parametrize("rows", ["pointmaze", "random"])
+def test_solve_newton_nv2_plain_matches_pallas(rows):
+    """float32, at 2e-4: PointMaze rows pushed into the walls (per-model
+    is_eq) and random rows (is_eq per env)."""
+    if rows == "pointmaze":
+        args, n_iter, n_ls = _pointmaze_rows(B=130, steps=25)
+        args = [a.numpy() for a in args]
+    else:
+        args, n_iter, n_ls = _random_nv2_rows(np.random.RandomState(2), 130), 5, 3
+    args = [a.astype(np.float32) if a.dtype == np.float64 else a for a in args]
+    qref, fref = _nv2_ref(args, n_iter, n_ls)
+    targs = [torch.tensor(a) for a in args]
+    qacc, f = solver.solve_newton_nv2_plain(*targs, n_iter=n_iter, n_ls=n_ls)
+    assert rel_err(qacc.numpy(), qref) <= TOL32
+    assert rel_err(f.numpy(), fref) <= TOL32
+    qw, fw = solver.solve_newton_nv2(*targs, n_iter=n_iter, n_ls=n_ls)
+    np.testing.assert_array_equal(qw.numpy(), qacc.numpy())
+    np.testing.assert_array_equal(fw.numpy(), f.numpy())
+    with pytest.raises(ValueError, match="nv = 2"):
+        solver.solve_newton_nv2(
+            torch.eye(3)[:, :, None], torch.zeros(3, 1), torch.zeros(3, 1),
+            torch.zeros(1, 3, 1), torch.zeros(1, 1), torch.ones(1, 1),
+            torch.ones(1, 1, dtype=torch.bool),
+            torch.zeros(1, dtype=torch.bool), n_iter=1, n_ls=1)
 
 
 def test_wrappers_route_and_check():
@@ -358,3 +420,22 @@ def test_kernels_match_plain_on_card_nv21(cuda_device):
     for args in (rand, real):
         for err in newton_errs(args, 4, 4):
             assert err <= TOL32
+
+
+@pytest.mark.cuda
+def test_newton_nv2_kernel_matches_plain_on_card(cuda_device):
+    """newton2_closed_kernel against solve_newton_nv2_plain at B = 8192 on
+    a PointMaze batch's rows and on random rows (is_eq per env)."""
+    B = 8192
+    args, n_iter, n_ls = _pointmaze_rows(B, 25, torch.float32, cuda_device)
+    rand = [torch.tensor(a, dtype=torch.bool if a.dtype == bool else
+                         torch.float32, device=cuda_device)
+            for a in _random_nv2_rows(np.random.RandomState(4), B)]
+    for a, it, ls in ((args, n_iter, n_ls), (rand, 5, 3)):
+        n0 = solver.LAUNCHES["newton_nv2"]
+        qk, fk = solver.solve_newton_nv2(*a, n_iter=it, n_ls=ls)
+        torch.cuda.synchronize()
+        assert solver.LAUNCHES["newton_nv2"] == n0 + 1
+        qp, fp = solver.solve_newton_nv2_plain(*a, n_iter=it, n_ls=ls)
+        assert rel_err(qk.cpu(), qp.cpu()) <= TOL32
+        assert rel_err(fk.cpu(), fp.cpu()) <= TOL32
