@@ -31,7 +31,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      env auto-resets; per step 20 chol, 20 Newton, 40 topk_select (20 of
      each shape) and 20 narrowphase launches; prints ms/step and
      env-steps/s;
-  8. trace: 8 steps traced, as in phase 4;
+  8. trace: 4 steps traced, as in phase 4;
   9. reference: 8 envs on the card and on the CPU plain path from one
      carried-across state: within 2e-4 after 1 env step; the error after 5
      steps is printed, not gated (contact dynamics are chaotic);
@@ -103,11 +103,24 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      on the rows of phase 3's PointMaze batch (the rows the per-env path
      builds) and on random rows, held to the plain version run in float64
      as the nv = 21 Newton is, with CUDA-event times;
-  then a JSON line of the kernels, the card line, and the last line
-  {"ok": true, "device": {...}}. Each phase prints its wall time.
+  21. edge checks of the redesigned kernels (topk_select_kernel,
+     newton_tile_kernel) against their plain versions on the card:
+     topk_select at (2, 744) -> 8 (AntMaze_Large's shape) on tied ranks, at
+     B = 1 and B = 2047, with K larger than the unmasked count, with an
+     all-masked group and a NaN lane; the Newton solve at nv = 14 and 21 at
+     the row caps (96, 256), at an ne that is not a multiple of 32, at
+     B = 1 and B = 2047, with n_iter = 0, with every row inactive and with
+     a strided J;
+  then a JSON line of the kernels (the redesigned kernels' rows also carry
+  ptxas' registers and spill bytes, the blocks per SM
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor gives and the launch
+  geometry, after the wrappers' shared memory sizes are held to the
+  sources'), the card line, and the last line {"ok": true, "device":
+  {...}}. Each phase prints its wall time.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -369,7 +382,7 @@ def trace(torch, run, n, card, label, cpu=True, counts=None):
         **({"counted_launches_per_step": counted} if counted else {}),
         "card": card}), flush=True)
     ported = ("chol_solve_kernel", "chol_warp_kernel", "newton_kernel",
-              "newton_warp_kernel", "topk_select_kernel", "narrowphase_kernel",
+              "newton_tile_kernel", "topk_select_kernel", "narrowphase_kernel",
               "fk_kernel", "newton2_closed_kernel")
     for i, (name, (c, ms)) in enumerate(top):
         if i < 15 or any(k in name for k in ported):
@@ -554,7 +567,7 @@ def tie_ranks(rs, G, maxk, n):
     rank = rs.randint(-4, 5, (G, maxk, n)).astype(np.float32) * 0.5
     rank[rs.uniform(size=rank.shape) < 0.03] = -np.inf
     rank[rs.uniform(size=rank.shape) < 0.05] = np.inf
-    rank[:, 5:, 1] = np.inf
+    rank[:, 5:, min(1, n - 1)] = np.inf
     mask = np.ones((G, maxk), bool)
     mask[0, maxk // 3:] = False
     return rank, mask
@@ -606,7 +619,7 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
         for _ in range(k):
             env.step(torch.rand((ANT_B, 8), generator=gen, device=dev) * 2 - 1)
 
-    trace(torch, run, 8, card, "ant trace")
+    trace(torch, run, 4, card, "ant trace")
 
     # --- 9. the card against the CPU plain path from one state
     small = 8
@@ -1457,6 +1470,137 @@ def single_env(torch, dev, card, solver, constraint, narrowphase, registry,
              f"max(tolerance, {NEWTON_SLACK} x plain32_rel_err) per set")]
 
 
+def ptxas_report(report):
+    """{kernel's mangled name: (registers, spill store bytes)} from the
+    build's ptxas -v logs (empty for a source found already built)."""
+    out, name, spill = {}, None, 0
+    for _, log in report.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name, spill = m.group(1), 0
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out[name] = (int(m.group(1)), spill)
+                name = None
+    return out
+
+
+def redesign_fields(rows, ptx, solver, narrowphase):
+    """Registers, spill bytes and blocks per SM of the redesigned kernels'
+    rows (topk_select_kernel<KCAP>, newton_tile_kernel<NV, ...>); the
+    wrappers' launch geometry is first held to the shared memory bytes the
+    kernels' sources compute."""
+    nlib, slib = narrowphase._lib(), solver._lib()
+    for row in rows:
+        if row["name"].startswith("topk_select_"):
+            G, maxk, nb, K = row["shape"]
+            geo = narrowphase.topk_geometry(G, maxk, nb, K)
+            assert geo["smem"] == nlib.grt_topk_smem_bytes(maxk, geo["kcap"]), geo
+            entry = f"topk_select_kernelILi{geo['kcap']}E"
+            blocks = nlib.grt_topk_blocks_per_sm(geo["kcap"], geo["smem"])
+        elif row["name"] in ("newton_nv14", "newton_nv21"):
+            nv, ne, nb = row["shape"][:3]
+            geo = solver.newton_geometry(nv, ne, nb)
+            assert geo["smem"] == slib.grt_newton_smem_bytes(nv), geo
+            entry = f"newton_tile_kernelILi{nv}E"
+            blocks = slib.grt_newton_blocks_per_sm(nv)
+        else:
+            continue
+        regs, spill = next((v for k, v in ptx.items() if entry in k),
+                           (None, None))
+        row.update(regs=regs, spill_bytes=spill, blocks_per_sm=blocks,
+                   smem_bytes=geo["smem"], grid=geo["grid"],
+                   threads=geo["threads"])
+        assert spill in (0, None), f"{row['name']}: {spill} bytes of spill"
+
+
+def edge_checks(torch, dev, solver, narrowphase):
+    """Phase 21: the redesigned kernels at the edges of their shapes, each
+    against its plain version on the card. topk_select (indices equal): tied
+    and +-inf ranks at (2, 744) -> 8 (AntMaze_Large's broadphase) and at
+    B = 1 and 2047; K larger than the unmasked count; an all-masked group
+    and a NaN lane. The Newton solve (nv = 14 within TOL of the float32
+    plain version; nv = 21 within max(TOL, NEWTON_SLACK x the float32 plain
+    version's error) of the float64 plain version): random rows at the row
+    caps (96, 256), at an ne that is not a multiple of 32, at B = 1 and at
+    a B that is not a multiple of the 8-env tile, with n_iter = 0, with
+    every row inactive, and with J in a batch-leading layout (the strided
+    staging path)."""
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(7)
+
+    def cuda(x):
+        x = np.asarray(x)
+        return torch.as_tensor(x, dtype=torch.bool if x.dtype == bool
+                               else torch.float32, device=dev)
+
+    cases = []
+    for (G, maxk), K, nb in (((2, 744), 8, ANT_B), ((2, 169), 24, 1),
+                             ((1, 57), 16, 2047), ((2, 216), 8, 2047)):
+        cases.append((f"ties {G}x{maxk}->{K} B={nb}", *tie_ranks(rs, G, maxk, nb), K))
+    rank, mask = tie_ranks(rs, 2, 40, 64)
+    mask[:, 5:] = False                       # 5 unmasked rows, K = 16
+    cases.append(("K > unmasked", rank, mask, 16))
+    rank = rs.normal(size=(3, 85, 96)).astype(np.float32)
+    mask = np.ones((3, 85), bool)
+    mask[1] = False                           # group 1 all masked
+    rank[2, 40, 3] = np.nan                   # an unmasked NaN: lane 3
+    rank[0, 7, 5] = np.nan
+    mask[0, 7] = False                        # a masked NaN: ignored
+    cases.append(("all-masked group, NaN lane", rank, mask, 8))
+    for name, rank, mask, K in cases:
+        r, mk = cuda(rank), cuda(mask)
+        got = narrowphase.topk_select(r, mk, K)
+        ref = narrowphase.topk_select_plain(r, mk, K)
+        assert torch.equal(got, ref), f"topk_select ({name}): indices differ"
+    print(f"edge checks: topk_select equal on {[c[0] for c in cases]}",
+          flush=True)
+
+    def rows(nv, ne, nb, p_act=0.6):
+        A = rs.normal(size=(nv, nv, nb))
+        is_eq = np.zeros(ne, bool)
+        is_eq[:6] = True
+        return [cuda(np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(nv)[:, :, None]),
+                cuda(rs.normal(size=(nv, nb))), cuda(rs.normal(size=(nv, nb))),
+                cuda(rs.normal(size=(ne, nv, nb))), cuda(rs.normal(size=(ne, nb))),
+                cuda(np.exp(rs.normal(size=(ne, nb)))),
+                cuda(rs.uniform(size=(ne, nb)) < p_act), cuda(is_eq)]
+
+    errs = {}
+    for nv, n_iter in ((14, 5), (21, 4)):
+        cap = solver.NEWTON_MAX_ROWS[nv]
+        for name, ne, nb, it, p_act in (
+                ("row cap", cap, ANT_B, n_iter, 0.6),
+                ("ne % 32 != 0", 45, 13, n_iter, 0.6),
+                ("B = 1", cap - 1, 1, n_iter, 0.6),
+                ("B % 8 != 0", 72, 2047, n_iter, 0.6),
+                ("n_iter = 0", 72, 64, 0, 0.6),
+                ("rows inactive", 72, 64, n_iter, 0.0),
+                ("strided J", 72, 64, n_iter, 0.6)):
+            args = rows(nv, ne, nb, p_act)
+            if name == "strided J":   # (B, ne, nv) storage: batch stride ne nv
+                args[3] = args[3].permute(2, 0, 1).contiguous().permute(1, 2, 0)
+            if nv == 14:
+                err, _ = check_pair(
+                    lambda *a: solver.solve_newton(*a, n_iter=it, n_ls=4),
+                    lambda *a: solver.solve_newton_plain(*a, n_iter=it, n_ls=4),
+                    (args,))
+                assert err <= TOL, f"newton nv=14 ({name}): relerr {err:.3e}"
+            else:
+                err, p32, _ = newton_vs_f64(torch, solver, args, it, 4)
+                assert err <= max(TOL, NEWTON_SLACK * p32), (
+                    f"newton nv=21 ({name}): relerr {err:.3e} against float64, "
+                    f"the float32 plain version's {p32:.3e}")
+            errs[f"nv{nv} {name} (ne {ne}, B {nb})"] = err
+    print(f"edge checks: newton relerr {errs} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+
 def main():
     import torch
 
@@ -1477,6 +1621,7 @@ def main():
     t0 = time.perf_counter()
     report = kernels.build()
     print(f"build: {time.perf_counter() - t0:.2f} s wall", flush=True)
+    ptx = ptxas_report(report)
     for name, (secs, log) in report.items():
         print(f"  {name}: {secs:.2f} s")
         for line in log.splitlines():
@@ -1503,6 +1648,8 @@ def main():
     kern += single_env(torch, dev, card, solver, constraint, narrowphase,
                        registry, pm_state)
     print(f"single-env phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    edge_checks(torch, dev, solver, narrowphase)
+    redesign_fields(kern, ptx, solver, narrowphase)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

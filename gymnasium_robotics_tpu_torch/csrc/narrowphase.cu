@@ -1,4 +1,4 @@
-// The pruned narrowphase's two kernels, one thread per (row, env).
+// The pruned narrowphase's two kernels.
 //
 // topk_select_kernel<KCAP> (KCAP = 8, 16, 24) replaces the TPU kernel
 //   gymnasium_robotics_tpu/physics/narrowphase_pallas.py::topk_select
@@ -6,8 +6,8 @@
 //   (group, env), the indices of the K smallest ranks in ascending order,
 //   first index first on ties, masked entries counting as +inf. Once every
 //   finite rank is taken, the remaining rounds of the TPU kernel give
-//   index 0 (the first +inf entry), and a lane with a NaN rank gives maxk in
-//   every round; this kernel returns the same.
+//   index 0 (the first +inf entry), and a lane with an unmasked NaN rank
+//   gives maxk in every round; this kernel returns the same.
 // narrowphase_kernel replaces the TPU kernel
 //   gymnasium_robotics_tpu/physics/narrowphase_pallas.py::
 //   narrowphase_megakernel (with GroupSpec/_emit_group) for the groups
@@ -17,8 +17,8 @@
 //   _take_smallest :135, _sphere_box_at :221, _capsule_box :375, _box_box
 //   :388 with _box_box_edge :427 and _seg_seg_closest :344,
 //   _make_plane_hull :673) and the frame of _contact_frame_soa :806,
-//   written out for one pair. The box-hull and hull-hull groups run with MPR
-//   outside both the TPU kernel and this one.
+//   written out for one pair, one thread per (row, env). The box-hull and
+//   hull-hull groups run with MPR outside both the TPU kernel and this one.
 //
 // Layout. Every array is batch-last and contiguous, element (r, ..., b) at
 // r * (...) * B + b, so the 32 threads of a warp, one env each, read and
@@ -33,24 +33,40 @@
 // evaluated pair (kind, first row, row of sel or -1, offset of the group's
 // pair list) plus the lists of geom ids and each geom's hull id.
 //
-// What bounds them. At the AntMaze and FetchPush shapes (B = 2048) both
-// move a few MB at most; narrowphase does a few hundred (primitives) to a
-// few thousand (box-box) operations per thread, topk_select one pass over
-// maxk per thread, so neither fills the card. The TPU kernel rescanned the
-// VMEM-resident table K times; here one pass over maxk keeps a sorted
-// K-list in registers (strict (rank, index) order), so the table is read
-// once, coalesced. Where the TPU kernel took operand blocks gathered by
-// XLA (Mosaic serialises per-lane gathers), each thread here reads its
-// pair's geom ids and gathers the 12 floats of each geom's pose (and a
-// hull's vertices, read alike by every thread of a warp) itself. Every
-// array a formula indexes at a runtime face, axis or corner is written as
-// selects or recomputed at the picked index, so it stays in registers.
+// What bounds topk_select on this card. Its table is small (2.8 MB at
+// (2, 169, 2048)), so bytes bound it at 0.2-1.1 us; what costs is latency.
+// One thread per (group, env) walking all maxk rows in turn would pay one
+// row's load and insertion per row, in sequence, on 32 blocks for 132 SMs
+// at (2, 169). So a block takes one group and a tile of 32 envs (one lane
+// each) and 8 warps that
+// split the rows (warp w takes rows w, w + 8, ...): 128 blocks at
+// (2, 169). The rows stream through a two-stage ring of 128-row chunks in
+// shared memory, each chunk staged with cp.async (16 bytes a thread when
+// B % 4 == 0, else 4) while the warps scan the other; masked rows and envs
+// past B are written as +inf while staging, so shared memory stays under
+// 33 KB whatever maxk. Each thread keeps a sorted KCAP-list of its env's
+// rows in its slice, in strict (rank, index) order, in registers (one
+// compare-and-carry chain an insertion). Then the 8 lists of each env go
+// to shared memory (aliasing the ring) and warp 0 merges them: K rounds of
+// the strict minimum over the 8 heads, which is exactly the K-round result,
+// ties included, since the lists hold disjoint indices. A NaN seen by any
+// slice flags the env, which then gives maxk in every round; an empty place
+// gives 0. The K indices are written coalesced.
+// What bounds narrowphase: at the AntMaze and FetchPush shapes (B = 2048)
+// it moves a few MB and does a few hundred (primitives) to a few thousand
+// (box-box) operations per thread, so it does not fill the card. Where the
+// TPU kernel took operand blocks gathered by XLA (Mosaic serialises
+// per-lane gathers), each thread here reads its pair's geom ids and gathers
+// the 12 floats of each geom's pose (and a hull's vertices, read alike by
+// every thread of a warp) itself. Every array a formula indexes at a
+// runtime face, axis or corner is written as selects or recomputed at the
+// picked index, so it stays in registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libnarrowphase.so narrowphase.cu
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() (non-zero when the launch was refused), or -1 for a
-// shape with no instantiation.
+// shape with no instantiation or too little shared memory.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -65,17 +81,105 @@ constexpr int kThreads = 128;
 // topk_select
 // ---------------------------------------------------------------------------
 
+constexpr int kTopkTile = 32;     // envs a block, one lane each
+constexpr int kTopkWarps = 8;     // warps a block, each a slice of the rows
+constexpr int kTopkChunk = 128;   // rows a stage of the ring
+
+// Bytes of dynamic shared memory of a block: the ring of two chunks,
+// aliased after the scan by the warps' lists (KCAP values and indices for
+// each of the tile's envs), then one NaN flag per env and the merge's next
+// place in each list per env.
+// physics/narrowphase.py::topk_geometry computes the same.
+__host__ __device__ inline int topk_lists_bytes(int maxk, int kcap) {
+  const int ch = maxk < kTopkChunk ? (maxk > 0 ? maxk : 1) : kTopkChunk;
+  const int ring = 2 * ch * kTopkTile * 4;
+  const int lists = kTopkWarps * kcap * kTopkTile * 8;
+  return ring > lists ? ring : lists;
+}
+__host__ __device__ inline int topk_smem_bytes(int maxk, int kcap) {
+  return topk_lists_bytes(maxk, kcap) + (1 + kTopkWarps) * kTopkTile * 4;
+}
+
+// cp.async of 4 or 16 bytes into shared memory; the host pass (which never
+// runs a kernel) sees plain copies.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+#else
+  *static_cast<float*>(dst) = *static_cast<const float*>(src);
+#endif
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+#else
+  *static_cast<float4*>(dst) = *static_cast<const float4*>(src);
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
+}
+
+// Stage rows [r0, r0 + n) of the block's (maxk, tile) slice of rank into
+// dst (n rows of kTopkTile floats), masked rows and envs past B as +inf.
+__device__ __forceinline__ void topk_stage(const float* __restrict__ rg,
+                                           const unsigned char* __restrict__ mk,
+                                           float* dst, int r0, int n, int b0,
+                                           int B, bool vec4) {
+  const size_t sB = (size_t)B;
+  if (vec4) {  // B % 4 == 0 and rank 16-byte aligned: 8 threads a row
+    for (int i = threadIdx.x; i < n * 8; i += blockDim.x) {
+      const int r = i >> 3, q = (i & 7) * 4;
+      float* d = dst + r * kTopkTile + q;
+      if (mk[r0 + r] && b0 + q < B) {
+        cp_async16(d, rg + (r0 + r) * sB + b0 + q);
+      } else {
+        d[0] = d[1] = d[2] = d[3] = INFINITY;
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * kTopkTile; i += blockDim.x) {
+      const int r = i / kTopkTile, q = i % kTopkTile;
+      float* d = dst + r * kTopkTile + q;
+      if (mk[r0 + r] && b0 + q < B) {
+        cp_async4(d, rg + (r0 + r) * sB + b0 + q);
+      } else {
+        *d = INFINITY;
+      }
+    }
+  }
+  cp_async_commit();
+}
+
 template <int KCAP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTopkWarps * 32)
 topk_select_kernel(const float* __restrict__ rank,
                    const unsigned char* __restrict__ mask,
-                   int* __restrict__ out, int maxk, int B, int K) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int g = blockIdx.y;
-  if (b >= B) return;
+                   int* __restrict__ out, int maxk, int B, int K, int vec4) {
+  extern __shared__ __align__(16) unsigned char topk_smem[];
+  float* ring = reinterpret_cast<float*>(topk_smem);
+  float* lval = ring;                                   // after the scan
+  int* lidx = reinterpret_cast<int*>(topk_smem) + kTopkWarps * KCAP * kTopkTile;
+  int* nanf = reinterpret_cast<int*>(topk_smem + topk_lists_bytes(maxk, KCAP));
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = blockIdx.y, b0 = blockIdx.x * kTopkTile, b = b0 + lane;
   const size_t sB = (size_t)B;
-  const float* r = rank + (size_t)g * maxk * sB + b;
+  const float* rg = rank + (size_t)g * maxk * sB;
   const unsigned char* mk = mask + (size_t)g * maxk;
+  const int ch = maxk < kTopkChunk ? maxk : kTopkChunk;
+  const int nch = (maxk + ch - 1) / ch;
+  if (threadIdx.x < kTopkTile) nanf[threadIdx.x] = 0;
+
   float vals[KCAP];
   int idxs[KCAP];
 #pragma unroll
@@ -84,35 +188,77 @@ topk_select_kernel(const float* __restrict__ rank,
     idxs[j] = INT_MAX;
   }
   bool nan = false;
-  for (int i = 0; i < maxk; ++i) {
-    if (!mk[i]) continue;                 // masked: +inf, never taken
-    const float v = r[i * sB];
-    if (v != v) {                         // NaN: every round gives maxk
-      nan = true;
-      break;
+  topk_stage(rg, mk, ring, 0, ch, b0, B, vec4 != 0);
+  for (int c = 0; c < nch; ++c) {
+    const int r0 = c * ch, n = min(ch, maxk - r0);
+    if (c + 1 < nch) {
+      topk_stage(rg, mk, ring + ((c + 1) & 1) * ch * kTopkTile, r0 + ch,
+                 min(ch, maxk - r0 - ch), b0, B, vec4 != 0);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    if (!(v < vals[KCAP - 1])) continue;  // +inf, or not among the KCAP
-    // insert by carrying the displaced entry down the sorted list; ties
-    // keep the smaller index first
-    float cv = v;
-    int ci = i;
+    __syncthreads();
+    const float* src = ring + (c & 1) * ch * kTopkTile;
+    for (int r = w; r < n; r += kTopkWarps) {
+      const float v = src[r * kTopkTile + lane];
+      if (v != v) {                          // NaN: every round gives maxk
+        nan = true;
+        continue;
+      }
+      // +inf (masked or not) is never taken; the rows of a slice come in
+      // ascending order, so a tie with the last entry ranks after it
+      if (!(v < vals[KCAP - 1])) continue;
+      // insert by carrying the displaced entry down the sorted list
+      float cv = v;
+      int ci = r0 + r;
 #pragma unroll
-    for (int j = 0; j < KCAP; ++j) {
-      if (cv < vals[j] || (cv == vals[j] && ci < idxs[j])) {
-        const float tv = vals[j];
-        const int ti = idxs[j];
-        vals[j] = cv;
-        idxs[j] = ci;
-        cv = tv;
-        ci = ti;
+      for (int j = 0; j < KCAP; ++j) {
+        if (cv < vals[j] || (cv == vals[j] && ci < idxs[j])) {
+          const float tv = vals[j];
+          const int ti = idxs[j];
+          vals[j] = cv;
+          idxs[j] = ci;
+          cv = tv;
+          ci = ti;
+        }
       }
     }
+    __syncthreads();   // the stage is refilled next
   }
-  int* o = out + (size_t)g * K * sB + b;
+
+  // the slices' lists to shared memory, then warp 0 merges them per env
 #pragma unroll
   for (int j = 0; j < KCAP; ++j) {
-    if (j >= K) break;
-    o[j * sB] = nan ? maxk : (idxs[j] == INT_MAX ? 0 : idxs[j]);
+    lval[(w * KCAP + j) * kTopkTile + lane] = vals[j];
+    lidx[(w * KCAP + j) * kTopkTile + lane] = idxs[j];
+  }
+  if (nan) nanf[lane] = 1;
+  __syncthreads();
+  if (w != 0 || b >= B) return;
+  const bool lane_nan = nanf[lane] != 0;
+  int* head = nanf + kTopkTile;            // [slice][env]: next list place
+#pragma unroll
+  for (int s = 0; s < kTopkWarps; ++s) head[s * kTopkTile + lane] = 0;
+  int* o = out + (size_t)g * K * sB + b;
+  for (int k = 0; k < K; ++k) {
+    int best = 0, bi = INT_MAX;
+    float bv = INFINITY;
+#pragma unroll
+    for (int s = 0; s < kTopkWarps; ++s) {
+      const int p = head[s * kTopkTile + lane];
+      if (p < KCAP) {
+        const float v = lval[(s * KCAP + p) * kTopkTile + lane];
+        const int i = lidx[(s * KCAP + p) * kTopkTile + lane];
+        if (v < bv || (v == bv && i < bi)) {
+          best = s;
+          bv = v;
+          bi = i;
+        }
+      }
+    }
+    o[k * sB] = lane_nan ? maxk : (bi == INT_MAX ? 0 : bi);
+    ++head[best * kTopkTile + lane];
   }
 }
 
@@ -601,27 +747,73 @@ inline dim3 grid_for(int B, int rows) {
   return dim3((B + kThreads - 1) / kThreads, rows);
 }
 
+// Raise topk_select_kernel<KCAP>'s dynamic shared memory limit to smem
+// bytes where it is lower (once per new maximum).
+template <int KCAP>
+cudaError_t topk_allow_smem(int smem) {
+  static int allowed = 48 * 1024;   // the default limit
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      topk_select_kernel<KCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e == cudaSuccess) allowed = smem;
+  return e;
+}
+
+template <int KCAP>
+int topk_blocks_per_sm(int smem) {
+  int n = 0;
+  cudaError_t e = topk_allow_smem<KCAP>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, topk_select_kernel<KCAP>, kTopkWarps * 32, smem);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+template <int KCAP>
+int launch_topk(const float* rank, const unsigned char* mask, int* out, int G,
+                int maxk, int B, int K, int vec4, int smem, cudaStream_t s) {
+  if (smem < topk_smem_bytes(maxk, KCAP)) return -1;
+  const cudaError_t e = topk_allow_smem<KCAP>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((B + kTopkTile - 1) / kTopkTile, G);
+  topk_select_kernel<KCAP><<<grid, kTopkWarps * 32, smem, s>>>(
+      rank, mask, out, maxk, B, K, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
+// Shared memory bytes topk_select_kernel<kcap> needs at maxk rows.
+int grt_topk_smem_bytes(int maxk, int kcap) {
+  return topk_smem_bytes(maxk, kcap);
+}
+
+// Blocks of topk_select_kernel<kcap> one SM holds at smem bytes a block.
+int grt_topk_blocks_per_sm(int kcap, int smem) {
+  return kcap == 8 ? topk_blocks_per_sm<8>(smem)
+         : kcap == 16 ? topk_blocks_per_sm<16>(smem)
+         : kcap == 24 ? topk_blocks_per_sm<24>(smem) : -1;
+}
+
+// vec4: B % 4 == 0 and rank 16-byte aligned (16-byte staging copies); smem:
+// the block's shared memory bytes (physics/narrowphase.py::topk_geometry),
+// at least grt_topk_smem_bytes(maxk, KCAP).
 int grt_topk_select_f32(const float* rank, const unsigned char* mask, int* out,
-                        int G, int maxk, int B, int K, void* stream) {
-  if (B <= 0 || G <= 0) return 0;
+                        int G, int maxk, int B, int K, int vec4, int smem,
+                        void* stream) {
+  if (B <= 0 || G <= 0 || maxk <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K > 0 && K <= 8) {
-    topk_select_kernel<8><<<grid_for(B, G), kThreads, 0, s>>>(rank, mask, out,
-                                                              maxk, B, K);
+    return launch_topk<8>(rank, mask, out, G, maxk, B, K, vec4, smem, s);
   } else if (K > 8 && K <= 16) {
-    topk_select_kernel<16><<<grid_for(B, G), kThreads, 0, s>>>(rank, mask, out,
-                                                               maxk, B, K);
+    return launch_topk<16>(rank, mask, out, G, maxk, B, K, vec4, smem, s);
   } else if (K > 16 && K <= 24) {
-    topk_select_kernel<24><<<grid_for(B, G), kThreads, 0, s>>>(rank, mask, out,
-                                                               maxk, B, K);
-  } else {
-    return -1;
+    return launch_topk<24>(rank, mask, out, G, maxk, B, K, vec4, smem, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return -1;
 }
 
 // size strides: geom, component and batch (0 for a model table of Bm = 1).

@@ -6,7 +6,8 @@
 //   (entered through solve_pos_soa): the batched SPD solve M x = b by an
 //   unrolled LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
 // newton_kernel<NV, NE_CAP> (NV = 2; one env per thread) and
-// newton_warp_kernel<NV, RPL> (NV = 14, 21; one env per warp, below) replace
+// newton_tile_kernel<NV, WPE, RPL> (NV = 14, 21; a tile of 8 envs a block,
+//   one or two warps an env, below) replace
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
@@ -47,20 +48,21 @@
 // bytes and writes 86 floats per env (11.2 MB, 3.4 us) and does about 148k
 // float operations per env (4.5 us at 67 TFLOP/s float32), so operations
 // bound it (chip_smoke.py counts both); one thread per env would need far
-// more than 255 registers, hence the warp-per-env layout of
-// newton_warp_kernel (its note below). The Cholesky at NV = 14 keeps its
-// 105-entry triangle and factor in one thread's registers (in place).
+// more than 255 registers, hence newton_tile_kernel, which spreads each
+// env over a warp or two and keeps J in shared memory (its note below).
+// The Cholesky at NV = 14 keeps its 105-entry triangle and factor in one
+// thread's registers (in place).
 // At the FetchPush shapes (NV = 21, ne = 255, 4 and 4 iterations,
 // B = 2048) the Newton function reads 6393 floats and 255 mask bytes and
-// writes 276 floats per env (54.8 MB, 16 us) and does about 0.6M float
-// operations per env (18 us), so bytes and operations bound it about
-// equally; the Cholesky moves 273 floats per env (2.2 MB, 0.7 us).
+// writes 276 floats per env (54.8 MB, 16 us) and does about 0.74M float
+// operations per env (22 us), so operations bound it, bytes close behind;
+// the Cholesky moves 273 floats per env (2.2 MB, 0.7 us).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsolver.so solver.cu
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() (non-zero when the launch was refused), or -1 for an
-// nv or ne with no instantiation.
+// nv or ne with no instantiation or too little shared memory.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -444,28 +446,71 @@ void launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
 }
 
 // ---------------------------------------------------------------------------
-// newton_warp_kernel<NV, RPL>: one warp per env, for the larger systems
-// (AntMaze: NV = 14, ne = 72; FetchPush: NV = 21, ne = 255). One thread per
-// env would hold each row's x, J p, weight and flag (4 ne values) plus H's
-// triangle, far past 255 registers. Here rows are striped over the lanes
-// (row r = lane + 32 q, RPL rows a lane); J, the per-iteration weights and
-// M's triangle are staged once in dynamic shared memory, and where they fit
-// (RPL * NV <= 48: NV = 14) each lane also keeps its rows of J in
-// registers; at NV = 21 with 8 rows a lane (168 floats) J is read from
-// shared memory only (row stride 21 floats: the 32 lanes hit 32 banks). The
-// lanes own the entries of M + J^T D J, the warp factors the NV x NV system
-// in shared memory (lane j owns row j) and the sums over rows (gradient,
-// line-search derivatives, J^T f) are warp reductions by __shfl_xor_sync.
-// Vectors of length NV are replicated in every lane. Shared memory per env:
-// (32 RPL (NV + 1) + NV (NV + 1)) floats, 6.1 KB at NV = 14 and 24.4 KB at
-// NV = 21 (97.5 KB per block of 4 envs, past the 48 KB of static shared
-// memory, hence dynamic).
+// newton_tile_kernel<NV, WPE, RPL>: the Newton solve for the larger systems
+// (AntMaze: NV = 14, ne = 72 of a 96-row cap; FetchPush: NV = 21, ne = 255
+// of 256), a block a tile of kEnvTile consecutive envs, WPE warps an env.
+//
+// What bounds it on this card. Per env and iteration the function forms
+// H = M + J^T diag(Dw) J over every row (59k multiply-adds at NV = 21, 255
+// rows; 7.6k at NV = 14, 72 rows), three row products (x, J p, and J^T of a
+// row vector) and an NV x NV Cholesky; J itself (21.4 KB an env at
+// NV = 21) is read once per call. The operation bound is 22 us at
+// FetchPush's shapes, the byte bound 16 us. Held in every lane of a warp,
+// the NV-vectors alone would take ~8 NV registers a lane; read one env at
+// a time at batch stride, J would cost a sector per element; built entry
+// by entry, H would cost three shared loads per multiply-add.
+//
+// What this design does about it:
+// - Staging: consecutive threads take consecutive envs of the tile, so with
+//   batch stride 1 each 8-env run of an element is one full 32-byte
+//   sector. Where the batch stride is 1 and the rows are 16-byte aligned a
+//   thread loads an element of 4 envs at once (LDG.128, 4 in flight) and
+//   stores it into the 4 envs' regions; other views (strides, B % 4 != 0)
+//   take a 4-byte cp.async an element. J is kept transposed, J^T with its
+//   columns contiguous over rows (NECP = NEC + 4 floats apart, 4 mod 32),
+//   for every iteration; M's lower triangle, a_warm, a_smooth, each row's
+//   weight (active ? D : 0), aref and equality flag are staged alike (the
+//   equality flags' batch stride 0 included).
+// - H by 3x3 register blocks: each lane owns one 3x3 block of the lower
+//   triangle (28 blocks at NV = 21, 15 at NV = 14; a zero column stands in
+//   past NV) and streams the rows four at a time: one float4 load a column
+//   brings 4 rows (the 7 columns a warp asks at once lie in distinct banks),
+//   two bring the 4 rows' (Dw, Dw x), for 36 multiply-adds of H and 12 of
+//   the gradient J^T (Dw x) (kept by the diagonal blocks). The rows are
+//   split in interleaved slices of four, one per warp at NV = 21 (WPE = 2)
+//   and one per half-warp at NV = 14 (WPE = 1); the slices' sums are added
+//   by shuffle within a warp and through shared memory across warps.
+// - Rows over lanes: each of the env's 32 WPE lanes owns RPL rows (row
+//   u + 32 WPE q) and keeps their weight, aref, x, J p and equality flag in
+//   registers for x, the line search and the forces.
+// - Vectors held once: a, a_smooth, p, the gradient and M (a - a_smooth)
+//   live in shared memory, one component per lane where computed; the
+//   Cholesky solve (warp_chol_solve<NV, true>, below) takes and returns
+//   one component a lane, keeps each lane's row in registers and
+//   substitutes with reciprocals. No NV-array is replicated in registers.
+// - Outputs go through shared memory and are written coalesced.
+// Shared memory per env: (NJC NECP + 2 NEC + 2 NT + 176 + NEC / 4) floats
+// (NEC = 32 WPE RPL rows, NJC = NV, or NV + 1 with the zero column,
+// NT = NV (NV + 1) / 2), padded to 4 mod 32 so the staging stores spread
+// over the banks: 26.8 KB at NV = 21 (214 KB a block, one block an SM),
+// 8.5 KB at NV = 14 (67.7 KB a block, two an SM). What bounds it then is
+// latency: one block of 8 envs takes about as long alone as in a full
+// wave, and NV = 21 runs two waves of 132 blocks, each a chain of staging,
+// n_iter x (rows, H, Cholesky, line search) and the forces.
+// The semantics are the TPU kernel's: the 1e-20 Cholesky floor, ddphi
+// floored at 1e-12, alpha clipped to [0, 4], NaN carried through nan_max,
+// and every row computed every iteration; only the order of some sums
+// (the slices of H, the warp sums, J^T f) and the substitutions'
+// reciprocals differ from the plain version.
+//
 // chol_warp_kernel<NV> (NV = 21): the Cholesky solve with one warp per env
 // (a thread's registers cannot hold the 231-entry triangle): the lanes stage
-// M's lower triangle in shared memory and the warp factors it as above.
+// M's lower triangle in shared memory and the warp factors it as below.
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;  // envs per block
+constexpr int kWarps = 4;     // chol_warp_kernel: envs per block
+constexpr int kEnvTile = 8;   // newton_tile_kernel: envs per block
+constexpr int BS = 3;         // newton_tile_kernel: side of a lane's block of H
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -474,75 +519,124 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// cp.async of 4 bytes into shared memory; the host pass (which never runs
+// a kernel) sees a plain copy.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+// bar.sync on named barrier id for n threads (whole warps): the warps of
+// one env wait for each other only. The host pass sees __syncthreads.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+#else
+  __syncthreads();
+#endif
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
 // Solve H x = rhs with H's packed lower triangle in shared memory (factored
-// in place); rhs and x replicated in every lane. Left-looking factor with
-// the same 1e-20 diagonal floor and the same order of every sum as
-// chol_solve; the back substitution subtracts in descending order.
-template <int NV>
-__device__ void warp_chol_solve(float* L, const float (&rhs)[NV],
-                                float (&x)[NV], int lane) {
+// in place); lane i holds rhs_i and gets x_i (lanes >= NV: 0). Left-looking
+// factor with the same 1e-20 diagonal floor and the same order of every sum
+// as chol_solve; the back substitution subtracts in descending order. FAST
+// (the Newton solve) keeps lane j's row of H and of the factor as it is
+// made in registers, so each product of a pivot's sum loads only the
+// pivot row's entry (one broadcast), and multiplies each substitution step
+// by the reciprocal of the diagonal, which lane i keeps from the factor,
+// instead of dividing by it: the chain of the two substitutions then holds
+// no division. The factor is the same either way, bit for bit; the
+// Cholesky kernel (chol_warp_kernel) keeps the divisions.
+template <int NV, bool FAST = false>
+__device__ float warp_chol_solve(float* L, float rhs, int lane) {
+  float inv = 0.f;   // FAST: 1 / L_ii on lane i
+  if constexpr (FAST) {
+    const int j = lane < NV ? lane : NV - 1;
+    float row[NV];   // H's row j, then L_j,k as each pivot k makes it
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float t = 0.f;
-    if (lane >= i && lane < NV) {
-      t = L[tri(lane, i)];
-      for (int k = 0; k < i; ++k) t = t - L[tri(lane, k)] * L[tri(i, k)];
-    }
-    const float dii = sqrtf(nan_max(__shfl_sync(kFull, t, i), 1e-20f));
-    if (lane == i) L[tri(i, i)] = dii;
-    else if (lane > i && lane < NV) L[tri(lane, i)] = t / dii;
+    for (int m = 0; m < NV; ++m) row[m] = m <= j ? L[tri(j, m)] : 0.f;
     __syncwarp();
-  }
-  float r = 0.f;
 #pragma unroll
-  for (int i = 0; i < NV; ++i)
-    if (lane == i) r = rhs[i];
-  float y[NV];
+    for (int i = 0; i < NV; ++i) {
+      float t = row[i];
+#pragma unroll
+      for (int k = 0; k < i; ++k) t = t - row[k] * L[tri(i, k)];
+      const float dii = sqrtf(nan_max(__shfl_sync(kFull, t, i), 1e-20f));
+      const float q = t / dii, rc = 1.f / dii;
+      // one predicated store a lane: the diagonal on lane i, L_j,i below
+      if (lane >= i && lane < NV) L[tri(j, i)] = lane == i ? dii : q;
+      inv = lane == i ? rc : inv;
+      row[i] = q;
+      __syncwarp();
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      float t = 0.f;
+      if (lane >= i && lane < NV) {
+        t = L[tri(lane, i)];
+        for (int k = 0; k < i; ++k) t = t - L[tri(lane, k)] * L[tri(i, k)];
+      }
+      const float dii = sqrtf(nan_max(__shfl_sync(kFull, t, i), 1e-20f));
+      if (lane == i) L[tri(i, i)] = dii;
+      else if (lane > i && lane < NV) L[tri(lane, i)] = t / dii;
+      __syncwarp();
+    }
+  }
+  float r = lane < NV ? rhs : 0.f, y = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    y[i] = __shfl_sync(kFull, r, i) / L[tri(i, i)];
-    if (lane > i && lane < NV) r = r - L[tri(lane, i)] * y[i];
+    const float yi = FAST ? __shfl_sync(kFull, r * inv, i)
+                          : __shfl_sync(kFull, r, i) / L[tri(i, i)];
+    if (lane == i) y = yi;
+    if (lane > i && lane < NV) r = r - L[tri(lane, i)] * yi;
   }
-  r = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-    if (lane == i) r = y[i];
+  float x = 0.f;
+  r = y;
 #pragma unroll
   for (int i = NV - 1; i >= 0; --i) {
-    x[i] = __shfl_sync(kFull, r, i) / L[tri(i, i)];
-    if (lane < i) r = r - L[tri(i, lane)] * x[i];
+    const float xi = FAST ? __shfl_sync(kFull, r * inv, i)
+                          : __shfl_sync(kFull, r, i) / L[tri(i, i)];
+    if (lane == i) x = xi;
+    if (lane < i) r = r - L[tri(i, lane)] * xi;
   }
   __syncwarp();
+  return x;
 }
 
-// Symmetric product from a packed lower triangle in shared memory.
-template <int NV>
-__device__ __forceinline__ void sym_mul_s(const float* Mp, const float (&v)[NV],
-                                          float (&out)[NV]) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < NV; ++j)
-      s += Mp[j <= i ? tri(i, j) : tri(j, i)] * v[j];
-    out[i] = s;
-  }
-}
-
-template <int NV, int RPL>
-struct WarpSmem {  // floats of shared memory per env (warp)
-  static constexpr int NEC = 32 * RPL, NT = tri(NV, 0);
-  static constexpr int J = 0, DW = NEC * NV, M = DW + NEC, L = M + NT,
-                       total = L + NT;
-  static constexpr size_t block_bytes = sizeof(float) * total * kWarps;
+// One env's region of newton_tile_kernel's shared memory, in floats.
+// physics/solver.py::newton_geometry computes the same.
+template <int NV, int WPE, int RPL>
+struct TileLayout {
+  static constexpr int NB = (NV + BS - 1) / BS, NT = tri(NV, 0);
+  static constexpr int NJC = NB * BS > NV ? NV + 1 : NV;  // + a zero column
+  static constexpr int LPE = 32 * WPE, NEC = LPE * RPL;
+  static constexpr int NECP = NEC + 4;         // column stride, 4 mod 32
+  static constexpr int J = 0;                  // J^T: (NJC, NECP)
+  static constexpr int DG = J + NJC * NECP;    // (NEC) float2: Dw, Dw x
+  static constexpr int M = DG + 2 * NEC;       // packed lower triangle
+  static constexpr int L = M + NT;             // H, factored in place
+  static constexpr int V = L + NT;             // a, a_smooth, p, g, M da
+  static constexpr int S = V + 5 * 32;         // p'Mp, p'M da, ls sums
+  static constexpr int EQ = S + 16;            // NEC equality bytes
+  static constexpr int used = EQ + NEC / 4;
+  static constexpr int total = used + (36 - used % 32) % 32;  // 4 mod 32
+  static constexpr int block_bytes = total * 4 * kEnvTile;
+  static_assert(NEC % 32 == 0 && NECP % 32 == 4 && DG % 4 == 0 && NV <= 32,
+                "layout");
 };
 
-// Where J sits in registers, 3 blocks an SM (at most 170 registers a
-// thread), as at NV = 14 before J moved to dynamic shared memory; at NV = 21
-// the 97.5 KB of shared memory a block allows 2 blocks an SM anyway.
-template <int NV, int RPL>
-__global__ void __launch_bounds__(kWarps * 32, RPL * NV <= 48 ? 3 : 1)
-newton_warp_kernel(const float* __restrict__ M,
+template <int NV, int WPE, int RPL>
+__global__ void __launch_bounds__(kEnvTile * WPE * 32, WPE == 1 ? 2 : 1)
+newton_tile_kernel(const float* __restrict__ M,
                    const float* __restrict__ a_smooth,
                    const float* __restrict__ a_warm,
                    const float* __restrict__ J, const float* __restrict__ aref,
@@ -551,184 +645,407 @@ newton_warp_kernel(const float* __restrict__ M,
                    const unsigned char* __restrict__ is_eq, NewtonStrides s,
                    float* __restrict__ qacc, float* __restrict__ f, int ne,
                    int B, int n_iter, int n_ls) {
-  using SM = WarpSmem<NV, RPL>;
-  constexpr int NT = SM::NT;
-  constexpr int OWN = (NT + 31) / 32;    // triangle entries per lane
-  constexpr bool kJReg = RPL * NV <= 48;  // this lane's rows of J in registers
-  extern __shared__ float smem[];
-  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int e = blockIdx.x * kWarps + wid;
-  if (e >= B) return;  // e is uniform across the warp
+  using TL = TileLayout<NV, WPE, RPL>;
+  constexpr int NT = TL::NT, LPE = TL::LPE, NEC = TL::NEC, NECP = TL::NECP;
+  constexpr int NBLK = TL::NB * (TL::NB + 1) / 2;  // BS x BS blocks of H
+  constexpr int SPW = 32 / NBLK;                   // row slices a warp
+  constexpr int NSL = SPW * WPE;                   // row slices an env
+  static_assert(SPW >= 1, "one block a lane");
+  extern __shared__ __align__(16) float tsm[];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int u = tid % LPE, lane = tid & 31;
+  const bool lead = u < 32;   // the env's first warp: Cholesky and vectors
+  const int b0 = blockIdx.x * kEnvTile;
   const size_t sB = (size_t)B;
-  float* base = smem + wid * SM::total;
-  float* Js = base + SM::J;  // (NEC, NV), row-major
-  float* Dws = base + SM::DW;
-  float* Ms = base + SM::M;
-  float* Ls = base + SM::L;
+  float* base = tsm + (tid / LPE) * TL::total;
+  const float* Js = base + TL::J;     // J^T: J[r][k] at Js[k * NECP + r]
+  float2* DG = reinterpret_cast<float2*>(base + TL::DG);
+  const float* Ms = base + TL::M;
+  float* Ls = base + TL::L;
+  float* A = base + TL::V;
+  const float* AS = A + 32;
+  float* P = A + 64;
+  float* G = A + 96;
+  float* MDA = A + 128;
+  float* S = base + TL::S;
+  // the env's warps wait for each other (named barrier 1 + env), so the
+  // envs of a block do not run their phases in lockstep
+  const int env_bar = 1 + tid / LPE;
+  auto env_sync = [&] {
+    if constexpr (WPE == 1) __syncwarp();
+    else bar_sync(env_bar, LPE);
+  };
+  auto msym = [&](int i, int j) { return Ms[j <= i ? tri(i, j) : tri(j, i)]; };
 
-  // the triangle entries this lane owns, and M's triangle in shared memory
-  int oi[OWN], oj[OWN];
+  // --- staging: consecutive threads take consecutive envs of the tile.
+  // J^T: rows past ne, the zero column and envs past B as 0. Where the
+  // batch stride is 1 and every 4-env run is 16-byte aligned, a thread
+  // loads 4 envs' entry at once (LDG.128, U in flight) and stores it into
+  // the 4 envs' regions; otherwise a 4-byte cp.async an element.
+  const bool vec4 = s.J.b == 1 && s.J.r % 4 == 0 && s.J.c % 4 == 0 &&
+                    B % 4 == 0 && (reinterpret_cast<size_t>(J) & 15) == 0;
+  if (vec4) {
+    constexpr int U = 4;
+    constexpr int N4 = 2 * NEC * TL::NJC;   // (half tile, row, column)
+    for (int i0 = tid; i0 < N4; i0 += U * nthr) {
+      float4 v[U];
 #pragma unroll
-  for (int q = 0; q < OWN; ++q) oi[q] = oj[q] = -1;
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-#pragma unroll
-    for (int j = 0; j <= i; ++j)
-      if ((tri(i, j) & 31) == lane) {
-        oi[tri(i, j) >> 5] = i;
-        oj[tri(i, j) >> 5] = j;
-        Ms[tri(i, j)] = M[s.M.at(i, j, e)];
+      for (int q = 0; q < U; ++q) {
+        const int idx = i0 + q * nthr, t = 4 * (idx & 1);
+        const int r = (idx >> 1) % NEC, k = (idx >> 1) / NEC, b = b0 + t;
+        v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (idx < N4 && r < ne && k < NV && b < B)
+          v[q] = __ldg(reinterpret_cast<const float4*>(J + s.J.at(r, k, b)));
       }
-  float as[NV], a[NV];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    as[i] = a_smooth[s.a_smooth.at(i, e)];
-    a[i] = a_warm[s.a_warm.at(i, e)];
+      for (int q = 0; q < U; ++q) {
+        const int idx = i0 + q * nthr, t = 4 * (idx & 1);
+        const int r = (idx >> 1) % NEC, k = (idx >> 1) / NEC;
+        if (idx < N4) {
+          float* d = tsm + t * TL::total + TL::J + k * NECP + r;
+          d[0] = v[q].x;
+          d[TL::total] = v[q].y;
+          d[2 * TL::total] = v[q].z;
+          d[3 * TL::total] = v[q].w;
+        }
+      }
+    }
+  } else {
+    for (int idx = tid; idx < kEnvTile * NEC * TL::NJC; idx += nthr) {
+      const int t = idx % kEnvTile, r = (idx / kEnvTile) % NEC,
+                k = idx / (kEnvTile * NEC), b = b0 + t;
+      float* d = tsm + t * TL::total + TL::J + k * NECP + r;
+      if (r < ne && k < NV && b < B) cp_async4(d, J + s.J.at(r, k, b));
+      else *d = 0.f;
+    }
   }
-  // this lane's rows: J in shared memory (and registers where they fit)
-  float Jr[kJReg ? RPL : 1][kJReg ? NV : 1];
-  float w[RPL], ar[RPL], x[RPL], Jp[RPL];
-  bool eq[RPL];
+  // M's lower triangle, from the (i, j) square
+#pragma unroll 4
+  for (int idx = tid; idx < kEnvTile * NV * NV; idx += nthr) {
+    const int t = idx % kEnvTile, i = (idx / kEnvTile) / NV,
+              j = (idx / kEnvTile) % NV, b = b0 + t;
+    if (j <= i)
+      tsm[t * TL::total + TL::M + tri(i, j)] = b < B ? M[s.M.at(i, j, b)] : 0.f;
+  }
+  for (int idx = tid; idx < kEnvTile * 32; idx += nthr) {
+    const int t = idx % kEnvTile, i = idx / kEnvTile, b = b0 + t;
+    float* v = tsm + t * TL::total + TL::V;
+    const bool ok = i < NV && b < B;
+    v[i] = ok ? a_warm[s.a_warm.at(i, b)] : 0.f;
+    v[32 + i] = ok ? a_smooth[s.a_smooth.at(i, b)] : 0.f;
+    v[64 + i] = v[96 + i] = v[128 + i] = 0.f;
+  }
+#pragma unroll 4
+  for (int idx = tid; idx < kEnvTile * NEC; idx += nthr) {
+    const int t = idx % kEnvTile, r = idx / kEnvTile, b = b0 + t;
+    float* e = tsm + t * TL::total;
+    float wr = 0.f, ar = 0.f;
+    bool eq = false;
+    if (r < ne && b < B) {   // independent loads, then the weight
+      const float d = D[s.D.at(r, b)];
+      const bool act = active[s.active.at(r, b)] != 0;
+      ar = aref[s.aref.at(r, b)];
+      eq = is_eq[s.is_eq.at(r, b)] != 0;
+      wr = act ? d : 0.f;
+    }
+    reinterpret_cast<float2*>(e + TL::DG)[r] = make_float2(wr, ar);
+    reinterpret_cast<unsigned char*>(e + TL::EQ)[r] = eq;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // this lane's rows r = u + LPE q: weight, aref and equality flag
+  float w[RPL], ar[RPL], x[RPL], jp[RPL];
+  unsigned eqm = 0;
 #pragma unroll
   for (int q = 0; q < RPL; ++q) {
-    const int r = lane + 32 * q;
-    const bool ok = r < ne;
-#pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      const float v = ok ? J[s.J.at(r, k, e)] : 0.f;
-      Js[r * NV + k] = v;
-      if constexpr (kJReg) Jr[q][k] = v;
-    }
-    w[q] = ok && active[s.active.at(r, e)] ? D[s.D.at(r, e)] : 0.f;
-    eq[q] = ok && is_eq[s.is_eq.at(r, e)] != 0;
-    ar[q] = ok ? aref[s.aref.at(r, e)] : 0.f;
+    const int r = u + LPE * q;
+    const float2 v = DG[r];
+    w[q] = v.x;
+    ar[q] = v.y;
+    if (reinterpret_cast<const unsigned char*>(base + TL::EQ)[r]) eqm |= 1u << q;
   }
-  __syncwarp();
-  auto Jq = [&](int q, int k) {
-    if constexpr (kJReg) return Jr[q][k];
-    else return Js[(lane + 32 * q) * NV + k];
+  env_sync();   // DG is rewritten below
+  // D on the active set at x: equality rows always, the others where x < 0
+  auto dw_of = [&](int q, float xr) {
+    return (((eqm >> q) & 1u) || xr < 0.f) ? w[q] : 0.f;
   };
-  auto dw_of = [&](int q, float xr) { return (eq[q] || xr < 0.f) ? w[q] : 0.f; };
-
-  for (int it = 0; it < n_iter; ++it) {
-    float da[NV], Mda[NV], g[NV];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      da[i] = a[i] - as[i];
-      g[i] = 0.f;
-    }
-    sym_mul_s<NV>(Ms, da, Mda);
+  // x = J v - aref on this lane's rows (v: a vector in shared memory)
+  auto rows_x = [&](const float* v, float (&out)[RPL]) {
 #pragma unroll
     for (int q = 0; q < RPL; ++q) {
+      const float* Jr = Js + u + LPE * q;
       float xr = -ar[q];
 #pragma unroll
-      for (int k = 0; k < NV; ++k) xr += Jq(q, k) * a[k];
-      x[q] = xr;
-      const float Dw = dw_of(q, xr);
-      Dws[lane + 32 * q] = Dw;
-      const float gx = Dw * xr;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) g[i] += Jq(q, i) * gx;
+      for (int k = 0; k < NV; ++k) xr += Jr[k * NECP] * v[k];
+      out[q] = xr;
     }
-#pragma unroll
-    for (int i = 0; i < NV; ++i) g[i] = warp_sum(g[i]);
-    __syncwarp();
-    // H = M + J^T D J, entry by entry over the rows in order
-#pragma unroll
-    for (int q = 0; q < OWN; ++q) {
-      if (oi[q] < 0) continue;
-      const int i = oi[q], j = oj[q];
-      float acc = 0.f;
-      for (int r = 0; r < ne; ++r) acc += (Dws[r] * Js[r * NV + i]) * Js[r * NV + j];
-      Ls[tri(i, j)] = Ms[tri(i, j)] + acc;
-    }
-    __syncwarp();
-    float mgrad[NV], p[NV], Mpv[NV];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) mgrad[i] = -(Mda[i] + g[i]);
-    warp_chol_solve<NV>(Ls, mgrad, p, lane);
+  };
 
-    // exact line search on the piecewise-quadratic 1-D restriction
+  // this lane's BS x BS block of H (bi, bj) and row slice: slice s_in of
+  // its warp (lanes s_in NBLK ...), sl of the env; lanes past SPW NBLK idle
+  const int s_in = lane / NBLK, blk = lane % NBLK;
+  const bool own = s_in < SPW;
+  const int sl = (u >> 5) * SPW + s_in;
+  int bi = 0;
+  while (tri(bi + 1, 0) <= blk) ++bi;
+  const int bj = blk - tri(bi, 0);
+  // column c of J^T (the zero column past NV)
+  auto col = [&](int c) { return Js + (c < NV ? c : TL::NJC - 1) * NECP; };
+
+  for (int it = 0; it < n_iter; ++it) {
+    // (1) rows: x, Dw and Dw x; M (a - a_smooth) by component
+    rows_x(A, x);
 #pragma unroll
     for (int q = 0; q < RPL; ++q) {
+      const float dw = dw_of(q, x[q]);
+      DG[u + LPE * q] = make_float2(dw, dw * x[q]);
+    }
+    if (lead && lane < NV) {
       float acc = 0.f;
 #pragma unroll
-      for (int k = 0; k < NV; ++k) acc += Jq(q, k) * p[k];
-      Jp[q] = acc;
+      for (int j = 0; j < NV; ++j) acc += msym(lane, j) * (A[j] - AS[j]);
+      MDA[lane] = acc;
     }
-    sym_mul_s<NV>(Ms, p, Mpv);
-    float pMp = 0.f, pMa = 0.f;
+    env_sync();
+
+    // (2) H = M + J^T diag(Dw) J and g = J^T (Dw x), every row, by blocks
+    {
+      float h[BS][BS], gs[BS];
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      pMp += p[i] * Mpv[i];
-      pMa += p[i] * Mda[i];
+      for (int a = 0; a < BS; ++a) {
+        gs[a] = 0.f;
+#pragma unroll
+        for (int c = 0; c < BS; ++c) h[a][c] = 0.f;
+      }
+      // four rows a step: J^T's columns are contiguous over rows, so each
+      // float4 load brings one column of four rows, and (Dw, Dw x) of four
+      // rows are two float4 loads
+      const float* ci[BS];
+      const float* cj[BS];
+#pragma unroll
+      for (int a = 0; a < BS; ++a) {
+        ci[a] = col(BS * bi + a);
+        cj[a] = col(BS * bj + a);
+      }
+      const float* DGf = base + TL::DG;
+      for (int r = own ? 4 * sl : ne; r < ne; r += 4 * NSL) {
+        const float4 d01 = *reinterpret_cast<const float4*>(DGf + 2 * r);
+        const float4 d23 = *reinterpret_cast<const float4*>(DGf + 2 * r + 4);
+        float4 i4[BS], j4[BS];
+#pragma unroll
+        for (int a = 0; a < BS; ++a) {
+          i4[a] = *reinterpret_cast<const float4*>(ci[a] + r);
+          j4[a] = *reinterpret_cast<const float4*>(cj[a] + r);
+        }
+        const float dw[4] = {d01.x, d01.z, d23.x, d23.z};
+        const float gx[4] = {d01.y, d01.w, d23.y, d23.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float iv[BS], jv[BS];
+#pragma unroll
+          for (int a = 0; a < BS; ++a) {
+            iv[a] = q == 0 ? i4[a].x : q == 1 ? i4[a].y : q == 2 ? i4[a].z : i4[a].w;
+            jv[a] = q == 0 ? j4[a].x : q == 1 ? j4[a].y : q == 2 ? j4[a].z : j4[a].w;
+          }
+#pragma unroll
+          for (int a = 0; a < BS; ++a) {
+            const float wi = dw[q] * iv[a];
+#pragma unroll
+            for (int c = 0; c < BS; ++c) h[a][c] += wi * jv[c];
+            gs[a] += iv[a] * gx[q];
+          }
+        }
+      }
+      // the slices' sums in slice 0: first the warp's, then the env's
+      auto warp_slices = [&](float& v) {
+        const float own_sum = v;
+#pragma unroll
+        for (int q = 1; q < SPW; ++q)
+          v += __shfl_sync(kFull, own_sum, lane + q * NBLK);
+      };
+#pragma unroll
+      for (int a = 0; a < BS; ++a) {
+        warp_slices(gs[a]);
+#pragma unroll
+        for (int c = 0; c < BS; ++c) warp_slices(h[a][c]);
+      }
+      const bool first = s_in == 0;   // slice 0 of its warp
+      auto each = [&](auto fn) {        // the block's entries of the triangle
+#pragma unroll
+        for (int a = 0; a < BS; ++a) {
+          const int i = BS * bi + a;
+#pragma unroll
+          for (int c = 0; c < BS; ++c)
+            if (i < NV && BS * bj + c <= i) fn(a, c, tri(i, BS * bj + c));
+        }
+      };
+      if constexpr (WPE > 1) {   // the other warps' sums through Ls and G
+        static_assert(WPE == 2, "two warps an env");
+        if (!lead && first) {
+          each([&](int a, int c, int q) { Ls[q] = h[a][c]; });
+          if (bi == bj)
+#pragma unroll
+            for (int a = 0; a < BS; ++a)
+              if (BS * bi + a < NV) G[BS * bi + a] = gs[a];
+        }
+        env_sync();
+        if (lead && first) {
+          each([&](int a, int c, int q) { h[a][c] += Ls[q]; });
+          if (bi == bj)
+#pragma unroll
+            for (int a = 0; a < BS; ++a)
+              if (BS * bi + a < NV) gs[a] += G[BS * bi + a];
+        }
+      }
+      if (lead && first) {
+        each([&](int a, int c, int q) { Ls[q] = Ms[q] + h[a][c]; });
+        if (bi == bj)
+#pragma unroll
+          for (int a = 0; a < BS; ++a)
+            if (BS * bi + a < NV) G[BS * bi + a] = gs[a];
+      }
     }
+
+    // (3) the lead warp: p = -H^-1 (M da + g), then p'Mp and p'M da
+    if (lead) {
+      __syncwarp();
+      const float mg = lane < NV ? -(MDA[lane] + G[lane]) : 0.f;
+      const float pl = warp_chol_solve<NV, true>(Ls, mg, lane);
+      if (lane < NV) P[lane] = pl;
+      __syncwarp();
+      float mp = 0.f;
+      if (lane < NV) {
+#pragma unroll
+        for (int j = 0; j < NV; ++j) mp += msym(lane, j) * P[j];
+      }
+      const float pMp = warp_sum(pl * mp);
+      const float pMa = warp_sum(lane < NV ? pl * MDA[lane] : 0.f);
+      if (lane == 0) {
+        S[0] = pMp;
+        S[1] = pMa;
+      }
+    }
+    env_sync();
+
+    // (4) J p on this lane's rows, then the exact line search on the
+    // piecewise-quadratic 1-D restriction
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      const float* Jr = Js + u + LPE * q;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < NV; ++k) acc += Jr[k * NECP] * P[k];
+      jp[q] = acc;
+    }
+    const float pMp = S[0], pMa = S[1];
     float alpha = 1.f;
     for (int l = 0; l < n_ls; ++l) {
       float s1 = 0.f, s2 = 0.f;
 #pragma unroll
       for (int q = 0; q < RPL; ++q) {
-        const float x2 = x[q] + alpha * Jp[q];
-        const float Dw2 = dw_of(q, x2);
-        s1 += Dw2 * x2 * Jp[q];
-        s2 += Dw2 * Jp[q] * Jp[q];
+        const float x2 = x[q] + alpha * jp[q];
+        const float dw2 = dw_of(q, x2);
+        s1 += dw2 * x2 * jp[q];
+        s2 += dw2 * jp[q] * jp[q];
       }
       s1 = warp_sum(s1);
       s2 = warp_sum(s2);
+      if constexpr (WPE > 1) {   // the env's warps' sums, double-buffered
+        float* ss = S + 2 + 2 * WPE * (l & 1);
+        if (lane == 0) {
+          ss[2 * (u >> 5)] = s1;
+          ss[2 * (u >> 5) + 1] = s2;
+        }
+        env_sync();
+        s1 = ss[0];
+        s2 = ss[1];
+#pragma unroll
+        for (int v = 1; v < WPE; ++v) {
+          s1 += ss[2 * v];
+          s2 += ss[2 * v + 1];
+        }
+      }
       const float dphi = alpha * pMp + pMa + s1;
       const float ddphi = pMp + s2;
       alpha = alpha - dphi / nan_max(ddphi, 1e-12f);
     }
     alpha = alpha < 0.f ? 0.f : (alpha > 4.f ? 4.f : alpha);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) a[i] += alpha * p[i];
+    // (5) a += alpha p
+    if (lead && lane < NV) A[lane] += alpha * P[lane];
+    env_sync();
   }
 
   // forces on the final active set; unilateral rows pushed to f >= 0
-  float qfc[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) qfc[i] = 0.f;
+  float* F = base + TL::DG;   // (NEC) floats, for the coalesced store
+  rows_x(A, x);
 #pragma unroll
   for (int q = 0; q < RPL; ++q) {
-    const int r = lane + 32 * q;
-    float xr = -ar[q];
-#pragma unroll
-    for (int k = 0; k < NV; ++k) xr += Jq(q, k) * a[k];
-    float fr = -dw_of(q, xr) * xr;
-    if (!eq[q]) fr = nan_max(fr, 0.f);
-    if (r < ne) f[r * sB + e] = fr;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) qfc[i] += Jq(q, i) * fr;
+    float fr = -dw_of(q, x[q]) * x[q];
+    if (!((eqm >> q) & 1u)) fr = nan_max(fr, 0.f);
+    F[u + LPE * q] = fr;
   }
-#pragma unroll
-  for (int i = 0; i < NV; ++i) qfc[i] = warp_sum(qfc[i]);
-#pragma unroll
-  for (int q = 0; q < OWN; ++q)
-    if (oi[q] >= 0) Ls[tri(oi[q], oj[q])] = Ms[tri(oi[q], oj[q])];
-  __syncwarp();
-  float dq[NV];
-  warp_chol_solve<NV>(Ls, qfc, dq, lane);
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-    if (lane == i) qacc[i * sB + e] = as[i] + dq[i];
+  env_sync();
+  if (lead) {
+    float qfc = 0.f;   // J^T f, four rows a step (rows past ne give 0)
+    if (lane < NV) {
+      const float* Jc = Js + lane * NECP;
+      for (int r = 0; r < ne; r += 4) {
+        const float4 j4 = *reinterpret_cast<const float4*>(Jc + r);
+        const float4 f4 = *reinterpret_cast<const float4*>(F + r);
+        qfc += j4.x * f4.x;
+        qfc += j4.y * f4.y;
+        qfc += j4.z * f4.z;
+        qfc += j4.w * f4.w;
+      }
+    }
+    for (int q = lane; q < NT; q += 32) Ls[q] = Ms[q];
+    __syncwarp();
+    const float dq = warp_chol_solve<NV, true>(Ls, qfc, lane);
+    if (lane < NV) G[lane] = AS[lane] + dq;   // qacc
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kEnvTile * ne; idx += nthr) {
+    const int t = idx % kEnvTile, r = idx / kEnvTile, b = b0 + t;
+    if (b < B) f[r * sB + b] = tsm[t * TL::total + TL::DG + r];
+  }
+  for (int idx = tid; idx < kEnvTile * NV; idx += nthr) {
+    const int t = idx % kEnvTile, i = idx / kEnvTile, b = b0 + t;
+    if (b < B) qacc[i * sB + b] = tsm[t * TL::total + TL::V + 96 + i];
+  }
 }
 
-template <int NV, int RPL>
-int launch_newton_warp(const float* M, const float* a_smooth,
+template <int NV, int WPE, int RPL>
+int launch_newton_tile(const float* M, const float* a_smooth,
                        const float* a_warm, const float* J, const float* aref,
                        const float* D, const unsigned char* active,
                        const unsigned char* is_eq, const NewtonStrides& st,
                        float* qacc, float* f, int ne, int B, int n_iter,
-                       int n_ls, cudaStream_t s) {
-  constexpr size_t bytes = WarpSmem<NV, RPL>::block_bytes;
+                       int n_ls, int smem, cudaStream_t s) {
+  using TL = TileLayout<NV, WPE, RPL>;
+  if (ne > TL::NEC || smem < TL::block_bytes) return -1;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      newton_warp_kernel<NV, RPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      newton_tile_kernel<NV, WPE, RPL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, TL::block_bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  newton_warp_kernel<NV, RPL><<<(B + kWarps - 1) / kWarps, kWarps * 32, bytes, s>>>(
-      M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
-      n_iter, n_ls);
-  return 0;
+  newton_tile_kernel<NV, WPE, RPL>
+      <<<(B + kEnvTile - 1) / kEnvTile, kEnvTile * WPE * 32, TL::block_bytes, s>>>(
+          M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
+          n_iter, n_ls);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of newton_tile_kernel<NV, WPE, RPL> one SM holds.
+template <int NV, int WPE, int RPL>
+int newton_tile_blocks_per_sm() {
+  using TL = TileLayout<NV, WPE, RPL>;
+  cudaFuncSetAttribute(newton_tile_kernel<NV, WPE, RPL>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       TL::block_bytes);
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, newton_tile_kernel<NV, WPE, RPL>, kEnvTile * WPE * 32,
+      TL::block_bytes);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 template <int NV>
@@ -747,14 +1064,10 @@ chol_warp_kernel(const float* __restrict__ M, Str3 sM,
     while (tri(i + 1, 0) <= t) ++i;
     Ls[t] = M[sM.at(i, t - tri(i, 0), e)];
   }
-  float rhs[NV], out[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) rhs[i] = b[sb.at(i, e)];
+  const float rhs = lane < NV ? b[sb.at(lane, e)] : 0.f;
   __syncwarp();
-  warp_chol_solve<NV>(Ls, rhs, out, lane);
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-    if (lane == i) x[i * (size_t)B + e] = out[i];
+  const float out = warp_chol_solve<NV>(Ls, rhs, lane);
+  if (lane < NV) x[lane * (size_t)B + e] = out;
 }
 
 inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
@@ -805,12 +1118,15 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
 // aref, D, active and is_eq (2 each), in that order. Row caps are
 // instantiated per nv: ne is rounded up to the first that holds it. nv = 2
 // runs newton_kernel (one env per thread), nv = 14 and 21
-// newton_warp_kernel (one env per warp, up to 96 and 256 rows).
+// newton_tile_kernel (8 envs a block, up to 96 and 256 rows); smem: its
+// block's shared memory bytes (physics/solver.py::newton_geometry), at
+// least grt_newton_smem_bytes(nv).
 int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
                    const float* J, const float* aref, const float* D,
                    const unsigned char* active, const unsigned char* is_eq,
                    float* qacc, float* f, const long long* strides, int nv,
-                   int ne, int B, int n_iter, int n_ls, void* stream) {
+                   int ne, int B, int n_iter, int n_ls, int smem,
+                   void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* p = strides;
@@ -823,20 +1139,30 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
   } else if (nv == 2 && ne <= 64) {
     launch_newton<2, 64>(M, a_smooth, a_warm, J, aref, D, active, is_eq, st,
                          qacc, f, ne, B, n_iter, n_ls, s);
-  } else if (nv == 14 && ne <= 96) {
-    const int rc = launch_newton_warp<14, 3>(M, a_smooth, a_warm, J, aref, D,
-                                             active, is_eq, st, qacc, f, ne, B,
-                                             n_iter, n_ls, s);
-    if (rc) return rc;
-  } else if (nv == 21 && ne <= 256) {
-    const int rc = launch_newton_warp<21, 8>(M, a_smooth, a_warm, J, aref, D,
-                                             active, is_eq, st, qacc, f, ne, B,
-                                             n_iter, n_ls, s);
-    if (rc) return rc;
+  } else if (nv == 14) {
+    return launch_newton_tile<14, 1, 3>(M, a_smooth, a_warm, J, aref, D,
+                                        active, is_eq, st, qacc, f, ne, B,
+                                        n_iter, n_ls, smem, s);
+  } else if (nv == 21) {
+    return launch_newton_tile<21, 2, 4>(M, a_smooth, a_warm, J, aref, D,
+                                        active, is_eq, st, qacc, f, ne, B,
+                                        n_iter, n_ls, smem, s);
   } else {
     return -1;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory bytes of a newton_tile_kernel block at nv (14 or 21), and
+// the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// -1 for another nv.
+int grt_newton_smem_bytes(int nv) {
+  return nv == 14 ? TileLayout<14, 1, 3>::block_bytes
+         : nv == 21 ? TileLayout<21, 2, 4>::block_bytes : -1;
+}
+int grt_newton_blocks_per_sm(int nv) {
+  return nv == 14 ? newton_tile_blocks_per_sm<14, 1, 3>()
+         : nv == 21 ? newton_tile_blocks_per_sm<21, 2, 4>() : -1;
 }
 
 // The nv = 2 closed-form solve (newton2_closed_kernel); strides and

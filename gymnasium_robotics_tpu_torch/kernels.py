@@ -27,6 +27,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# dynamic shared memory one block may use on Hopper (227 KB)
+SMEM_MAX = 232448
+
 _LIBS: dict = {}
 
 

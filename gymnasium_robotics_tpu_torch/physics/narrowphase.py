@@ -34,6 +34,10 @@ LAUNCHES = {"topk": 0, "narrowphase": 0}
 # topk_select launches by shape (G, maxk, K), counted beside LAUNCHES["topk"]
 TOPK_SHAPES = collections.Counter()
 TOPK_MAX_K = 24          # largest K csrc/narrowphase.cu instantiates
+# topk_select_kernel's launch geometry (csrc/narrowphase.cu): a block takes
+# one group and TOPK_TILE envs with TOPK_WARPS warps over the rows, which
+# stream through two stages of TOPK_CHUNK rows in shared memory
+TOPK_TILE, TOPK_WARPS, TOPK_CHUNK = 32, 8, 128
 # group kinds, in the order csrc/narrowphase.cu numbers them
 KINDS = ((T.PLANE, T.SPHERE), (T.PLANE, T.CAPSULE), (T.SPHERE, T.BOX),
          (T.CAPSULE, T.BOX), (T.PLANE, T.BOX), (T.BOX, T.BOX),
@@ -66,6 +70,24 @@ def topk_select_plain(rank, mask, K: int):
     return torch.stack(out, dim=1).to(torch.int32)
 
 
+def topk_geometry(G: int, maxk: int, B: int, K: int) -> dict:
+    """Launch geometry of topk_select_kernel: its list length (the
+    instantiation, KCAP), grid (env tiles, groups), threads a block and
+    dynamic shared memory bytes (the ring of two chunks, aliased by the
+    warps' lists after the scan, then per env a NaN flag and the merge's
+    place in each list), as csrc/narrowphase.cu's topk_smem_bytes computes
+    them."""
+    if not 0 < K <= TOPK_MAX_K:
+        raise NotImplementedError(
+            f"topk_select_kernel is instantiated for K <= {TOPK_MAX_K}, not {K}")
+    kcap = next(c for c in (8, 16, 24) if K <= c)
+    ch = min(max(maxk, 1), TOPK_CHUNK)
+    smem = max(2 * ch * TOPK_TILE * 4, TOPK_WARPS * kcap * TOPK_TILE * 8)
+    return {"grid": (-(-B // TOPK_TILE), G), "threads": TOPK_WARPS * 32,
+            "tile": TOPK_TILE, "kcap": kcap,
+            "smem": smem + (1 + TOPK_WARPS) * TOPK_TILE * 4}
+
+
 def topk_select(rank, mask, K: int):
     """(G, maxk, B) ranks, (G, maxk) bool mask -> (G, K, B) int32 indices of
     the K smallest (see topk_select_plain). CUDA tensors launch
@@ -76,18 +98,20 @@ def topk_select(rank, mask, K: int):
         raise ValueError(f"mask has shape {tuple(mask.shape)}, expected {(G, maxk)}")
     if not kernels.on_card((rank,), (mask,)):
         return topk_select_plain(rank, mask, K)
-    if not 0 < K <= TOPK_MAX_K:
-        raise NotImplementedError(
-            f"topk_select_kernel is instantiated for K <= {TOPK_MAX_K}, not {K}")
+    geo = topk_geometry(G, maxk, B, K)
+    if geo["smem"] > kernels.SMEM_MAX:
+        raise NotImplementedError(f"topk_select_kernel needs {geo['smem']} "
+                                  "bytes of shared memory a block")
     rank = rank.contiguous()
     mask = mask.contiguous()
     out = torch.empty((G, K, B), dtype=torch.int32, device=rank.device)
+    vec4 = B % 4 == 0 and rank.data_ptr() % 16 == 0
     rc = _lib().grt_topk_select_f32(
         rank.data_ptr(), mask.data_ptr(), out.data_ptr(), G, maxk, B, K,
-        torch.cuda.current_stream(rank.device).cuda_stream,
+        int(vec4), geo["smem"], torch.cuda.current_stream(rank.device).cuda_stream,
     )
     kernels.raise_on(rc, "topk_select_kernel")
-    launched = B > 0 and G > 0      # the entry point launches nothing else
+    launched = B > 0 and G > 0 and maxk > 0   # it launches nothing else
     LAUNCHES["topk"] += launched
     TOPK_SHAPES[(G, maxk, K)] += launched
     return out
@@ -258,8 +282,11 @@ _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = kernels.load("narrowphase")
-    lib.grt_topk_select_f32.argtypes = [_vp] * 3 + [_i] * 4 + [_vp]
+    lib.grt_topk_select_f32.argtypes = [_vp] * 3 + [_i] * 6 + [_vp]
     lib.grt_topk_select_f32.restype = _i
+    for fn in (lib.grt_topk_smem_bytes, lib.grt_topk_blocks_per_sm):
+        fn.argtypes = [_i, _i]
+        fn.restype = _i
     lib.grt_narrowphase_f32.argtypes = (
         [_vp] * 3 + [_ll] * 3 + [_vp] * 4 + [_i] * 2 + [_vp] * 2 + [_i]
         + [_vp] * 3 + [_i, _vp])

@@ -29,9 +29,14 @@ from gymnasium_robotics_tpu_torch import kernels
 LAUNCHES = {"chol": 0, "newton": 0, "newton_nv2": 0}
 KERNEL_NV = (2, 14, 21)  # nv values csrc/solver.cu instantiates
 # largest row count the Newton kernel takes, per nv: newton_kernel<2, 64>
-# (one env per thread), newton_warp_kernel<14, 3> and <21, 8> (one env per
-# warp, three or eight rows a lane)
+# (one env per thread), newton_tile_kernel<14, 1, 3> and <21, 2, 4> (a
+# tile of NEWTON_TILE envs a block, one or two warps an env, three or four
+# rows a lane)
 NEWTON_MAX_ROWS = {2: 64, 14: 96, 21: 256}
+NEWTON_TILE = 8
+# newton_tile_kernel's instantiations: nv -> (warps an env, rows a lane)
+NEWTON_TILE_SHAPES = {14: (1, 3), 21: (2, 4)}
+NEWTON_BLOCK = 3   # side of the block of H a lane sums
 NEWTON_NV2_MAX_ROWS = 64  # newton2_closed_kernel<32> and <64>
 
 
@@ -207,8 +212,11 @@ def _lib():
     lib = kernels.load("solver")
     lib.grt_chol_solve_f32.argtypes = [_vp] * 4 + [_i, _i, _vp]
     lib.grt_chol_solve_f32.restype = _i
-    lib.grt_newton_f32.argtypes = [_vp] * 11 + [_i] * 5 + [_vp]
+    lib.grt_newton_f32.argtypes = [_vp] * 11 + [_i] * 6 + [_vp]
     lib.grt_newton_f32.restype = _i
+    for fn in (lib.grt_newton_smem_bytes, lib.grt_newton_blocks_per_sm):
+        fn.argtypes = [_i]
+        fn.restype = _i
     lib.grt_newton2_f32.argtypes = [_vp] * 11 + [_i] * 4 + [_vp]
     lib.grt_newton2_f32.restype = _i
     return lib
@@ -276,9 +284,10 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
             f"{NEWTON_MAX_ROWS[nv]} rows, not {ne}; add a larger row cap to "
             "csrc/solver.cu"
         )
+    smem = newton_geometry(nv, ne, B)["smem"] if nv in NEWTON_TILE_SHAPES else 0
     qacc, f, rc = _launch_newton(_lib().grt_newton_f32, (nv,), M, a_smooth,
                                  a_warm, J, aref, D, active, is_eq, n_iter,
-                                 n_ls)
+                                 n_ls, (smem,))
     kernels.raise_on(rc, "newton_kernel")
     LAUNCHES["newton"] += B > 0
     return qacc, f
@@ -324,10 +333,37 @@ def _check_newton_shapes(M, a_smooth, a_warm, J, aref, D, active, is_eq):
     return nv, ne, B
 
 
+def newton_geometry(nv: int, ne: int, B: int) -> dict:
+    """Launch geometry of newton_tile_kernel (nv 14 or 21) at ne rows and B
+    envs: its grid, threads a block and dynamic shared memory bytes (per
+    env: J^T with a zero column where the blocks of H overhang nv and its
+    rows padded to the row cap + 4, each row's weight and D x, M's
+    triangle and H's, five 32-float vectors, 16 scalars and a byte per row;
+    padded to 4 mod 32 floats), as csrc/solver.cu's TileLayout computes
+    them."""
+    if nv not in NEWTON_TILE_SHAPES:
+        raise NotImplementedError(f"newton_tile_kernel has no nv={nv}")
+    wpe, rpl = NEWTON_TILE_SHAPES[nv]
+    bs = NEWTON_BLOCK
+    nec = 32 * wpe * rpl
+    if ne > nec:
+        raise NotImplementedError(
+            f"the Newton kernel at nv={nv} is instantiated for up to {nec} "
+            f"rows, not {ne}; add a larger row cap to csrc/solver.cu")
+    njc = nv + 1 if -(-nv // bs) * bs > nv else nv   # + a zero column
+    nt = nv * (nv + 1) // 2
+    used = njc * (nec + 4) + 2 * nec + 2 * nt + 5 * 32 + 16 + nec // 4
+    total = used + (36 - used % 32) % 32
+    return {"grid": -(-B // NEWTON_TILE), "threads": NEWTON_TILE * wpe * 32,
+            "tile": NEWTON_TILE, "warps_per_env": wpe, "rows_per_lane": rpl,
+            "smem": total * 4 * NEWTON_TILE}
+
+
 def _launch_newton(entry, nv_arg, M, a_smooth, a_warm, J, aref, D, active,
-                   is_eq, n_iter, n_ls):
+                   is_eq, n_iter, n_ls, tail=()):
     """Launch one of the Newton entry points on the operands where they lie
-    (a per-model is_eq gets batch stride 0): (qacc, f, its return code)."""
+    (a per-model is_eq gets batch stride 0), ``tail`` its arguments before
+    the stream: (qacc, f, its return code)."""
     nv, B = a_smooth.shape
     ne = aref.shape[0]
     dev = a_smooth.device
@@ -337,7 +373,7 @@ def _launch_newton(entry, nv_arg, M, a_smooth, a_warm, J, aref, D, active,
     f = torch.empty((ne, B), dtype=torch.float32, device=dev)
     rc = entry(
         *(t.data_ptr() for t in ins), qacc.data_ptr(), f.data_ptr(),
-        _strides(*ins), *nv_arg, ne, B, int(n_iter), int(n_ls),
+        _strides(*ins), *nv_arg, ne, B, int(n_iter), int(n_ls), *tail,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return qacc, f, rc

@@ -17,15 +17,20 @@ JAX functions they replace.
 - the pruned core on a NaN lane: the narrowphase clamps maxk picks itself,
   and the slot ids fall back to each group's last pair.
 
+- topk_select_kernel's launch geometry (topk_geometry) at every shape the
+  ported IDs call it with: the grid covers B, shared memory fits a block.
+
 The tests marked ``cuda`` hold each CUDA kernel against its plain version
-on the card at B = 2048 (indices exactly, the table within 2e-4); they skip
-where no card is present. The JAX imports sit inside the tests so that the
+on the card at B = 2048 (indices exactly, the table within 2e-4), and
+topk_select at the edges of its shapes; they skip where no card is
+present. The JAX imports sit inside the tests so that the
 ``cuda`` tests also run where JAX is missing."""
 
 import numpy as np
 import pytest
 import torch
 
+from gymnasium_robotics_tpu_torch import kernels
 from gymnasium_robotics_tpu_torch.envs.maze import maps, maze_core
 from gymnasium_robotics_tpu_torch.physics import collision as tcol
 from gymnasium_robotics_tpu_torch.physics import constraint as tcst
@@ -51,7 +56,7 @@ def tie_ranks(rs, G, maxk, B):
     rank = rs.randint(-4, 5, (G, maxk, B)).astype(np.float32) * 0.5
     rank[rs.uniform(size=rank.shape) < 0.03] = -np.inf
     rank[rs.uniform(size=rank.shape) < 0.05] = np.inf
-    rank[:, 5:, 1] = np.inf                         # 5 finite ranks at most
+    rank[:, 5:, min(1, B - 1)] = np.inf             # 5 finite ranks at most
     mask = np.ones((G, maxk), bool)
     mask[0, maxk // 3:] = False
     return rank, mask
@@ -96,6 +101,44 @@ def test_topk_select_nan_lane():
     np.testing.assert_array_equal(got, ref)
     assert (got[1, :, 0] == maxk).all() and (got[0, :, 0] < 18).all()
     assert (got[0, :, 2] < 18).all()
+
+
+def _ported_topk_shapes():
+    """{(G, maxk, K)} of every topk_select call the ported IDs make (the
+    pair-topk broadphase and the contact cap), from each model's plans."""
+    from gymnasium_robotics_tpu_torch import registry
+
+    shapes = set()
+    for id_ in registry.ids():
+        m = registry.make(id_, num_envs=1, device="cpu").env.model
+        if tcol.prune_active(m.meta):
+            tp = m.plan("pruned", tcol._PrunedPlan)
+            shapes.add((*tp.mask.shape, tp.K))
+        rp = m.plan("rows", tcst._RowPlan)
+        if rp.cap_rows is not None:
+            shapes.add((*rp.cap_mask.shape, rp.cap))
+    return shapes
+
+
+def test_topk_geometry_covers_ported_shapes():
+    """The 60 AntMaze IDs (four maze sizes) and the 8 Fetch IDs call
+    topk_select at seven shapes; at each, and at B from 1 up, the kernel's
+    grid covers every env and its shared memory fits a block."""
+    shapes = _ported_topk_shapes()
+    assert shapes == {(2, 216, 8), (2, 240, 8), (2, 456, 8), (2, 744, 8),
+                      (1, 57, 16), (3, 85, 8), (2, 169, 24)}
+    for G, maxk, K in shapes:
+        for B in (1, 31, 32, 2047, 2048, 8192):
+            geo = tnp.topk_geometry(G, maxk, B, K)
+            nx, gy = geo["grid"]
+            assert gy == G and (nx - 1) * geo["tile"] < B <= nx * geo["tile"]
+            assert K <= geo["kcap"] <= tnp.TOPK_MAX_K
+            assert geo["threads"] == 32 * tnp.TOPK_WARPS
+            ring = 2 * min(maxk, tnp.TOPK_CHUNK) * geo["tile"] * 4
+            lists = tnp.TOPK_WARPS * geo["kcap"] * geo["tile"] * 8
+            assert max(ring, lists) < geo["smem"] <= kernels.SMEM_MAX
+    with pytest.raises(NotImplementedError, match="K <= 24"):
+        tnp.topk_geometry(1, 57, 8, 25)
 
 
 def _rot(rs, n):
@@ -483,6 +526,46 @@ def test_kernels_match_plain_on_card(cuda_device):
         np.testing.assert_allclose(g.cpu().numpy(), r, rtol=0, atol=TOL32 * max(
             1.0, np.nanmax(np.abs(r))), equal_nan=True)
     assert bool((got[0][33:] < 0).any())           # capsule-box rows touch
+
+
+@pytest.mark.cuda
+def test_topk_edges_on_card(cuda_device):
+    """topk_select_kernel at the edges of its shapes, indices equal to the
+    plain version's: tied and +-inf ranks at (2, 744) -> 8 (AntMaze_Large's
+    broadphase) and at B = 1 and 2047; K larger than the unmasked count; an
+    all-masked group and a NaN lane; a rank view that is not 16-byte
+    aligned. The wrapper's shared memory is the source's."""
+    rs = np.random.RandomState(5)
+    cases = [tie_ranks(rs, 2, 744, 2048) + (8,), tie_ranks(rs, 2, 169, 1) + (24,),
+             tie_ranks(rs, 1, 57, 2047) + (16,), tie_ranks(rs, 2, 216, 2047) + (8,)]
+    rank, mask = tie_ranks(rs, 2, 40, 64)
+    mask[:, 5:] = False
+    cases.append((rank, mask, 16))
+    rank = rs.normal(size=(3, 85, 96)).astype(np.float32)
+    mask = np.ones((3, 85), bool)
+    mask[1] = False                           # an all-masked group
+    rank[2, 40, 3] = np.nan                   # an unmasked NaN
+    rank[0, 7, 5] = np.nan
+    mask[0, 7] = False                        # a masked NaN
+    cases.append((rank, mask, 8))
+    for rank, mask, K in cases:
+        r, mk = (torch.tensor(x, device=cuda_device) for x in (rank, mask))
+        n0 = tnp.LAUNCHES["topk"]
+        got = tnp.topk_select(r, mk, K)
+        torch.cuda.synchronize()
+        assert tnp.LAUNCHES["topk"] == n0 + 1
+        assert torch.equal(got, tnp.topk_select_plain(r, mk, K)), rank.shape
+    # the last case: the NaN lane gives maxk, the all-masked group 0
+    assert bool((got[2, :, 3] == 85).all()) and bool((got[1] == 0).all())
+    flat = torch.tensor(np.concatenate([[0.0], cases[0][0].ravel()]),
+                        dtype=torch.float32, device=cuda_device)
+    r = flat[1:].view(cases[0][0].shape)      # 4 bytes past an aligned start
+    mk = torch.tensor(cases[0][1], device=cuda_device)
+    assert torch.equal(tnp.topk_select(r, mk, 8), tnp.topk_select_plain(r, mk, 8))
+    lib = tnp._lib()
+    for maxk, K in ((216, 8), (57, 16), (169, 24), (744, 8)):
+        geo = tnp.topk_geometry(1, maxk, 2048, K)
+        assert lib.grt_topk_smem_bytes(maxk, geo["kcap"]) == geo["smem"]
 
 
 @pytest.mark.cuda

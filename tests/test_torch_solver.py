@@ -6,9 +6,11 @@ solve_newton_nv2_plain vs solver_pallas.solve_small_nv2 (_kernel).
 
 Tolerance: relative error scaled by max(1, |ref|) <= 1e-9 in float64 (the
 two sides round the same operations in another order); the closed-form
-nv = 2 solve is held in float32, at 2e-4. The test marked
-``cuda`` holds each CUDA kernel against its plain version on the card
-(<= 2e-4 in float32); it skips where no card is present. The JAX imports
+nv = 2 solve is held in float32, at 2e-4. newton_tile_kernel's launch
+geometry is held at the ported systems and the row caps. The tests marked
+``cuda`` hold each CUDA kernel against its plain version on the card
+(<= 2e-4 in float32), also at the edges of the Newton kernel's shapes;
+they skip where no card is present. The JAX imports
 sit inside the tests so that the ``cuda`` test also runs where JAX is
 missing."""
 
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from gymnasium_robotics_tpu_torch import registry
+from gymnasium_robotics_tpu_torch import kernels, registry
 from gymnasium_robotics_tpu_torch.physics import constraint, solver
 
 TOL64 = 1e-9
@@ -285,6 +287,33 @@ def test_wrappers_route_and_check():
                 solver.solve_newton(M, b, b, *rows, is_eq, n_iter=2, n_ls=2)
 
 
+def test_newton_geometry_covers_row_caps():
+    """newton_tile_kernel's launch geometry for every ported system with a
+    tile Newton (the AntMaze IDs at nv = 14, the Fetch IDs at nv = 21) and
+    at the row caps, at B from 1 up: the grid covers every env, a block's
+    shared memory fits, the lanes hold the row cap; other nv and more rows
+    raise."""
+    systems = set()
+    for id_ in registry.ids():
+        m = registry.make(id_, num_envs=1, device="cpu").env.model
+        if m.nv in solver.NEWTON_TILE_SHAPES:
+            systems.add((m.nv, m.plan("rows", constraint._RowPlan).is_eq.numel()))
+    assert systems == {(14, 72), (21, 255)}
+    for nv in solver.NEWTON_TILE_SHAPES:
+        cap = solver.NEWTON_MAX_ROWS[nv]
+        for ne in sorted({1, 45, cap} | {n for v, n in systems if v == nv}):
+            for B in (1, 7, 8, 2047, 2048, 8192):
+                geo = solver.newton_geometry(nv, ne, B)
+                assert (geo["grid"] - 1) * geo["tile"] < B <= geo["grid"] * geo["tile"]
+                assert geo["smem"] <= kernels.SMEM_MAX
+                assert geo["threads"] == geo["tile"] * 32 * geo["warps_per_env"]
+                assert 32 * geo["warps_per_env"] * geo["rows_per_lane"] == cap
+        with pytest.raises(NotImplementedError, match="rows"):
+            solver.newton_geometry(nv, cap + 1, 1)
+    with pytest.raises(NotImplementedError, match="nv=15"):
+        solver.newton_geometry(15, 10, 1)
+
+
 def test_kernel_strides_describe_views():
     """The kernels read each input through its element strides: the array
     the wrappers pass must rebuild every view from its storage, including
@@ -334,8 +363,8 @@ def test_kernels_match_plain_on_card(cuda_device):
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card_nv14(cuda_device):
     """nv = 14: chol_solve_kernel<14> on random SPD systems, and
-    newton_warp_kernel on random rows and on an AntMaze batch's own rows
-    (B = 2048)."""
+    newton_tile_kernel<14, 1, 3> on random rows and on an AntMaze batch's
+    own rows (B = 2048)."""
     B = 2048
     rs = np.random.RandomState(1)
 
@@ -389,8 +418,8 @@ def newton_errs(args, n_iter, n_ls):
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card_nv21(cuda_device):
     """nv = 21: chol_warp_kernel<21> on random SPD systems, and
-    newton_warp_kernel<21, 8> on random rows and on a FetchPush batch's own
-    rows (B = 2048)."""
+    newton_tile_kernel<21, 2, 4> on random rows and on a FetchPush batch's
+    own rows (B = 2048)."""
     B = 2048
     rs = np.random.RandomState(2)
 
@@ -420,6 +449,59 @@ def test_kernels_match_plain_on_card_nv21(cuda_device):
     for args in (rand, real):
         for err in newton_errs(args, 4, 4):
             assert err <= TOL32
+
+
+@pytest.mark.cuda
+def test_newton_edges_on_card(cuda_device):
+    """newton_tile_kernel at the edges of its shapes against its plain
+    version (nv = 14: within 2e-4 of it in float32; nv = 21, whose random
+    systems float32 itself moves: within max(2e-4, 2x the float32 plain
+    version's error) of the plain version run in float64): the
+    row caps 96 and 256, an ne that is not a multiple of 32, B = 1, a B that
+    is not a multiple of the 8-env tile, n_iter = 0, every row inactive and
+    J in a batch-leading layout (the strided staging). The wrapper's shared
+    memory is the source's."""
+    rs = np.random.RandomState(9)
+
+    def cuda(x):
+        x = np.asarray(x)
+        return torch.tensor(x, dtype=torch.bool if x.dtype == bool
+                            else torch.float32, device=cuda_device)
+
+    for nv, n_iter in ((14, 5), (21, 4)):
+        cap = solver.NEWTON_MAX_ROWS[nv]
+        for ne, B, it, case in ((cap, 2048, n_iter, ""), (45, 13, n_iter, ""),
+                                (cap - 1, 1, n_iter, ""), (72, 2047, n_iter, ""),
+                                (72, 64, 0, ""), (72, 64, n_iter, "inactive"),
+                                (72, 64, n_iter, "strided")):
+            A = rs.normal(size=(nv, nv, B))
+            is_eq = np.zeros(ne, bool)
+            is_eq[:6] = True
+            args = [cuda(a) for a in (
+                np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(nv)[:, :, None],
+                rs.normal(size=(nv, B)), rs.normal(size=(nv, B)),
+                rs.normal(size=(ne, nv, B)), rs.normal(size=(ne, B)),
+                np.exp(rs.normal(size=(ne, B))),
+                (rs.uniform(size=(ne, B)) < 0.6) & (case != "inactive"), is_eq)]
+            if case == "strided":   # (B, ne, nv) storage: batch stride ne nv
+                args[3] = args[3].permute(2, 0, 1).contiguous().permute(1, 2, 0)
+            n0 = solver.LAUNCHES["newton"]
+            got = solver.solve_newton(*args, n_iter=it, n_ls=4)
+            torch.cuda.synchronize()
+            assert solver.LAUNCHES["newton"] == n0 + 1
+            plain = solver.solve_newton_plain(*args, n_iter=it, n_ls=4)
+            if nv == 14:
+                err = max(rel_err(g.cpu(), p.cpu()) for g, p in zip(got, plain))
+                assert err <= TOL32, (nv, ne, B, it, case, err)
+            else:
+                ref = solver.solve_newton_plain(
+                    *[a.double() if a.is_floating_point() else a for a in args],
+                    n_iter=it, n_ls=4)
+                err = max(rel_err(g.cpu(), r.cpu()) for g, r in zip(got, ref))
+                p32 = max(rel_err(p.cpu(), r.cpu()) for p, r in zip(plain, ref))
+                assert err <= max(TOL32, 2 * p32), (nv, ne, B, it, case, err, p32)
+        assert (solver._lib().grt_newton_smem_bytes(nv)
+                == solver.newton_geometry(nv, cap, 1)["smem"])
 
 
 @pytest.mark.cuda
