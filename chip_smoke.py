@@ -40,6 +40,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      state with the legs pressed into the walls (some capsule-box rows
      must penetrate), with CUDA-event times of the kernel, the plain version
      and, where one PyTorch call computes the same function, that call;
+     the Cholesky also held to its plain version run in float64 on the
+     pressed state's qM (within 2e-4, or no further than twice the float32
+     plain version); the narrowphase also timed on each group kind alone;
   FetchPush-v4 (the narrowphase with plane-hull, plane-box and box-box,
   topk_select at (3, 85) -> 8 and (2, 169) -> 24, chol and Newton at
   nv = 21; box-hull and hull-hull run with MPR as plain PyTorch):
@@ -59,7 +62,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      scale, frames NaN-equal); the Cholesky also on the Euler's damped
      system; the Newton solve is held on each set to the plain version run
      in float64 (within 2e-4, or no further than twice the float32 plain
-     version); with the times as in phase 10;
+     version), and so is the Cholesky on qM and the damped system of the
+     main path's and the pressed state; with the times as in phase 10;
   FetchPush-v4 under Option.fk_kernel=True (the FK kernel beside the four
   above):
   15. main path: registry.make("FetchPush-v4", num_envs=2048,
@@ -104,19 +108,28 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      builds) and on random rows, held to the plain version run in float64
      as the nv = 21 Newton is, with CUDA-event times;
   21. edge checks of the redesigned kernels (topk_select_kernel,
-     newton_tile_kernel) against their plain versions on the card:
-     topk_select at (2, 744) -> 8 (AntMaze_Large's shape) on tied ranks, at
-     B = 1 and B = 2047, with K larger than the unmasked count, with an
-     all-masked group and a NaN lane; the Newton solve at nv = 14 and 21 at
-     the row caps (96, 256), at an ne that is not a multiple of 32, at
-     B = 1 and B = 2047, with n_iter = 0, with every row inactive and with
-     a strided J;
+     newton_tile_kernel, chol_tile_kernel, narrowphase_kernel) against
+     their plain versions on the card: topk_select at (2, 744) -> 8
+     (AntMaze_Large's shape) on tied ranks, at B = 1 and B = 2047, with K
+     larger than the unmasked count, with an all-masked group and a NaN
+     lane; the Newton solve at nv = 14 and 21 at the row caps (96, 256), at
+     an ne that is not a multiple of 32, at B = 1 and B = 2047, with
+     n_iter = 0, with every row inactive and with a strided J; the
+     Cholesky at nv = 14 and 21 at B = 1 and B = 2047, with M transposed
+     and sliced, envs on the 1e-20 floor and a NaN env; the narrowphase on
+     the pressed AntMaze and FetchPush states at B = 1 and B = 2047, each
+     kind alone (bitwise equal to the whole table's rows), with picks out
+     of range and int64 picks; and the nv = 2 Newton builds at the 64-row
+     cap (newton_kernel<2, 64>, newton2_closed_kernel<64>) on the rows of
+     PointMaze_Medium-v3 (39) and PointMaze_Large-v3 (63) at B = 8192, held
+     to their plain versions in float64 and timed;
   then a JSON line of the kernels (the redesigned kernels' rows also carry
   ptxas' registers and spill bytes, the blocks per SM
   cudaOccupancyMaxActiveBlocksPerMultiprocessor gives and the launch
   geometry, after the wrappers' shared memory sizes are held to the
-  sources'), the card line, and the last line {"ok": true, "device":
-  {...}}. Each phase prints its wall time.
+  sources'; the nv = 2 rows carry the 64-row cap's readings, registers
+  and spill bytes as ``cap64``), the card line, and the last line
+  {"ok": true, "device": {...}}. Each phase prints its wall time.
 """
 
 import json
@@ -381,7 +394,7 @@ def trace(torch, run, n, card, label, cpu=True, counts=None):
         "kernels_per_step": len(events) / n,
         **({"counted_launches_per_step": counted} if counted else {}),
         "card": card}), flush=True)
-    ported = ("chol_solve_kernel", "chol_warp_kernel", "newton_kernel",
+    ported = ("chol_solve_kernel", "chol_tile_kernel", "newton_kernel",
               "newton_tile_kernel", "topk_select_kernel", "narrowphase_kernel",
               "fk_kernel", "newton2_closed_kernel")
     for i, (name, (c, ms)) in enumerate(top):
@@ -719,7 +732,9 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
         "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:201",
         launches["narrowphase"], np_abs, np_err, np_ms, np_plain_ms, np_bound,
         None, [tp.ncon, ANT_B],
-        ms_int64_picks=int64_picks_ms(torch, narrowphase, tp, real_np, out)))
+        ms_int64_picks=int64_picks_ms(torch, narrowphase, tp, real_np, out),
+        ms_by_kind=kind_times(torch, narrowphase, tp.table, real_np[1:], out),
+        tasks=int(tp.table.tasks.shape[0])))
 
     # Cholesky at nv = 14: random SPD systems and the real qM
     nv = m.nv
@@ -736,12 +751,14 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
     chol_lib_ms = time_ms(torch, lambda: torch.linalg.solve_ex(Mb, bb))
     nm = nv * (nv + 1) // 2
     assert chol_err <= TOL, f"chol_solve nv=14: relerr {chol_err:.3e}"
+    f64 = chol_f64_gate(torch, solver, "chol nv=14", {
+        "pressed qM": (d.qM, d.qfrc_smooth)})
     rows.append(kernel_row(
         "chol_solve_nv14", SOLVER_SRC,
         "gymnasium_robotics_tpu/physics/solver_pallas.py:455",
         launches["chol"], chol_abs, chol_err, chol_ms, chol_plain_ms,
         bound((nm + 2 * nv) * 4 * ANT_B, chol_ops(nv) * ANT_B), chol_lib_ms,
-        [nv, ANT_B]))
+        [nv, ANT_B], f64_rel_err=f64[0], plain32_f64_rel_err=f64[1]))
 
     # Newton at nv = 14, 72 rows: random rows and the real ones
     n_iter = min(m.opt.iterations, 20)
@@ -775,7 +792,7 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
     n_active = int(active.any(dim=0).sum())
     print(f"ant kernels: {n_press} of {ANT_B} envs press a leg into a wall, "
           f"{n_active} have active rows; {ne} rows", flush=True)
-    return rows
+    return rows, (m, d, None)
 
 
 def arm_poses(env, n, seed):
@@ -827,6 +844,43 @@ def newton_vs_f64(torch, solver, args, n_iter, n_ls, kernel=None, plain=None):
     ab = max(float((g.double() - q.double()).abs().max())
              for g, q in zip(got, plain))
     return k_rel, p_rel, ab
+
+
+def chol_vs_f64(torch, solver, M, b):
+    """The Cholesky kernel on one system against its plain version run in
+    float64 on the same inputs, beside the float32 plain version against
+    the same: (kernel's rel err, float32 plain's rel err)."""
+    ref = solver.solve_pos_plain(M.double(), b.double())
+    return (rel_err(solver.solve_pos(M, b), ref),
+            rel_err(solver.solve_pos_plain(M, b), ref))
+
+
+def chol_f64_gate(torch, solver, label, systems):
+    """The float64 gate of the Cholesky kernel on fixed inputs (beside the
+    float32 one): on each named system within TOL of the plain version run
+    in float64, or no further from it than NEWTON_SLACK times the float32
+    plain version. Returns (largest kernel rel err, largest float32 plain
+    rel err)."""
+    errs = {name: chol_vs_f64(torch, solver, *sys_) for name, sys_ in systems.items()}
+    print(f"{label} against the float64 plain version: (kernel relerr, "
+          f"float32 plain relerr) {errs}", flush=True)
+    for name, (k, p) in errs.items():
+        assert k <= max(TOL, NEWTON_SLACK * p), (
+            f"{label} ({name}): relerr {k:.3e} against float64, the float32 "
+            f"plain version's {p:.3e}")
+    return (max(k for k, _ in errs.values()), max(p for _, p in errs.values()))
+
+
+def kind_times(torch, narrowphase, table, args, out):
+    """ms of the narrowphase kernel on each group kind's pairs alone (the
+    table cut to that kind, GroupTable.only), on the same arrays."""
+    times = {}
+    for k in sorted({g.kind for g in table.groups}):
+        sub = table.only([k])
+        name = "-".join(GEOMS[t] for t in narrowphase.KINDS[k])
+        times[name] = time_ms(torch, lambda: narrowphase.narrowphase(
+            sub, *args, out=out))
+    return times
 
 
 def envs_f64(convert, data, n):
@@ -1027,7 +1081,9 @@ def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
         "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:201",
         launches["narrowphase"], np_abs, np_rel, np_ms, np_plain_ms, np_bound,
         None, [n_rows, FETCH_B],
-        ms_int64_picks=int64_picks_ms(torch, narrowphase, tp, args, out)))
+        ms_int64_picks=int64_picks_ms(torch, narrowphase, tp, args, out),
+        ms_by_kind=kind_times(torch, narrowphase, table, args[1:], out),
+        tasks=int(table.tasks.shape[0])))
 
     # Cholesky at nv = 21: random SPD systems, the real qM (the smooth
     # solve) and the Euler's damped system (the velocity solve), the
@@ -1050,12 +1106,17 @@ def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
                           graph=False)
     nm = nv * (nv + 1) // 2
     assert chol_err <= TOL, f"chol_solve nv=21: relerr {chol_err:.3e}"
+    f64 = chol_f64_gate(torch, solver, "chol nv=21", {
+        "main qM": real, "main damped system": pipeline.damped_system(m, d_main),
+        "pressed qM": (d_press.qM, d_press.qfrc_smooth),
+        "pressed damped system": pipeline.damped_system(m, d_press)})
     rows.append(kernel_row(
         "chol_solve_nv21", SOLVER_SRC,
         "gymnasium_robotics_tpu/physics/solver_pallas.py:455",
         launches["chol"], chol_abs, chol_err, chol_ms, chol_plain_ms,
         bound((nm + 2 * nv) * 4 * FETCH_B, chol_ops(nv) * FETCH_B),
-        chol_lib_ms, [nv, FETCH_B]))
+        chol_lib_ms, [nv, FETCH_B], f64_rel_err=f64[0],
+        plain32_f64_rel_err=f64[1]))
 
     # Newton at nv = 21, 255 rows: random rows, the main path's, the pressed
     n_iter = min(m.opt.iterations, 20)
@@ -1108,7 +1169,7 @@ def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
     n_active = [int(s[6].any(dim=0).sum()) for s in sets[1:]]
     print(f"fetch kernels: {ne} rows; envs with active rows (main, pressed) "
           f"{n_active} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
-    return rows
+    return rows, (m, d_press, m.hull_vert)
 
 
 def fk_sites(torch, dev, kinematics, m, sites):
@@ -1490,11 +1551,13 @@ def ptxas_report(report):
     return out
 
 
-def redesign_fields(rows, ptx, solver, narrowphase):
+def redesign_fields(rows, ptx, solver, narrowphase, tables):
     """Registers, spill bytes and blocks per SM of the redesigned kernels'
-    rows (topk_select_kernel<KCAP>, newton_tile_kernel<NV, ...>); the
-    wrappers' launch geometry is first held to the shared memory bytes the
-    kernels' sources compute."""
+    rows (topk_select_kernel<KCAP>, newton_tile_kernel<NV, ...>,
+    chol_tile_kernel<NV, ...>, narrowphase_kernel), and the nv = 2 Newton
+    builds at the 64-row cap on the nv = 2 rows; the wrappers' launch
+    geometry is first held to the shared memory bytes the kernels' sources
+    compute. ``tables``: the narrowphase rows' group tables by row name."""
     nlib, slib = narrowphase._lib(), solver._lib()
     for row in rows:
         if row["name"].startswith("topk_select_"):
@@ -1509,7 +1572,25 @@ def redesign_fields(rows, ptx, solver, narrowphase):
             assert geo["smem"] == slib.grt_newton_smem_bytes(nv), geo
             entry = f"newton_tile_kernelILi{nv}E"
             blocks = slib.grt_newton_blocks_per_sm(nv)
+        elif row["name"] in ("chol_solve_nv14", "chol_solve_nv21"):
+            nv, nb = row["shape"]
+            geo = solver.chol_geometry(nv, nb)
+            assert geo["smem"] == slib.grt_chol_smem_bytes(nv), geo
+            entry = f"chol_tile_kernelILi{nv}E"
+            blocks = slib.grt_chol_blocks_per_sm(nv)
+        elif row["name"] in tables:
+            geo = narrowphase.narrowphase_geometry(tables[row["name"]],
+                                                   row["shape"][-1])
+            geo["smem"] = 0   # static: the shared scratch, in the ptxas report
+            entry = f"narrowphase_kernelILb{int(geo['boxes'])}E"
+            blocks = nlib.grt_narrowphase_blocks_per_sm(int(geo["boxes"]))
         else:
+            if row["name"] in ("newton", "newton_nv2") and "cap64" in row:
+                name = ("newton_kernelILi2ELi64E" if row["name"] == "newton"
+                        else "newton2_closed_kernelILi64E")
+                regs, spill = next((v for k, v in ptx.items() if name in k),
+                                   (None, None))
+                row["cap64"].update(regs=regs, spill_bytes=spill)
             continue
         regs, spill = next((v for k, v in ptx.items() if entry in k),
                            (None, None))
@@ -1601,6 +1682,145 @@ def edge_checks(torch, dev, solver, narrowphase):
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
 
+def chol_edges(torch, dev, solver):
+    """Phase 21, the Cholesky kernel (chol_tile_kernel) at nv = 14 and 21
+    against its plain version, within TOL of it on every env and NaN where
+    it is NaN: random SPD systems at B = 1 and B = 2047, M as a transposed
+    view (batch stride nv^2) and as a sliced one (every other env of a
+    larger batch), b transposed, envs whose factor takes the 1e-20 floor
+    exactly (an all-zero M, a diagonal of zeros and ones) and an env with a
+    NaN entry."""
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(11)
+    errs = {}
+    for nv in (14, 21):
+        def spd(nb):
+            A = rs.normal(size=(nv, nv, nb))
+            return (np.einsum("ikb,jkb->ijb", A, A)
+                    + 0.5 * np.eye(nv)[:, :, None]).astype(np.float32)
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        M64 = f32(spd(64))
+        M64[:, :, 0] = 0.0                                 # the floor, exactly
+        M64[:, :, 1] = torch.diag(torch.arange(nv, device=dev) % 2.0)
+        M64[0, 0, 5] = float("nan")
+        M2 = f32(spd(4096))
+        b = f32(rs.normal(size=(nv, 4096)))
+        cases = {
+            "B = 1": (f32(spd(1)), f32(rs.normal(size=(nv, 1)))),
+            "B = 2047": (f32(spd(2047)), f32(rs.normal(size=(nv, 2047)))),
+            "transposed M, b": (M2[:, :, :2048].permute(2, 0, 1).contiguous()
+                                .permute(1, 2, 0), b[:, :2048].T.contiguous().T),
+            "sliced M": (M2[:, :, ::2], b[:, :2048]),
+            "floor and NaN envs": (M64, f32(rs.normal(size=(nv, 64)))),
+        }
+        for name, (M, bb) in cases.items():
+            n0 = solver.LAUNCHES["chol"]
+            got = solver.solve_pos(M, bb)
+            torch.cuda.synchronize()
+            assert solver.LAUNCHES["chol"] == n0 + 1
+            ref = solver.solve_pos_plain(M, bb)
+            if name.startswith("floor"):   # exact arithmetic: equal
+                assert torch.equal(got[:, :2], ref[:, :2]), f"chol nv={nv}: floor envs"
+                got, ref = got[:, 2:], ref[:, 2:]
+            nan = ref.isnan()
+            assert bool((got.isnan() == nan).all()), f"chol nv={nv} ({name}): NaN envs differ"
+            err = rel_err(got[~nan], ref[~nan])
+            assert err <= TOL, f"chol nv={nv} ({name}): relerr {err:.3e}"
+            errs[f"nv{nv} {name}"] = err
+    print(f"edge checks: chol relerr {errs} ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+
+def narrowphase_edges(torch, narrowphase, collision, ctxs):
+    """Phase 21, the narrowphase kernel against its plain version (every
+    kernel row, as in phase 14) on the pressed AntMaze and FetchPush
+    states: at B = 1 and B = 2047 (the first envs), each group kind alone
+    (the table cut to it; its rows also bitwise equal to the whole
+    table's), with picks out of range on both sides (the kernel clamps
+    them) and with int64 picks."""
+    t_phase = time.perf_counter()
+    errs = {}
+    for label, (m, d, hv) in ctxs.items():
+        tp = m.plan("pruned", collision._PrunedPlan)
+        table = tp.table
+        sel = narrowphase.topk_select(collision.broadphase_rank(m, d, tp),
+                                      tp.mask, tp.K)
+        whole = narrowphase.narrowphase(table, d.geom_xpos, d.geom_xmat,
+                                        m.geom_size, sel, hv)
+        rs = np.random.RandomState(13)
+        wild = torch.as_tensor(rs.randint(-3, tp.mask.shape[1] + 3, tuple(sel.shape)),
+                               dtype=torch.int32, device=sel.device)
+        cases = [(f"B = {n}", table, d.geom_xpos[..., :n], d.geom_xmat[..., :n],
+                  sel[..., :n]) for n in (1, 2047)]
+        cases += [(f"kind {k} alone", table.only([k]), d.geom_xpos, d.geom_xmat, sel)
+                  for k in sorted({g.kind for g in table.groups})]
+        cases += [("picks out of range", table, d.geom_xpos, d.geom_xmat, wild),
+                  ("int64 picks", table, d.geom_xpos, d.geom_xmat, sel.long())]
+        for name, tab, P, R, sl in cases:
+            n0 = narrowphase.LAUNCHES["narrowphase"]
+            args = (tab, P, R, m.geom_size, sl, hv)
+            got = narrowphase.narrowphase(*args)
+            torch.cuda.synchronize()
+            assert narrowphase.LAUNCHES["narrowphase"] == n0 + 1
+            rel, _ = table_err(got, narrowphase.narrowphase_plain(*args), tab.rows)
+            assert rel <= TOL, f"narrowphase {label} ({name}): relerr {rel:.3e}"
+            if name.startswith("kind"):
+                assert all(torch.equal(g[tab.rows].view(torch.int32),
+                                       w[tab.rows].view(torch.int32))
+                           for g, w in zip(got, whole)), f"{label} {name}: bits"
+            errs[f"{label} {name}"] = rel
+    print(f"edge checks: narrowphase relerr {errs} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+
+def cap64_checks(torch, dev, solver, constraint, registry, rows):
+    """Phase 21, the nv = 2 Newton builds at the 64-row cap
+    (newton_kernel<2, 64> and newton2_closed_kernel<64>) on the rows of
+    PointMaze_Medium-v3 (39) and PointMaze_Large-v3 (63) at B = 8192, balls
+    pushed into the walls for 25 steps, each held to its plain version run
+    in float64 (within TOL, or no further than NEWTON_SLACK times the
+    float32 plain version) and timed; the readings go on the nv = 2 rows
+    as ``cap64``."""
+    t_phase = time.perf_counter()
+    by_row = {r["name"]: r for r in rows}
+    for id_ in ("PointMaze_Medium-v3", "PointMaze_Large-v3"):
+        env = registry.make(id_, num_envs=B)
+        env.reset(seed=0)
+        rs = np.random.RandomState(0)
+        dirs = torch.as_tensor(rs.uniform(-1, 1, (B, 2)), dtype=torch.float32,
+                               device=dev)
+        for _ in range(25):
+            env.step(dirs)
+        m, d = env.env.model, env.state.data
+        J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+        ne = J.shape[0]
+        args = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+        n_iter = min(m.opt.iterations, 20)
+        n_ls = min(m.opt.ls_iterations, 8)
+        n_touching = int(active[1:].any(dim=0).sum())
+        assert n_touching > 0, f"{id_}: no ball touches a wall"
+        for name, kern, plain in (
+                ("newton", solver.solve_newton, solver.solve_newton_plain),
+                ("newton_nv2", solver.solve_newton_nv2,
+                 solver.solve_newton_nv2_plain)):
+            k, p, ab = newton_vs_f64(torch, solver, args, n_iter, n_ls, kern, plain)
+            assert k <= max(TOL, NEWTON_SLACK * p), (
+                f"{name} at {ne} rows ({id_}): relerr {k:.3e} against float64, "
+                f"the float32 plain version's {p:.3e}")
+            ms = time_ms(torch, lambda: kern(*args, n_iter=n_iter, n_ls=n_ls))
+            by_row[name].setdefault("cap64", {})[f"ne{ne}"] = {
+                "id": id_, "B": B, "ms": ms, "f64_rel_err": k,
+                "plain32_f64_rel_err": p, "abs_err_vs_plain32": ab,
+                "envs_touching": n_touching}
+        print(f"edge checks: nv = 2 at {ne} rows ({id_}): "
+              f"{ {n: by_row[n]['cap64'][f'ne{ne}'] for n in ('newton', 'newton_nv2')} }",
+              flush=True)
+    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+
 def main():
     import torch
 
@@ -1633,12 +1853,15 @@ def main():
                                narrowphase, convert, registry)
     print(f"pointmaze phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    kern += antmaze(torch, dev, card, solver, constraint, narrowphase,
-                    collision, pipeline, convert, registry)
+    rows, ant_ctx = antmaze(torch, dev, card, solver, constraint, narrowphase,
+                            collision, pipeline, convert, registry)
+    kern += rows
     print(f"antmaze phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    kern += fetchpush(torch, dev, card, solver, constraint, narrowphase,
-                      collision, pipeline, convert, registry)
+    rows, fetch_ctx = fetchpush(torch, dev, card, solver, constraint,
+                                narrowphase, collision, pipeline, convert,
+                                registry)
+    kern += rows
     print(f"fetchpush phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     kern += fetchpush_fk(torch, dev, card, solver, constraint, narrowphase,
@@ -1648,8 +1871,17 @@ def main():
     kern += single_env(torch, dev, card, solver, constraint, narrowphase,
                        registry, pm_state)
     print(f"single-env phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     edge_checks(torch, dev, solver, narrowphase)
-    redesign_fields(kern, ptx, solver, narrowphase)
+    chol_edges(torch, dev, solver)
+    narrowphase_edges(torch, narrowphase, collision,
+                      {"AntMaze": ant_ctx, "FetchPush": fetch_ctx})
+    cap64_checks(torch, dev, solver, constraint, registry, kern)
+    print(f"edge checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    tables = {name: ctx[0].plan("pruned", collision._PrunedPlan).table
+              for name, ctx in (("narrowphase", ant_ctx),
+                                ("narrowphase_fetch", fetch_ctx))}
+    redesign_fields(kern, ptx, solver, narrowphase, tables)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,10 @@
 //   (_plane_sphere :88, _plane_capsule :95, _plane_box :152 with
 //   _take_smallest :135, _sphere_box_at :221, _capsule_box :375, _box_box
 //   :388 with _box_box_edge :427 and _seg_seg_closest :344,
-//   _make_plane_hull :673) and the frame of _contact_frame_soa :806,
-//   written out for one pair, one thread per (row, env). The box-hull and
-//   hull-hull groups run with MPR outside both the TPU kernel and this one.
+//   _make_plane_hull :673) and the frame of _contact_frame_soa :806, a
+//   block taking 32 envs (one a lane) and a task of the group table (four
+//   warp items, below). The box-hull and hull-hull groups run with MPR
+//   outside both the TPU kernel and this one.
 //
 // Layout. Every array is batch-last and contiguous, element (r, ..., b) at
 // r * (...) * B + b, so the 32 threads of a warp, one env each, read and
@@ -53,14 +54,42 @@
 // slice flags the env, which then gives maxk in every round; an empty place
 // gives 0. The K indices are written coalesced.
 // What bounds narrowphase: at the AntMaze and FetchPush shapes (B = 2048)
-// it moves a few MB and does a few hundred (primitives) to a few thousand
-// (box-box) operations per thread, so it does not fill the card. Where the
-// TPU kernel took operand blocks gathered by XLA (Mosaic serialises
-// per-lane gathers), each thread here reads its pair's geom ids and gathers
-// the 12 floats of each geom's pose (and a hull's vertices, read alike by
-// every thread of a warp) itself. Every array a formula indexes at a
-// runtime face, axis or corner is written as selects or recomputed at the
-// picked index, so it stays in registers.
+// it moves 1-3 MB (1-4.5 us at the card's memory rate) and does a few
+// hundred (primitives) to a few thousand (box-box) operations a pair, so
+// the card's rates are not what bounds it: a launch lasts as long as its
+// longest chain of dependent instructions. With one thread a (pair, env),
+// that chain was a box-box pair's (its 8 corners both ways, each picking
+// 4 of 8, then 9 edge axes in turn) and every kind ran at box-box's
+// registers. So the work is cut finer than a pair, into warp items of a
+// 32-env block, listed in the table's ``tasks`` with the longest first
+// (tools/narrowphase_kinds.py times each kind alone and the other
+// assignments below):
+// - solo items, four to a block, one a warp: plane-sphere, plane-capsule,
+//   sphere-box, and each of capsule-box's three spheres;
+// - plane-hull, solo: its 24 vertices on one warp measured faster than
+//   on four (a cooperative task holds four warps through warp 0's picks),
+//   and plane-box and box-box's corners faster on four than on one;
+// - cooperative items, the block's four warps on one pair: plane-box and
+//   box-box in three tasks (box 2's corners in box 1, box 1's in box 2:
+//   each warp makes a quarter of the candidates' depths, warp 0 picks the
+//   4 smallest in the formula's order, each warp writes one slot; the edge
+//   slot: each warp makes 1-2 face axes and 2-3 of the 9 edge axes, warp 0
+//   runs the formula's in-order selection);
+// - the 4-of-N picks (take_smallest) as a tree of pairwise first-index
+//   argmins, log2 N deep, where the formula scans in order;
+// - two instantiations, launched one or the other: narrowphase_kernel<false>
+//   holds the primitive kinds alone (56 registers on sm_90a), <true> the
+//   candidate formulas too (111), so the AntMaze table runs at the former.
+// Every row's arithmetic is unchanged: the same helpers and operand order,
+// candidates and picks passed through shared memory as exact floats, the edge
+// slot's selection (not associative: the first axis is always taken, a NaN
+// never) in order on one lane; the compact table is bit for bit the one-
+// thread-a-pair kernel's (tools/narrowphase_kinds.py --parent). Where the TPU
+// kernel took operand blocks gathered by XLA (Mosaic serialises per-lane
+// gathers), each thread reads its pair's geom ids and gathers the 12 floats
+// of each geom's pose (and a hull's vertices) itself. Every array a formula
+// indexes at a runtime face, axis or corner is written as selects or
+// recomputed at the picked index, so it stays in registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libnarrowphase.so narrowphase.cu
@@ -74,8 +103,6 @@
 #include <stddef.h>
 
 namespace {
-
-constexpr int kThreads = 128;
 
 // ---------------------------------------------------------------------------
 // topk_select
@@ -452,7 +479,11 @@ constexpr float kBig = 1e10f;
 // collision_vec._take_smallest on N values held in registers: M rounds of
 // jnp.argmin (the first index of the minimum, the first NaN before all),
 // each pick pushed up by 2 * _BIG. pick[r] is the index, val[r] the value
-// before the push (a NaN is picked in every later round, as there).
+// before the push (a NaN is picked in every later round, as there). The
+// argmin orders (NaN first, then value, then index), a total order, so a
+// tree of pairwise picks (the right one where the left is not NaN and the
+// right is NaN or smaller) gives the sequential scan's index in log2 N
+// steps.
 template <int N, int M>
 __device__ __forceinline__ void take_smallest(const float (&d)[N], int (&pick)[M],
                                               float (&val)[M]) {
@@ -461,15 +492,24 @@ __device__ __forceinline__ void take_smallest(const float (&d)[N], int (&pick)[M
   for (int i = 0; i < N; ++i) w[i] = d[i];
 #pragma unroll
   for (int r = 0; r < M; ++r) {
-    int k = 0;
-    float best = w[0];
+    float bv[N];
+    int bi[N];
 #pragma unroll
-    for (int i = 1; i < N; ++i) {
-      if (best == best && (w[i] < best || w[i] != w[i])) {
-        k = i;
-        best = w[i];
+    for (int i = 0; i < N; ++i) {
+      bv[i] = w[i];
+      bi[i] = i;
+    }
+#pragma unroll
+    for (int h = 1; h < N; h *= 2) {
+#pragma unroll
+      for (int i = 0; i + h < N; i += 2 * h) {
+        if (bv[i] == bv[i] && (bv[i + h] < bv[i] || bv[i + h] != bv[i + h])) {
+          bv[i] = bv[i + h];
+          bi[i] = bi[i + h];
+        }
       }
     }
+    const int k = bi[0];
     pick[r] = k;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -481,6 +521,109 @@ __device__ __forceinline__ void take_smallest(const float (&d)[N], int (&pick)[M
   }
 }
 
+// A pair's operands for one env: its kind, first compact row, the two geoms'
+// poses and sizes, and the second geom's id (a hull's vertex table).
+struct Pair {
+  int kind, row, g2;
+  V p1, p2, s1, s2;
+  Mat R1, R2;
+};
+
+__device__ __forceinline__ V load_v(const float* __restrict__ P, int g, int b,
+                                    size_t sB) {
+  const float* p = P + (size_t)g * 3 * sB + b;
+  return {p[0], p[sB], p[2 * sB]};
+}
+
+__device__ __forceinline__ void load_m(const float* __restrict__ Rm, int g,
+                                       int b, size_t sB, Mat& R) {
+  const float* p = Rm + (size_t)g * 9 * sB + b;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) R.m[i][j] = p[(i * 3 + j) * sB];
+}
+
+// Column c of the group table (kind, first row, row of sel, list offset)
+// for env b: a pruned group's pick is kept in range.
+__device__ __forceinline__ void load_pair(
+    int c, int b, size_t sB, const float* __restrict__ P,
+    const float* __restrict__ Rm, const float* __restrict__ size,
+    long long ss0, long long ss1, long long ssb, const int* __restrict__ sel,
+    const int* __restrict__ pairs, const int* __restrict__ lens,
+    const int* __restrict__ lists, int L, int C, Pair& q) {
+  q.kind = pairs[c];
+  q.row = pairs[C + c];
+  const int srow = pairs[2 * C + c];
+  const int base = pairs[3 * C + c];
+  int j = 0;
+  if (srow >= 0) {
+    j = sel[srow * sB + b];
+    j = j < 0 ? 0 : (j >= lens[c] ? lens[c] - 1 : j);
+  }
+  const int g1 = lists[base + j];
+  q.g2 = lists[L + base + j];
+  q.p1 = load_v(P, g1, b, sB);
+  q.p2 = load_v(P, q.g2, b, sB);
+  load_m(Rm, g1, b, sB, q.R1);
+  load_m(Rm, q.g2, b, sB, q.R2);
+  q.s1 = {size[g1 * ss0 + b * ssb], size[g1 * ss0 + ss1 + b * ssb],
+          size[g1 * ss0 + 2 * ss1 + b * ssb]};
+  q.s2 = {size[q.g2 * ss0 + b * ssb], size[q.g2 * ss0 + ss1 + b * ssb],
+          size[q.g2 * ss0 + 2 * ss1 + b * ssb]};
+}
+
+// ---------------------------------------------------------------------------
+// The cooperative items: a block's four warps (32 envs, one a lane) share
+// one pair's formula. Shared scratch, row r of 32 floats at S[32 r] for the
+// lane's env: up to kHullV candidate values, then the 4 picked values.
+// ---------------------------------------------------------------------------
+
+constexpr int kHullV = 32;   // largest hull vertex count
+constexpr int kNpWarps = 4;  // warps a block
+constexpr int kNpEnvs = 32;  // envs a block, one a lane
+constexpr int kCoop = 1 << 28;         // a task item all four warps share
+constexpr int kShRows = 6 + 7 * 9;     // the edge slot's face and axis rows
+
+// The 4 smallest of N candidates (collision_vec._take_smallest) and their
+// slots, cand(c) making candidate c and store(s, pick, value) writing slot
+// s. Solo (COOP false): one thread does it all. Cooperative: warp w makes
+// candidates w, w + 4, ...; warp 0 picks; warp s writes slot s; every
+// thread of the block calls it.
+template <bool COOP, int N, class Cand, class Store>
+__device__ __forceinline__ void smallest4(float* S, int* picks, int w,
+                                          bool live, Cand cand, Store store) {
+  if constexpr (!COOP) {
+    float d[N];
+#pragma unroll
+    for (int c = 0; c < N; ++c) d[c] = cand(c);
+    int pick[4];
+    float val[4];
+    take_smallest<N, 4>(d, pick, val);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) store(s, pick[s], val[s]);
+  } else {
+    if (live)
+      for (int c = w; c < N; c += kNpWarps) S[32 * c] = cand(c);
+    __syncthreads();
+    if (w == 0 && live) {
+      float d[N];
+#pragma unroll
+      for (int c = 0; c < N; ++c) d[c] = S[32 * c];
+      int pick[4];
+      float val[4];
+      take_smallest<N, 4>(d, pick, val);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        picks[32 * s] = pick[s];
+        S[32 * (N + s)] = val[s];
+      }
+    }
+    __syncthreads();
+    if (live) store(w, picks[32 * w], S[32 * (N + w)]);
+  }
+}
+
 // Corner c of a box in its own frame: sign -1/+1 per component from the
 // bits of c (x the high bit), as collision_vec._CORNER_SIGNS orders them.
 __device__ __forceinline__ V corner_off(int c, V s) {
@@ -489,50 +632,36 @@ __device__ __forceinline__ V corner_off(int c, V s) {
 }
 
 // plane-box (collision_vec._plane_box): the 4 deepest box corners.
-__device__ void plane_box(V p1, const Mat& R1, V p2, const Mat& R2, V s2,
-                          const Out& o, int row) {
-  const V n = R1.col(2);
-  const float pn = dot_rn(p1, n);
-  float d[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) d[c] = dot_rn(p2 + R2.mul_rn(corner_off(c, s2)), n) - pn;
-  int pick[4];
-  float val[4];
-  take_smallest<8, 4>(d, pick, val);
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const V w = p2 + R2.mul(corner_off(pick[s], s2));
-    o.store(row + s, val[s], w - n * (0.5f * val[s]), n, nan3());
-  }
+__device__ void plane_box(const Pair& q, float* S, int* picks, int w,
+                          bool live, const Out& o) {
+  const V n = q.R1.col(2);
+  const float pn = dot_rn(q.p1, n);
+  smallest4<true, 8>(
+      S, picks, w, live,
+      [&](int c) { return dot_rn(q.p2 + q.R2.mul_rn(corner_off(c, q.s2)), n) - pn; },
+      [&](int s, int pick, float val) {
+        const V wv = q.p2 + q.R2.mul(corner_off(pick, q.s2));
+        o.store(q.row + s, val, wv - n * (0.5f * val), n, nan3());
+      });
 }
 
 // plane-hull (collision_vec._make_plane_hull): the 4 deepest of the hull's
-// V <= kHullV vertices, hv = (V, 3) in the mesh geom's frame.
-constexpr int kHullV = 32;
-
-__device__ void plane_hull(V p1, const Mat& R1, V p2, const Mat& R2,
-                           const float* __restrict__ hv, int nv, const Out& o,
-                           int row) {
-  const V n = R1.col(2);
-  const float pn = dot_rn(p1, n);
-  float d[kHullV];
-#pragma unroll
-  for (int v = 0; v < kHullV; ++v) {
-    d[v] = INFINITY;
-    if (v < nv) {
-      const V l = {hv[3 * v], hv[3 * v + 1], hv[3 * v + 2]};
-      d[v] = dot_rn(p2 + R2.mul_rn(l), n) - pn;
-    }
-  }
-  int pick[4];
-  float val[4];
-  take_smallest<kHullV, 4>(d, pick, val);
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int v = pick[s];
-    const V w = p2 + R2.mul({hv[3 * v], hv[3 * v + 1], hv[3 * v + 2]});
-    o.store(row + s, val[s], w - n * (0.5f * val[s]), n, nan3());
-  }
+// nv <= kHullV vertices, hv = (nv, 3) in the mesh geom's frame; solo.
+__device__ void plane_hull(const Pair& q, const float* __restrict__ hv,
+                           int nv, const Out& o) {
+  const V n = q.R1.col(2);
+  const float pn = dot_rn(q.p1, n);
+  smallest4<false, kHullV>(
+      nullptr, nullptr, 0, true,
+      [&](int v) {
+        if (v >= nv) return INFINITY;
+        const V l = {hv[3 * v], hv[3 * v + 1], hv[3 * v + 2]};
+        return dot_rn(q.p2 + q.R2.mul_rn(l), n) - pn;
+      },
+      [&](int s, int v, float val) {
+        const V wv = q.p2 + q.R2.mul({hv[3 * v], hv[3 * v + 1], hv[3 * v + 2]});
+        o.store(q.row + s, val, wv - n * (0.5f * val), n, nan3());
+      });
 }
 
 // One corner of box a against box b's faces: the face distance (positive
@@ -553,26 +682,24 @@ __device__ __forceinline__ float corner_in_box(V w, V pb, const Mat& Rb, V sb,
 // Corners of box a inside box b, the 4 deepest: vertex-face contacts with
 // normals sign * box b's outward face normal (collision_vec._box_box).
 __device__ void verts_in_box(V pa, const Mat& Ra, V sa, V pb, const Mat& Rb,
-                             V sb, float sign, const Out& o, int row) {
-  float d[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    V nw;
-    const float pen = corner_in_box(pa + Ra.mul_rn(corner_off(c, sa)), pb, Rb, sb, &nw);
-    d[c] = pen > 0.f ? -pen : kBig;
-  }
-  int pick[4];
-  float val[4];
-  take_smallest<8, 4>(d, pick, val);
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const V w = pa + Ra.mul_rn(corner_off(pick[s], sa));
-    V nw;
-    corner_in_box(w, pb, Rb, sb, &nw);
-    const V n = nw * sign;
-    const float depth = val[s] < 0.f ? val[s] : 0.f;
-    o.store(row + s, val[s], w - n * (0.5f * depth), n, nan3());
-  }
+                             V sb, float sign, int row, float* S, int* picks,
+                             int w, bool live, const Out& o) {
+  smallest4<true, 8>(
+      S, picks, w, live,
+      [&](int c) {
+        V nw;
+        const float pen =
+            corner_in_box(pa + Ra.mul_rn(corner_off(c, sa)), pb, Rb, sb, &nw);
+        return pen > 0.f ? -pen : kBig;
+      },
+      [&](int s, int pick, float val) {
+        const V wv = pa + Ra.mul_rn(corner_off(pick, sa));
+        V nw;
+        corner_in_box(wv, pb, Rb, sb, &nw);
+        const V n = nw * sign;
+        const float depth = val < 0.f ? val : 0.f;
+        o.store(row + s, val, wv - n * (0.5f * depth), n, nan3());
+      });
 }
 
 __device__ __forceinline__ float clip01(float x) { return jmin(jmax(x, 0.f), 1.f); }
@@ -600,50 +727,84 @@ __device__ __forceinline__ float support(const Mat& R, V s, V a) {
          __fmul_rn(fabsf(dot_rn(a, R.col(2))), s.z);
 }
 
+// Edge axis (i, j) of box-box, box 1's edge i across box 2's edge j: its
+// separation (-_BIG where the edges are parallel) and the midpoint of the
+// supporting edges' closest points; the axis points from box 1 into box 2.
+__device__ void edge_axis(const Pair& q, V d12, int i, int j, float* sep_out,
+                          V* pos, V* n) {
+  const V e1 = q.R1.col(i), e2 = q.R2.col(j);
+  float alen;
+  V a = normalize_rn(cross_rn(e1, e2), &alen);
+  a = a * (dot_rn(a, d12) >= 0.f ? 1.f : -1.f);  // from box1 into box2
+  float sep = dot_rn(a, d12) - (support(q.R1, q.s1, a) + support(q.R2, q.s2, a));
+  sep = alen > 1e-6f ? sep : -kBig;
+  // supporting edge centres (zero-sign components stay centred)
+  V c1 = q.p1, c2 = q.p2;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k != i) c1 = c1 + scale_rn(q.R1.col(k), jsign(dot_rn(a, q.R1.col(k))) * comp(q.s1, k));
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k != j) c2 = c2 - scale_rn(q.R2.col(k), jsign(dot_rn(a, q.R2.col(k))) * comp(q.s2, k));
+  }
+  const V o1 = scale_rn(e1, comp(q.s1, i)), o2 = scale_rn(e2, comp(q.s2, j));
+  V q1, q2;
+  seg_seg_closest(c1 - o1, c1 + o1, c2 - o2, c2 + o2, &q1, &q2);
+  *sep_out = sep;
+  *pos = (q1 + q2) * 0.5f;
+  *n = a;
+}
+
 // The edge-edge slot of box-box (collision_vec._box_box_edge): SAT over the
 // 9 edge cross axes, kept only where an edge axis separates no less than
 // every face axis. All in the _rn forms: an edge axis along a face axis
-// ties with it in exact arithmetic.
-__device__ void box_box_edge(V p1, const Mat& R1, V s1, V p2, const Mat& R2,
-                             V s2, const Out& o, int row) {
-  const V d12 = p2 - p1;
+// ties with it in exact arithmetic. Warp w makes face axes w, w + 4 and
+// edge axes w, w + 4, w + 8 (edge axis 3 i + j); warp 0 then takes the
+// face separation as the running jnp.maximum over the 6 in order and the
+// edge axes in order as the formula does (the first always, a later one
+// where it separates more, NaN never): the comparison is neither
+// associative nor NaN-symmetric, so it is not a tree reduction.
+__device__ void box_box_edge(const Pair& q, int row, float* S, int w,
+                             bool live, const Out& o) {
+  const V d12 = q.p2 - q.p1;
+  if (live) {
+    for (int f = w; f < 6; f += kNpWarps) {
+      const V a = f < 3 ? q.R1.col(f) : q.R2.col(f - 3);
+      S[32 * f] = fabsf(dot_rn(a, d12)) - (support(q.R1, q.s1, a) + support(q.R2, q.s2, a));
+    }
+    for (int x = w; x < 9; x += kNpWarps) {
+      float sep;
+      V p, n;
+      edge_axis(q, d12, x / 3, x % 3, &sep, &p, &n);
+      float* e = S + 32 * (6 + 7 * x);
+      e[0] = sep;
+      e[32] = p.x;
+      e[64] = p.y;
+      e[96] = p.z;
+      e[128] = n.x;
+      e[160] = n.y;
+      e[192] = n.z;
+    }
+  }
+  __syncthreads();
+  if (w != 0 || !live) return;
   float face_sep = 0.f;
 #pragma unroll
   for (int f = 0; f < 6; ++f) {
-    const V a = f < 3 ? R1.col(f) : R2.col(f - 3);
-    const float sep = fabsf(dot_rn(a, d12)) - (support(R1, s1, a) + support(R2, s2, a));
+    const float sep = S[32 * f];
     face_sep = f == 0 ? sep : jmax(face_sep, sep);
   }
   float best_sep = 0.f;
   V best_pos = {0.f, 0.f, 0.f}, best_n = {0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const V e1 = R1.col(i), e2 = R2.col(j);
-      float alen;
-      V a = normalize_rn(cross_rn(e1, e2), &alen);
-      a = a * (dot_rn(a, d12) >= 0.f ? 1.f : -1.f);  // from box1 into box2
-      float sep = dot_rn(a, d12) - (support(R1, s1, a) + support(R2, s2, a));
-      sep = alen > 1e-6f ? sep : -kBig;
-      // supporting edge centres (zero-sign components stay centred)
-      V c1 = p1, c2 = p2;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        if (k != i) c1 = c1 + scale_rn(R1.col(k), jsign(dot_rn(a, R1.col(k))) * comp(s1, k));
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        if (k != j) c2 = c2 - scale_rn(R2.col(k), jsign(dot_rn(a, R2.col(k))) * comp(s2, k));
-      }
-      const V o1 = scale_rn(e1, comp(s1, i)), o2 = scale_rn(e2, comp(s2, j));
-      V q1, q2;
-      seg_seg_closest(c1 - o1, c1 + o1, c2 - o2, c2 + o2, &q1, &q2);
-      if ((i == 0 && j == 0) || sep > best_sep) {
-        best_sep = sep;
-        best_pos = (q1 + q2) * 0.5f;
-        best_n = a;
-      }
+  for (int x = 0; x < 9; ++x) {
+    const float* e = S + 32 * (6 + 7 * x);
+    const float sep = e[0];
+    if (x == 0 || sep > best_sep) {
+      best_sep = sep;
+      best_pos = {e[32], e[64], e[96]};
+      best_n = {e[128], e[160], e[192]};
     }
   }
   float dist = best_sep >= face_sep ? best_sep : kBig;
@@ -651,100 +812,99 @@ __device__ void box_box_edge(V p1, const Mat& R1, V s1, V p2, const Mat& R2,
   o.store(row, dist, best_pos, best_n, nan3());
 }
 
-__device__ __forceinline__ V load_v(const float* __restrict__ P, int g, int b,
-                                    size_t sB) {
-  const float* p = P + (size_t)g * 3 * sB + b;
-  return {p[0], p[sB], p[2 * sB]};
+// box-box's part: 0 box 2's corners in box 1, 1 box 1's in box 2, 2 the
+// edge slot
+__device__ __forceinline__ void box_box_part(const Pair& q, int part,
+                                             float* S, int* picks, int w,
+                                             bool live, const Out& o) {
+  if (part == 0)
+    verts_in_box(q.p2, q.R2, q.s2, q.p1, q.R1, q.s1, 1.f, q.row, S, picks, w,
+                 live, o);
+  else if (part == 1)
+    verts_in_box(q.p1, q.R1, q.s1, q.p2, q.R2, q.s2, -1.f, q.row + 4, S,
+                 picks, w, live, o);
+  else
+    box_box_edge(q, q.row + 8, S, w, live, o);
 }
 
-__device__ __forceinline__ void load_m(const float* __restrict__ Rm, int g,
-                                       int b, size_t sB, Mat& R) {
-  const float* p = Rm + (size_t)g * 9 * sB + b;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R.m[i][j] = p[(i * 3 + j) * sB];
-}
-
-__global__ void __launch_bounds__(kThreads)
+// A block: 32 envs (one a lane) and one task of the table, four warp items
+// (8 column + part, -1 idle; plane-sphere, plane-capsule, sphere-box, a
+// sphere (part) of capsule-box, plane-hull), or one cooperative item that
+// every warp holds plus kCoop (plane-box, a part of box-box).
+// BOXES = false compiles the primitive kinds alone (plane-sphere,
+// plane-capsule, sphere-box, capsule-box): a table without plane-box,
+// box-box or plane-hull then runs at their registers, not at those of the
+// candidate formulas.
+template <bool BOXES>
+__global__ void __launch_bounds__(kNpWarps * 32)
 narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
                    const float* __restrict__ size, long long ss0,
                    long long ss1, long long ssb, const int* __restrict__ sel,
                    const int* __restrict__ pairs, const int* __restrict__ lens,
                    const int* __restrict__ lists, int L, int C,
+                   const int* __restrict__ tasks,
                    const int* __restrict__ geom_hull,
                    const float* __restrict__ hull_vert, int nhv,
                    float* __restrict__ dist, float* __restrict__ pos,
                    float* __restrict__ frame, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = blockIdx.y;
-  if (b >= B) return;
+  __shared__ float sh[kShRows * kNpEnvs];
+  __shared__ int spick[4 * kNpEnvs];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int b = blockIdx.x * kNpEnvs + lane;
+  const int* task = tasks + kNpWarps * blockIdx.y;
+  const int item = task[w];
   const size_t sB = (size_t)B;
-  const int kind = pairs[c];
-  const int row = pairs[C + c];
-  const int srow = pairs[2 * C + c];
-  const int base = pairs[3 * C + c];
-  int j = 0;
-  if (srow >= 0) {  // a pruned group: this env's pick, kept in range
-    j = sel[srow * sB + b];
-    j = j < 0 ? 0 : (j >= lens[c] ? lens[c] - 1 : j);
-  }
-  const int g1 = lists[base + j];
-  const int g2 = lists[L + base + j];
-  const V p1 = load_v(P, g1, b, sB), p2 = load_v(P, g2, b, sB);
-  Mat R1, R2;
-  load_m(Rm, g1, b, sB, R1);
-  load_m(Rm, g2, b, sB, R2);
-  const V s1 = {size[g1 * ss0 + b * ssb], size[g1 * ss0 + ss1 + b * ssb],
-                size[g1 * ss0 + 2 * ss1 + b * ssb]};
-  const V s2 = {size[g2 * ss0 + b * ssb], size[g2 * ss0 + ss1 + b * ssb],
-                size[g2 * ss0 + 2 * ss1 + b * ssb]};
   const Out o{dist, pos, frame, sB, b};
-
-  switch (kind) {
-    case 0: {  // plane-sphere
-      const Slot s = plane_sphere(p1, R1, p2, s2);
-      o.store(row, s.dist, s.pos, s.n, s.t);
-      break;
-    }
-    case 1: {  // plane-capsule
-      Slot s[2];
-      plane_capsule(p1, R1, p2, R2, s2, s);
-      o.store(row, s[0].dist, s[0].pos, s[0].n, s[0].t);
-      o.store(row + 1, s[1].dist, s[1].pos, s[1].n, s[1].t);
-      break;
-    }
-    case 2: {  // sphere-box
-      const Slot s = sphere_box_at(p1, s1.x, p2, R2, s2);
-      o.store(row, s.dist, s.pos, s.n, s.t);
-      break;
-    }
-    case 3: {  // capsule-box: spheres at the capsule's ends and centre
-      const V ax = R1.col(2);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const Slot s = sphere_box_at(p1 + ax * ((float)(k - 1) * s1.y), s1.x,
-                                     p2, R2, s2);
-        o.store(row + k, s.dist, s.pos, s.n, s.t);
+  Pair q;
+  if (task[0] < kCoop) {   // four solo items (uniform in the block)
+    if (b >= B || item < 0) return;
+    load_pair(item >> 3, b, sB, P, Rm, size, ss0, ss1, ssb, sel, pairs, lens,
+              lists, L, C, q);
+    const int part = item & 7;
+    switch (q.kind) {
+      case 0: {  // plane-sphere
+        const Slot s = plane_sphere(q.p1, q.R1, q.p2, q.s2);
+        o.store(q.row, s.dist, s.pos, s.n, s.t);
+        break;
       }
-      break;
+      case 1: {  // plane-capsule
+        Slot s[2];
+        plane_capsule(q.p1, q.R1, q.p2, q.R2, q.s2, s);
+        o.store(q.row, s[0].dist, s[0].pos, s[0].n, s[0].t);
+        o.store(q.row + 1, s[1].dist, s[1].pos, s[1].n, s[1].t);
+        break;
+      }
+      case 2: {  // sphere-box
+        const Slot s = sphere_box_at(q.p1, q.s1.x, q.p2, q.R2, q.s2);
+        o.store(q.row, s.dist, s.pos, s.n, s.t);
+        break;
+      }
+      case 3: {  // capsule-box: sphere k at the capsule's ends and centre
+        const V ax = q.R1.col(2);
+        const Slot s = sphere_box_at(q.p1 + ax * ((float)(part - 1) * q.s1.y),
+                                     q.s1.x, q.p2, q.R2, q.s2);
+        o.store(q.row + part, s.dist, s.pos, s.n, s.t);
+        break;
+      }
+      default:  // plane-hull
+        if constexpr (BOXES)
+          plane_hull(q, hull_vert + (size_t)geom_hull[q.g2] * nhv * 3, nhv, o);
     }
-    case 4:  // plane-box
-      plane_box(p1, R1, p2, R2, s2, o, row);
-      break;
-    case 5:  // box-box: box2's corners in box1, box1's in box2, the edges
-      verts_in_box(p2, R2, s2, p1, R1, s1, 1.f, o, row);
-      verts_in_box(p1, R1, s1, p2, R2, s2, -1.f, o, row + 4);
-      box_box_edge(p1, R1, s1, p2, R2, s2, o, row + 8);
-      break;
-    default:  // plane-hull
-      plane_hull(p1, R1, p2, R2, hull_vert + (size_t)geom_hull[g2] * nhv * 3,
-                 nhv, o, row);
+    return;
   }
-}
-
-inline dim3 grid_for(int B, int rows) {
-  return dim3((B + kThreads - 1) / kThreads, rows);
+  if constexpr (BOXES) {   // a cooperative task
+    const int c = (item - kCoop) >> 3, part = (item - kCoop) & 7;
+    const bool live = b < B;
+    if (live)
+      load_pair(c, b, sB, P, Rm, size, ss0, ss1, ssb, sel, pairs, lens, lists,
+                L, C, q);
+    float* S = sh + lane;
+    int* picks = spick + lane;
+    if (pairs[c] == 4)
+      plane_box(q, S, picks, w, live, o);
+    else
+      box_box_part(q, part, S, picks, w, live, o);
+  }
 }
 
 // Raise topk_select_kernel<KCAP>'s dynamic shared memory limit to smem
@@ -816,21 +976,40 @@ int grt_topk_select_f32(const float* rank, const unsigned char* mask, int* out,
   return -1;
 }
 
+// Blocks of narrowphase_kernel<boxes> one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int grt_narrowphase_blocks_per_sm(int boxes) {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, boxes ? narrowphase_kernel<true> : narrowphase_kernel<false>,
+      kNpWarps * 32, 0);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
 // size strides: geom, component and batch (0 for a model table of Bm = 1).
-// pairs: (4, C) int32, lens: (C,), lists: (2, L), geom_hull: (ngeom,) hull
-// id per geom, hull_vert: (nhull, nhv, 3) (null without hull groups).
+// pairs: (4, C) int32, lens: (C,), lists: (2, L), tasks: (T, 4) int32
+// (physics/narrowphase.py::GroupTable), boxes: whether the table holds
+// plane-box, box-box or plane-hull pairs, geom_hull: (ngeom,) hull id per
+// geom, hull_vert: (nhull, nhv, 3) (null without hull groups).
 int grt_narrowphase_f32(const float* P, const float* Rm, const float* size,
                         long long ss0, long long ss1, long long ssb,
                         const int* sel, const int* pairs, const int* lens,
-                        const int* lists, int L, int C, const int* geom_hull,
+                        const int* lists, int L, int C, const int* tasks,
+                        int T, int boxes, const int* geom_hull,
                         const float* hull_vert, int nhv, float* dist,
                         float* pos, float* frame, int B, void* stream) {
-  if (B <= 0 || C <= 0) return 0;
+  if (B <= 0 || T <= 0) return 0;
   if (nhv > kHullV) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  narrowphase_kernel<<<grid_for(B, C), kThreads, 0, s>>>(
-      P, Rm, size, ss0, ss1, ssb, sel, pairs, lens, lists, L, C, geom_hull,
-      hull_vert, nhv, dist, pos, frame, B);
+  const dim3 grid((B + kNpEnvs - 1) / kNpEnvs, T);
+  if (boxes)
+    narrowphase_kernel<true><<<grid, kNpWarps * 32, 0, s>>>(
+        P, Rm, size, ss0, ss1, ssb, sel, pairs, lens, lists, L, C, tasks,
+        geom_hull, hull_vert, nhv, dist, pos, frame, B);
+  else
+    narrowphase_kernel<false><<<grid, kNpWarps * 32, 0, s>>>(
+        P, Rm, size, ss0, ss1, ssb, sel, pairs, lens, lists, L, C, tasks,
+        geom_hull, hull_vert, nhv, dist, pos, frame, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,11 @@
 // Per-env dense solves of the constraint pipeline.
 //
-// chol_solve_kernel<NV> (NV = 2, 14; one env per thread) and
-// chol_warp_kernel<NV> (NV = 21; one env per warp, below) replace the TPU
-//   kernel gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol
-//   (entered through solve_pos_soa): the batched SPD solve M x = b by an
-//   unrolled LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
+// chol_solve_kernel<2> (one env per thread) and chol_tile_kernel<NV,
+//   COL_BACK> (NV = 14, 21; a tile of 16 envs a block, a half-warp or a
+//   warp an env, below) replace the TPU kernel
+//   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol (entered
+//   through solve_pos_soa): the batched SPD solve M x = b by an unrolled
+//   LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
 // newton_kernel<NV, NE_CAP> (NV = 2; one env per thread) and
 // newton_tile_kernel<NV, WPE, RPL> (NV = 14, 21; a tile of 8 envs a block,
 //   one or two warps an env, below) replace
@@ -39,7 +40,8 @@
 // and so do each row's x = J a - aref, J p, weight and equality flag
 // (NE_CAP of each), so the line search reads no memory at all; each Newton
 // iteration reads J (152 B per env at ne = 19) twice and aref (76 B) once,
-// from L2.
+// from L2. At the Medium and Large mazes' 39 and 63 rows (NE_CAP = 64)
+// those four row arrays no longer fit a thread's registers and spill.
 // NV and NE_CAP are template parameters so every loop over them unrolls
 // into registers, as Pallas unrolls them; ne <= NE_CAP, n_iter and n_ls are
 // runtime values. chip_smoke.py measures both against these bounds.
@@ -50,13 +52,13 @@
 // bound it (chip_smoke.py counts both); one thread per env would need far
 // more than 255 registers, hence newton_tile_kernel, which spreads each
 // env over a warp or two and keeps J in shared memory (its note below).
-// The Cholesky at NV = 14 keeps its 105-entry triangle and factor in one
-// thread's registers (in place).
 // At the FetchPush shapes (NV = 21, ne = 255, 4 and 4 iterations,
 // B = 2048) the Newton function reads 6393 floats and 255 mask bytes and
 // writes 276 floats per env (54.8 MB, 16 us) and does about 0.74M float
-// operations per env (22 us), so operations bound it, bytes close behind;
-// the Cholesky moves 273 floats per env (2.2 MB, 0.7 us).
+// operations per env (22 us), so operations bound it, bytes close behind.
+// The Cholesky solve at NV = 14 and 21 moves 133 and 273 floats an env
+// (1.1 and 2.2 MB) and does 1.4k and 4.2k operations an env: neither rate
+// bounds it, the chain of each env does (chol_tile_kernel's note below).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsolver.so solver.cu
@@ -147,6 +149,7 @@ __device__ __forceinline__ void chol_solve(float (&L)[tri(NV, 0)],
   }
 }
 
+// NV = 2: one env per thread (at 7 floats an env the launch bounds it).
 template <int NV>
 __global__ void __launch_bounds__(kThreads)
 chol_solve_kernel(const float* __restrict__ M, Str3 sM,
@@ -485,7 +488,7 @@ void launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
 //   registers for x, the line search and the forces.
 // - Vectors held once: a, a_smooth, p, the gradient and M (a - a_smooth)
 //   live in shared memory, one component per lane where computed; the
-//   Cholesky solve (warp_chol_solve<NV, true>, below) takes and returns
+//   Cholesky solve (warp_chol_solve<NV>, below) takes and returns
 //   one component a lane, keeps each lane's row in registers and
 //   substitutes with reciprocals. No NV-array is replicated in registers.
 // - Outputs go through shared memory and are written coalesced.
@@ -502,13 +505,8 @@ void launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
 // and every row computed every iteration; only the order of some sums
 // (the slices of H, the warp sums, J^T f) and the substitutions'
 // reciprocals differ from the plain version.
-//
-// chol_warp_kernel<NV> (NV = 21): the Cholesky solve with one warp per env
-// (a thread's registers cannot hold the 231-entry triangle): the lanes stage
-// M's lower triangle in shared memory and the warp factors it as below.
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;     // chol_warp_kernel: envs per block
 constexpr int kEnvTile = 8;   // newton_tile_kernel: envs per block
 constexpr int BS = 3;         // newton_tile_kernel: side of a lane's block of H
 constexpr unsigned kFull = 0xffffffffu;
@@ -547,55 +545,37 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Solve H x = rhs with H's packed lower triangle in shared memory (factored
 // in place); lane i holds rhs_i and gets x_i (lanes >= NV: 0). Left-looking
 // factor with the same 1e-20 diagonal floor and the same order of every sum
-// as chol_solve; the back substitution subtracts in descending order. FAST
-// (the Newton solve) keeps lane j's row of H and of the factor as it is
-// made in registers, so each product of a pivot's sum loads only the
-// pivot row's entry (one broadcast), and multiplies each substitution step
-// by the reciprocal of the diagonal, which lane i keeps from the factor,
-// instead of dividing by it: the chain of the two substitutions then holds
-// no division. The factor is the same either way, bit for bit; the
-// Cholesky kernel (chol_warp_kernel) keeps the divisions.
-template <int NV, bool FAST = false>
+// as chol_solve, lane j keeping its row of H and of the factor as it is
+// made in registers, so each product of a pivot's sum loads only the pivot
+// row's entry (one broadcast). Each substitution step multiplies by the
+// reciprocal of the diagonal, which lane i keeps from the factor, instead
+// of dividing by it, so the chain of the two substitutions holds no
+// division; the back substitution subtracts in descending order.
+template <int NV>
 __device__ float warp_chol_solve(float* L, float rhs, int lane) {
-  float inv = 0.f;   // FAST: 1 / L_ii on lane i
-  if constexpr (FAST) {
-    const int j = lane < NV ? lane : NV - 1;
-    float row[NV];   // H's row j, then L_j,k as each pivot k makes it
+  float inv = 0.f;   // 1 / L_ii on lane i
+  const int j = lane < NV ? lane : NV - 1;
+  float row[NV];   // H's row j, then L_j,k as each pivot k makes it
 #pragma unroll
-    for (int m = 0; m < NV; ++m) row[m] = m <= j ? L[tri(j, m)] : 0.f;
+  for (int m = 0; m < NV; ++m) row[m] = m <= j ? L[tri(j, m)] : 0.f;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float t = row[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) t = t - row[k] * L[tri(i, k)];
+    const float dii = sqrtf(nan_max(__shfl_sync(kFull, t, i), 1e-20f));
+    const float q = t / dii, rc = 1.f / dii;
+    // one predicated store a lane: the diagonal on lane i, L_j,i below
+    if (lane >= i && lane < NV) L[tri(j, i)] = lane == i ? dii : q;
+    inv = lane == i ? rc : inv;
+    row[i] = q;
     __syncwarp();
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      float t = row[i];
-#pragma unroll
-      for (int k = 0; k < i; ++k) t = t - row[k] * L[tri(i, k)];
-      const float dii = sqrtf(nan_max(__shfl_sync(kFull, t, i), 1e-20f));
-      const float q = t / dii, rc = 1.f / dii;
-      // one predicated store a lane: the diagonal on lane i, L_j,i below
-      if (lane >= i && lane < NV) L[tri(j, i)] = lane == i ? dii : q;
-      inv = lane == i ? rc : inv;
-      row[i] = q;
-      __syncwarp();
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      float t = 0.f;
-      if (lane >= i && lane < NV) {
-        t = L[tri(lane, i)];
-        for (int k = 0; k < i; ++k) t = t - L[tri(lane, k)] * L[tri(i, k)];
-      }
-      const float dii = sqrtf(nan_max(__shfl_sync(kFull, t, i), 1e-20f));
-      if (lane == i) L[tri(i, i)] = dii;
-      else if (lane > i && lane < NV) L[tri(lane, i)] = t / dii;
-      __syncwarp();
-    }
   }
   float r = lane < NV ? rhs : 0.f, y = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const float yi = FAST ? __shfl_sync(kFull, r * inv, i)
-                          : __shfl_sync(kFull, r, i) / L[tri(i, i)];
+    const float yi = __shfl_sync(kFull, r * inv, i);
     if (lane == i) y = yi;
     if (lane > i && lane < NV) r = r - L[tri(lane, i)] * yi;
   }
@@ -603,8 +583,7 @@ __device__ float warp_chol_solve(float* L, float rhs, int lane) {
   r = y;
 #pragma unroll
   for (int i = NV - 1; i >= 0; --i) {
-    const float xi = FAST ? __shfl_sync(kFull, r * inv, i)
-                          : __shfl_sync(kFull, r, i) / L[tri(i, i)];
+    const float xi = __shfl_sync(kFull, r * inv, i);
     if (lane == i) x = xi;
     if (lane < i) r = r - L[tri(i, lane)] * xi;
   }
@@ -910,7 +889,7 @@ newton_tile_kernel(const float* __restrict__ M,
     if (lead) {
       __syncwarp();
       const float mg = lane < NV ? -(MDA[lane] + G[lane]) : 0.f;
-      const float pl = warp_chol_solve<NV, true>(Ls, mg, lane);
+      const float pl = warp_chol_solve<NV>(Ls, mg, lane);
       if (lane < NV) P[lane] = pl;
       __syncwarp();
       float mp = 0.f;
@@ -1000,7 +979,7 @@ newton_tile_kernel(const float* __restrict__ M,
     }
     for (int q = lane; q < NT; q += 32) Ls[q] = Ms[q];
     __syncwarp();
-    const float dq = warp_chol_solve<NV, true>(Ls, qfc, lane);
+    const float dq = warp_chol_solve<NV>(Ls, qfc, lane);
     if (lane < NV) G[lane] = AS[lane] + dq;   // qacc
   }
   __syncthreads();
@@ -1048,26 +1027,296 @@ int newton_tile_blocks_per_sm() {
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
+// ---------------------------------------------------------------------------
+// chol_tile_kernel<NV, COL_BACK>: the Cholesky solve M x = b at NV >= 3
+// (AntMaze NV = 14, FetchPush NV = 21; later slices up to 36), a block a
+// tile of kCholTile consecutive envs, LPE lanes an env (a half-warp where
+// NV <= 16, else a warp), lane u owning rows u and u + LPE (RPL rows).
+//
+// What bounds it on this card. At B = 2048 it moves 2.2 MB (NV = 21: 0.7
+// us at 3.35 TB/s) and does ~4.2k float operations an env (0.13 us), so
+// neither rate: what costs is each env's dependent chain (NV pivots, each
+// a square root and a division, then 2 NV substitution steps, each a
+// division) and, for the kernels this one replaces, how envs were laid on
+// threads: one thread an env held the NV = 14 triangle in 255 registers
+// with spill on 32 blocks; one warp an env read each element of M at batch
+// stride, a sector a float, and took both operands of every product from
+// shared memory.
+//
+// What this design does about it:
+// - Staging: the tile's envs are contiguous for each element (i, j <= i)
+//   of M and each row of b where the batch stride is 1, so a thread copies
+//   four envs' element with one 16-byte cp.async (B % 4 == 0, 16-byte
+//   aligned rows), else four 4-byte ones (strided views, any B); envs past
+//   B are zeros. The tile's region holds, for each group of four envs,
+//   element e of env t at 4 e + t % 4: (NT + NV) floats an env.
+// - The factor in registers: lane u loads its rows of M's triangle and
+//   makes L's rows in place; pivot i's row comes from its owner by shuffle
+//   (no shared memory, no barrier), and the next pivot's sums over the
+//   entries already made are taken before this pivot's square root and
+//   division, so the chain of a pivot is one multiply-subtract, two
+//   shuffles, the square root and the division. Every lane keeps each
+//   L_ii. The kernel is latency-bound (2048 envs are 16 an SM). Where NV
+//   exceeds 16, a warp an env (lanes past NV idle) keeps twice the warps
+//   in flight that a half-warp with two rows a lane would, and measured
+//   faster at NV = 21; at NV = 14 a half-warp (two envs a warp, half the
+//   shuffles) measured faster.
+// - Substitutions: the forward one inside the factor, column by column
+//   (pivot i's owner divides r_i by L_ii in the division that makes L's
+//   column i, y_i goes to the lanes by shuffle and every lower row
+//   subtracts L_ji y_i: each y_j's subtractions in ascending i); L goes
+//   back to the tile's region for the back substitution's reads of L's
+//   columns.
+//   Each element's arithmetic is chol_solve's, operation for operation:
+//   t - a * b in ascending k for every entry of the factor and of y, the
+//   1e-20 floor through nan_max, divisions by L_ii (no reciprocals). The
+//   back substitution has two orders, each instantiation keeping the one
+//   of the kernel it replaced, so that its results stay bit for bit what
+//   they were: COL_BACK = false (NV = 14, as chol_solve):
+//   x_i = (y_i - sum over k > i of L_ki x_k, in ascending k) / L_ii, every
+//   lane of the env computing each x_i from L's columns in shared memory;
+//   COL_BACK = true (NV = 21, as the one-warp-an-env kernel before it):
+//   column by column, x_i by shuffle from its owner and every upper row
+//   subtracting L_ij x_i, so each x's subtractions run in descending k.
+// - Outputs through the tile's region, written with 16-byte stores where
+//   B % 4 == 0.
+// Shared memory: kCholTile (NT + NV) floats a block: 7.6 KB at NV = 14,
+// 16.1 KB at NV = 21, 44.9 KB at NV = 36 (RPL = 2), under the 48 KB of
+// static launch. physics/solver.py::chol_geometry computes the same.
+// ---------------------------------------------------------------------------
+
+constexpr int kCholTile = 16;   // chol_tile_kernel: envs a block
+
 template <int NV>
-__global__ void __launch_bounds__(kWarps * 32)
-chol_warp_kernel(const float* __restrict__ M, Str3 sM,
+struct CholLayout {
+  static constexpr int LPE = NV <= 16 ? 16 : 32;    // lanes an env
+  static constexpr int RPL = (NV + LPE - 1) / LPE;  // rows a lane
+  static constexpr int NT = tri(NV, 0);
+  static constexpr int NE = NT + NV;                // floats an env
+  static constexpr int threads = kCholTile * LPE;
+  static constexpr int block_bytes = kCholTile * NE * 4;
+  static_assert(NV >= 3 && NV <= 36 && RPL <= 2 && kCholTile % 4 == 0,
+                "chol_tile_kernel takes 3 <= NV <= 36");
+  static_assert(block_bytes <= 48 * 1024, "static shared memory limit");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+#else
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+#endif
+}
+
+// row i of the packed triangle that holds element e: tri(i, 0) <= e < tri(i + 1, 0)
+__device__ __forceinline__ int tri_row(int e) {
+  int i = static_cast<int>((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);
+  if (tri(i + 1, 0) <= e) ++i;
+  else if (tri(i, 0) > e) --i;
+  return i;
+}
+
+template <int NV, bool COL_BACK>
+__global__ void __launch_bounds__(CholLayout<NV>::threads)
+chol_tile_kernel(const float* __restrict__ M, Str3 sM,
                  const float* __restrict__ b, Str2 sb, float* __restrict__ x,
                  int B) {
-  constexpr int NT = tri(NV, 0);
-  __shared__ float sL[kWarps][NT];
-  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int e = blockIdx.x * kWarps + wid;
-  if (e >= B) return;  // e is uniform across the warp
-  float* Ls = sL[wid];
-  for (int t = lane; t < NT; t += 32) {
-    int i = 0;
-    while (tri(i + 1, 0) <= t) ++i;
-    Ls[t] = M[sM.at(i, t - tri(i, 0), e)];
+  using CL = CholLayout<NV>;
+  constexpr int LPE = CL::LPE, RPL = CL::RPL, NT = CL::NT, NE = CL::NE;
+  constexpr int NQ = kCholTile / 4;   // groups of four envs
+  extern __shared__ __align__(16) float csm[];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int b0 = blockIdx.x * kCholTile;
+  const size_t sB = (size_t)B;
+
+  // --- staging: element e of a group of four envs, one copy a thread
+  const bool vM = sM.b == 1 && sM.r % 4 == 0 && sM.c % 4 == 0 && B % 4 == 0 &&
+                  (reinterpret_cast<size_t>(M) & 15) == 0;
+  const bool vb = sb.b == 1 && sb.r % 4 == 0 && B % 4 == 0 &&
+                  (reinterpret_cast<size_t>(b) & 15) == 0;
+  for (int idx = tid; idx < NQ * NE; idx += nthr) {
+    const int g = idx % NQ, e = idx / NQ, e0 = b0 + 4 * g;
+    float* d = csm + g * 4 * NE + 4 * e;
+    const float* src;
+    long long sbt;
+    bool vec;
+    if (e < NT) {
+      const int i = tri_row(e);
+      src = M + i * sM.r + (e - tri(i, 0)) * sM.c;
+      sbt = sM.b;
+      vec = vM;
+    } else {
+      src = b + (e - NT) * sb.r;
+      sbt = sb.b;
+      vec = vb;
+    }
+    if (vec) {
+      if (e0 < B) cp_async16(d, src + e0);
+      else d[0] = d[1] = d[2] = d[3] = 0.f;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (e0 + q < B) cp_async4(d + q, src + (e0 + q) * sbt);
+        else d[q] = 0.f;
+      }
+    }
   }
-  const float rhs = lane < NV ? b[sb.at(lane, e)] : 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int t = tid / LPE, u = tid % LPE;
+  float* E = csm + (t >> 2) * 4 * NE + (t & 3);   // element e at E[4 e]
+  auto shfl = [](float v, int src) { return __shfl_sync(kFull, v, src, LPE); };
+  // this lane's rows j = u + LPE q of M's triangle (0 past row j and NV)
+  float row[RPL][NV], r[RPL];
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) {
+    const int j = u + LPE * q, jc = j < NV ? j : NV - 1;
+#pragma unroll
+    for (int m = 0; m < NV; ++m) {
+      const float v = E[4 * tri(jc, m < jc ? m : jc)];
+      row[q][m] = (j < NV && m <= j) ? v : 0.f;
+    }
+    r[q] = E[4 * (NT + jc)];
+  }
+
+  // --- the factor, left-looking, with the forward substitution: pivot
+  // i's row L_ik (k < i) from its owner; each row's entry t - L_jk L_ik in
+  // ascending k, then / L_ii. The next pivot's sums over k < i are taken
+  // before this pivot's square root and division (whose slow paths end
+  // the straight-line code), so only their last term waits for it. The
+  // owner of row i divides r_i (its y_i) in the same division as the rows
+  // below divide t_ji, and every lower row then subtracts L_ji y_i, so
+  // each y_j's subtractions run in ascending i, as in a separate pass.
+  float dg[NV], tv[RPL], y[NV], own[RPL];
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) tv[q] = row[q][0];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int qi = i / LPE, ui = i % LPE;
+    const int n1 = i + 1 < NV ? i + 1 : i, qn = n1 / LPE, un = n1 % LPE;
+    const float ti = shfl(tv[qi], ui);
+    float tn[RPL];
+    if (i + 1 < NV) {
+#pragma unroll
+      for (int q = 0; q < RPL; ++q) tn[q] = row[q][i + 1];
+#pragma unroll
+      for (int k = 0; k < i; ++k) {
+        const float lk = shfl(row[qn][k], un);
+#pragma unroll
+        for (int q = 0; q < RPL; ++q) tn[q] = tn[q] - row[q][k] * lk;
+      }
+    }
+    const float dii = sqrtf(nan_max(ti, 1e-20f));
+    dg[i] = dii;
+    float quot[RPL];
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      const int j = u + LPE * q;
+      quot[q] = (j == i ? r[q] : tv[q]) / dii;
+      if (j == i) {
+        row[q][i] = dii;
+        own[q] = quot[q];   // y_i
+      } else if (j > i) {
+        row[q][i] = quot[q];
+      }
+    }
+    if (i + 1 < NV) {
+      const float li = shfl(row[qn][i], un);
+#pragma unroll
+      for (int q = 0; q < RPL; ++q) tv[q] = tn[q] - row[q][i] * li;
+    }
+    const float yi = shfl(quot[qi], ui);
+    y[i] = yi;
+#pragma unroll
+    for (int q = 0; q < RPL; ++q)
+      if (u + LPE * q > i) r[q] = r[q] - row[q][i] * yi;
+  }
+
+  // L into the env's region (M's triangle is in registers), for its columns
   __syncwarp();
-  const float out = warp_chol_solve<NV>(Ls, rhs, lane);
-  if (lane < NV) x[lane * (size_t)B + e] = out;
+#pragma unroll
+  for (int q = 0; q < RPL; ++q) {
+    const int j = u + LPE * q;
+#pragma unroll
+    for (int m = 0; m < NV; ++m)
+      if (j < NV && m <= j) E[4 * tri(j, m)] = row[q][m];
+  }
+  __syncwarp();
+
+  // --- back substitution, x_j into the env's rhs slots
+  if constexpr (COL_BACK) {
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) r[q] = own[q];
+#pragma unroll
+    for (int i = NV - 1; i >= 0; --i) {
+      const int qi = i / LPE, ui = i % LPE;
+      const float xi = shfl(r[qi], ui) / dg[i];
+#pragma unroll
+      for (int q = 0; q < RPL; ++q) {
+        const int j = u + LPE * q;
+        if (j == i) own[q] = xi;
+        if (j < i) r[q] = r[q] - E[4 * tri(i, j)] * xi;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+      const int j = u + LPE * q;
+      if (j < NV) E[4 * (NT + j)] = own[q];
+    }
+  } else {
+    float xs[NV];
+#pragma unroll
+    for (int i = NV - 1; i >= 0; --i) {
+      float s = y[i];
+#pragma unroll
+      for (int k = i + 1; k < NV; ++k) s = s - E[4 * tri(k, i)] * xs[k];
+      xs[i] = s / dg[i];
+    }
+    __syncwarp();
+    if (u == 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) E[4 * (NT + i)] = xs[i];
+    }
+  }
+  __syncthreads();
+  const bool vx = B % 4 == 0;   // x is (NV, B), contiguous
+  for (int idx = tid; idx < NQ * NV; idx += nthr) {
+    const int g = idx % NQ, i = idx / NQ, e0 = b0 + 4 * g;
+    const float* s = csm + g * 4 * NE + 4 * (NT + i);
+    if (vx) {
+      if (e0 < B)
+        *reinterpret_cast<float4*>(x + i * sB + e0) =
+            *reinterpret_cast<const float4*>(s);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (e0 + q < B) x[i * sB + e0 + q] = s[q];
+    }
+  }
+}
+
+template <int NV, bool COL_BACK>
+int launch_chol_tile(const float* M, Str3 sM, const float* b, Str2 sb,
+                     float* x, int B, int smem, cudaStream_t s) {
+  using CL = CholLayout<NV>;
+  if (smem < CL::block_bytes) return -1;
+  chol_tile_kernel<NV, COL_BACK>
+      <<<(B + kCholTile - 1) / kCholTile, CL::threads, CL::block_bytes, s>>>(
+          M, sM, b, sb, x, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of chol_tile_kernel<NV, COL_BACK> one SM holds.
+template <int NV, bool COL_BACK>
+int chol_tile_blocks_per_sm() {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, chol_tile_kernel<NV, COL_BACK>, CholLayout<NV>::threads,
+      CholLayout<NV>::block_bytes);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
@@ -1090,28 +1339,40 @@ Str3 str3(const long long* p) { return {p[0], p[1], p[2]}; }
 
 extern "C" {
 
-// strides: the element strides of M (3) and b (2), in that order.
+// strides: the element strides of M (3) and b (2), in that order. nv = 2
+// runs chol_solve_kernel (one env per thread), nv = 14 and 21
+// chol_tile_kernel; smem: the latter's block shared memory bytes
+// (physics/solver.py::chol_geometry), at least grt_chol_smem_bytes(nv).
 int grt_chol_solve_f32(const float* M, const float* b, float* x,
-                       const long long* strides, int nv, int B, void* stream) {
+                       const long long* strides, int nv, int B, int smem,
+                       void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Str3 sM = str3(strides);
+  const Str2 sb = str2(strides + 3);
   switch (nv) {
     case 2:
-      chol_solve_kernel<2><<<grid_for(B), kThreads, 0, s>>>(
-          M, str3(strides), b, str2(strides + 3), x, B);
-      break;
+      chol_solve_kernel<2><<<grid_for(B), kThreads, 0, s>>>(M, sM, b, sb, x, B);
+      return static_cast<int>(cudaGetLastError());
     case 14:
-      chol_solve_kernel<14><<<grid_for(B), kThreads, 0, s>>>(
-          M, str3(strides), b, str2(strides + 3), x, B);
-      break;
+      return launch_chol_tile<14, false>(M, sM, b, sb, x, B, smem, s);
     case 21:
-      chol_warp_kernel<21><<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
-          M, str3(strides), b, str2(strides + 3), x, B);
-      break;
+      return launch_chol_tile<21, true>(M, sM, b, sb, x, B, smem, s);
     default:
       return -1;
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory bytes of a chol_tile_kernel block at nv (14 or 21), and the
+// blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1
+// for another nv.
+int grt_chol_smem_bytes(int nv) {
+  return nv == 14 ? CholLayout<14>::block_bytes
+         : nv == 21 ? CholLayout<21>::block_bytes : -1;
+}
+int grt_chol_blocks_per_sm(int nv) {
+  return nv == 14 ? chol_tile_blocks_per_sm<14, false>()
+         : nv == 21 ? chol_tile_blocks_per_sm<21, true>() : -1;
 }
 
 // strides: the element strides of M (3), a_smooth, a_warm (2 each), J (3),

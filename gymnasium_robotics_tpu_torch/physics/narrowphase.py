@@ -9,7 +9,8 @@ dispatch, ``GroupSpec``/``_emit_group`` :64-152) for the groups the port
 has (plane-sphere, plane-capsule, plane-box, sphere-box, capsule-box,
 box-box and plane-hull). Where the TPU kernel took operand blocks gathered
 by XLA, this kernel reads the selected geom ids and gathers
-geom_xpos/geom_xmat/geom_size and the hull vertex table itself. The
+geom_xpos/geom_xmat/geom_size and the hull vertex table itself; its work
+is cut into warp items finer than a pair (GroupTable.tasks). The
 box-hull and hull-hull groups run with MPR outside the kernel, as they do
 outside the TPU kernel (collision._run_hull_groups).
 
@@ -42,6 +43,19 @@ TOPK_TILE, TOPK_WARPS, TOPK_CHUNK = 32, 8, 128
 KINDS = ((T.PLANE, T.SPHERE), (T.PLANE, T.CAPSULE), (T.SPHERE, T.BOX),
          (T.CAPSULE, T.BOX), (T.PLANE, T.BOX), (T.BOX, T.BOX),
          (T.PLANE, T.MESH))
+# narrowphase_kernel's work items: a block takes 32 envs and one task of
+# NP_WARPS warp items. Per kind, a rough count of the longest warp's
+# instructions for each of its items a pair (capsule-box: a sphere each;
+# box-box: box 2's corners in box 1, box 1's in box 2, the edge slot), used
+# only to put the longest tasks first. The kinds of COOP_KINDS run each
+# item on all the block's warps (a cooperative task), the others four
+# items to a task, one a warp (tools/narrowphase_kinds.py times the kinds).
+NP_WARPS, NP_ENVS = 4, 32
+NP_COOP = 1 << 28     # csrc/narrowphase.cu's kCoop
+BOX_KINDS = 4         # kinds from here on: narrowphase_kernel<true> only
+COOP_KINDS = (4, 5)   # plane-box, box-box
+ITEMS = {0: (60,), 1: (150,), 2: (200,), 3: (200, 200, 200), 4: (260,),
+         5: (370, 370, 830), 6: (1000,)}
 
 
 # ---------------------------------------------------------------------------
@@ -143,16 +157,27 @@ class GroupTable:
     first output row, row of ``sel`` that picks the pair (-1: a static
     pair) and offset of the group's pair list in ``lists``; ``lens`` (C,) =
     that list's length; ``lists`` (2, L) = the geom ids of every group's
-    pair list, concatenated; ``geom_hull`` (ngeom,) = each geom's hull id
-    (-1 for a primitive); ``rows`` = the compact rows the kernel writes."""
+    pair list, concatenated; ``tasks`` (T, NP_WARPS) = a block's warp items,
+    each 8 * column + part (ITEMS) or -1 for an idle warp, a cooperative
+    item (COOP_KINDS) given to every warp of its task plus NP_COOP, the
+    tasks longest first; ``geom_hull`` (ngeom,) = each geom's hull id (-1 for a
+    primitive); ``rows`` = the compact rows the kernel writes."""
 
     groups: list
     pairs: torch.Tensor
     lens: torch.Tensor
     lists: torch.Tensor
+    tasks: torch.Tensor
     geom_hull: torch.Tensor
     rows: torch.Tensor
     ncon: int
+
+    @property
+    def boxes(self) -> bool:
+        """Whether the table holds plane-box, box-box or plane-hull pairs:
+        the kernel's instantiation with their candidate formulas, which
+        needs more registers than the primitive kinds alone."""
+        return any(g.kind >= BOX_KINDS for g in self.groups)
 
     @staticmethod
     def build(meta: T.Meta, plan, dev) -> "GroupTable":
@@ -188,10 +213,52 @@ class GroupTable:
             pairs=torch.as_tensor(pairs, **i32).reshape(-1, 4).T.contiguous(),
             lens=torch.as_tensor(lens, **i32),
             lists=torch.as_tensor([l1, l2], **i32).reshape(2, -1),
+            tasks=_tasks([p[0] for p in pairs], dev),
             geom_hull=torch.as_tensor(hull_of, **i32),
             rows=torch.as_tensor(rows, dtype=torch.int64, device=dev),
             ncon=plan.ncon_c,
         )
+
+    def only(self, kinds) -> "GroupTable":
+        """The table cut to the groups of ``kinds`` (the kernel then writes
+        only their rows), e.g. to time one kind alone."""
+        cols = [c for c, k in enumerate(self.pairs[0].tolist()) if k in kinds]
+        groups = [g for g in self.groups if g.kind in kinds]
+        dev = self.pairs.device
+        rows = [r for g in groups for r in range(g.row_off, g.row_off + g.k * g.S)]
+        return dataclasses.replace(
+            self, groups=groups, pairs=self.pairs[:, cols].contiguous(),
+            lens=self.lens[cols].contiguous(),
+            tasks=_tasks([self.pairs[0, c].item() for c in cols], dev),
+            rows=torch.as_tensor(rows, dtype=torch.int64, device=dev))
+
+
+def _tasks(kinds, dev) -> torch.Tensor:
+    """The kernel's task table for pair columns of the given kinds: each
+    item of COOP_KINDS a task of its own, the others four to a task, all
+    longest first (ITEMS)."""
+    solo, tasks = [], []
+    for c, k in enumerate(kinds):
+        for part, cost in enumerate(ITEMS[k]):
+            if k in COOP_KINDS:
+                tasks.append((cost, [8 * c + part + NP_COOP] * NP_WARPS))
+            else:
+                solo.append((cost, 8 * c + part))
+    solo.sort(key=lambda x: -x[0])
+    for i in range(0, len(solo), NP_WARPS):
+        chunk = [item for _, item in solo[i:i + NP_WARPS]]
+        tasks.append((solo[i][0], chunk + [-1] * (NP_WARPS - len(chunk))))
+    tasks.sort(key=lambda x: -x[0])
+    return torch.as_tensor([t for _, t in tasks], dtype=torch.int32,
+                           device=dev).reshape(-1, NP_WARPS)
+
+
+def narrowphase_geometry(table: GroupTable, B: int) -> dict:
+    """Launch geometry of narrowphase_kernel<table.boxes>: grid (env tiles
+    of NP_ENVS, tasks) and threads a block (NP_WARPS warps); its shared
+    memory is static."""
+    return {"grid": (-(-B // NP_ENVS), int(table.tasks.shape[0])),
+            "threads": NP_WARPS * 32, "tile": NP_ENVS, "boxes": table.boxes}
 
 
 def _nan_table(n, P):
@@ -262,13 +329,14 @@ def narrowphase(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
         ss[2] if sizes3.shape[-1] == B else 0,
         sel.data_ptr(), table.pairs.data_ptr(), table.lens.data_ptr(),
         table.lists.data_ptr(), table.lists.shape[1], table.pairs.shape[1],
+        table.tasks.data_ptr(), table.tasks.shape[0], int(table.boxes),
         table.geom_hull.data_ptr(), None if hv is None else hv.data_ptr(),
         0 if hv is None else hv.shape[1],
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B,
         torch.cuda.current_stream(P.device).cuda_stream,
     )
     kernels.raise_on(rc, "narrowphase_kernel")
-    LAUNCHES["narrowphase"] += B > 0 and table.pairs.shape[1] > 0
+    LAUNCHES["narrowphase"] += B > 0 and table.tasks.shape[0] > 0
     return out
 
 
@@ -288,7 +356,9 @@ def _lib():
         fn.argtypes = [_i, _i]
         fn.restype = _i
     lib.grt_narrowphase_f32.argtypes = (
-        [_vp] * 3 + [_ll] * 3 + [_vp] * 4 + [_i] * 2 + [_vp] * 2 + [_i]
-        + [_vp] * 3 + [_i, _vp])
+        [_vp] * 3 + [_ll] * 3 + [_vp] * 4 + [_i] * 2 + [_vp, _i, _i]
+        + [_vp] * 2 + [_i] + [_vp] * 3 + [_i, _vp])
     lib.grt_narrowphase_f32.restype = _i
+    lib.grt_narrowphase_blocks_per_sm.argtypes = [_i]
+    lib.grt_narrowphase_blocks_per_sm.restype = _i
     return lib

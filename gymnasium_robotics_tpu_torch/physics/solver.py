@@ -1,4 +1,4 @@
-"""Per-env dense solves: the two CUDA kernels of csrc/solver.cu, their
+"""Per-env dense solves: the CUDA kernels of csrc/solver.cu, their
 wrappers, and beside each its plain PyTorch version.
 
 Port of gymnasium_robotics_tpu/physics/solver_pallas.py: ``solve_pos``
@@ -38,6 +38,11 @@ NEWTON_TILE = 8
 NEWTON_TILE_SHAPES = {14: (1, 3), 21: (2, 4)}
 NEWTON_BLOCK = 3   # side of the block of H a lane sums
 NEWTON_NV2_MAX_ROWS = 64  # newton2_closed_kernel<32> and <64>
+# chol_tile_kernel (nv 14, 21): a tile of CHOL_TILE envs a block, a
+# half-warp an env where nv <= 16, else a warp; nv = 2 runs
+# chol_solve_kernel, one env per thread
+CHOL_TILE = 16
+CHOL_TILE_NV = (14, 21)
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,11 +215,12 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = kernels.load("solver")
-    lib.grt_chol_solve_f32.argtypes = [_vp] * 4 + [_i, _i, _vp]
+    lib.grt_chol_solve_f32.argtypes = [_vp] * 4 + [_i, _i, _i, _vp]
     lib.grt_chol_solve_f32.restype = _i
     lib.grt_newton_f32.argtypes = [_vp] * 11 + [_i] * 6 + [_vp]
     lib.grt_newton_f32.restype = _i
-    for fn in (lib.grt_newton_smem_bytes, lib.grt_newton_blocks_per_sm):
+    for fn in (lib.grt_newton_smem_bytes, lib.grt_newton_blocks_per_sm,
+               lib.grt_chol_smem_bytes, lib.grt_chol_blocks_per_sm):
         fn.argtypes = [_i]
         fn.restype = _i
     lib.grt_newton2_f32.argtypes = [_vp] * 11 + [_i] * 4 + [_vp]
@@ -249,15 +255,16 @@ def _strides(*ts):
 
 def solve_pos(M, b):
     """Batch-last SPD solve M x = b: M (nv, nv, B), b (nv, B) -> (nv, B).
-    CUDA tensors launch chol_solve_kernel; CPU tensors take the plain
-    version."""
+    CUDA tensors launch chol_solve_kernel (nv = 2) or chol_tile_kernel
+    (nv = 14, 21); CPU tensors take the plain version."""
     nv, B = b.shape
     _check_shapes([("M", M, (nv, nv, B))])
     if not _route_to_kernel(nv, (M, b)):
         return solve_pos_plain(M, b)
+    smem = chol_geometry(nv, B)["smem"] if nv in CHOL_TILE_NV else 0
     x = torch.empty((nv, B), dtype=torch.float32, device=b.device)
     rc = _lib().grt_chol_solve_f32(
-        M.data_ptr(), b.data_ptr(), x.data_ptr(), _strides(M, b), nv, B,
+        M.data_ptr(), b.data_ptr(), x.data_ptr(), _strides(M, b), nv, B, smem,
         torch.cuda.current_stream(b.device).cuda_stream,
     )
     kernels.raise_on(rc, "chol_solve_kernel")
@@ -331,6 +338,20 @@ def _check_newton_shapes(M, a_smooth, a_warm, J, aref, D, active, is_eq):
         ("is_eq", is_eq, (ne,) if is_eq.dim() == 1 else (ne, B)),
     ])
     return nv, ne, B
+
+
+def chol_geometry(nv: int, B: int) -> dict:
+    """Launch geometry of chol_tile_kernel (nv 14 or 21) at B envs: its
+    tile, lanes an env and rows a lane, grid, threads a block and shared
+    memory bytes (per env M's packed triangle and the right-hand side, nv
+    (nv + 3) / 2 floats), as csrc/solver.cu's CholLayout computes them."""
+    if nv not in CHOL_TILE_NV:
+        raise NotImplementedError(f"chol_tile_kernel has no nv={nv}")
+    lanes = 16 if nv <= 16 else 32
+    return {"grid": -(-B // CHOL_TILE), "threads": CHOL_TILE * lanes,
+            "tile": CHOL_TILE, "lanes_per_env": lanes,
+            "rows_per_lane": -(-nv // lanes),
+            "smem": CHOL_TILE * nv * (nv + 3) // 2 * 4}
 
 
 def newton_geometry(nv: int, ne: int, B: int) -> dict:

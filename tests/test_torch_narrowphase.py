@@ -486,6 +486,59 @@ def test_narrowphase_plain_matches_megakernel_fetch():
         assert (got[0][g.row_off:g.row_off + g.k * g.S] < 0).any(), g.kind
 
 
+# compact rows each kernel item writes, from its pair's first row: per
+# kind, per part (csrc/narrowphase.cu)
+_ITEM_ROWS = {0: [[0]], 1: [[0, 1]], 2: [[0]], 3: [[0], [1], [2]],
+              4: [[0, 1, 2, 3]], 5: [[0, 1, 2, 3], [4, 5, 6, 7], [8]],
+              6: [[0, 1, 2, 3]]}
+
+
+def _rows_written(table):
+    """Every compact row the kernel's task table writes, once per write."""
+    pairs = table.pairs.numpy()
+    out = []
+    for task in table.tasks.numpy():
+        coop = task[0] >= tnp.NP_COOP
+        items = [task[0] - tnp.NP_COOP] if coop else [i for i in task if i >= 0]
+        if coop:
+            assert (task == task[0]).all()
+        else:
+            assert all(i < tnp.NP_COOP for i in task)
+        for it in items:
+            c, part = it >> 3, it & 7
+            out += [pairs[1, c] + r for r in _ITEM_ROWS[pairs[0, c]][part]]
+    return out
+
+
+@pytest.mark.parametrize("id_", ["AntMaze_UMaze-v5", "AntMaze_Large-v5",
+                                 "FetchPush-v4", "FetchPickAndPlace-v4"])
+def test_group_table_tasks_write_each_row_once(id_):
+    """The kernel's task table writes every compact row of its groups
+    exactly once (for the whole table and cut to each kind), each
+    cooperative item is a task of its own and only plane-box's and
+    box-box's are, the longest tasks come first; the launch takes the
+    primitive-only instantiation where the table has no box or hull
+    kinds."""
+    from gymnasium_robotics_tpu_torch import registry
+
+    m = registry.make(id_, num_envs=1, device="cpu").env.model
+    table = m.plan("pruned", tcol._PrunedPlan).table
+    assert table.boxes == id_.startswith("Fetch")   # the instantiation
+    geo = tnp.narrowphase_geometry(table, 2047)
+    assert geo["grid"] == (64, table.tasks.shape[0]) and geo["threads"] == 128
+    for tab in [table] + [table.only([g.kind]) for g in table.groups]:
+        written = _rows_written(tab)
+        assert sorted(written) == sorted(tab.rows.tolist())
+        assert len(set(written)) == len(written)
+    cost = []
+    for task in table.tasks.tolist():
+        it = task[0] % tnp.NP_COOP
+        kind = table.pairs[0, it >> 3].item()
+        cost.append(tnp.ITEMS[kind][it & 7])
+        assert (task[0] >= tnp.NP_COOP) == (kind in tnp.COOP_KINDS)
+    assert cost == sorted(cost, reverse=True)
+
+
 def _spread(x, rows, n):
     """Rows laid end to end -> a table of n rows with them at ``rows``."""
     out = np.full((n,) + x.shape[1:], np.nan, x.dtype)
@@ -566,6 +619,46 @@ def test_topk_edges_on_card(cuda_device):
     for maxk, K in ((216, 8), (57, 16), (169, 24), (744, 8)):
         geo = tnp.topk_geometry(1, maxk, 2048, K)
         assert lib.grt_topk_smem_bytes(maxk, geo["kcap"]) == geo["smem"]
+
+
+@pytest.mark.cuda
+def test_narrowphase_edges_on_card(cuda_device):
+    """narrowphase_kernel against its plain version on pressed AntMaze and
+    FetchPush states at B = 2048: at B = 1 and B = 2047 (the first envs),
+    each kind alone (also bitwise equal to the whole table's rows), picks
+    out of range (clamped) and int64 picks."""
+    B = 2048
+    for m, d in (ant_inputs(B, seed=2, device=cuda_device),
+                 fetch_inputs(B, device=cuda_device)):
+        hv = m.hull_vert
+        tp = m.plan("pruned", tcol._PrunedPlan)
+        table = tp.table
+        sel = tnp.topk_select(tcol.broadphase_rank(m, d, tp), tp.mask, tp.K)
+        whole = tnp.narrowphase(table, d.geom_xpos, d.geom_xmat, m.geom_size,
+                                sel, hv)
+        rs = np.random.RandomState(3)
+        wild = torch.tensor(rs.randint(-3, tp.mask.shape[1] + 3, tuple(sel.shape)),
+                            dtype=torch.int32, device=cuda_device)
+        cases = [(table, d.geom_xpos[..., :n], d.geom_xmat[..., :n], sel[..., :n])
+                 for n in (1, 2047)]
+        cases += [(table.only([g.kind]), d.geom_xpos, d.geom_xmat, sel)
+                  for g in table.groups]
+        cases += [(table, d.geom_xpos, d.geom_xmat, wild),
+                  (table, d.geom_xpos, d.geom_xmat, sel.long())]
+        for i, (tab, P, R, sl) in enumerate(cases):
+            n0 = tnp.LAUNCHES["narrowphase"]
+            args = (tab, P, R, m.geom_size, sl, hv)
+            got = tnp.narrowphase(*args)
+            torch.cuda.synchronize()
+            assert tnp.LAUNCHES["narrowphase"] == n0 + 1
+            rows = tab.rows.cpu().numpy()
+            assert_table_close([g.cpu().numpy() for g in got],
+                               [r.cpu().numpy() for r in tnp.narrowphase_plain(*args)],
+                               rows, TOL32)
+            if tab is not table:
+                for g, w in zip(got, whole):
+                    assert torch.equal(g[tab.rows].view(torch.int32),
+                                       w[tab.rows].view(torch.int32)), i
 
 
 @pytest.mark.cuda

@@ -7,7 +7,8 @@ solve_newton_nv2_plain vs solver_pallas.solve_small_nv2 (_kernel).
 Tolerance: relative error scaled by max(1, |ref|) <= 1e-9 in float64 (the
 two sides round the same operations in another order); the closed-form
 nv = 2 solve is held in float32, at 2e-4. newton_tile_kernel's launch
-geometry is held at the ported systems and the row caps. The tests marked
+geometry is held at the ported systems and the row caps, and
+chol_tile_kernel's to the constants of its source. The tests marked
 ``cuda`` hold each CUDA kernel against its plain version on the card
 (<= 2e-4 in float32), also at the edges of the Newton kernel's shapes;
 they skip where no card is present. The JAX imports
@@ -314,6 +315,36 @@ def test_newton_geometry_covers_row_caps():
         solver.newton_geometry(15, 10, 1)
 
 
+def test_chol_geometry_matches_source():
+    """chol_tile_kernel's launch geometry (nv 14 and 21) against the
+    constants of csrc/solver.cu (the tile, the lanes an env, the triangle
+    and right-hand side a block stages) at B from 1 up: the grid covers
+    every env, the shared memory fits a static launch, up to nv = 36;
+    other nv raise."""
+    import os
+    import re
+
+    src = open(os.path.join(kernels.CSRC, "solver.cu")).read()
+    tile = int(re.search(r"constexpr int kCholTile = (\d+);", src).group(1))
+    small, big = map(int, re.search(
+        r"static constexpr int LPE = NV <= 16 \? (\d+) : (\d+); +// lanes an env",
+        src).groups())
+    assert tile == solver.CHOL_TILE
+    assert [solver.chol_geometry(nv, 1)["lanes_per_env"] for nv in (14, 21)] == [small, big]
+    for nv in solver.CHOL_TILE_NV:
+        lanes = small if nv <= 16 else big
+        for B in (1, 7, 16, 2047, 2048, 8192):
+            geo = solver.chol_geometry(nv, B)
+            assert (geo["grid"] - 1) * tile < B <= geo["grid"] * tile
+            assert geo["threads"] == tile * lanes
+            assert geo["rows_per_lane"] * lanes >= nv
+            assert geo["smem"] == tile * (nv * (nv + 1) // 2 + nv) * 4 <= 48 * 1024
+    assert tile * (36 * 37 // 2 + 36) * 4 <= 48 * 1024   # nv = 36, the design's top
+    for nv in (2, 15):
+        with pytest.raises(NotImplementedError, match=f"nv={nv}"):
+            solver.chol_geometry(nv, 1)
+
+
 def test_kernel_strides_describe_views():
     """The kernels read each input through its element strides: the array
     the wrappers pass must rebuild every view from its storage, including
@@ -502,6 +533,94 @@ def test_newton_edges_on_card(cuda_device):
                 assert err <= max(TOL32, 2 * p32), (nv, ne, B, it, case, err, p32)
         assert (solver._lib().grt_newton_smem_bytes(nv)
                 == solver.newton_geometry(nv, cap, 1)["smem"])
+
+
+@pytest.mark.cuda
+def test_chol_edges_on_card(cuda_device):
+    """chol_tile_kernel at nv 14 and 21 against its plain version: B = 1 and
+    B = 2047, M as a transposed and as a sliced view, b transposed, envs
+    whose factor takes the 1e-20 floor exactly (equal to the plain
+    version), an env with a NaN entry (NaN in both); and the same solves
+    held to the plain version run in float64 (within 2e-4, or no further
+    than twice the float32 plain version). The wrapper's shared memory is
+    the source's."""
+    rs = np.random.RandomState(12)
+    for nv in (14, 21):
+        def spd(B):
+            A = rs.normal(size=(nv, nv, B))
+            return torch.tensor(np.einsum("ikb,jkb->ijb", A, A)
+                                + 0.5 * np.eye(nv)[:, :, None],
+                                dtype=torch.float32, device=cuda_device)
+
+        def vec(B):
+            return torch.tensor(rs.normal(size=(nv, B)), dtype=torch.float32,
+                                device=cuda_device)
+
+        M2, b2 = spd(4096), vec(4096)
+        M64 = spd(64)
+        M64[:, :, 0] = 0.0
+        M64[:, :, 1] = torch.diag(torch.arange(nv, device=cuda_device) % 2.0)
+        M64[0, 0, 5] = float("nan")
+        cases = [(spd(1), vec(1)), (spd(2047), vec(2047)),
+                 (M2[:, :, :2048].permute(2, 0, 1).contiguous().permute(1, 2, 0),
+                  b2[:, :2048].T.contiguous().T),
+                 (M2[:, :, ::2], b2[:, :2048]), (M64, vec(64))]
+        for i, (M, b) in enumerate(cases):
+            n0 = solver.LAUNCHES["chol"]
+            x = solver.solve_pos(M, b)
+            torch.cuda.synchronize()
+            assert solver.LAUNCHES["chol"] == n0 + 1
+            ref = solver.solve_pos_plain(M, b)
+            if M is M64:
+                assert torch.equal(x[:, :2], ref[:, :2])
+                x, ref = x[:, 2:], ref[:, 2:]
+                M, b = M[:, :, 2:], b[:, 2:]
+            nan = ref.isnan()
+            assert torch.equal(x.isnan(), nan) and int(nan.any(0).sum()) == (i == 4)
+            assert rel_err(x[~nan].cpu(), ref[~nan].cpu()) <= TOL32, (nv, i)
+            ok = ~nan.any(0)
+            M, b, x = M[:, :, ok], b[:, ok], x[:, ok]
+            r64 = solver.solve_pos_plain(M.double(), b.double())
+            k = rel_err(x.cpu(), r64.cpu())
+            p = rel_err(solver.solve_pos_plain(M, b).cpu(), r64.cpu())
+            assert k <= max(TOL32, 2 * p), (nv, i, k, p)
+        assert (solver._lib().grt_chol_smem_bytes(nv)
+                == solver.chol_geometry(nv, 1)["smem"])
+
+
+@pytest.mark.cuda
+def test_newton_nv2_cap64_on_card(cuda_device):
+    """newton_kernel<2, 64> and newton2_closed_kernel<64> on the rows of
+    PointMaze_Medium-v3 (39) and PointMaze_Large-v3 (63), balls pushed into
+    the walls, each held to its plain version run in float64: within 2e-4,
+    or no further than twice the float32 plain version."""
+    B = 2048
+    for id_, ne in (("PointMaze_Medium-v3", 39), ("PointMaze_Large-v3", 63)):
+        env = registry.make(id_, num_envs=B, device=cuda_device)
+        env.reset(seed=0)
+        rs = np.random.RandomState(0)
+        dirs = torch.tensor(rs.uniform(-1, 1, (B, 2)), dtype=torch.float32,
+                            device=cuda_device)
+        for _ in range(25):
+            env.step(dirs)
+        m, d = env.env.model, env.state.data
+        J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+        assert J.shape[0] == ne and bool(active[1:].any())
+        args = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+        a64 = [a.double() if a.is_floating_point() else a for a in args]
+        for kern, plain, counter in (
+                (solver.solve_newton, solver.solve_newton_plain, "newton"),
+                (solver.solve_newton_nv2, solver.solve_newton_nv2_plain,
+                 "newton_nv2")):
+            n0 = solver.LAUNCHES[counter]
+            got = kern(*args, n_iter=6, n_ls=4)
+            torch.cuda.synchronize()
+            assert solver.LAUNCHES[counter] == n0 + 1
+            ref = plain(*a64, n_iter=6, n_ls=4)
+            p32 = plain(*args, n_iter=6, n_ls=4)
+            k = max(rel_err(g.cpu(), r.cpu()) for g, r in zip(got, ref))
+            p = max(rel_err(g.cpu(), r.cpu()) for g, r in zip(p32, ref))
+            assert k <= max(TOL32, 2 * p), (id_, counter, k, p)
 
 
 @pytest.mark.cuda
