@@ -91,9 +91,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      level pass's share and every spread printed; the FK kernel against
      its plain version (the level pass) on the main path's poses and on
      random poses, all eleven fields, every env within 2e-4, with
-     CUDA-event times of both;
-  The single env (registry.make_gym, the per-env path: the closed-form
-  nv = 2 Newton):
+     CUDA-event times of both; then at the edges of its launch (B = 1, 33
+     and 2047, qpos batch-leading) on the main path's poses;
+  The single env (registry.make_gym, the per-env path: the nv = 2 Newton's
+  determinant route):
   17. main path: make_gym("PointMaze_UMaze-v3") on the card, a seeded
      parity reset, 310 steps with random actions (past the 300-step limit:
      truncated from step 300 on, no auto-reset); per step 2 chol and 1
@@ -103,12 +104,14 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
   19. AntMaze_UMaze-v5 and FetchPush-v4 through make_gym, 3 steps each, with
      their kernels' launches counted (Newton at nv = 14 and 21: the per-env
      path keeps the fused Newton there);
-  20. kernel: newton2_closed_kernel against its plain version at B = 8192
-     on the rows of phase 3's PointMaze batch (the rows the per-env path
-     builds) and on random rows, held to the plain version run in float64
-     as the nv = 21 Newton is, with CUDA-event times;
+  20. kernel: newton2_kernel's determinant route (solve_newton_nv2)
+     against its plain version at B = 8192 on the rows of phase 3's
+     PointMaze batch (the rows the per-env path builds) and on random rows,
+     held to the plain version run in float64 as the nv = 21 Newton is,
+     with CUDA-event times, also at B = 1 (the single env's own shape);
   21. edge checks of the redesigned kernels (topk_select_kernel,
-     newton_tile_kernel, chol_tile_kernel, narrowphase_kernel) against
+     newton_tile_kernel, chol_tile_kernel, narrowphase_kernel,
+     newton2_kernel, fk_kernel) against
      their plain versions on the card: topk_select at (2, 744) -> 8
      (AntMaze_Large's shape) on tied ranks, at B = 1 and B = 2047, with K
      larger than the unmasked count, with an all-masked group and a NaN
@@ -119,19 +122,24 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      and sliced, envs on the 1e-20 floor and a NaN env; the narrowphase on
      the pressed AntMaze and FetchPush states at B = 1 and B = 2047, each
      kind alone (bitwise equal to the whole table's rows), with picks out
-     of range and int64 picks; and the nv = 2 Newton builds at the 64-row
-     cap (newton_kernel<2, 64>, newton2_closed_kernel<64>) on the rows of
-     PointMaze_Medium-v3 (39) and PointMaze_Large-v3 (63) at B = 8192, held
-     to their plain versions in float64 and timed;
-  then a JSON line of the kernels (the redesigned kernels' rows also carry
-  ptxas' registers and spill bytes, the blocks per SM
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor gives and the launch
-  geometry, after the wrappers' shared memory sizes are held to the
-  sources'; the nv = 2 rows carry the 64-row cap's readings, registers
-  and spill bytes as ``cap64``), the card line, and the last line
-  {"ok": true, "device": {...}}. Each phase prints its wall time.
+     of range and int64 picks; and newton2_kernel on both nv = 2 routes on
+     the rows of PointMaze_UMaze-v3 (19), PointMaze_Medium-v3 (39) and
+     PointMaze_Large-v3 (63) at B = 8192, held to their plain versions in
+     float64, timed and bounded; and the FK kernel on the random poses of
+     phase 16 at the edges of its launch (B = 1, 33 and 2047, qpos
+     batch-leading);
+  then a JSON line of the kernels (the redesigned kernels' rows, fk and
+  the nv = 2 rows included, also carry ptxas' registers and spill bytes,
+  the blocks per SM cudaOccupancyMaxActiveBlocksPerMultiprocessor gives,
+  the shared memory bytes and the launch geometry, after the wrappers'
+  shared memory sizes (and, at nv = 2, lanes an env) are held to the
+  sources'; the nv = 2 rows carry their readings by row count as
+  ``by_ne``, the determinant route its B = 1 time as ``B1``), the card
+  line, and the last line {"ok": true, "device": {...}}. Each phase prints
+  its wall time.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -282,6 +290,16 @@ def newton2_ops(ne, n_iter, n_ls):
     return n_iter * it + 12 * ne + 13
 
 
+def nv2_bound(chol, ne, nb, n_iter, n_ls):
+    """Bound of one nv = 2 Newton call over nb envs at ne rows: the lower
+    triangle of M, a_smooth, a_warm, J, aref, D and f, qacc as floats;
+    active as bytes; is_eq one byte per model row; the operations of the
+    Cholesky route (newton_ops) or of the determinant route
+    (newton2_ops)."""
+    ops = newton_ops(2, ne, n_iter, n_ls) if chol else newton2_ops(ne, n_iter, n_ls)
+    return bound((3 + 4 + 2 * ne + 3 * ne + 2) * 4 * nb + ne * nb + ne, ops * nb)
+
+
 def union_us(intervals):
     total, end = 0.0, None
     for s, e in sorted(intervals):
@@ -394,9 +412,9 @@ def trace(torch, run, n, card, label, cpu=True, counts=None):
         "kernels_per_step": len(events) / n,
         **({"counted_launches_per_step": counted} if counted else {}),
         "card": card}), flush=True)
-    ported = ("chol_solve_kernel", "chol_tile_kernel", "newton_kernel",
+    ported = ("chol_solve_kernel", "chol_tile_kernel", "newton2_kernel",
               "newton_tile_kernel", "topk_select_kernel", "narrowphase_kernel",
-              "fk_kernel", "newton2_closed_kernel")
+              "fk_kernel")
     for i, (name, (c, ms)) in enumerate(top):
         if i < 15 or any(k in name for k in ported):
             print(f"  {ms / n:9.4f} ms/step {c / n:6.1f}x {name[:110]}")
@@ -530,11 +548,7 @@ def pointmaze(torch, dev, card, solver, constraint, narrowphase, convert,
     newton_plain_ms = time_ms(
         torch, lambda: solver.solve_newton_plain(*real, n_iter=n_iter,
                                                  n_ls=n_ls), n=10)
-    # bytes: the lower triangle of M, a_smooth, a_warm, J, aref, D and f,
-    # qacc as floats; active as bytes; is_eq one byte per model row
-    newton_bound = bound(
-        (nm + 2 * nv + ne * nv + 3 * ne + nv) * 4 * B + ne * B + ne,
-        newton_ops(nv, ne, n_iter, n_ls) * B)
+    newton_bound = nv2_bound(True, ne, B, n_iter, n_ls)
     assert chol_err <= TOL, f"chol_solve: relerr {chol_err:.3e}"
     assert newton_err <= TOL, f"newton: relerr {newton_err:.3e}"
     print(f"kernels: {n_touching} of {B} envs touch a wall in the real rows",
@@ -1285,9 +1299,32 @@ def fk_step_checks(torch, dev, pipeline, kinematics, convert, m64, fenv,
             "next_state": s_def}
 
 
+def fk_edges(torch, kinematics, m, d):
+    """The FK kernel at the edges of its launch against its plain version
+    (the level pass), every env within TOL on each field's scale: B = 1, 33
+    (a partial tile) and 2047 (the first envs of d), qpos given
+    batch-leading (batch stride nq). Returns the largest error."""
+    worst = 0.0
+    for n in (1, 33, 2047):
+        dn = dataclasses.replace(d, qpos=d.qpos[:, :n].T.contiguous().T,
+                                 mocap_pos=d.mocap_pos[..., :n],
+                                 mocap_quat=d.mocap_quat[..., :n])
+        n0 = kinematics.LAUNCHES["fk"]
+        got = kinematics.kinematics(m, dn)
+        torch.cuda.synchronize()
+        assert kinematics.LAUNCHES["fk"] == n0 + 1
+        ref = kinematics.kinematics_plain(m, dn)
+        for f in kinematics.FIELDS:
+            e = rel_err(getattr(got, f), getattr(ref, f))
+            assert e <= TOL, f"fk_kernel B={n} {f}: relerr {e:.3e}"
+            worst = max(worst, e)
+    return worst
+
+
 def fetchpush_fk(torch, dev, card, solver, constraint, narrowphase,
                  pipeline, kinematics, convert, registry):
-    """Phases 15-16; returns the FK kernel's JSON row."""
+    """Phases 15-16; returns the FK kernel's JSON row and (the model it
+    ran, the random poses' Data)."""
     t_phase = time.perf_counter()
     # --- 15. main path: FetchPush with Option.fk_kernel=True
     env = registry.make("FetchPush-v4", num_envs=FETCH_B,
@@ -1396,13 +1433,16 @@ def fetchpush_fk(torch, dev, card, solver, constraint, narrowphase,
     fk_ms = time_ms(torch, lambda: kinematics.kinematics(m, d))
     fk_plain_ms = time_ms(torch, lambda: kinematics.kinematics_plain(m, d),
                           n=10)
+    edge = fk_edges(torch, kinematics, m, state.data)
     print(f"fk_kernel vs the level pass (main path's and random poses) "
-          f"relerr {rel:.3e}, abs {ab:.3e}, per field {per_field}", flush=True)
+          f"relerr {rel:.3e}, abs {ab:.3e}, per field {per_field}; on the "
+          f"main path's poses at B = 1, 33 and 2047 with strided qpos relerr "
+          f"{edge:.3e}", flush=True)
     return [kernel_row(
         "fk", FK_SRC,
         "gymnasium_robotics_tpu/physics/kinematics_pallas.py:104",
         launches["fk"], ab, rel, fk_ms, fk_plain_ms, fk_bound(mt, FETCH_B),
-        None, [mt.nbody, mt.njnt, mt.ngeom, mt.nsite, FETCH_B])]
+        None, [mt.nbody, mt.njnt, mt.ngeom, mt.nsite, FETCH_B])], (m, rand)
 
 
 def single_env(torch, dev, card, solver, constraint, narrowphase, registry,
@@ -1476,7 +1516,7 @@ def single_env(torch, dev, card, solver, constraint, narrowphase, registry,
         print(f"single env {id_}: 3 steps, launches {launches}", flush=True)
     print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
-    # --- 20. newton2_closed_kernel against its plain version, B = 8192
+    # --- 20. the determinant route against its plain version, B = 8192
     t_phase = time.perf_counter()
     m, d = pm_state
     m = m.with_options(soa=False)
@@ -1512,10 +1552,12 @@ def single_env(torch, dev, card, solver, constraint, narrowphase, registry,
         *real, n_iter=n_iter, n_ls=n_ls))
     plain_ms = time_ms(torch, lambda: solver.solve_newton_nv2_plain(
         *real, n_iter=n_iter, n_ls=n_ls), n=10)
-    # bytes: M's three entries, a_smooth, a_warm, J, aref, D and f, qacc as
-    # floats; active as bytes; is_eq one byte per model row
-    bnd = bound((3 + 4 + 2 * ne + 3 * ne + 2) * 4 * nb + ne * nb + ne,
-                newton2_ops(ne, n_iter, n_ls) * nb)
+    bnd = nv2_bound(False, ne, nb, n_iter, n_ls)
+    # the single env's own shape: the first env's rows alone
+    one = tuple(x[..., :1] if x.dim() > 1 else x for x in real)
+    ms_b1 = time_ms(torch, lambda: solver.solve_newton_nv2(
+        *one, n_iter=n_iter, n_ls=n_ls))
+    b1_bound = nv2_bound(False, ne, 1, n_iter, n_ls)
     n_touching = int(active[1:].any(dim=0).sum())
     print(f"newton_nv2 kernel: {n_touching} of {nb} envs with active wall "
           f"rows, {ne} rows ({time.perf_counter() - t_phase:.1f} s)",
@@ -1525,6 +1567,7 @@ def single_env(torch, dev, card, solver, constraint, narrowphase, registry,
         "gymnasium_robotics_tpu/physics/solver_pallas.py:42",
         nv2_launches, max(a for _, _, a in errs), max(k for k, _, _ in errs),
         ms, plain_ms, bnd, None, [2, ne, nb, n_iter, n_ls],
+        B1={"ms": ms_b1, "bound_ms": b1_bound[0], "bound_by": b1_bound[1]},
         plain32_rel_err=max(p for _, p, _ in errs),
         gate="max_rel_err and plain32_rel_err against the plain version in "
              "float64; max_abs_err against it in float32; max_rel_err <= "
@@ -1551,14 +1594,31 @@ def ptxas_report(report):
     return out
 
 
-def redesign_fields(rows, ptx, solver, narrowphase, tables):
+def redesign_fields(rows, ptx, solver, narrowphase, kinematics, tables, fk_model):
     """Registers, spill bytes and blocks per SM of the redesigned kernels'
     rows (topk_select_kernel<KCAP>, newton_tile_kernel<NV, ...>,
-    chol_tile_kernel<NV, ...>, narrowphase_kernel), and the nv = 2 Newton
-    builds at the 64-row cap on the nv = 2 rows; the wrappers' launch
-    geometry is first held to the shared memory bytes the kernels' sources
-    compute. ``tables``: the narrowphase rows' group tables by row name."""
-    nlib, slib = narrowphase._lib(), solver._lib()
+    chol_tile_kernel<NV, ...>, narrowphase_kernel, fk_kernel<TE>, and
+    newton2_kernel<G, CHOL> on the nv = 2 rows, also for each row count of
+    their ``by_ne`` readings); the wrappers' launch geometry is first held
+    to the shared memory bytes (and, at nv = 2, the lanes an env) the
+    kernels' sources compute. ``tables``: the narrowphase rows' group
+    tables by row name; ``fk_model``: the model the FK row ran."""
+    nlib, slib, klib = narrowphase._lib(), solver._lib(), kinematics._lib()
+
+    def ptx_of(entry):
+        return next((v for k, v in ptx.items() if entry in k), (None, None))
+
+    def nv2_fields(chol, ne, nb):
+        geo = solver.newton2_geometry(ne, nb)
+        lanes = geo["lanes_per_env"]
+        assert lanes == slib.grt_newton2_lanes(ne), (ne, geo)
+        regs, spill = ptx_of(f"newton2_kernelILi{lanes}ELb{int(chol)}E")
+        assert spill in (0, None), f"newton2_kernel<{lanes}, {chol}>: {spill} bytes of spill"
+        return dict(regs=regs, spill_bytes=spill, smem_bytes=geo["smem"],
+                    blocks_per_sm=slib.grt_newton2_blocks_per_sm(lanes, int(chol)),
+                    grid=geo["grid"], threads=geo["threads"],
+                    lanes_per_env=lanes, rows_per_lane=geo["rows_per_lane"])
+
     for row in rows:
         if row["name"].startswith("topk_select_"):
             G, maxk, nb, K = row["shape"]
@@ -1584,16 +1644,24 @@ def redesign_fields(rows, ptx, solver, narrowphase, tables):
             geo["smem"] = 0   # static: the shared scratch, in the ptxas report
             entry = f"narrowphase_kernelILb{int(geo['boxes'])}E"
             blocks = nlib.grt_narrowphase_blocks_per_sm(int(geo["boxes"]))
-        else:
-            if row["name"] in ("newton", "newton_nv2") and "cap64" in row:
-                name = ("newton_kernelILi2ELi64E" if row["name"] == "newton"
-                        else "newton2_closed_kernelILi64E")
-                regs, spill = next((v for k, v in ptx.items() if name in k),
-                                   (None, None))
-                row["cap64"].update(regs=regs, spill_bytes=spill)
+        elif row["name"] == "fk":
+            mt, nb = fk_model.meta, row["shape"][-1]
+            geo = kinematics.fk_geometry(mt, nb)
+            tabs = fk_model.plan("fk_kernel", kinematics._KernelTables)
+            assert geo["smem"] == klib.grt_fk_smem_bytes(tabs.dims), geo
+            entry = "fk_kernelEPKf"
+            blocks = klib.grt_fk_blocks_per_sm(geo["smem"])
+            row.update(tile=geo["tile"], slots=geo["slots"],
+                       steps=len(tabs.steps))
+        elif row["name"] in ("newton", "newton_nv2"):
+            chol = row["name"] == "newton"
+            row.update(nv2_fields(chol, *row["shape"][1:3]))
+            for reading in row.get("by_ne", {}).values():
+                reading.update(nv2_fields(chol, reading["ne"], reading["B"]))
             continue
-        regs, spill = next((v for k, v in ptx.items() if entry in k),
-                           (None, None))
+        else:
+            continue
+        regs, spill = ptx_of(entry)
         row.update(regs=regs, spill_bytes=spill, blocks_per_sm=blocks,
                    smem_bytes=geo["smem"], grid=geo["grid"],
                    threads=geo["threads"])
@@ -1776,31 +1844,39 @@ def narrowphase_edges(torch, narrowphase, collision, ctxs):
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
 
-def cap64_checks(torch, dev, solver, constraint, registry, rows):
-    """Phase 21, the nv = 2 Newton builds at the 64-row cap
-    (newton_kernel<2, 64> and newton2_closed_kernel<64>) on the rows of
-    PointMaze_Medium-v3 (39) and PointMaze_Large-v3 (63) at B = 8192, balls
-    pushed into the walls for 25 steps, each held to its plain version run
-    in float64 (within TOL, or no further than NEWTON_SLACK times the
-    float32 plain version) and timed; the readings go on the nv = 2 rows
-    as ``cap64``."""
+def maze_rows(torch, dev, constraint, registry, id_, nb):
+    """The Newton operands of a PointMaze batch of nb envs reset at seed 0
+    and pushed for 25 steps in seeded directions, so balls press into the
+    walls: (args, n_iter, n_ls, envs with an active wall row)."""
+    env = registry.make(id_, num_envs=nb)
+    env.reset(seed=0)
+    rs = np.random.RandomState(0)
+    dirs = torch.as_tensor(rs.uniform(-1, 1, (nb, 2)), dtype=torch.float32,
+                           device=dev)
+    for _ in range(25):
+        env.step(dirs)
+    m, d = env.env.model, env.state.data
+    J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+    args = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+    return (args, min(m.opt.iterations, 20), min(m.opt.ls_iterations, 8),
+            int(active[1:].any(dim=0).sum()))
+
+
+def nv2_checks(torch, dev, solver, constraint, registry, rows):
+    """Phase 21, newton2_kernel on both routes (solve_newton at nv = 2, the
+    Cholesky route; solve_newton_nv2, the determinant route) on the rows of
+    PointMaze_UMaze-v3 (19, 4 lanes an env), PointMaze_Medium-v3 (39) and
+    PointMaze_Large-v3 (63, 8 lanes an env) at B = 8192, balls pushed into
+    the walls for 25 steps, each held to its plain version run in float64
+    (within TOL, or no further than NEWTON_SLACK times the float32 plain
+    version), timed and bounded; the readings go on the nv = 2 rows as
+    ``by_ne``."""
     t_phase = time.perf_counter()
     by_row = {r["name"]: r for r in rows}
-    for id_ in ("PointMaze_Medium-v3", "PointMaze_Large-v3"):
-        env = registry.make(id_, num_envs=B)
-        env.reset(seed=0)
-        rs = np.random.RandomState(0)
-        dirs = torch.as_tensor(rs.uniform(-1, 1, (B, 2)), dtype=torch.float32,
-                               device=dev)
-        for _ in range(25):
-            env.step(dirs)
-        m, d = env.env.model, env.state.data
-        J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
-        ne = J.shape[0]
-        args = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
-        n_iter = min(m.opt.iterations, 20)
-        n_ls = min(m.opt.ls_iterations, 8)
-        n_touching = int(active[1:].any(dim=0).sum())
+    for id_ in ("PointMaze_UMaze-v3", "PointMaze_Medium-v3", "PointMaze_Large-v3"):
+        args, n_iter, n_ls, n_touching = maze_rows(torch, dev, constraint,
+                                                   registry, id_, B)
+        ne = args[3].shape[0]
         assert n_touching > 0, f"{id_}: no ball touches a wall"
         for name, kern, plain in (
                 ("newton", solver.solve_newton, solver.solve_newton_plain),
@@ -1811,12 +1887,14 @@ def cap64_checks(torch, dev, solver, constraint, registry, rows):
                 f"{name} at {ne} rows ({id_}): relerr {k:.3e} against float64, "
                 f"the float32 plain version's {p:.3e}")
             ms = time_ms(torch, lambda: kern(*args, n_iter=n_iter, n_ls=n_ls))
-            by_row[name].setdefault("cap64", {})[f"ne{ne}"] = {
-                "id": id_, "B": B, "ms": ms, "f64_rel_err": k,
+            bnd = nv2_bound(name == "newton", ne, B, n_iter, n_ls)
+            by_row[name].setdefault("by_ne", {})[f"ne{ne}"] = {
+                "id": id_, "ne": ne, "B": B, "ms": ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "f64_rel_err": k,
                 "plain32_f64_rel_err": p, "abs_err_vs_plain32": ab,
                 "envs_touching": n_touching}
         print(f"edge checks: nv = 2 at {ne} rows ({id_}): "
-              f"{ {n: by_row[n]['cap64'][f'ne{ne}'] for n in ('newton', 'newton_nv2')} }",
+              f"{ {n: by_row[n]['by_ne'][f'ne{ne}'] for n in ('newton', 'newton_nv2')} }",
               flush=True)
     print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
@@ -1864,8 +1942,10 @@ def main():
     kern += rows
     print(f"fetchpush phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    kern += fetchpush_fk(torch, dev, card, solver, constraint, narrowphase,
-                         pipeline, kinematics, convert, registry)
+    rows, fk_ctx = fetchpush_fk(torch, dev, card, solver, constraint,
+                                narrowphase, pipeline, kinematics, convert,
+                                registry)
+    kern += rows
     print(f"fetchpush fk phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     kern += single_env(torch, dev, card, solver, constraint, narrowphase,
@@ -1876,12 +1956,17 @@ def main():
     chol_edges(torch, dev, solver)
     narrowphase_edges(torch, narrowphase, collision,
                       {"AntMaze": ant_ctx, "FetchPush": fetch_ctx})
-    cap64_checks(torch, dev, solver, constraint, registry, kern)
+    nv2_checks(torch, dev, solver, constraint, registry, kern)
+    t1 = time.perf_counter()
+    edge = fk_edges(torch, kinematics, *fk_ctx)
+    print(f"edge checks: fk_kernel on random poses at B = 1, 33 and 2047, "
+          f"strided qpos: relerr {edge:.3e} ({time.perf_counter() - t1:.1f} s)",
+          flush=True)
     print(f"edge checks: {time.perf_counter() - t0:.1f} s", flush=True)
     tables = {name: ctx[0].plan("pruned", collision._PrunedPlan).table
               for name, ctx in (("narrowphase", ant_ctx),
                                 ("narrowphase_fetch", fetch_ctx))}
-    redesign_fields(kern, ptx, solver, narrowphase, tables)
+    redesign_fields(kern, ptx, solver, narrowphase, kinematics, tables, fk_ctx[0])
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,20 +6,21 @@
 //   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol (entered
 //   through solve_pos_soa): the batched SPD solve M x = b by an unrolled
 //   LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
-// newton_kernel<NV, NE_CAP> (NV = 2; one env per thread) and
+// newton2_kernel<G, CHOL> (NV = 2; a group of G lanes an env, below) and
 // newton_tile_kernel<NV, WPE, RPL> (NV = 14, 21; a tile of 8 envs a block,
 //   one or two warps an env, below) replace
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
-// newton2_closed_kernel<NE_CAP> (one env per thread, below) replaces the TPU
-//   kernel gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel
-//   (entered through _solve_block / solve_small_nv2): the same Newton solve
-//   at nv = 2 with each 2x2 system solved in closed form, by determinant.
+//   newton2_kernel<G, false> also replaces the TPU kernel
+//   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel (entered
+//   through _solve_block / solve_small_nv2): the same Newton solve at
+//   nv = 2 with each 2x2 system solved in closed form, by determinant.
 //
 // Layout. The kernels read the port's own batch-last arrays where they lie,
 // through their element strides, so the caller copies nothing: M is the
-// full (NV, NV, B) matrix, read on and below the diagonal; J is
+// full (NV, NV, B) matrix, read on and below the diagonal (the nv = 2
+// determinant route reads (0, 1) for (1, 0), as its TPU kernel); J is
 // (ne, NV, B); active and is_eq are (ne, B) bool (is_eq has batch stride 0
 // when it is one flag per model row). Where the batch stride is 1 the 32
 // threads of a warp read one row as 128 contiguous bytes (the counterpart
@@ -33,18 +34,11 @@
 // the H100's 3.35 TB/s), so the launch itself bounds it. The Newton
 // function reads 102 floats and 19 mask bytes and writes 21 floats per env
 // (3.56 MB, 1.06 us) and does about 9.0k float operations per env (1.10 us
-// at 67 TFLOP/s float32). One thread per env is 8192 threads, two warps
-// per SM, so its time is the latency of each thread's dependent chain, not
-// either rate. Its design keeps that chain short and out of device memory:
-// a, p, the gradient, the packed Hessian and its factor live in registers,
-// and so do each row's x = J a - aref, J p, weight and equality flag
-// (NE_CAP of each), so the line search reads no memory at all; each Newton
-// iteration reads J (152 B per env at ne = 19) twice and aref (76 B) once,
-// from L2. At the Medium and Large mazes' 39 and 63 rows (NE_CAP = 64)
-// those four row arrays no longer fit a thread's registers and spill.
-// NV and NE_CAP are template parameters so every loop over them unrolls
-// into registers, as Pallas unrolls them; ne <= NE_CAP, n_iter and n_ls are
-// runtime values. chip_smoke.py measures both against these bounds.
+// at 67 TFLOP/s float32); newton2_kernel's note below says how its design
+// spreads that over the card. NV is a template parameter of the larger
+// kernels so every loop over it unrolls into registers, as Pallas unrolls
+// them; ne, n_iter and n_ls are runtime values. chip_smoke.py measures
+// each kernel against these bounds.
 // At the AntMaze shapes (NV = 14, ne = 72, 5 Newton and 4 line-search
 // iterations, B = 2048) the Newton function reads 1285 floats and 72 mask
 // bytes and writes 86 floats per env (11.2 MB, 3.4 us) and does about 148k
@@ -167,249 +161,200 @@ chol_solve_kernel(const float* __restrict__ M, Str3 sM,
   for (int i = 0; i < NV; ++i) x[i * sB + e] = out[i];
 }
 
-// Symmetric product from the packed lower triangle.
-template <int NV>
-__device__ __forceinline__ void sym_mul(const float (&Mp)[tri(NV, 0)],
-                                        const float (&v)[NV], float (&out)[NV]) {
+// ---------------------------------------------------------------------------
+// newton2_kernel<G, CHOL>: the nv = 2 Newton solve of both routes, one
+// template. CHOL picks the 2x2 solve, and with it each route's own
+// arithmetic:
+// - CHOL = true, the batched route (solve_newton at nv = 2), as
+//   solver_pallas._kernel_nv computes it: M read on and below the
+//   diagonal; x = -aref + J a; the gradient -(M da + J^T Dw x) and
+//   H = M + J^T diag(Dw) J from packed rows; the step by the floored
+//   Cholesky (chol_solve<2>); qacc = a_smooth + M^-1 J^T f by the same.
+// - CHOL = false, the per-env route (solve_newton_nv2: the single env), as
+//   solver_pallas._kernel computes it: M read at (0,0), (0,1) and (1,1),
+//   as the TPU kernel's M3 rows; x = J0 a0 + J1 a1 - aref; the gradient and
+//   the Hessian entries h00, h01, h11 written out; the step and the final
+//   M solve by determinant.
+// Both then take n_ls exact line-search steps on the piecewise-quadratic
+// 1-D restriction (ddphi floored at 1e-12), clip alpha to [0, 4] (NaN
+// carried), and compute the forces on the final active set with
+// unilateral rows clamped at 0.
+//
+// What bounds it. At B = 8192, 6 Newton and 4 line-search iterations, the
+// function reads 83 floats and 19 mask bytes and writes 21 floats an env
+// at the U-maze's 19 rows (3.6 MB, 1.1 us at 3.35 TB/s; ~9k operations an
+// env, 1.1 us at 67 TFLOP/s float32), and at the Medium and Large mazes'
+// 39 and 63 rows about twice and three times that. One thread an env made
+// it 8192 threads, two warps an SM: its time was the latency of each
+// thread's chain over all of its rows, with J read from memory twice an
+// iteration, and at 64 rows the per-row register arrays spilled.
+//
+// Layout and design. A group of G consecutive lanes takes one env (G = 4
+// up to 32 rows, G = 8 up to 64: 1024 and 2048 warps at B = 8192), lane j
+// of the group rows j, j + G, ..., kNv2Rows of them. Each lane loads its
+// rows' J (2 floats), aref, weight (active ? D : 0) and equality flag once
+// a call into registers, and keeps their x and J p there. Each iteration's
+// five row sums (the gradient's two, H's three) and each line-search
+// step's two are summed over the lane's rows in order (rows past ne
+// dropped by select, not branch) and then over the group by
+// __shfl_xor_sync butterflies: partners add the same two values,
+// so every lane ends with the same bits, solves the 2x2 system itself and
+// carries the same a; nothing is broadcast. Loads are per row: with batch
+// stride 1, the 32 / G envs of a warp read each row as 32 / G contiguous
+// floats. Lanes past B compute env B - 1's rows and store nothing.
+// Against the one-thread-an-env kernels this replaced, only the order of
+// the row sums differs (each lane's rows, then the butterfly).
+// Measured on the H100 against the alternatives (PERF.md §6): lane = env
+// across a warp, the warps of a block on row slices and the sums through
+// shared memory, loads fully coalesced, was slower at 19 and 63 rows on
+// both routes: its loads happen once a call, its barriers at every sum.
+// Dead rows skipped by branches (a convergence barrier a row) were slower
+// than the selects, and pairwise row sums slower than the in-order ones
+// (and spilled). What remains is latency: each line-search step waits on
+// its sums' shuffles and an IEEE division, each Cholesky-route step on a
+// chain of two square roots and four divisions.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNv2Rows = 8;        // newton2_kernel: rows a lane
+constexpr int kNv2Threads = 128;   // newton2_kernel: threads a block
+
+// The sum of v over an aligned group of G lanes, the same bits on each.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < NV; ++j)
-      s += Mp[j <= i ? tri(i, j) : tri(j, i)] * v[j];
-    out[i] = s;
-  }
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
 }
 
-template <int NV, int NE_CAP>
-__global__ void __launch_bounds__(kThreads)
-newton_kernel(const float* __restrict__ M, const float* __restrict__ a_smooth,
-              const float* __restrict__ a_warm, const float* __restrict__ J,
-              const float* __restrict__ aref, const float* __restrict__ D,
-              const unsigned char* __restrict__ active,
-              const unsigned char* __restrict__ is_eq, NewtonStrides s,
-              float* __restrict__ qacc, float* __restrict__ f,
-              int ne, int B, int n_iter, int n_ls) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
+template <int G, bool CHOL>
+__global__ void __launch_bounds__(kNv2Threads)
+newton2_kernel(const float* __restrict__ M, const float* __restrict__ a_smooth,
+               const float* __restrict__ a_warm, const float* __restrict__ J,
+               const float* __restrict__ aref, const float* __restrict__ D,
+               const unsigned char* __restrict__ active,
+               const unsigned char* __restrict__ is_eq, NewtonStrides s,
+               float* __restrict__ qacc, float* __restrict__ f, int ne, int B,
+               int n_iter, int n_ls) {
+  constexpr int R = kNv2Rows;
+  const int t = blockIdx.x * kNv2Threads + threadIdx.x;
+  const int e = t / G, j = t % G;
+  const bool valid = e < B;
+  const int ec = valid ? e : B - 1;
   const size_t sB = (size_t)B;
-  float Mp[tri(NV, 0)], as[NV], a[NV];
-  load_tril<NV>(M, s.M, e, Mp);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    as[i] = a_smooth[s.a_smooth.at(i, e)];
-    a[i] = a_warm[s.a_warm.at(i, e)];
-  }
+  const float m00 = M[s.M.at(0, 0, ec)], m11 = M[s.M.at(1, 1, ec)];
+  const float m01 = CHOL ? M[s.M.at(1, 0, ec)] : M[s.M.at(0, 1, ec)];
+  const float as0 = a_smooth[s.a_smooth.at(0, ec)];
+  const float as1 = a_smooth[s.a_smooth.at(1, ec)];
+  float a0 = a_warm[s.a_warm.at(0, ec)], a1 = a_warm[s.a_warm.at(1, ec)];
 
-  // Per-row state in registers: w = D on active rows (0 elsewhere), the
-  // equality flag, and each Newton iteration's x and J p.
-  float w[NE_CAP], x[NE_CAP], Jp[NE_CAP];
-  bool eq[NE_CAP];
+  // this lane's rows r = j + G i: J, aref, weight, equality flag; x, J p.
+  // Rows past ne load row 0 (every load issued at once, no branch) and
+  // are dropped by selects below, so each sum takes the live rows only.
+  float j0[R], j1[R], ar[R], w[R], x[R], Jp[R];
+  bool eq[R], live[R];
 #pragma unroll
-  for (int r = 0; r < NE_CAP; ++r) {
-    if (r >= ne) break;
-    w[r] = active[s.active.at(r, e)] ? D[s.D.at(r, e)] : 0.f;
-    eq[r] = is_eq[s.is_eq.at(r, e)] != 0;
+  for (int i = 0; i < R; ++i) {
+    const int r = j + G * i;
+    live[i] = r < ne;
+    const int rr = live[i] ? r : 0;
+    float vj0 = 0.f, vj1 = 0.f, va = 0.f, vd = 0.f;
+    bool act = false, veq = false;
+    if (ne > 0) {
+      vj0 = J[s.J.at(rr, 0, ec)];
+      vj1 = J[s.J.at(rr, 1, ec)];
+      va = aref[s.aref.at(rr, ec)];
+      vd = D[s.D.at(rr, ec)];
+      act = active[s.active.at(rr, ec)] != 0;
+      veq = is_eq[s.is_eq.at(rr, ec)] != 0;
+    }
+    j0[i] = live[i] ? vj0 : 0.f;
+    j1[i] = live[i] ? vj1 : 0.f;
+    ar[i] = live[i] ? va : 0.f;
+    w[i] = live[i] && act ? vd : 0.f;
+    eq[i] = live[i] && veq;
+    x[i] = Jp[i] = 0.f;
   }
+  // s + v on a live row, s on a dead one
+  auto add = [&](int i, float acc, float v) { return live[i] ? acc + v : acc; };
   // D on the active set at x: equality rows always, the others where x < 0
-  auto dw_of = [&](int r, float xr) { return (eq[r] || xr < 0.f) ? w[r] : 0.f; };
-  auto row_dot = [&](int r, const float (&v)[NV]) {
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < NV; ++k) acc += J[s.J.at(r, k, e)] * v[k];
-    return acc;
+  auto dw_of = [&](int i, float xr) { return (eq[i] || xr < 0.f) ? w[i] : 0.f; };
+  auto x_of = [&](int i) {
+    if (CHOL) {
+      float xr = -ar[i];
+      xr += j0[i] * a0;
+      xr += j1[i] * a1;
+      return xr;
+    }
+    return j0[i] * a0 + j1[i] * a1 - ar[i];
   };
 
   for (int it = 0; it < n_iter; ++it) {
-    float da[NV], Mda[NV], gs[NV], Hs[tri(NV, 0)];
+    float g0 = 0.f, g1 = 0.f, s00 = 0.f, s01 = 0.f, s11 = 0.f;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      da[i] = a[i] - as[i];
-      gs[i] = 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < tri(NV, 0); ++r) Hs[r] = 0.f;
-    sym_mul<NV>(Mp, da, Mda);
-#pragma unroll
-    for (int r = 0; r < NE_CAP; ++r) {
-      if (r >= ne) break;
-      float Jr[NV];
-#pragma unroll
-      for (int k = 0; k < NV; ++k) Jr[k] = J[s.J.at(r, k, e)];
-      float xr = -aref[s.aref.at(r, e)];
-#pragma unroll
-      for (int k = 0; k < NV; ++k) xr += Jr[k] * a[k];
-      x[r] = xr;
-      const float Dw = dw_of(r, xr);
+    for (int i = 0; i < R; ++i) {
+      const float xr = x_of(i);
+      x[i] = xr;
+      const float Dw = dw_of(i, xr);
       const float gx = Dw * xr;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        gs[i] += Jr[i] * gx;
-        const float DJi = Dw * Jr[i];
-#pragma unroll
-        for (int j = 0; j <= i; ++j) Hs[tri(i, j)] += DJi * Jr[j];
+      g0 = add(i, g0, j0[i] * gx);
+      g1 = add(i, g1, j1[i] * gx);
+      if (CHOL) {
+        const float DJ0 = Dw * j0[i], DJ1 = Dw * j1[i];
+        s00 = add(i, s00, DJ0 * j0[i]);
+        s01 = add(i, s01, DJ1 * j0[i]);
+        s11 = add(i, s11, DJ1 * j1[i]);
+      } else {
+        s00 = add(i, s00, Dw * j0[i] * j0[i]);
+        s01 = add(i, s01, Dw * j0[i] * j1[i]);
+        s11 = add(i, s11, Dw * j1[i] * j1[i]);
       }
     }
-    float H[tri(NV, 0)], mgrad[NV], p[NV], Mpv[NV];
-#pragma unroll
-    for (int r = 0; r < tri(NV, 0); ++r) H[r] = Mp[r] + Hs[r];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) mgrad[i] = -(Mda[i] + gs[i]);
-    chol_solve<NV>(H, mgrad, p);
-
-    // exact line search on the piecewise-quadratic 1-D restriction
-#pragma unroll
-    for (int r = 0; r < NE_CAP; ++r) {
-      if (r >= ne) break;
-      Jp[r] = row_dot(r, p);
-    }
-    sym_mul<NV>(Mp, p, Mpv);
-    float pMp = 0.f, pMa = 0.f;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      pMp += p[i] * Mpv[i];
-      pMa += p[i] * Mda[i];
-    }
-    float alpha = 1.f;
-    for (int l = 0; l < n_ls; ++l) {
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int r = 0; r < NE_CAP; ++r) {
-        if (r >= ne) break;
-        const float x2 = x[r] + alpha * Jp[r];
-        const float Dw2 = dw_of(r, x2);
-        s1 += Dw2 * x2 * Jp[r];
-        s2 += Dw2 * Jp[r] * Jp[r];
-      }
-      const float dphi = alpha * pMp + pMa + s1;
-      const float ddphi = pMp + s2;
-      alpha = alpha - dphi / nan_max(ddphi, 1e-12f);
-    }
-    alpha = alpha < 0.f ? 0.f : (alpha > 4.f ? 4.f : alpha);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) a[i] += alpha * p[i];
-  }
-
-  // forces on the final active set; unilateral rows pushed to f >= 0
-  float qfc[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) qfc[i] = 0.f;
-#pragma unroll
-  for (int r = 0; r < NE_CAP; ++r) {
-    if (r >= ne) break;
-    const float xr = row_dot(r, a) - aref[s.aref.at(r, e)];
-    float fr = -dw_of(r, xr) * xr;
-    if (!eq[r]) fr = nan_max(fr, 0.f);
-    f[r * sB + e] = fr;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) qfc[i] += J[s.J.at(r, i, e)] * fr;
-  }
-  float dq[NV];
-  chol_solve<NV>(Mp, qfc, dq);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) qacc[i * sB + e] = as[i] + dq[i];
-}
-
-// ---------------------------------------------------------------------------
-// newton2_closed_kernel<NE_CAP>: the nv = 2 Newton solve of the per-env path
-// (constraint.solve_constraints with Option.soa False; the JAX package's
-// single env), as solver_pallas._kernel computes it: per iteration
-// x = J0 a0 + J1 a1 - aref, the active set (equality rows, or x < 0, on
-// active rows), the gradient and the three Hessian entries h00, h01, h11 as
-// row sums, the step p by the 2x2 determinant, n_ls exact line-search steps
-// (ddphi floored at 1e-12), alpha clipped to [0, 4]; then the forces on the
-// final active set with unilateral rows clamped at 0, and
-// qacc = a_smooth + M^-1 J^T f by M's determinant. M is read at (0,0),
-// (0,1) and (1,1), as the TPU kernel's M3 rows.
-//
-// What bounds it. At the single env's shapes (B = 1) nothing but the launch
-// and the thread's dependent chain. At B = 8192 and the U-maze's 19 rows
-// (6 Newton, 4 line-search iterations) it reads 83 floats and 19 mask
-// bytes and writes 21 floats per env (3.6 MB, 1.1 us at 3.35 TB/s) and
-// does ~7.3k float operations per env (0.9 us at 67 TFLOP/s), so bytes
-// and operations bound it about equally; one thread per env is again
-// latency-bound. The design is newton_kernel<2, NE_CAP>'s: each row's x, J p, weight and equality flag
-// live in registers (NE_CAP of each), so the line search reads no memory;
-// each iteration reads J twice and aref once, from L2. Without a Cholesky
-// the chain per iteration is shorter than newton_kernel<2>'s.
-// ---------------------------------------------------------------------------
-
-template <int NE_CAP>
-__global__ void __launch_bounds__(kThreads)
-newton2_closed_kernel(const float* __restrict__ M,
-                      const float* __restrict__ a_smooth,
-                      const float* __restrict__ a_warm,
-                      const float* __restrict__ J,
-                      const float* __restrict__ aref,
-                      const float* __restrict__ D,
-                      const unsigned char* __restrict__ active,
-                      const unsigned char* __restrict__ is_eq, NewtonStrides s,
-                      float* __restrict__ qacc, float* __restrict__ f, int ne,
-                      int B, int n_iter, int n_ls) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
-  const size_t sB = (size_t)B;
-  const float m00 = M[s.M.at(0, 0, e)], m01 = M[s.M.at(0, 1, e)],
-              m11 = M[s.M.at(1, 1, e)];
-  const float as0 = a_smooth[s.a_smooth.at(0, e)];
-  const float as1 = a_smooth[s.a_smooth.at(1, e)];
-  float a0 = a_warm[s.a_warm.at(0, e)], a1 = a_warm[s.a_warm.at(1, e)];
-
-  float w[NE_CAP], x[NE_CAP], Jp[NE_CAP];
-  bool eq[NE_CAP];
-#pragma unroll
-  for (int r = 0; r < NE_CAP; ++r) {
-    if (r >= ne) break;
-    w[r] = active[s.active.at(r, e)] ? D[s.D.at(r, e)] : 0.f;
-    eq[r] = is_eq[s.is_eq.at(r, e)] != 0;
-  }
-  auto dw_of = [&](int r, float xr) { return (eq[r] || xr < 0.f) ? w[r] : 0.f; };
-  auto J0 = [&](int r) { return J[s.J.at(r, 0, e)]; };
-  auto J1 = [&](int r) { return J[s.J.at(r, 1, e)]; };
-
-  for (int it = 0; it < n_iter; ++it) {
-    float sg0 = 0.f, sg1 = 0.f, s00 = 0.f, s01 = 0.f, s11 = 0.f;
-#pragma unroll
-    for (int r = 0; r < NE_CAP; ++r) {
-      if (r >= ne) break;
-      const float j0 = J0(r), j1 = J1(r);
-      const float xr = j0 * a0 + j1 * a1 - aref[s.aref.at(r, e)];
-      x[r] = xr;
-      const float Dw = dw_of(r, xr);
-      const float gx = Dw * xr;
-      sg0 += j0 * gx;
-      sg1 += j1 * gx;
-      s00 += Dw * j0 * j0;
-      s01 += Dw * j0 * j1;
-      s11 += Dw * j1 * j1;
-    }
+    g0 = group_sum<G>(g0);
+    g1 = group_sum<G>(g1);
+    s00 = group_sum<G>(s00);
+    s01 = group_sum<G>(s01);
+    s11 = group_sum<G>(s11);
     const float da0 = a0 - as0, da1 = a1 - as1;
-    const float grad0 = m00 * da0 + m01 * da1 + sg0;
-    const float grad1 = m01 * da0 + m11 * da1 + sg1;
-    const float h00 = m00 + s00, h01 = m01 + s01, h11 = m11 + s11;
-    const float det = h00 * h11 - h01 * h01;
-    const float p0 = -(h11 * grad0 - h01 * grad1) / det;
-    const float p1 = -(-h01 * grad0 + h00 * grad1) / det;
+    float p0, p1, pMp, pMa;
+    if (CHOL) {
+      float Mp[3] = {m00, m01, m11};
+      const float Mda[2] = {m00 * da0 + m01 * da1, m01 * da0 + m11 * da1};
+      float H[3] = {Mp[0] + s00, Mp[1] + s01, Mp[2] + s11};
+      const float mgrad[2] = {-(Mda[0] + g0), -(Mda[1] + g1)};
+      float p[2];
+      chol_solve<2>(H, mgrad, p);
+      p0 = p[0];
+      p1 = p[1];
+      const float Mpv0 = m00 * p0 + m01 * p1, Mpv1 = m01 * p0 + m11 * p1;
+      pMp = p0 * Mpv0 + p1 * Mpv1;
+      pMa = p0 * Mda[0] + p1 * Mda[1];
+    } else {
+      const float grad0 = m00 * da0 + m01 * da1 + g0;
+      const float grad1 = m01 * da0 + m11 * da1 + g1;
+      const float h00 = m00 + s00, h01 = m01 + s01, h11 = m11 + s11;
+      const float det = h00 * h11 - h01 * h01;
+      p0 = -(h11 * grad0 - h01 * grad1) / det;
+      p1 = -(-h01 * grad0 + h00 * grad1) / det;
+      pMp = p0 * (m00 * p0 + m01 * p1) + p1 * (m01 * p0 + m11 * p1);
+      pMa = p0 * (m00 * da0 + m01 * da1) + p1 * (m01 * da0 + m11 * da1);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) Jp[i] = j0[i] * p0 + j1[i] * p1;
 
     // exact line search on the piecewise-quadratic 1-D restriction
-#pragma unroll
-    for (int r = 0; r < NE_CAP; ++r) {
-      if (r >= ne) break;
-      Jp[r] = J0(r) * p0 + J1(r) * p1;
-    }
-    const float pMp = p0 * (m00 * p0 + m01 * p1) + p1 * (m01 * p0 + m11 * p1);
-    const float pMa = p0 * (m00 * da0 + m01 * da1) + p1 * (m01 * da0 + m11 * da1);
     float alpha = 1.f;
     for (int l = 0; l < n_ls; ++l) {
       float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int r = 0; r < NE_CAP; ++r) {
-        if (r >= ne) break;
-        const float x2 = x[r] + alpha * Jp[r];
-        const float Dw2 = dw_of(r, x2);
-        s1 += Dw2 * x2 * Jp[r];
-        s2 += Dw2 * Jp[r] * Jp[r];
+      for (int i = 0; i < R; ++i) {
+        const float x2 = x[i] + alpha * Jp[i];
+        const float Dw2 = dw_of(i, x2);
+        s1 = add(i, s1, Dw2 * x2 * Jp[i]);
+        s2 = add(i, s2, Dw2 * Jp[i] * Jp[i]);
       }
+      s1 = group_sum<G>(s1);
+      s2 = group_sum<G>(s2);
       const float dphi = alpha * pMp + pMa + s1;
       const float ddphi = pMp + s2;
       alpha = alpha - dphi / nan_max(ddphi, 1e-12f);
@@ -422,30 +367,59 @@ newton2_closed_kernel(const float* __restrict__ M,
   // forces on the final active set; unilateral rows pushed to f >= 0
   float qfc0 = 0.f, qfc1 = 0.f;
 #pragma unroll
-  for (int r = 0; r < NE_CAP; ++r) {
-    if (r >= ne) break;
-    const float j0 = J0(r), j1 = J1(r);
-    const float xr = j0 * a0 + j1 * a1 - aref[s.aref.at(r, e)];
-    float fr = -dw_of(r, xr) * xr;
-    if (!eq[r]) fr = nan_max(fr, 0.f);
-    f[r * sB + e] = fr;
-    qfc0 += j0 * fr;
-    qfc1 += j1 * fr;
+  for (int i = 0; i < R; ++i) {
+    const float xr = CHOL ? (j0[i] * a0 + j1[i] * a1) - ar[i] : x_of(i);
+    float fr = -dw_of(i, xr) * xr;
+    if (!eq[i]) fr = nan_max(fr, 0.f);
+    if (valid && live[i]) f[(j + G * i) * sB + e] = fr;
+    qfc0 = add(i, qfc0, j0[i] * fr);
+    qfc1 = add(i, qfc1, j1[i] * fr);
   }
-  const float detM = m00 * m11 - m01 * m01;
-  qacc[e] = as0 + (m11 * qfc0 - m01 * qfc1) / detM;
-  qacc[sB + e] = as1 + (-m01 * qfc0 + m00 * qfc1) / detM;
+  qfc0 = group_sum<G>(qfc0);
+  qfc1 = group_sum<G>(qfc1);
+  float q0, q1;
+  if (CHOL) {
+    float Mp[3] = {m00, m01, m11};
+    const float qfc[2] = {qfc0, qfc1};
+    float dq[2];
+    chol_solve<2>(Mp, qfc, dq);
+    q0 = as0 + dq[0];
+    q1 = as1 + dq[1];
+  } else {
+    const float detM = m00 * m11 - m01 * m01;
+    q0 = as0 + (m11 * qfc0 - m01 * qfc1) / detM;
+    q1 = as1 + (-m01 * qfc0 + m00 * qfc1) / detM;
+  }
+  if (valid && j == 0) {
+    qacc[e] = q0;
+    qacc[sB + e] = q1;
+  }
 }
 
-template <int NE_CAP>
-void launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
-                    const float* J, const float* aref, const float* D,
-                    const unsigned char* active, const unsigned char* is_eq,
-                    const NewtonStrides& st, float* qacc, float* f, int ne,
-                    int B, int n_iter, int n_ls, cudaStream_t s) {
-  newton2_closed_kernel<NE_CAP><<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
-      n_iter, n_ls);
+// Lanes an env of newton2_kernel at ne rows: 4 up to 32 rows, 8 up to 64;
+// 0 past that (physics/solver.py::newton2_geometry).
+constexpr int nv2_lanes(int ne) { return ne <= 4 * kNv2Rows ? 4 : ne <= 8 * kNv2Rows ? 8 : 0; }
+
+template <bool CHOL>
+int launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
+                   const float* J, const float* aref, const float* D,
+                   const unsigned char* active, const unsigned char* is_eq,
+                   const NewtonStrides& st, float* qacc, float* f, int ne,
+                   int B, int n_iter, int n_ls, cudaStream_t s) {
+  const int G = nv2_lanes(ne);
+  const long long threads = static_cast<long long>(B) * G;
+  const dim3 grid(static_cast<unsigned>((threads + kNv2Threads - 1) / kNv2Threads));
+  if (G == 4)
+    newton2_kernel<4, CHOL><<<grid, kNv2Threads, 0, s>>>(
+        M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
+        n_iter, n_ls);
+  else if (G == 8)
+    newton2_kernel<8, CHOL><<<grid, kNv2Threads, 0, s>>>(
+        M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
+        n_iter, n_ls);
+  else
+    return -1;
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -509,7 +483,6 @@ void launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
 
 constexpr int kEnvTile = 8;   // newton_tile_kernel: envs per block
 constexpr int BS = 3;         // newton_tile_kernel: side of a lane's block of H
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -1321,17 +1294,6 @@ int chol_tile_blocks_per_sm() {
 
 inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
 
-template <int NV, int NE_CAP>
-void launch_newton(const float* M, const float* a_smooth, const float* a_warm,
-                   const float* J, const float* aref, const float* D,
-                   const unsigned char* active, const unsigned char* is_eq,
-                   const NewtonStrides& st, float* qacc, float* f, int ne,
-                   int B, int n_iter, int n_ls, cudaStream_t s) {
-  newton_kernel<NV, NE_CAP><<<grid_for(B), kThreads, 0, s>>>(
-      M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
-      n_iter, n_ls);
-}
-
 Str2 str2(const long long* p) { return {p[0], p[1]}; }
 Str3 str3(const long long* p) { return {p[0], p[1], p[2]}; }
 
@@ -1376,9 +1338,8 @@ int grt_chol_blocks_per_sm(int nv) {
 }
 
 // strides: the element strides of M (3), a_smooth, a_warm (2 each), J (3),
-// aref, D, active and is_eq (2 each), in that order. Row caps are
-// instantiated per nv: ne is rounded up to the first that holds it. nv = 2
-// runs newton_kernel (one env per thread), nv = 14 and 21
+// aref, D, active and is_eq (2 each), in that order. nv = 2 runs
+// newton2_kernel<G, true> (G lanes an env, up to 64 rows), nv = 14 and 21
 // newton_tile_kernel (8 envs a block, up to 96 and 256 rows); smem: its
 // block's shared memory bytes (physics/solver.py::newton_geometry), at
 // least grt_newton_smem_bytes(nv).
@@ -1394,12 +1355,9 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
   const NewtonStrides st{str3(p), str2(p + 3), str2(p + 5), str3(p + 7),
                          str2(p + 10), str2(p + 12), str2(p + 14),
                          str2(p + 16)};
-  if (nv == 2 && ne <= 32) {
-    launch_newton<2, 32>(M, a_smooth, a_warm, J, aref, D, active, is_eq, st,
-                         qacc, f, ne, B, n_iter, n_ls, s);
-  } else if (nv == 2 && ne <= 64) {
-    launch_newton<2, 64>(M, a_smooth, a_warm, J, aref, D, active, is_eq, st,
-                         qacc, f, ne, B, n_iter, n_ls, s);
+  if (nv == 2) {
+    return launch_newton2<true>(M, a_smooth, a_warm, J, aref, D, active,
+                                is_eq, st, qacc, f, ne, B, n_iter, n_ls, s);
   } else if (nv == 14) {
     return launch_newton_tile<14, 1, 3>(M, a_smooth, a_warm, J, aref, D,
                                         active, is_eq, st, qacc, f, ne, B,
@@ -1408,10 +1366,8 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
     return launch_newton_tile<21, 2, 4>(M, a_smooth, a_warm, J, aref, D,
                                         active, is_eq, st, qacc, f, ne, B,
                                         n_iter, n_ls, smem, s);
-  } else {
-    return -1;
   }
-  return static_cast<int>(cudaGetLastError());
+  return -1;
 }
 
 // Shared memory bytes of a newton_tile_kernel block at nv (14 or 21), and
@@ -1426,29 +1382,41 @@ int grt_newton_blocks_per_sm(int nv) {
          : nv == 21 ? newton_tile_blocks_per_sm<21, 2, 4>() : -1;
 }
 
-// The nv = 2 closed-form solve (newton2_closed_kernel); strides and
-// arguments as grt_newton_f32 without nv. Row caps 32 and 64.
+// The nv = 2 solve of the per-env route (newton2_kernel<G, false>: the
+// 2x2 systems by determinant); strides and arguments as grt_newton_f32
+// without nv. Up to 64 rows.
 int grt_newton2_f32(const float* M, const float* a_smooth, const float* a_warm,
                     const float* J, const float* aref, const float* D,
                     const unsigned char* active, const unsigned char* is_eq,
                     float* qacc, float* f, const long long* strides, int ne,
                     int B, int n_iter, int n_ls, void* stream) {
   if (B <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* p = strides;
   const NewtonStrides st{str3(p), str2(p + 3), str2(p + 5), str3(p + 7),
                          str2(p + 10), str2(p + 12), str2(p + 14),
                          str2(p + 16)};
-  if (ne <= 32) {
-    launch_newton2<32>(M, a_smooth, a_warm, J, aref, D, active, is_eq, st,
-                       qacc, f, ne, B, n_iter, n_ls, s);
-  } else if (ne <= 64) {
-    launch_newton2<64>(M, a_smooth, a_warm, J, aref, D, active, is_eq, st,
-                       qacc, f, ne, B, n_iter, n_ls, s);
-  } else {
+  return launch_newton2<false>(M, a_smooth, a_warm, J, aref, D, active,
+                               is_eq, st, qacc, f, ne, B, n_iter, n_ls,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Lanes an env of newton2_kernel at ne rows (0 past its 64-row cap), and
+// the blocks of newton2_kernel<lanes, chol> one SM holds.
+int grt_newton2_lanes(int ne) { return nv2_lanes(ne); }
+int grt_newton2_blocks_per_sm(int lanes, int chol) {
+  int n = 0;
+  cudaError_t e = cudaSuccess;
+  if (lanes == 4 && chol)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, newton2_kernel<4, true>, kNv2Threads, 0);
+  else if (lanes == 4)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, newton2_kernel<4, false>, kNv2Threads, 0);
+  else if (lanes == 8 && chol)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, newton2_kernel<8, true>, kNv2Threads, 0);
+  else if (lanes == 8)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, newton2_kernel<8, false>, kNv2Threads, 0);
+  else
     return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -183,14 +183,23 @@ def kinematics_plain(m: T.Model, d: T.Data) -> T.Data:
 # CUDA wrapper
 # ---------------------------------------------------------------------------
 
+FK_SLOTS = 16            # csrc/kinematics.cu kFkSlots: task slots a block
+FK_TILE = 32             # csrc/kinematics.cu kFkTile: envs a block
+# the schedule's task kinds, as csrc/kinematics.cu's FkTask numbers them
+TASK_KINDS = ("body", "xmat", "inertial", "geom", "site")
+
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = kernels.load("kinematics")
-    lib.grt_fk_f32.argtypes = [_vp] * 7 + [_vp, _vp, _i, _vp]
+    lib.grt_fk_f32.argtypes = [_vp] * 7 + [_vp, _vp, _i, _i, _vp]
     lib.grt_fk_f32.restype = _i
+    lib.grt_fk_smem_bytes.argtypes = [_vp]
+    lib.grt_fk_smem_bytes.restype = _i
+    lib.grt_fk_blocks_per_sm.argtypes = [_i]
+    lib.grt_fk_blocks_per_sm.restype = _i
     return lib
 
 
@@ -203,12 +212,65 @@ def _rows(mt: T.Meta):
     return shapes, np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
 
 
+def schedule(mt: T.Meta, slots: int = FK_SLOTS):
+    """fk_kernel's task schedule: a list of steps, each a list of
+    (kind, index) tasks (kinds as TASK_KINDS). Step s holds the bodies at
+    depth s + 1 (a body task computes its joints too); every frame task
+    (xmat, inertial, geom, site) goes into the first step after its body's
+    step with a slot to spare, the rest into one last step. Within a step
+    tasks are in kind order, then index order."""
+    frames_of = {b: [(1, b), (2, b)] for b in range(mt.nbody)}
+    for i, b in enumerate(mt.geom_bodyid):
+        frames_of[b].append((3, i))
+    for i, b in enumerate(mt.site_bodyid):
+        frames_of[b].append((4, i))
+    ready = list(frames_of[0])
+    steps = []
+    for bodies in mt.levels[1:]:
+        if not bodies:
+            continue
+        step = [(0, b) for b in bodies]
+        room = -len(step) % slots
+        step += ready[:room]
+        ready = ready[room:]
+        steps.append(sorted(step))
+        for b in bodies:
+            ready += frames_of[b]
+    if ready:
+        steps.append(sorted(ready))
+    return steps
+
+
+def fk_geometry(mt: T.Meta, B: int) -> dict:
+    """Launch geometry of fk_kernel at B envs: its grid, threads a block
+    (FK_SLOTS slots of FK_TILE lanes), and shared memory bytes: the tile's
+    body poses (7 floats a body), qpos and mocap poses, and the float and
+    int tables (_KernelTables), as csrc/kinematics.cu's FkLayout computes
+    them."""
+    nf, ni = table_sizes(mt)
+    words = (7 * mt.nbody + mt.nq + 7 * mt.nmocap) * FK_TILE + nf + ni
+    return {"grid": -(-B // FK_TILE), "threads": FK_SLOTS * FK_TILE,
+            "tile": FK_TILE, "slots": FK_SLOTS, "smem": 4 * words}
+
+
+@functools.lru_cache(maxsize=None)
+def table_sizes(mt: T.Meta):
+    """(floats, ints) of the kernel's two tables, the schedule included."""
+    steps = schedule(mt)
+    nf = 14 * mt.nbody + 6 * mt.njnt + mt.nq + 7 * (mt.ngeom + mt.nsite)
+    ni = (4 * mt.nbody + 2 * mt.njnt + mt.ngeom + mt.nsite + len(steps) + 1
+          + sum(len(s) for s in steps))
+    return nf, ni
+
+
 class _KernelTables:
     """The model's FK constants as the kernel reads them (csrc/kinematics.cu
     fk_kernel): one float table (body pos/quat/ipos/iquat, joint pos/axis,
     qpos0, geom pos/quat, site pos/quat) and one int32 table (body parent,
-    jntadr, jntnum, mocapid; joint type, qposadr; geom body; site body),
-    with the dims and output row offsets, on the model's device."""
+    jntadr, jntnum, mocapid; joint type, qposadr; geom body; site body;
+    then the schedule: the steps' offsets into the tasks, and the tasks,
+    kind << 16 | index), with the dims and output row offsets, on the
+    model's device."""
 
     def __init__(self, m: T.Model):
         mt = m.meta
@@ -222,6 +284,9 @@ class _KernelTables:
             flat("geom_pos", "geom_quat").reshape(-1),
             flat("site_pos", "site_quat").reshape(-1),
         ]).contiguous()
+        self.steps = schedule(mt)
+        tasks = [k << 16 | i for step in self.steps for k, i in step]
+        offs = np.cumsum([0] + [len(s) for s in self.steps])
         ints = np.concatenate([
             np.stack([mt.body_parentid, mt.body_jntadr, mt.body_jntnum,
                       mt.body_mocapid], axis=1).reshape(-1),
@@ -229,12 +294,16 @@ class _KernelTables:
             if mt.njnt else np.zeros(0, np.int64),
             np.asarray(mt.geom_bodyid, np.int64),
             np.asarray(mt.site_bodyid, np.int64),
+            offs, np.asarray(tasks, np.int64),
         ]).astype(np.int32)
         self.itab = torch.as_tensor(ints, device=m.device)
-        dims = [mt.nbody, mt.njnt, mt.nq, mt.ngeom, mt.nsite]
+        assert (self.ftab.numel(), self.itab.numel()) == table_sizes(mt)
+        dims = [mt.nbody, mt.njnt, mt.nq, mt.ngeom, mt.nsite, mt.nmocap,
+                self.ftab.numel(), self.itab.numel(), len(self.steps),
+                len(tasks)]
         self.shapes, offs = _rows(mt)
         self.offs = [int(o) for o in offs]
-        self.dims = (ctypes.c_int * 5)(*dims)
+        self.dims = (ctypes.c_int * 10)(*dims)
         self.row_offs = (ctypes.c_int * 11)(*self.offs[:-1])
 
 
@@ -266,7 +335,7 @@ def kinematics(m: T.Model, d: T.Data) -> T.Data:
         d.qpos.data_ptr(), d.mocap_pos.data_ptr(), d.mocap_quat.data_ptr(),
         (ctypes.c_longlong * 8)(*st), tabs.ftab.data_ptr(),
         tabs.itab.data_ptr(), tabs.dims, tabs.row_offs, out.data_ptr(), B,
-        torch.cuda.current_stream(dev).cuda_stream,
+        fk_geometry(mt, B)["smem"], torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.raise_on(rc, "fk_kernel")
     LAUNCHES["fk"] += B > 0      # the entry point launches nothing at B = 0

@@ -5,7 +5,8 @@ Port of gymnasium_robotics_tpu/physics/solver_pallas.py: ``solve_pos``
 replaces ``solve_pos_soa`` (TPU kernel ``_kernel_chol``),
 ``solve_newton`` replaces ``solve_small_soa`` (TPU kernel ``_kernel_nv``)
 and ``solve_newton_nv2`` replaces ``solve_small_nv2`` (TPU kernel
-``_kernel``, the nv = 2 Newton with its 2x2 systems solved in closed form),
+``_kernel``, the nv = 2 Newton with its 2x2 systems solved in closed form;
+both nv = 2 routes run one kernel template, ``newton2_kernel``),
 with the same batch-last signatures. The kernels read the port's own
 layouts (the full M, J as (ne, nv, B), bool masks, a per-model is_eq), so
 the wrappers copy nothing: the kernels take each input's strides.
@@ -28,8 +29,8 @@ from gymnasium_robotics_tpu_torch import kernels
 
 LAUNCHES = {"chol": 0, "newton": 0, "newton_nv2": 0}
 KERNEL_NV = (2, 14, 21)  # nv values csrc/solver.cu instantiates
-# largest row count the Newton kernel takes, per nv: newton_kernel<2, 64>
-# (one env per thread), newton_tile_kernel<14, 1, 3> and <21, 2, 4> (a
+# largest row count the Newton kernel takes, per nv: newton2_kernel (a
+# group of lanes an env), newton_tile_kernel<14, 1, 3> and <21, 2, 4> (a
 # tile of NEWTON_TILE envs a block, one or two warps an env, three or four
 # rows a lane)
 NEWTON_MAX_ROWS = {2: 64, 14: 96, 21: 256}
@@ -37,7 +38,12 @@ NEWTON_TILE = 8
 # newton_tile_kernel's instantiations: nv -> (warps an env, rows a lane)
 NEWTON_TILE_SHAPES = {14: (1, 3), 21: (2, 4)}
 NEWTON_BLOCK = 3   # side of the block of H a lane sums
-NEWTON_NV2_MAX_ROWS = 64  # newton2_closed_kernel<32> and <64>
+NEWTON_NV2_MAX_ROWS = 64  # newton2_kernel, the per-env route
+# newton2_kernel<G, CHOL>: NV2_ROWS_PER_LANE rows a lane, G lanes an env
+# (the first of NV2_LANES that holds ne), NV2_THREADS threads a block
+NV2_ROWS_PER_LANE = 8
+NV2_LANES = (4, 8)
+NV2_THREADS = 128
 # chol_tile_kernel (nv 14, 21): a tile of CHOL_TILE envs a block, a
 # half-warp an env where nv <= 16, else a warp; nv = 2 runs
 # chol_solve_kernel, one env per thread
@@ -225,6 +231,10 @@ def _lib():
         fn.restype = _i
     lib.grt_newton2_f32.argtypes = [_vp] * 11 + [_i] * 4 + [_vp]
     lib.grt_newton2_f32.restype = _i
+    lib.grt_newton2_lanes.argtypes = [_i]
+    lib.grt_newton2_lanes.restype = _i
+    lib.grt_newton2_blocks_per_sm.argtypes = [_i, _i]
+    lib.grt_newton2_blocks_per_sm.restype = _i
     return lib
 
 
@@ -277,8 +287,9 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
     """Batch-last fused Newton solve (signature of solve_small_soa): M
     (nv, nv, B), a_smooth/a_warm (nv, B), J (ne, nv, B), aref/D/active
     (ne, B), is_eq (ne,) per model row or (ne, B) -> (qacc (nv, B),
-    f (ne, B)). CUDA tensors launch newton_kernel; CPU tensors take the
-    plain version."""
+    f (ne, B)). CUDA tensors launch newton2_kernel<G, true> (nv = 2) or
+    newton_tile_kernel (nv = 14, 21); CPU tensors take the plain
+    version."""
     nv, ne, B = _check_newton_shapes(M, a_smooth, a_warm, J, aref, D,
                                      active, is_eq)
     if not _route_to_kernel(nv, (M, a_smooth, a_warm, J, aref, D),
@@ -295,7 +306,7 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
     qacc, f, rc = _launch_newton(_lib().grt_newton_f32, (nv,), M, a_smooth,
                                  a_warm, J, aref, D, active, is_eq, n_iter,
                                  n_ls, (smem,))
-    kernels.raise_on(rc, "newton_kernel")
+    kernels.raise_on(rc, "newton2_kernel" if nv == 2 else "newton_tile_kernel")
     LAUNCHES["newton"] += B > 0
     return qacc, f
 
@@ -304,7 +315,7 @@ def solve_newton_nv2(M, a_smooth, a_warm, J, aref, D, active, is_eq,
                      n_iter: int, n_ls: int):
     """The nv = 2 Newton solve in closed form (signature of solve_newton,
     nv = 2): the per-env path's solve (constraint.solve_constraints with
-    Option.soa False). CUDA tensors launch newton2_closed_kernel; CPU
+    Option.soa False). CUDA tensors launch newton2_kernel<G, false>; CPU
     tensors take solve_newton_nv2_plain."""
     nv, ne, B = _check_newton_shapes(M, a_smooth, a_warm, J, aref, D, active,
                                      is_eq)
@@ -315,14 +326,14 @@ def solve_newton_nv2(M, a_smooth, a_warm, J, aref, D, active, is_eq,
                                       is_eq, n_iter, n_ls)
     if ne > NEWTON_NV2_MAX_ROWS:
         raise NotImplementedError(
-            f"newton2_closed_kernel is instantiated for up to "
+            f"newton2_kernel is instantiated for up to "
             f"{NEWTON_NV2_MAX_ROWS} rows, not {ne}; add a larger row cap to "
             "csrc/solver.cu"
         )
     qacc, f, rc = _launch_newton(_lib().grt_newton2_f32, (), M, a_smooth,
                                  a_warm, J, aref, D, active, is_eq, n_iter,
                                  n_ls)
-    kernels.raise_on(rc, "newton2_closed_kernel")
+    kernels.raise_on(rc, "newton2_kernel")
     LAUNCHES["newton_nv2"] += B > 0
     return qacc, f
 
@@ -338,6 +349,21 @@ def _check_newton_shapes(M, a_smooth, a_warm, J, aref, D, active, is_eq):
         ("is_eq", is_eq, (ne,) if is_eq.dim() == 1 else (ne, B)),
     ])
     return nv, ne, B
+
+
+def newton2_geometry(ne: int, B: int) -> dict:
+    """Launch geometry of newton2_kernel at ne rows and B envs: the lanes
+    an env (the first of NV2_LANES whose NV2_ROWS_PER_LANE rows a lane hold
+    ne), rows a lane, envs and threads a block and the grid, as
+    csrc/solver.cu's nv2_lanes and launch_newton2 compute them."""
+    lanes = next((g for g in NV2_LANES if g * NV2_ROWS_PER_LANE >= ne), None)
+    if lanes is None:
+        raise NotImplementedError(
+            f"newton2_kernel is instantiated for up to "
+            f"{NV2_LANES[-1] * NV2_ROWS_PER_LANE} rows, not {ne}")
+    return {"lanes_per_env": lanes, "rows_per_lane": NV2_ROWS_PER_LANE,
+            "envs_per_block": NV2_THREADS // lanes, "threads": NV2_THREADS,
+            "grid": -(-B * lanes // NV2_THREADS), "smem": 0}
 
 
 def chol_geometry(nv: int, B: int) -> dict:

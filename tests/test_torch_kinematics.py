@@ -14,6 +14,9 @@ kinematics) against the JAX package's.
   tens of seconds a model here, so the ball-joint model is held against
   the level pass only (in float64, above) and the CUDA kernel on the card.
 - The Option.fk_kernel gate of smooth.kinematics.
+- The FK kernel's task schedule and launch geometry (kinematics.schedule,
+  fk_geometry) on the PointMaze, AntMaze, FetchPush and ball-joint
+  models, against the constants of csrc/kinematics.cu.
 
 No shipped family has a ball joint, so the ball-joint model is compiled
 here from a few lines of MJCF by the JAX importer (mujoco) and carried
@@ -247,6 +250,60 @@ def test_fk_kernel_gate(monkeypatch):
     assert calls[2:] == [True, True, "force", "force"]
 
 
+@pytest.mark.parametrize("name", ["pointmaze", "antmaze", "fetchpush", "ball"])
+def test_fk_schedule_covers_tree(name):
+    """fk_kernel's schedule: every body but the world once, in a step after
+    its parent's; every xmat, inertial, geom and site frame once, in a step
+    after its body's; the tables' lengths as the kernel computes them; a
+    block's shared memory within kernels.SMEM_MAX; the tile, slot count and
+    task kinds as csrc/kinematics.cu has them."""
+    import os
+    import re
+
+    if name == "ball":
+        m = port_model(jax_model("ball", "float32"), torch.float32)
+    else:
+        ids = {"pointmaze": "PointMaze_UMaze-v3", "antmaze": "AntMaze_UMaze-v5",
+               "fetchpush": "FetchPush-v4"}
+        m = registry.make(ids[name], num_envs=1, device="cpu").env.model
+    mt = m.meta
+    steps = KIN.schedule(mt)
+    at = {}
+    for s, step in enumerate(steps):
+        assert len(step) <= KIN.FK_SLOTS or all(k == 0 for k, _ in step)
+        assert step == sorted(step)
+        for task in step:
+            assert task not in at, task
+            at[task] = s
+    body_step = {0: -1, **{b: at.pop((0, b)) for b in range(1, mt.nbody)}}
+    for b in range(1, mt.nbody):
+        assert body_step[b] > body_step[mt.body_parentid[b]], b
+    frames = ([((1, b), b) for b in range(mt.nbody)]
+              + [((2, b), b) for b in range(mt.nbody)]
+              + [((3, i), b) for i, b in enumerate(mt.geom_bodyid)]
+              + [((4, i), b) for i, b in enumerate(mt.site_bodyid)])
+    for task, b in frames:
+        assert at.pop(task) > body_step[b], task
+    assert not at, at                      # nothing else is scheduled
+    assert len(steps) <= max(len(mt.levels), 2)
+    tabs = KIN._KernelTables(m)
+    assert (tabs.ftab.numel(), tabs.itab.numel()) == KIN.table_sizes(mt)
+    geo = KIN.fk_geometry(mt, 2047)
+    tile = KIN.FK_TILE
+    assert geo["smem"] <= kernels.SMEM_MAX
+    assert (geo["grid"] - 1) * tile < 2047 <= geo["grid"] * tile
+    assert geo["threads"] == KIN.FK_SLOTS * tile
+    src = open(os.path.join(kernels.CSRC, "kinematics.cu")).read()
+    assert int(re.search(r"constexpr int kFkSlots = (\d+);", src).group(1)) == KIN.FK_SLOTS
+    assert int(re.search(r"constexpr int kFkTile = (\d+);", src).group(1)) == tile
+    kinds = re.search(r"enum \{ BODY = 0, XMAT = 1, INERTIAL = 2, GEOM = 3, SITE = 4 \};",
+                      src)
+    assert kinds and KIN.TASK_KINDS == ("body", "xmat", "inertial", "geom", "site")
+    # the gate's largest tree, every joint free, fits a block
+    big = dataclasses.replace(mt, nbody=KIN.MAX_BODIES, nq=7 * KIN.MAX_BODIES)
+    assert KIN.fk_geometry(big, 1)["smem"] <= kernels.SMEM_MAX
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -289,3 +346,34 @@ def test_kernel_matches_plain_on_card(cuda_device):
     mb = port_model(jm, torch.float32, cuda_device)
     errs = card_errs(mb, port_data(mb, poses(jm.meta, jm.qpos0, B, 2)))
     assert max(errs.values()) <= TOL32, errs
+
+
+@pytest.mark.cuda
+def test_kernel_edges_on_card(cuda_device):
+    """fk_kernel at the edges of its launch, on FetchPush's stepped and
+    random poses, against kinematics_plain, every env within 2e-4: B = 1, 33
+    (a partial tile) and 2047, qpos given batch-leading (batch stride
+    nq); the wrapper's shared memory bytes held to the source's."""
+    B = 2048
+    env = registry.make("FetchPush-v4", num_envs=B, device=cuda_device)
+    m = env.env.model
+    env.reset(seed=0)
+    env.step(torch.zeros((B, 4), device=cuda_device))
+    rand = port_data(m, poses(m.meta, m.qpos0[:, 0].cpu().numpy(), B, 3))
+    for d in (env.state.data, rand):
+        for n in (1, 33, 2047):
+            q = d.qpos[:, :n].T.contiguous().T       # strides (1, nq)
+            dn = dataclasses.replace(d, qpos=q, mocap_pos=d.mocap_pos[..., :n],
+                                     mocap_quat=d.mocap_quat[..., :n])
+            n0 = KIN.LAUNCHES["fk"]
+            got = KIN.kinematics(m, dn)
+            torch.cuda.synchronize()
+            assert KIN.LAUNCHES["fk"] == n0 + 1
+            ref = KIN.kinematics_plain(m, dn)
+            for f in KIN.FIELDS:
+                g, r = getattr(got, f).cpu().double(), getattr(ref, f).cpu().double()
+                per_env = ((g - r).abs().reshape(-1, n).amax(dim=0)
+                           / r.abs().max().clamp(min=1.0))
+                assert float(per_env.max()) <= TOL32, (n, f)
+    tabs = m.plan("fk_kernel", KIN._KernelTables)
+    assert KIN._lib().grt_fk_smem_bytes(tabs.dims) == KIN.fk_geometry(m.meta, 1)["smem"]

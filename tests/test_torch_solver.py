@@ -8,7 +8,8 @@ Tolerance: relative error scaled by max(1, |ref|) <= 1e-9 in float64 (the
 two sides round the same operations in another order); the closed-form
 nv = 2 solve is held in float32, at 2e-4. newton_tile_kernel's launch
 geometry is held at the ported systems and the row caps, and
-chol_tile_kernel's to the constants of its source. The tests marked
+chol_tile_kernel's and newton2_kernel's (nv = 2, both routes) to the
+constants of their source. The tests marked
 ``cuda`` hold each CUDA kernel against its plain version on the card
 (<= 2e-4 in float32), also at the edges of the Newton kernel's shapes;
 they skip where no card is present. The JAX imports
@@ -345,6 +346,38 @@ def test_chol_geometry_matches_source():
             solver.chol_geometry(nv, 1)
 
 
+def test_newton2_geometry_matches_source():
+    """newton2_kernel's launch geometry (the nv = 2 Newton of both routes)
+    for every ne from 1 to 64 against the constants of csrc/solver.cu: the
+    rows a lane, the threads a block and the lanes an env nv2_lanes picks;
+    a group's lanes hold ne rows, groups tile a warp, the grid covers every
+    env; past 64 rows it raises, as the wrappers' row caps do."""
+    import os
+    import re
+
+    src = open(os.path.join(kernels.CSRC, "solver.cu")).read()
+    rows = int(re.search(r"constexpr int kNv2Rows = (\d+);", src).group(1))
+    threads = int(re.search(r"constexpr int kNv2Threads = (\d+);", src).group(1))
+    g_lo, g_lo2, g_hi, g_hi2 = map(int, re.search(
+        r"return ne <= (\d+) \* kNv2Rows \? (\d+) : ne <= (\d+) \* kNv2Rows \? (\d+) : 0;",
+        src).groups())
+    assert (g_lo, g_hi) == (g_lo2, g_hi2) == solver.NV2_LANES
+    assert (rows, threads) == (solver.NV2_ROWS_PER_LANE, solver.NV2_THREADS)
+    assert solver.NEWTON_MAX_ROWS[2] == solver.NEWTON_NV2_MAX_ROWS == g_hi * rows
+    for ne in range(1, solver.NEWTON_NV2_MAX_ROWS + 1):
+        lanes = g_lo if ne <= g_lo * rows else g_hi
+        for B in (1, 7, 8191, 8192):
+            geo = solver.newton2_geometry(ne, B)
+            assert geo["lanes_per_env"] == lanes, ne
+            assert geo["rows_per_lane"] * lanes >= ne
+            assert 32 % lanes == 0 and threads % 32 == 0
+            assert geo["envs_per_block"] * lanes == geo["threads"] == threads
+            assert (geo["grid"] - 1) * geo["envs_per_block"] < B
+            assert B <= geo["grid"] * geo["envs_per_block"]
+    with pytest.raises(NotImplementedError, match="64 rows"):
+        solver.newton2_geometry(65, 1)
+
+
 def test_kernel_strides_describe_views():
     """The kernels read each input through its element strides: the array
     the wrappers pass must rebuild every view from its storage, including
@@ -590,7 +623,7 @@ def test_chol_edges_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_newton_nv2_cap64_on_card(cuda_device):
-    """newton_kernel<2, 64> and newton2_closed_kernel<64> on the rows of
+    """newton2_kernel (8 lanes an env) on both routes on the rows of
     PointMaze_Medium-v3 (39) and PointMaze_Large-v3 (63), balls pushed into
     the walls, each held to its plain version run in float64: within 2e-4,
     or no further than twice the float32 plain version."""
@@ -625,7 +658,8 @@ def test_newton_nv2_cap64_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_newton_nv2_kernel_matches_plain_on_card(cuda_device):
-    """newton2_closed_kernel against solve_newton_nv2_plain at B = 8192 on
+    """newton2_kernel's determinant route (solve_newton_nv2) against
+    solve_newton_nv2_plain at B = 8192 on
     a PointMaze batch's rows and on random rows (is_eq per env)."""
     B = 8192
     args, n_iter, n_ls = _pointmaze_rows(B, 25, torch.float32, cuda_device)
@@ -640,3 +674,46 @@ def test_newton_nv2_kernel_matches_plain_on_card(cuda_device):
         qp, fp = solver.solve_newton_nv2_plain(*a, n_iter=it, n_ls=ls)
         assert rel_err(qk.cpu(), qp.cpu()) <= TOL32
         assert rel_err(fk.cpu(), fp.cpu()) <= TOL32
+
+
+@pytest.mark.cuda
+def test_newton2_edges_on_card(cuda_device):
+    """newton2_kernel on both routes (solve_newton at nv = 2, the Cholesky
+    route; solve_newton_nv2, the determinant route) at ne in {1, 19, 32,
+    33, 39, 63, 64}, at B = 1 and 8191 (a partial block), with n_iter = 0,
+    with every row inactive and with J batch-leading (batch stride 2 ne),
+    each held to its plain version run in float64: within 2e-4, or no
+    further than twice the float32 plain version."""
+    rs = np.random.RandomState(9)
+
+    def cuda(x):
+        x = np.asarray(x)
+        return torch.tensor(x, dtype=torch.bool if x.dtype == bool
+                            else torch.float32, device=cuda_device)
+
+    routes = ((solver.solve_newton, solver.solve_newton_plain, "newton"),
+              (solver.solve_newton_nv2, solver.solve_newton_nv2_plain,
+               "newton_nv2"))
+    for ne in (1, 19, 32, 33, 39, 63, 64):
+        for B, it, p_act, strided in ((1, 6, 0.6, False), (8191, 6, 0.6, False),
+                                      (64, 0, 0.6, False), (64, 6, 0.0, False),
+                                      (64, 6, 0.6, True)):
+            args = [cuda(a) for a in _random_nv2_rows(rs, max(B, 4), ne)]
+            args = [a[..., :B] for a in args]
+            args[6] = args[6] & (torch.rand(args[6].shape, device=cuda_device) < p_act)
+            if strided:
+                args[3] = args[3].permute(2, 0, 1).contiguous().permute(1, 2, 0)
+            a64 = [a.double() if a.is_floating_point() else a for a in args]
+            for kern, plain, counter in routes:
+                n0 = solver.LAUNCHES[counter]
+                got = kern(*args, n_iter=it, n_ls=4)
+                torch.cuda.synchronize()
+                assert solver.LAUNCHES[counter] == n0 + 1
+                ref = plain(*a64, n_iter=it, n_ls=4)
+                p32 = plain(*args, n_iter=it, n_ls=4)
+                k = max(rel_err(g.cpu(), r.cpu()) for g, r in zip(got, ref))
+                p = max(rel_err(g.cpu(), r.cpu()) for g, r in zip(p32, ref))
+                assert k <= max(TOL32, 2 * p), (counter, ne, B, it, p_act, strided, k, p)
+        lanes = solver._lib().grt_newton2_lanes(ne)
+        assert lanes == solver.newton2_geometry(ne, 1)["lanes_per_env"]
+    assert solver._lib().grt_newton2_lanes(65) == 0

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""The narrowphase kernel's time by group kind, on the card.
+"""The narrowphase kernel's time by group kind, on the card, and the
+redesigned kernels against an earlier commit's.
 
     python3 tools/narrowphase_kinds.py [--parent DIR]
 
@@ -12,13 +13,25 @@ CUDA graph of 50 launches as chip_smoke.py times kernels. Prints one JSON
 line per path.
 
 With --parent DIR (an unpacked checkout of an earlier commit), it also
-builds that checkout's csrc/narrowphase.cu and csrc/solver.cu, calls their
-entry points through the older C interfaces (grt_narrowphase_f32 without a
-task table; grt_chol_solve_f32 without shared memory bytes) on the same
-inputs, and prints whether the compact tables (on the main-path arrays and
-on the pressed states) and the Cholesky solutions (nv = 14 and 21 on the
-main paths' qM and the Euler's damped system) are bitwise equal, with both
-versions' times taken in turns (parent, this tree, this tree, parent).
+builds that checkout's csrc/narrowphase.cu, csrc/solver.cu and
+csrc/kinematics.cu, calls their entry points through the parent's C
+interfaces (those of this tree, but grt_fk_f32 without the schedule and
+shared memory bytes: the one-thread-an-env kernel) on the same inputs,
+and prints
+- whether the compact tables (on the main-path arrays and on the pressed
+  states) and the Cholesky solutions (nv = 14 and 21 on the main paths' qM
+  and the Euler's damped system) are bitwise equal;
+- whether the FK kernel's eleven outputs are bitwise equal on FetchPush's
+  main-path poses (the state after two env steps) and on random poses, at
+  B = 2048;
+- the nv = 2 Newton solve of both routes (solve_newton at nv = 2, the
+  Cholesky route; solve_newton_nv2, the determinant route) on the rows of
+  PointMaze_UMaze-v3, PointMaze_Medium-v3 and PointMaze_Large-v3 (19, 39
+  and 63 rows; balls pushed into the walls, B = 8192): the largest
+  difference of qacc and of f from the parent's kernel;
+with both versions' times taken in turns (parent, this tree, this tree,
+parent): the FK kernel at FetchPush x 2048, the nv = 2 routes
+at each row count, the determinant route also at B = 1.
 Needs a CUDA card and nvcc; imports no JAX.
 """
 
@@ -29,6 +42,8 @@ import os
 import subprocess
 import sys
 import tempfile
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -60,10 +75,17 @@ def build_parent(parent, names):
         out[name] = ctypes.CDLL(so)
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     out["narrowphase"].grt_narrowphase_f32.argtypes = (
-        [vp] * 3 + [ll] * 3 + [vp] * 4 + [i] * 2 + [vp] * 2 + [i] + [vp] * 3 + [i, vp])
+        [vp] * 3 + [ll] * 3 + [vp] * 4 + [i] * 2 + [vp, i, i]
+        + [vp] * 2 + [i] + [vp] * 3 + [i, vp])
     out["narrowphase"].grt_narrowphase_f32.restype = i
-    out["solver"].grt_chol_solve_f32.argtypes = [vp] * 4 + [i, i, vp]
+    out["solver"].grt_chol_solve_f32.argtypes = [vp] * 4 + [i, i, i, vp]
     out["solver"].grt_chol_solve_f32.restype = i
+    out["solver"].grt_newton_f32.argtypes = [vp] * 11 + [i] * 6 + [vp]
+    out["solver"].grt_newton_f32.restype = i
+    out["solver"].grt_newton2_f32.argtypes = [vp] * 11 + [i] * 4 + [vp]
+    out["solver"].grt_newton2_f32.restype = i
+    out["kinematics"].grt_fk_f32.argtypes = [vp] * 9 + [i, vp]
+    out["kinematics"].grt_fk_f32.restype = i
     return out
 
 
@@ -77,7 +99,8 @@ def parent_narrowphase(lib, torch, table, P, Rm, sizes3, sel, hull_vert, out):
         P.data_ptr(), Rm.data_ptr(), sizes3.data_ptr(), ss[0], ss[1],
         ss[2] if sizes3.shape[-1] == nb else 0, sel.data_ptr(),
         table.pairs.data_ptr(), table.lens.data_ptr(), table.lists.data_ptr(),
-        table.lists.shape[1], table.pairs.shape[1], table.geom_hull.data_ptr(),
+        table.lists.shape[1], table.pairs.shape[1], table.tasks.data_ptr(),
+        table.tasks.shape[0], int(table.boxes), table.geom_hull.data_ptr(),
         None if hull_vert is None else hull_vert.contiguous().data_ptr(),
         0 if hull_vert is None else hull_vert.shape[1],
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), nb,
@@ -91,9 +114,104 @@ def parent_chol(lib, torch, solver, M, b):
     x = torch.empty((nv, nb), dtype=torch.float32, device=b.device)
     rc = lib.grt_chol_solve_f32(M.data_ptr(), b.data_ptr(), x.data_ptr(),
                                 solver._strides(M, b), nv, nb,
+                                solver.chol_geometry(nv, nb)["smem"],
                                 torch.cuda.current_stream().cuda_stream)
     assert rc == 0, f"parent chol: {rc}"
     return x
+
+
+def parent_fk(lib, torch, kinematics, m, d, out):
+    """The parent's fk_kernel (one thread an env) on d's poses, into out
+    (the wrapper's (rows, B) buffer): its int table is this tree's without
+    the schedule, its float table the same."""
+    mt = m.meta
+    tabs = m.plan("fk_kernel", kinematics._KernelTables)
+    itab = tabs.itab[:4 * mt.nbody + 2 * mt.njnt + mt.ngeom + mt.nsite]
+    st = [x for t in (d.qpos, d.mocap_pos, d.mocap_quat) for x in t.stride()]
+    rc = lib.grt_fk_f32(
+        d.qpos.data_ptr(), d.mocap_pos.data_ptr(), d.mocap_quat.data_ptr(),
+        (ctypes.c_longlong * 8)(*st), tabs.ftab.data_ptr(), itab.data_ptr(),
+        (ctypes.c_int * 5)(mt.nbody, mt.njnt, mt.nq, mt.ngeom, mt.nsite),
+        tabs.row_offs, out.data_ptr(), out.shape[1],
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"parent fk: {rc}"
+    return out
+
+
+def fk_buffer(torch, kinematics, d):
+    """The eleven pose fields of d as one (rows, B) buffer."""
+    B = d.qpos.shape[-1]
+    return torch.cat([getattr(d, f).reshape(-1, B) for f in kinematics.FIELDS])
+
+
+def fk_vs_parent(torch, lib, kinematics, pipeline, fetch, d_main, card):
+    """FK: bitwise equality with the parent's kernel on the main path's and
+    random poses, and times in turns."""
+    m = fetch.env.model
+    mt = m.meta
+    rs = np.random.RandomState(0)
+    rand = pipeline.make_data(m, B)
+    q = m.qpos0[:, 0].cpu().numpy()[:, None] + rs.normal(0, 0.5, (mt.nq, B))
+    oq = fetch.env._obj_qadr + 3
+    q[oq:oq + 4] = rs.normal(0, 1, (4, B))      # unnormalised
+    dev = d_main.qpos.device
+    rand.qpos[:] = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    rand.mocap_pos[:] = torch.as_tensor(rs.normal(0, 1, (1, 3, B)),
+                                        dtype=torch.float32, device=dev)
+    rand.mocap_quat[:] = torch.as_tensor(rs.normal(0, 1, (1, 4, B)),
+                                         dtype=torch.float32, device=dev)
+    tabs = m.plan("fk_kernel", kinematics._KernelTables)
+    p_out = torch.empty((tabs.offs[-1], B), dtype=torch.float32, device=dev)
+    eq = []
+    for d in (d_main, rand):
+        got = fk_buffer(torch, kinematics, kinematics.kinematics(m, d))
+        ref = parent_fk(lib, torch, kinematics, m, d,
+                        torch.full_like(p_out, float("nan")))
+        eq.append(bits_equal(torch, got, ref))
+    turns = []
+    for who in ("parent", "tree", "tree", "parent"):
+        fn = ((lambda: parent_fk(lib, torch, kinematics, m, d_main, p_out))
+              if who == "parent" else (lambda: kinematics.kinematics(m, d_main)))
+        turns.append((who, CS.time_ms(torch, fn)))
+    return {"kernel": "fk", "B": B, "card": card,
+            "bitwise_equal_to_parent_main_random": eq, "turns_ms": turns}
+
+
+def nv2_vs_parent(torch, slib, solver, constraint, registry, dev, card):
+    """The nv = 2 routes against the parent's kernels at 19, 39 and 63
+    rows: the largest qacc and f differences, and times in turns (the
+    determinant route also at B = 1)."""
+    routes = (("chol", solver.solve_newton, slib.grt_newton_f32, (2,), (0,)),
+              ("det", solver.solve_newton_nv2, slib.grt_newton2_f32, (), ()))
+    lines = []
+    for id_ in ("PointMaze_UMaze-v3", "PointMaze_Medium-v3", "PointMaze_Large-v3"):
+        args, n_iter, n_ls, touching = CS.maze_rows(torch, dev, constraint,
+                                                    registry, id_, CS.B)
+        line = {"kernel": "newton nv=2", "id": id_, "ne": int(args[3].shape[0]),
+                "B": CS.B, "envs_touching": touching, "card": card}
+        for route, fn, entry, nv_arg, tail in routes:
+            def parent(a=args):
+                qacc, f, rc = solver._launch_newton(entry, nv_arg, *a, n_iter,
+                                                    n_ls, tail)
+                assert rc == 0, f"parent newton ({route}): {rc}"
+                return qacc, f
+
+            got, ref = fn(*args, n_iter=n_iter, n_ls=n_ls), parent()
+            line[route] = {"max_abs_diff_qacc_f": [
+                float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref)]}
+            shapes = [("B", args)]
+            if route == "det":
+                shapes.append(("B1", tuple(x[..., :1] if x.dim() > 1 else x
+                                           for x in args)))
+            for label, a in shapes:
+                turns = []
+                for who in ("parent", "tree", "tree", "parent"):
+                    call = ((lambda: parent(a)) if who == "parent" else
+                            (lambda: fn(*a, n_iter=n_iter, n_ls=n_ls)))
+                    turns.append((who, CS.time_ms(torch, call)))
+                line[route][f"turns_ms_{label}"] = turns
+        lines.append(line)
+    return lines
 
 
 def bits_equal(torch, a, b):
@@ -113,14 +231,17 @@ def main():
         return 2
     from gymnasium_robotics_tpu_torch import kernels, registry
     from gymnasium_robotics_tpu_torch.physics import (
-        collision, narrowphase, pipeline, solver)
+        collision, constraint, kinematics, narrowphase, pipeline, solver)
 
     ptx = CS.ptxas_report(kernels.build())
     card = CS.card_line()
     print(json.dumps({"ptxas": {k: v for k, v in ptx.items()
-                                if "chol" in k or "narrowphase" in k}}), flush=True)
+                                if any(n in k for n in ("chol", "narrowphase",
+                                                        "fk", "newton2"))}}),
+          flush=True)
     dev = torch.device("cuda")
-    plib = build_parent(args.parent, ("narrowphase", "solver")) if args.parent else None
+    plib = (build_parent(args.parent, ("narrowphase", "solver", "kinematics"))
+            if args.parent else None)
 
     ant = registry.make("AntMaze_UMaze-v5", num_envs=B)
     m_ant = ant.env.model
@@ -199,6 +320,13 @@ def main():
                 turns.append((who, CS.time_ms(torch, fn)))
             line["chol_turns_ms"] = turns
         print(json.dumps(line), flush=True)
+    if plib:
+        print(json.dumps(fk_vs_parent(torch, plib["kinematics"], kinematics,
+                                      pipeline, fetch, fetch.state.data, card)),
+              flush=True)
+        for line in nv2_vs_parent(torch, plib["solver"], solver, constraint,
+                                  registry, dev, card):
+            print(json.dumps(line), flush=True)
     return 0
 
 
