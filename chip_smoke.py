@@ -27,7 +27,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
   AntMaze_UMaze-v5 (all four kernels: chol and Newton at nv = 14,
   topk_select at two shapes, the narrowphase):
   7. main path: registry.make("AntMaze_UMaze-v5", num_envs=2048,
-     max_episode_steps=50), reset, 60 steps with random actions, so every
+     max_episode_steps=20), reset, 25 steps with random actions, so every
      env auto-resets; per step 20 chol, 20 Newton, 40 topk_select (20 of
      each shape) and 20 narrowphase launches; prints ms/step and
      env-steps/s;
@@ -47,12 +47,12 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
   topk_select at (3, 85) -> 8 and (2, 169) -> 24, chol and Newton at
   nv = 21; box-hull and hull-hull run with MPR as plain PyTorch):
   11. main path: registry.make("FetchPush-v4", num_envs=2048,
-     max_episode_steps=5), reset, 8 steps with random actions, so every env
+     max_episode_steps=5), reset, 7 steps with random actions, so every env
      auto-resets; per step 40 chol, 20 Newton, 40 topk_select (20 of each
      shape) and 20 narrowphase launches; prints ms/step and env-steps/s;
   12. trace: 1 step traced, as in phase 4 (device activity only);
   13. reference: 4 envs on the card and on the CPU plain path from one
-     carried-across state: within 2e-4 after 1 env step; the error after 3
+     carried-across state: within 2e-4 after 1 env step; the error after 2
      steps is printed, not gated;
   14. kernels: each FetchPush kernel against its plain version at B = 2048,
      on the main path's arrays and on a pressed state (the object against
@@ -109,16 +109,56 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      PointMaze batch (the rows the per-env path builds) and on random rows,
      held to the plain version run in float64 as the nv = 21 Newton is,
      with CUDA-event times, also at B = 1 (the single env's own shape);
-  21. edge checks of the redesigned kernels (topk_select_kernel,
+  HandManipulateBlockRotateXYZ-v1 (chol and Newton at nv = 36, 272 rows,
+  topk_select at (2, 160) -> 16; the unpruned table, box-hull with MPR as
+  plain PyTorch; tendons and touch sensors):
+  22. main path: registry.make("HandManipulateBlockRotateXYZ-v1",
+     num_envs=1024, max_episode_steps=3), reset (the initial settle of a
+     pool of 16 poses an env, one batch of 16384, 200 substeps; its
+     seconds printed), 5 steps with random actions, so every env
+     auto-resets; per step 40 chol (the smooth solve and the Euler's damped
+     velocity solve, each substep), 20 Newton and 20 topk_select launches,
+     no narrowphase; prints ms/step and env-steps/s;
+  23. trace: 1 step traced, as in phase 12, with the launches counted
+     during it;
+  24. reference: 64 envs stepped once on the card, on the CPU plain path
+     and on the CPU plain path in float64, from the main path's state
+     (full-range actions) and from settled hands (fresh resets from the
+     pool, actions of amplitude 0.1); per env the largest relative error
+     over the observation and sensordata. The hand's float32 solve is
+     ill-conditioned (the coupling tendons' rows sit at their limits): the
+     CPU's own float32 path leaves most envs more than 2e-4 from float64
+     after one env step, so the card is held to the float64 path: its
+     median env within 2e-4 of it, or no further than twice the CPU
+     float32 path's median env; medians, 90th percentiles, maxima and the
+     shares within 2e-4 printed;
+  25. kernels: each hand kernel against its plain version at B = 1024 on
+     random inputs (forced ties for topk_select), on the main path's arrays
+     and on a pressed state (the block on the fingertips, in the palm, in
+     the forearm's hull; every joint past a limit): topk_select's indices
+     equal; the Cholesky within 2e-4 on random systems and on every set
+     held to the plain version run in float64 (within 2e-4, or no further
+     than twice the float32 plain version); the Newton solve held to the
+     plain version run in float64 env by env (the median env within 2e-4,
+     or no further than twice the float32 plain version's median env);
+     with the times as in phase 10;
+  26. the single env: make_gym("HandManipulateBlock_ContinuousTouchSensors-
+     v1", parity=True) on the card, a seeded parity reset (its settle), 3
+     steps; launches per step as in phase 22 and 92 touch readings in the
+     observation;
+  21. (run after phases 22-26) edge checks of the redesigned kernels
+     (topk_select_kernel,
      newton_tile_kernel, chol_tile_kernel, narrowphase_kernel,
      newton2_kernel, fk_kernel) against
      their plain versions on the card: topk_select at (2, 744) -> 8
-     (AntMaze_Large's shape) on tied ranks, at B = 1 and B = 2047, with K
+     (AntMaze_Large's shape) on tied ranks, at B = 1 and B = 2047, at the
+     hand's (2, 160) -> 16 at B = 1 and 1023 and with a NaN lane, with K
      larger than the unmasked count, with an all-masked group and a NaN
-     lane; the Newton solve at nv = 14 and 21 at the row caps (96, 256), at
-     an ne that is not a multiple of 32, at B = 1 and B = 2047, with
-     n_iter = 0, with every row inactive and with a strided J; the
-     Cholesky at nv = 14 and 21 at B = 1 and B = 2047, with M transposed
+     lane; the Newton solve at nv = 14, 21 and 36 at the row caps (96, 256,
+     288), at an ne that is not a multiple of 32, at B = 1 and B = 2047
+     (and the hand's 272 rows at B = 1023), with n_iter = 0, with every row
+     inactive and with a strided J; the Cholesky at nv = 14, 21 and 36 at
+     B = 1, 1023 and 2047, with M transposed
      and sliced, envs on the 1e-20 floor and a NaN env; the narrowphase on
      the pressed AntMaze and FetchPush states at B = 1 and B = 2047, each
      kind alone (bitwise equal to the whole table's rows), with picks out
@@ -151,10 +191,10 @@ import numpy as np
 B = 8192
 STEPS = 320
 ANT_B = 2048
-ANT_STEPS = 60
-ANT_LIMIT = 50
+ANT_STEPS = 25        # every env resets; kept short for the hand's phases
+ANT_LIMIT = 20        # max_episode_steps cut from 700
 FETCH_B = 2048
-FETCH_STEPS = 8
+FETCH_STEPS = 7
 FETCH_LIMIT = 5       # max_episode_steps cut from 50: every env resets
 FK_STEPS = 3
 FK_LIMIT = 2          # max_episode_steps cut from 50: every env resets
@@ -165,6 +205,13 @@ FK_REF_ENVS = 64      # envs stepped in float64 on the CPU as the reference
 FK_SEEDS = (1, 2)     # the env-step action's seed: two states are checked
 FK_BURST = 50         # fk_kernel launches traced back to back
 GYM_STEPS = 310       # past PointMaze's 300-step limit
+HAND_ID = "HandManipulateBlockRotateXYZ-v1"
+HAND_GYM_ID = "HandManipulateBlock_ContinuousTouchSensors-v1"
+HAND_B = 1024         # bench.py's rung of the hand
+HAND_STEPS = 5
+HAND_LIMIT = 3        # max_episode_steps cut from 100: every env resets
+HAND_REF_ENVS = 64
+HAND_GENTLE = 0.1     # action amplitude of the settled reference
 TOL = 2e-4            # relative error, scaled by max(1, |ref|), float32
 NEWTON_SLACK = 2      # nv = 21: kernel's error vs float64 <= 2x float32 plain's
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
@@ -860,6 +907,21 @@ def newton_vs_f64(torch, solver, args, n_iter, n_ls, kernel=None, plain=None):
     return k_rel, p_rel, ab
 
 
+def newton_env_errs(torch, solver, args, n_iter, n_ls):
+    """Per env, the Newton kernel's and the float32 plain version's
+    relative errors against the plain version run in float64 (the larger
+    of qacc's and f's, each on the env's own max(1, |ref|)): numpy (2, B)."""
+    x64 = [x.double() if x.is_floating_point() else x for x in args]
+    ref = solver.solve_newton_plain(*x64, n_iter=n_iter, n_ls=n_ls)
+    out = []
+    for fn in (solver.solve_newton, solver.solve_newton_plain):
+        got = fn(*args, n_iter=n_iter, n_ls=n_ls)
+        out.append(np.max([((g.double() - r).abs().amax(0)
+                            / r.abs().amax(0).clamp(min=1.0)).cpu().numpy()
+                           for g, r in zip(got, ref)], axis=0))
+    return np.stack(out)
+
+
 def chol_vs_f64(torch, solver, M, b):
     """The Cholesky kernel on one system against its plain version run in
     float64 on the same inputs, beside the float32 plain version against
@@ -997,14 +1059,14 @@ def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
     env_c.state = convert.env_state_from_numpy(
         convert.env_state_to_numpy(env_g.state), "cpu")
     errs = []
-    for _ in range(3):
+    for _ in range(2):
         a = rng.uniform(-1, 1, (small, 4)).astype(np.float32)
         og = env_g.step(torch.as_tensor(a, device=dev))[0]
         oc = env_c.step(torch.as_tensor(a))[0]
         errs.append(max(rel_err(og[k].cpu(), oc[k]) for k in oc))
     assert errs[0] <= TOL, f"card vs CPU path after 1 step: relerr {errs[0]:.3e}"
     print(f"fetch reference: card vs CPU plain path, {small} envs, relerr "
-          f"{errs[0]:.3e} after 1 step (gated), per step {errs} (3 steps, not "
+          f"{errs[0]:.3e} after 1 step (gated), per step {errs} (2 steps, not "
           f"gated) ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # --- 14. kernels against their plain versions, B = 2048
@@ -1184,6 +1246,335 @@ def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
     print(f"fetch kernels: {ne} rows; envs with active rows (main, pressed) "
           f"{n_active} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return rows, (m, d_press, m.hull_vert)
+
+
+def hand_poses(env, n, seed):
+    """(qpos (nq, n), qvel (nv, n)) of hands around the block, cycling
+    through four poses: the block pressed onto the first and middle
+    fingertips, pressed 3 mm into the palm, pushed into the forearm's hull,
+    and every hand joint 0.02 past one of its limits with the block on the
+    floor; the block yawed by up to 0.3 rad."""
+    rs = np.random.RandomState(seed)
+    m = env.model
+    oq, nh = env._obj_qadr, env._robot_nq
+    qpos = np.tile(env._init_qpos.cpu().numpy(), (n, 1))
+    lo, hi = m.jnt_range.cpu().numpy()[:nh, :, 0].T
+    for i in range(n):
+        pose = i % 4
+        if pose == 0:
+            qpos[i, oq:oq + 3] = [0.967, 0.749, 0.144]
+        elif pose == 1:
+            qpos[i, oq + 2] = 0.165
+        elif pose == 2:
+            qpos[i, oq:oq + 3] = [1.0, 1.008, 0.13]
+        else:
+            qpos[i, :nh] = np.where(rs.rand(nh) < 0.5, lo - 0.02, hi + 0.02)
+            qpos[i, oq + 2] = 0.02
+        yaw = rs.uniform(-0.3, 0.3)
+        qpos[i, oq + 3:oq + 7] = [np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)]
+    return qpos.T, rs.normal(0, 0.05, (m.nv, n))
+
+
+def cast_state(state, dtype):
+    """An EnvState's floating leaves (the Data's, contacts included, and the
+    env-level ones) in ``dtype``."""
+    def cast(x):
+        if isinstance(x, dict):
+            return {k: cast(v) for k, v in x.items()}
+        return x.to(dtype) if x is not None and x.is_floating_point() else x
+
+    d = state.data
+    data = dataclasses.replace(d, **{
+        f.name: cast(getattr(d, f.name)) for f in dataclasses.fields(d)
+        if f.name != "contact"}, contact=dataclasses.replace(d.contact, **{
+            k: cast(getattr(d.contact, k)) for k in ("dist", "pos", "frame")}))
+    return dataclasses.replace(
+        state, data=data, obs=cast(state.obs), reward=cast(state.reward),
+        info=cast(state.info), goal=cast(state.goal), aux=cast(state.aux))
+
+
+def hand_reference(torch, dev, convert, registry, state, amp):
+    """HAND_REF_ENVS envs of ``state`` stepped once with the same seeded
+    actions of amplitude ``amp`` on the card, on the CPU plain path and on
+    the CPU plain path in float64: per env the largest relative error over
+    the observation and sensordata of (card vs CPU float32, card vs CPU
+    float64, CPU float32 vs CPU float64), numpy (3, HAND_REF_ENVS)."""
+    n = HAND_REF_ENVS
+
+    def cut(x):          # the first envs of B-leading leaves, in float64
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        if x is None:
+            return None
+        x = np.asarray(x)[:n]
+        return x.astype(np.float64) if x.dtype.kind == "f" else x
+
+    fields = cut(convert.env_state_to_numpy(state))
+    a = np.random.default_rng(0).uniform(-amp, amp, (n, 20))
+    res = []
+    for where, dtype in ((dev, torch.float32), ("cpu", torch.float32),
+                         ("cpu", torch.float64)):
+        e = registry.make(HAND_ID, num_envs=n, device=where, dtype=dtype)
+        e.state = cast_state(convert.env_state_from_numpy(fields, where), dtype)
+        e.generator = torch.Generator(device=where).manual_seed(3)
+        o = e.step(torch.as_tensor(a, dtype=dtype, device=where))[0]
+        res.append([v.double().cpu() for v in o.values()]
+                   + [e.state.data.sensordata.double().cpu().T])
+
+    def per_env(x, y):   # (n,): each env's largest error over the fields
+        return np.max([((u - v).abs().amax(1) / v.abs().amax(1).clamp(min=1.0)).numpy()
+                       for u, v in zip(x, y)], axis=0)
+
+    return np.stack([per_env(res[0], res[1]), per_env(res[0], res[2]),
+                     per_env(res[1], res[2])])
+
+
+def handmanipulate(torch, dev, card, solver, constraint, narrowphase,
+                   pipeline, convert, registry):
+    """Phases 22-26; returns the kernels' JSON rows and the pressed state
+    (model, data) for the edge checks."""
+    t_phase = time.perf_counter()
+    # --- 22. main path
+    env = registry.make(HAND_ID, num_envs=HAND_B, max_episode_steps=HAND_LIMIT)
+    t0 = time.perf_counter()
+    obs, info = env.reset(seed=0)
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    hm = env.env
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    finite = torch.ones(HAND_B, dtype=torch.bool, device=dev)
+    was_reset = torch.zeros(HAND_B, dtype=torch.bool, device=dev)
+    diverged = torch.zeros(HAND_B, dtype=torch.bool, device=dev)
+    warm = 1
+    zero_counters(solver, narrowphase)
+    for i in range(HAND_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        a = torch.rand((HAND_B, 20), generator=gen, device=dev) * 2 - 1
+        obs, _, terminated, truncated, info = env.step(a)
+        finite &= torch.isfinite(obs["observation"]).all(dim=1)
+        was_reset |= terminated | truncated
+        diverged |= info["diverged"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts(solver, narrowphase)
+    shapes = dict(narrowphase.TOPK_SHAPES)
+    ms_step = wall / (HAND_STEPS - warm) * 1e3
+    n = HAND_STEPS
+    assert obs["observation"].shape == (HAND_B, 61), obs["observation"].shape
+    assert bool(finite.all()), "non-finite observations"
+    assert bool(was_reset.all()), f"{int((~was_reset).sum())} envs never reset"
+    # a substep: the smooth solve and the Euler's damped velocity solve (2
+    # chol), the Newton solve, the contact_cap pick of both condim groups
+    assert launches == per_step(n, chol=40, newton=20, topk=20), launches
+    assert shapes == {(2, 160, 16): 20 * n}, shapes
+    print(f"main path: {HAND_ID} x{HAND_B}, {n} steps, limit {HAND_LIMIT}, "
+          f"launches {launches}; {ms_step:.4f} ms/step, "
+          f"{HAND_B / ms_step * 1e3:.1f} env-steps/s over steps {warm}-{n}; "
+          f"initial settle (pool {hm.reset_pool_size} x {HAND_B} envs, 200 "
+          f"substeps) {settle_s:.2f} s; {int(diverged.sum())} envs truncated "
+          f"as diverged [{card}] ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+    # --- 23. trace
+    t_phase = time.perf_counter()
+
+    def run(k):
+        for _ in range(k):
+            env.step(torch.rand((HAND_B, 20), generator=gen, device=dev) * 2 - 1)
+
+    trace(torch, run, 1, card, "hand trace", cpu=False,
+          counts=lambda: launch_counts(solver, narrowphase))
+    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 24. the card against the CPU plain path from one state
+    t_phase = time.perf_counter()
+    # the main path's state with full-range actions, then settled hands
+    # (fresh resets from the pool) with small actions
+    readings = {}
+    for label, state, amp in (
+            ("main", env.state, 1.0),
+            ("settled", hm.reset(env.state, gen), HAND_GENTLE)):
+        errs = hand_reference(torch, dev, convert, registry, state, amp)
+        readings[label] = {
+            name: {"median": float(np.median(e)), "p90": float(np.quantile(e, 0.9)),
+                   "max": float(e.max()), "within_tol": float((e <= TOL).mean())}
+            for name, e in zip(("card_vs_cpu32", "card_vs_cpu64",
+                                "cpu32_vs_cpu64"), errs)}
+    print(f"hand reference: {HAND_REF_ENVS} envs, 1 env step, per-env "
+          f"relerr over the observation and sensordata: "
+          f"{json.dumps(readings)} ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+    for label, r in readings.items():
+        card, cpu = r["card_vs_cpu64"]["median"], r["cpu32_vs_cpu64"]["median"]
+        assert card <= max(TOL, NEWTON_SLACK * cpu), (
+            f"hand reference ({label}): the card's median env {card:.3e} from "
+            f"the CPU float64 path, the CPU float32 path's {cpu:.3e}")
+
+    # --- 25. kernels against their plain versions on the main path's arrays
+    t_phase = time.perf_counter()
+    m = hm.model
+    rs = np.random.RandomState(0)
+
+    def cuda(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    d_main = pipeline.forward(m, env.state.data)
+    qpos, qvel = hand_poses(hm, HAND_B, 1)
+    d_press = pipeline.make_data(m, HAND_B)
+    d_press.qpos[:] = cuda(qpos)
+    d_press.qvel[:] = cuda(qvel)
+    d_press = pipeline.forward(m, d_press)
+    rp = m.plan("rows", constraint._RowPlan)
+    n_pen = [int((d.contact.dist < 0).any(dim=0).sum()) for d in (d_main, d_press)]
+    print(f"hand kernels: envs with a penetrating slot (main path, pressed "
+          f"state) {n_pen}", flush=True)
+    rows = []
+
+    # topk_select: the contact cap (2, 160) -> 16, forced ties and the main
+    # path's and the pressed state's depths
+    G, maxk, K = 2, 160, 16
+    reals = []
+    for d in (d_main, d_press):
+        pen = d.contact.dist - m.con_includemargin     # the unpruned table
+        reals.append(pen[rp.cap_rows])
+    r_rand, m_rand = tie_ranks(rs, G, maxk, HAND_B)
+    for r, mk in [(cuda(r_rand), cuda(m_rand, torch.bool))] + [
+            (x, rp.cap_mask) for x in reals]:
+        got = narrowphase.topk_select(r, mk, K)
+        assert torch.equal(got, narrowphase.topk_select_plain(r, mk, K)), \
+            f"topk_select {(G, maxk, K)} indices differ"
+    rank, mask = reals[0], rp.cap_mask
+    ms = time_ms(torch, lambda: narrowphase.topk_select(rank, mask, K))
+    plain_ms = time_ms(torch, lambda: narrowphase.topk_select_plain(
+        rank, mask, K), n=10)
+    masked = torch.where(mask[:, :, None], rank, float("inf"))
+    lib_ms = time_ms(torch, lambda: torch.topk(masked, K, dim=1, largest=False))
+    bnd = bound(G * maxk * HAND_B * 4 + G * maxk + G * K * HAND_B * 4,
+                G * maxk * HAND_B)
+    rows.append(kernel_row(
+        f"topk_select_{G}x{maxk}_k{K}", NP_SRC,
+        "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:155",
+        shapes[(G, maxk, K)], 0.0, 0.0, ms, plain_ms, bnd, lib_ms,
+        [G, maxk, HAND_B, K]))
+
+    # Cholesky at nv = 36: random SPD systems, the real qM (the smooth
+    # solve), the Euler's damped system, the pressed state's qM
+    nv = m.nv
+    A = rs.normal(size=(nv, nv, HAND_B))
+    M = cuda(np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(nv)[:, :, None])
+    b = cuda(rs.normal(size=(nv, HAND_B)))
+    real = (d_main.qM, d_main.qfrc_smooth)
+    systems = {"main qM": real,
+               "main damped system": pipeline.damped_system(m, d_main),
+               "pressed qM": (d_press.qM, d_press.qfrc_smooth),
+               "pressed damped system": pipeline.damped_system(m, d_press)}
+    rand_err, _ = check_pair(solver.solve_pos, solver.solve_pos_plain, [(M, b)])
+    assert rand_err <= TOL, f"chol_solve nv=36 (random): relerr {rand_err:.3e}"
+    # the hand's own systems are ill-conditioned in float32: held to the
+    # float64 plain version below, as at nv = 21
+    chol_err, chol_abs = check_pair(solver.solve_pos, solver.solve_pos_plain,
+                                    [(M, b)] + list(systems.values()))
+    chol_ms = time_ms(torch, lambda: solver.solve_pos(*real))
+    chol_plain_ms = time_ms(torch, lambda: solver.solve_pos_plain(*real), n=10)
+    Mb = d_main.qM.permute(2, 0, 1).contiguous()
+    bb = d_main.qfrc_smooth.T.contiguous()[:, :, None]
+    chol_lib_ms = time_ms(torch, lambda: torch.linalg.solve_ex(Mb, bb),
+                          graph=False)
+    nm = nv * (nv + 1) // 2
+    f64 = chol_f64_gate(torch, solver, "chol nv=36", systems)
+    rows.append(kernel_row(
+        "chol_solve_nv36", SOLVER_SRC,
+        "gymnasium_robotics_tpu/physics/solver_pallas.py:455",
+        launches["chol"], chol_abs, chol_err, chol_ms, chol_plain_ms,
+        bound((nm + 2 * nv) * 4 * HAND_B, chol_ops(nv) * HAND_B),
+        chol_lib_ms, [nv, HAND_B], f64_rel_err=f64[0],
+        plain32_f64_rel_err=f64[1]))
+
+    # Newton at nv = 36, 272 rows: random rows, the main path's, the pressed
+    n_iter = min(m.opt.iterations, 20)
+    n_ls = min(m.opt.ls_iterations, 8)
+    sets = []
+    for d in (d_main, d_press):
+        J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+        sets.append((d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq))
+    ne = sets[0][3].shape[0]
+    sets.insert(0, (M, cuda(rs.normal(size=(nv, HAND_B))),
+                    cuda(rs.normal(size=(nv, HAND_B))),
+                    cuda(rs.normal(size=(ne, nv, HAND_B))),
+                    cuda(rs.normal(size=(ne, HAND_B))),
+                    cuda(np.exp(rs.normal(size=(ne, HAND_B)))),
+                    cuda(rs.uniform(size=(ne, HAND_B)) < 0.4, torch.bool),
+                    sets[0][7]))
+    # float32 rounding alone moves the hand's solve far (its coupling
+    # tendons' rows sit at their limits; the pressed state's forces reach
+    # 1e9): in a few envs of a batch the float32 answers, kernel's and plain
+    # version's alike, land anywhere. So the kernel is held to the plain
+    # version's float64 answer env by env: its median env within TOL of it,
+    # or no further from it than NEWTON_SLACK times the float32 plain
+    # version's median env (the batch's largest errors are printed)
+    stats = {}
+    for name, x in zip(("random", "main", "pressed"), sets):
+        e = newton_env_errs(torch, solver, x, n_iter, n_ls)
+        stats[name] = {"kernel_median": float(np.median(e[0])),
+                       "plain32_median": float(np.median(e[1])),
+                       "kernel_max": float(e[0].max()),
+                       "plain32_max": float(e[1].max())}
+    print("hand newton nv=36 against the float64 plain version, per-env "
+          f"relerr: {json.dumps(stats)}", flush=True)
+    for name, st in stats.items():
+        assert st["kernel_median"] <= max(TOL, NEWTON_SLACK * st["plain32_median"]), (
+            f"newton nv=36 ({name}): median env relerr {st['kernel_median']:.3e} "
+            f"against float64, the float32 plain version's "
+            f"{st['plain32_median']:.3e}")
+    _, _, newton_abs = newton_vs_f64(torch, solver, sets[0], n_iter, n_ls)
+    real = sets[1]
+    newton_ms = time_ms(torch, lambda: solver.solve_newton(
+        *real, n_iter=n_iter, n_ls=n_ls))
+    newton_plain_ms = time_ms(torch, lambda: solver.solve_newton_plain(
+        *real, n_iter=n_iter, n_ls=n_ls), n=3)
+    rows.append(kernel_row(
+        "newton_nv36", SOLVER_SRC,
+        "gymnasium_robotics_tpu/physics/solver_pallas.py:249",
+        launches["newton"], newton_abs,
+        max(st["kernel_median"] for st in stats.values()), newton_ms,
+        newton_plain_ms,
+        bound((nm + 2 * nv + ne * nv + 3 * ne + nv) * 4 * HAND_B
+              + ne * HAND_B + ne, newton_ops(nv, ne, n_iter, n_ls) * HAND_B),
+        None, [nv, ne, HAND_B, n_iter, n_ls],
+        plain32_rel_err=max(st["plain32_median"] for st in stats.values()),
+        by_set=stats,
+        gate="max_rel_err and plain32_rel_err: the largest over the sets of "
+             "the median env's relerr against the plain version in float64; "
+             "max_abs_err against the float32 plain version on the random "
+             "set; per set the kernel's median <= max(tolerance, "
+             f"{NEWTON_SLACK} x the float32 plain version's)"))
+    n_active = [int(s[6].any(dim=0).sum()) for s in sets[1:]]
+    print(f"hand kernels: {ne} rows; envs with active rows (main, pressed) "
+          f"{n_active} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 26. the single env: make_gym with touch sensors, parity reset
+    t_phase = time.perf_counter()
+    genv = registry.make_gym(HAND_GYM_ID, parity=True)
+    genv.reset(seed=1)
+    zero_counters(solver, narrowphase)
+    grng = np.random.default_rng(2)
+    touch = 0.0
+    for _ in range(3):
+        obs = genv.step(grng.uniform(-1, 1, 20))[0]
+        assert obs["observation"].shape == (61 + 92,), obs["observation"].shape
+        assert all(np.isfinite(v).all() for v in obs.values()), HAND_GYM_ID
+        touch = max(touch, float(obs["observation"][61:].max()))
+    torch.cuda.synchronize()
+    launches = launch_counts(solver, narrowphase)
+    assert launches == per_step(3, chol=40, newton=20, topk=20), launches
+    print(f"single env {HAND_GYM_ID}: parity reset, 3 steps, launches "
+          f"{launches}; largest touch reading {touch:.4f} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return rows, (m, d_press)
+
 
 
 def fk_sites(torch, dev, kinematics, m, sites):
@@ -1626,13 +2017,14 @@ def redesign_fields(rows, ptx, solver, narrowphase, kinematics, tables, fk_model
             assert geo["smem"] == nlib.grt_topk_smem_bytes(maxk, geo["kcap"]), geo
             entry = f"topk_select_kernelILi{geo['kcap']}E"
             blocks = nlib.grt_topk_blocks_per_sm(geo["kcap"], geo["smem"])
-        elif row["name"] in ("newton_nv14", "newton_nv21"):
+        elif row["name"] in ("newton_nv14", "newton_nv21", "newton_nv36"):
             nv, ne, nb = row["shape"][:3]
             geo = solver.newton_geometry(nv, ne, nb)
             assert geo["smem"] == slib.grt_newton_smem_bytes(nv), geo
             entry = f"newton_tile_kernelILi{nv}E"
             blocks = slib.grt_newton_blocks_per_sm(nv)
-        elif row["name"] in ("chol_solve_nv14", "chol_solve_nv21"):
+        elif row["name"] in ("chol_solve_nv14", "chol_solve_nv21",
+                             "chol_solve_nv36"):
             nv, nb = row["shape"]
             geo = solver.chol_geometry(nv, nb)
             assert geo["smem"] == slib.grt_chol_smem_bytes(nv), geo
@@ -1672,14 +2064,16 @@ def edge_checks(torch, dev, solver, narrowphase):
     """Phase 21: the redesigned kernels at the edges of their shapes, each
     against its plain version on the card. topk_select (indices equal): tied
     and +-inf ranks at (2, 744) -> 8 (AntMaze_Large's broadphase) and at
-    B = 1 and 2047; K larger than the unmasked count; an all-masked group
-    and a NaN lane. The Newton solve (nv = 14 within TOL of the float32
-    plain version; nv = 21 within max(TOL, NEWTON_SLACK x the float32 plain
-    version's error) of the float64 plain version): random rows at the row
-    caps (96, 256), at an ne that is not a multiple of 32, at B = 1 and at
-    a B that is not a multiple of the 8-env tile, with n_iter = 0, with
-    every row inactive, and with J in a batch-leading layout (the strided
-    staging path)."""
+    B = 1 and 2047, and at the hand's (2, 160) -> 16 at B = 1 and 1023;
+    K larger than the unmasked count; an all-masked group and a NaN lane
+    (also at the hand's shape). The Newton solve (nv = 14 within TOL of
+    the float32 plain version; nv = 21 and 36 within max(TOL, NEWTON_SLACK
+    x the float32 plain version's error) of the float64 plain version):
+    random rows at the row caps (96, 256, 288), at an ne that is not a
+    multiple of 32, at B = 1 and at a B that is not a multiple of the env
+    tile (at nv = 36 also the hand's 272 rows at B = 1023), with
+    n_iter = 0, with every row inactive, and with J in a batch-leading
+    layout (the strided staging path)."""
     t_phase = time.perf_counter()
     rs = np.random.RandomState(7)
 
@@ -1690,7 +2084,8 @@ def edge_checks(torch, dev, solver, narrowphase):
 
     cases = []
     for (G, maxk), K, nb in (((2, 744), 8, ANT_B), ((2, 169), 24, 1),
-                             ((1, 57), 16, 2047), ((2, 216), 8, 2047)):
+                             ((1, 57), 16, 2047), ((2, 216), 8, 2047),
+                             ((2, 160), 16, 1), ((2, 160), 16, HAND_B - 1)):
         cases.append((f"ties {G}x{maxk}->{K} B={nb}", *tie_ranks(rs, G, maxk, nb), K))
     rank, mask = tie_ranks(rs, 2, 40, 64)
     mask[:, 5:] = False                       # 5 unmasked rows, K = 16
@@ -1702,6 +2097,10 @@ def edge_checks(torch, dev, solver, narrowphase):
     rank[0, 7, 5] = np.nan
     mask[0, 7] = False                        # a masked NaN: ignored
     cases.append(("all-masked group, NaN lane", rank, mask, 8))
+    rank, mask = tie_ranks(rs, 2, 160, 64)    # the hand's cap, a NaN lane
+    mask[1, 145:] = False
+    rank[1, 20, 9] = np.nan
+    cases.append(("hand 2x160->16, NaN lane", rank, mask, 16))
     for name, rank, mask, K in cases:
         r, mk = cuda(rank), cuda(mask)
         got = narrowphase.topk_select(r, mk, K)
@@ -1721,16 +2120,18 @@ def edge_checks(torch, dev, solver, narrowphase):
                 cuda(rs.uniform(size=(ne, nb)) < p_act), cuda(is_eq)]
 
     errs = {}
-    for nv, n_iter in ((14, 5), (21, 4)):
+    for nv, n_iter in ((14, 5), (21, 4), (36, 5)):
         cap = solver.NEWTON_MAX_ROWS[nv]
-        for name, ne, nb, it, p_act in (
+        hand = [("hand rows, B % 4 != 0", 272, HAND_B - 1, n_iter, 0.4)] \
+            if nv == 36 else []
+        for name, ne, nb, it, p_act in [
                 ("row cap", cap, ANT_B, n_iter, 0.6),
                 ("ne % 32 != 0", 45, 13, n_iter, 0.6),
                 ("B = 1", cap - 1, 1, n_iter, 0.6),
                 ("B % 8 != 0", 72, 2047, n_iter, 0.6),
                 ("n_iter = 0", 72, 64, 0, 0.6),
                 ("rows inactive", 72, 64, n_iter, 0.0),
-                ("strided J", 72, 64, n_iter, 0.6)):
+                ("strided J", 72, 64, n_iter, 0.6)] + hand:
             args = rows(nv, ne, nb, p_act)
             if name == "strided J":   # (B, ne, nv) storage: batch stride ne nv
                 args[3] = args[3].permute(2, 0, 1).contiguous().permute(1, 2, 0)
@@ -1743,17 +2144,18 @@ def edge_checks(torch, dev, solver, narrowphase):
             else:
                 err, p32, _ = newton_vs_f64(torch, solver, args, it, 4)
                 assert err <= max(TOL, NEWTON_SLACK * p32), (
-                    f"newton nv=21 ({name}): relerr {err:.3e} against float64, "
-                    f"the float32 plain version's {p32:.3e}")
+                    f"newton nv={nv} ({name}): relerr {err:.3e} against "
+                    f"float64, the float32 plain version's {p32:.3e}")
             errs[f"nv{nv} {name} (ne {ne}, B {nb})"] = err
     print(f"edge checks: newton relerr {errs} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
 
 def chol_edges(torch, dev, solver):
-    """Phase 21, the Cholesky kernel (chol_tile_kernel) at nv = 14 and 21
-    against its plain version, within TOL of it on every env and NaN where
-    it is NaN: random SPD systems at B = 1 and B = 2047, M as a transposed
+    """Phase 21, the Cholesky kernel (chol_tile_kernel) at nv = 14, 21 and
+    36 against its plain version, within TOL of it on every env and NaN
+    where it is NaN: random SPD systems at B = 1, 1023 and 2047, M as a
+    transposed
     view (batch stride nv^2) and as a sliced one (every other env of a
     larger batch), b transposed, envs whose factor takes the 1e-20 floor
     exactly (an all-zero M, a diagonal of zeros and ones) and an env with a
@@ -1761,7 +2163,7 @@ def chol_edges(torch, dev, solver):
     t_phase = time.perf_counter()
     rs = np.random.RandomState(11)
     errs = {}
-    for nv in (14, 21):
+    for nv in (14, 21, 36):
         def spd(nb):
             A = rs.normal(size=(nv, nv, nb))
             return (np.einsum("ikb,jkb->ijb", A, A)
@@ -1779,6 +2181,7 @@ def chol_edges(torch, dev, solver):
         cases = {
             "B = 1": (f32(spd(1)), f32(rs.normal(size=(nv, 1)))),
             "B = 2047": (f32(spd(2047)), f32(rs.normal(size=(nv, 2047)))),
+            "B = 1023": (f32(spd(1023)), f32(rs.normal(size=(nv, 1023)))),
             "transposed M, b": (M2[:, :, :2048].permute(2, 0, 1).contiguous()
                                 .permute(1, 2, 0), b[:, :2048].T.contiguous().T),
             "sliced M": (M2[:, :, ::2], b[:, :2048]),
@@ -1951,6 +2354,11 @@ def main():
     kern += single_env(torch, dev, card, solver, constraint, narrowphase,
                        registry, pm_state)
     print(f"single-env phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rows, hand_ctx = handmanipulate(torch, dev, card, solver, constraint,
+                                    narrowphase, pipeline, convert, registry)
+    kern += rows
+    print(f"handmanipulate phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     edge_checks(torch, dev, solver, narrowphase)
     chol_edges(torch, dev, solver)

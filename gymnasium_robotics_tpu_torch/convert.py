@@ -130,7 +130,8 @@ def env_state_from_numpy(fields: dict, device=None):
     """The port's ``EnvState`` from B-leading numpy leaves: ``data`` (as for
     ``data_from_numpy``), ``obs`` (dict), ``reward``, ``terminated``,
     ``truncated``, ``info`` (dict: ``success`` and, when present,
-    ``diverged``), ``goal`` and ``steps``. Per-env RNG keys are not carried:
+    ``diverged``), ``goal``, ``steps`` and, where given, ``aux`` (dict:
+    the hand's pool of settled poses). Per-env RNG keys are not carried:
     the port's resets draw from a ``torch.Generator``."""
     dev = _device.resolve(device)
     return core.EnvState(
@@ -142,6 +143,7 @@ def env_state_from_numpy(fields: dict, device=None):
         info={k: _env_leaf(v, dev) for k, v in fields["info"].items()},
         goal=_env_leaf(fields["goal"], dev),
         steps=_env_leaf(fields["steps"], dev),
+        aux={k: _env_leaf(v, dev) for k, v in fields.get("aux", {}).items()},
     )
 
 
@@ -161,4 +163,5 @@ def env_state_to_numpy(state) -> dict:
         info={k: np_(v) for k, v in state.info.items()},
         goal=np_(state.goal),
         steps=np_(state.steps),
+        aux={k: np_(v) for k, v in state.aux.items()},
     )

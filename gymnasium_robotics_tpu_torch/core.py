@@ -29,6 +29,9 @@ class EnvState:
     info: Dict[str, Any]   # (B,) tensors
     goal: Any              # (B, ...)
     steps: Any             # (B,) int32, steps since the last reset
+    # per-family state the step carries unchanged (B-leading): the hand's
+    # pool of settled reset poses
+    aux: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def _where_batch_last(mask, a, b):
@@ -98,6 +101,7 @@ def auto_reset(env, state: EnvState, action, generator) -> EnvState:
         info=info,
         goal=_where_batch_first(done, fresh.goal, stepped.goal),
         steps=torch.where(done, fresh.steps, stepped.steps),
+        aux=stepped.aux,
     )
 
 

@@ -1,14 +1,14 @@
 // Per-env dense solves of the constraint pipeline.
 //
 // chol_solve_kernel<2> (one env per thread) and chol_tile_kernel<NV,
-//   COL_BACK> (NV = 14, 21; a tile of 16 envs a block, a half-warp or a
-//   warp an env, below) replace the TPU kernel
+//   COL_BACK> (NV = 14, 21, 36; a tile of 16 envs a block, 8 at NV = 36, a
+//   half-warp or a warp an env, below) replace the TPU kernel
 //   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol (entered
 //   through solve_pos_soa): the batched SPD solve M x = b by an unrolled
 //   LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
 // newton2_kernel<G, CHOL> (NV = 2; a group of G lanes an env, below) and
-// newton_tile_kernel<NV, WPE, RPL> (NV = 14, 21; a tile of 8 envs a block,
-//   one or two warps an env, below) replace
+// newton_tile_kernel<NV, WPE, RPL, ET> (NV = 14, 21, 36; a tile of ET = 8,
+//   8 and 4 envs a block, one, two or three warps an env, below) replace
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
@@ -53,6 +53,12 @@
 // The Cholesky solve at NV = 14 and 21 moves 133 and 273 floats an env
 // (1.1 and 2.2 MB) and does 1.4k and 4.2k operations an env: neither rate
 // bounds it, the chain of each env does (chol_tile_kernel's note below).
+// At the HandManipulateBlock shapes (NV = 36, ne = 272, 5 and 4
+// iterations, B = 1024) the Newton function reads 11.7k floats and 272
+// mask bytes and writes 308 floats an env (49 MB, 15 us) and does about
+// 2.4M float operations an env (37 us), so operations bound it; the
+// Cholesky moves 1368 floats an env (5.6 MB, 1.7 us) and does 19k
+// operations an env (0.29 us): its chain bounds it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsolver.so solver.cu
@@ -423,9 +429,10 @@ int launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
 }
 
 // ---------------------------------------------------------------------------
-// newton_tile_kernel<NV, WPE, RPL>: the Newton solve for the larger systems
-// (AntMaze: NV = 14, ne = 72 of a 96-row cap; FetchPush: NV = 21, ne = 255
-// of 256), a block a tile of kEnvTile consecutive envs, WPE warps an env.
+// newton_tile_kernel<NV, WPE, RPL, ET>: the Newton solve for the larger
+// systems (AntMaze: NV = 14, ne = 72 of a 96-row cap; FetchPush: NV = 21,
+// ne = 255 of 256; HandManipulateBlock: NV = 36, ne = 272 of 288), a block
+// a tile of ET consecutive envs, WPE warps an env.
 //
 // What bounds it on this card. Per env and iteration the function forms
 // H = M + J^T diag(Dw) J over every row (59k multiply-adds at NV = 21, 255
@@ -466,11 +473,19 @@ int launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
 //   one component a lane, keeps each lane's row in registers and
 //   substitutes with reciprocals. No NV-array is replicated in registers.
 // - Outputs go through shared memory and are written coalesced.
-// Shared memory per env: (NJC NECP + 2 NEC + 2 NT + 176 + NEC / 4) floats
-// (NEC = 32 WPE RPL rows, NJC = NV, or NV + 1 with the zero column,
-// NT = NV (NV + 1) / 2), padded to 4 mod 32 so the staging stores spread
+// - NV = 36 (WPE = 3, RPL = 3, ET = 4): its 78 blocks of H outnumber a
+//   warp's lanes, so each of the env's first 78 lanes owns one block and
+//   streams every row (one slice, no cross-lane sums), the env's warps
+//   meeting at a barrier before the lead warp reads H; each lane of the
+//   lead warp holds two components of every vector (i and i + 32) and two
+//   rows in warp_chol_solve; a tile of 4 envs keeps the block's shared
+//   memory under the SM's 227 KB.
+// Shared memory per env: (NJC NECP + 2 NEC + 2 NT + 5 VW + 16 + NEC / 4)
+// floats (NEC = 32 WPE RPL rows, NJC = NV, or NV + 1 with the zero column,
+// NT = NV (NV + 1) / 2, VW = 32 or 64 floats a vector), padded to 4 mod 32 so the staging stores spread
 // over the banks: 26.8 KB at NV = 21 (214 KB a block, one block an SM),
-// 8.5 KB at NV = 14 (67.7 KB a block, two an SM). What bounds it then is
+// 8.5 KB at NV = 14 (67.7 KB a block, two an SM), 50.1 KB at NV = 36
+// (200.6 KB a block of 4, one an SM). What bounds it then is
 // latency: one block of 8 envs takes about as long alone as in a full
 // wave, and NV = 21 runs two waves of 132 blocks, each a chain of staging,
 // n_iter x (rows, H, Cholesky, line search) and the forces.
@@ -481,7 +496,6 @@ int launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
 // reciprocals differ from the plain version.
 // ---------------------------------------------------------------------------
 
-constexpr int kEnvTile = 8;   // newton_tile_kernel: envs per block
 constexpr int BS = 3;         // newton_tile_kernel: side of a lane's block of H
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -515,79 +529,121 @@ __device__ __forceinline__ void cp_async_wait_all() {
 #endif
 }
 
-// Solve H x = rhs with H's packed lower triangle in shared memory (factored
-// in place); lane i holds rhs_i and gets x_i (lanes >= NV: 0). Left-looking
-// factor with the same 1e-20 diagonal floor and the same order of every sum
-// as chol_solve, lane j keeping its row of H and of the factor as it is
-// made in registers, so each product of a pivot's sum loads only the pivot
-// row's entry (one broadcast). Each substitution step multiplies by the
-// reciprocal of the diagonal, which lane i keeps from the factor, instead
-// of dividing by it, so the chain of the two substitutions holds no
-// division; the back substitution subtracts in descending order.
+// Rows (or vector components) a lane of warp_chol_solve and of
+// newton_tile_kernel's vectors: lane l owns l, l + 32, ...
 template <int NV>
-__device__ float warp_chol_solve(float* L, float rhs, int lane) {
-  float inv = 0.f;   // 1 / L_ii on lane i
-  const int j = lane < NV ? lane : NV - 1;
-  float row[NV];   // H's row j, then L_j,k as each pivot k makes it
+__host__ __device__ constexpr int lane_rows() { return (NV + 31) / 32; }
+
+// Solve H x = rhs with H's packed lower triangle in shared memory (factored
+// in place); lane l holds rhs_i and gets x_i for i = l + 32 q (q < R, rows
+// past NV: 0). Left-looking factor with the same 1e-20 diagonal floor and
+// the same order of every sum as chol_solve, lane l keeping its rows of H
+// and of the factor as they are made in registers, so each product of a
+// pivot's sum loads only the pivot row's entry (one broadcast). Each
+// substitution step multiplies by the reciprocal of the diagonal, which the
+// row's lane keeps from the factor, instead of dividing by it, so the chain
+// of the two substitutions holds no division; the back substitution
+// subtracts in descending order. R = 2 (NV = 36) doubles each lane's work
+// per pivot, not the pivots.
+template <int NV>
+__device__ void warp_chol_solve(float* L, const float (&rhs)[lane_rows<NV>()],
+                                float (&x)[lane_rows<NV>()], int lane) {
+  constexpr int R = lane_rows<NV>();
+  float inv[R];       // 1 / L_ii on the lane of row i
+  float row[R][NV];   // H's rows, then L_j,k as each pivot k makes it
 #pragma unroll
-  for (int m = 0; m < NV; ++m) row[m] = m <= j ? L[tri(j, m)] : 0.f;
+  for (int q = 0; q < R; ++q) {
+    const int j = lane + 32 * q < NV ? lane + 32 * q : NV - 1;
+    inv[q] = 0.f;
+#pragma unroll
+    for (int m = 0; m < NV; ++m) row[q][m] = m <= j ? L[tri(j, m)] : 0.f;
+  }
   __syncwarp();
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    float t = row[i];
+    float t[R];
 #pragma unroll
-    for (int k = 0; k < i; ++k) t = t - row[k] * L[tri(i, k)];
-    const float dii = sqrtf(nan_max(__shfl_sync(kFull, t, i), 1e-20f));
-    const float q = t / dii, rc = 1.f / dii;
-    // one predicated store a lane: the diagonal on lane i, L_j,i below
-    if (lane >= i && lane < NV) L[tri(j, i)] = lane == i ? dii : q;
-    inv = lane == i ? rc : inv;
-    row[i] = q;
+    for (int q = 0; q < R; ++q) {
+      t[q] = row[q][i];
+#pragma unroll
+      for (int k = 0; k < i; ++k) t[q] = t[q] - row[q][k] * L[tri(i, k)];
+    }
+    const float dii =
+        sqrtf(nan_max(__shfl_sync(kFull, t[i / 32], i % 32), 1e-20f));
+    const float rc = 1.f / dii;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int j = lane + 32 * q;
+      const float v = t[q] / dii;
+      // one predicated store a row: the diagonal on row i, L_j,i below
+      if (j >= i && j < NV) L[tri(j, i)] = j == i ? dii : v;
+      inv[q] = j == i ? rc : inv[q];
+      row[q][i] = v;
+    }
     __syncwarp();
   }
-  float r = lane < NV ? rhs : 0.f, y = 0.f;
+  float r[R], y[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    r[q] = lane + 32 * q < NV ? rhs[q] : 0.f;
+    y[q] = 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const float yi = __shfl_sync(kFull, r * inv, i);
-    if (lane == i) y = yi;
-    if (lane > i && lane < NV) r = r - L[tri(lane, i)] * yi;
+    const float yi = __shfl_sync(kFull, r[i / 32] * inv[i / 32], i % 32);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int j = lane + 32 * q;
+      if (j == i) y[q] = yi;
+      if (j > i && j < NV) r[q] = r[q] - L[tri(j, i)] * yi;
+    }
   }
-  float x = 0.f;
-  r = y;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    r[q] = y[q];
+    x[q] = 0.f;
+  }
 #pragma unroll
   for (int i = NV - 1; i >= 0; --i) {
-    const float xi = __shfl_sync(kFull, r * inv, i);
-    if (lane == i) x = xi;
-    if (lane < i) r = r - L[tri(i, lane)] * xi;
+    const float xi = __shfl_sync(kFull, r[i / 32] * inv[i / 32], i % 32);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int j = lane + 32 * q;
+      if (j == i) x[q] = xi;
+      if (j < i) r[q] = r[q] - L[tri(i, j)] * xi;
+    }
   }
   __syncwarp();
-  return x;
 }
 
-// One env's region of newton_tile_kernel's shared memory, in floats.
-// physics/solver.py::newton_geometry computes the same.
-template <int NV, int WPE, int RPL>
+// One env's region of newton_tile_kernel's shared memory, in floats, and
+// the block's bytes at ET envs a tile. physics/solver.py::newton_geometry
+// computes the same.
+template <int NV, int WPE, int RPL, int ET>
 struct TileLayout {
   static constexpr int NB = (NV + BS - 1) / BS, NT = tri(NV, 0);
   static constexpr int NJC = NB * BS > NV ? NV + 1 : NV;  // + a zero column
   static constexpr int LPE = 32 * WPE, NEC = LPE * RPL;
   static constexpr int NECP = NEC + 4;         // column stride, 4 mod 32
+  static constexpr int VW = 32 * lane_rows<NV>();  // a vector's floats
   static constexpr int J = 0;                  // J^T: (NJC, NECP)
   static constexpr int DG = J + NJC * NECP;    // (NEC) float2: Dw, Dw x
   static constexpr int M = DG + 2 * NEC;       // packed lower triangle
   static constexpr int L = M + NT;             // H, factored in place
   static constexpr int V = L + NT;             // a, a_smooth, p, g, M da
-  static constexpr int S = V + 5 * 32;         // p'Mp, p'M da, ls sums
+  static constexpr int S = V + 5 * VW;         // p'Mp, p'M da, ls sums
   static constexpr int EQ = S + 16;            // NEC equality bytes
   static constexpr int used = EQ + NEC / 4;
   static constexpr int total = used + (36 - used % 32) % 32;  // 4 mod 32
-  static constexpr int block_bytes = total * 4 * kEnvTile;
-  static_assert(NEC % 32 == 0 && NECP % 32 == 4 && DG % 4 == 0 && NV <= 32,
+  static constexpr int block_bytes = total * 4 * ET;
+  static_assert(NEC % 32 == 0 && NECP % 32 == 4 && DG % 4 == 0 &&
+                    lane_rows<NV>() <= 2 && (ET == 4 || ET == 8) &&
+                    2 + 4 * WPE <= 16,
                 "layout");
 };
 
-template <int NV, int WPE, int RPL>
-__global__ void __launch_bounds__(kEnvTile * WPE * 32, WPE == 1 ? 2 : 1)
+template <int NV, int WPE, int RPL, int ET>
+__global__ void __launch_bounds__(ET * WPE * 32, WPE == 1 ? 2 : 1)
 newton_tile_kernel(const float* __restrict__ M,
                    const float* __restrict__ a_smooth,
                    const float* __restrict__ a_warm,
@@ -597,17 +653,21 @@ newton_tile_kernel(const float* __restrict__ M,
                    const unsigned char* __restrict__ is_eq, NewtonStrides s,
                    float* __restrict__ qacc, float* __restrict__ f, int ne,
                    int B, int n_iter, int n_ls) {
-  using TL = TileLayout<NV, WPE, RPL>;
+  using TL = TileLayout<NV, WPE, RPL, ET>;
   constexpr int NT = TL::NT, LPE = TL::LPE, NEC = TL::NEC, NECP = TL::NECP;
+  constexpr int R = lane_rows<NV>(), VW = TL::VW;
   constexpr int NBLK = TL::NB * (TL::NB + 1) / 2;  // BS x BS blocks of H
-  constexpr int SPW = 32 / NBLK;                   // row slices a warp
-  constexpr int NSL = SPW * WPE;                   // row slices an env
-  static_assert(SPW >= 1, "one block a lane");
+  // the blocks over a warp's lanes, SPW row slices a warp; or, past 32
+  // blocks (NV = 36: 78), over the env's lanes, each over every row
+  constexpr bool SPAN = NBLK > 32;
+  constexpr int SPW = SPAN ? 1 : 32 / NBLK;        // row slices a warp
+  constexpr int NSL = SPAN ? 1 : SPW * WPE;        // row slices an env
+  static_assert(SPAN ? NBLK <= LPE : SPW >= 1, "one block a lane");
   extern __shared__ __align__(16) float tsm[];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int u = tid % LPE, lane = tid & 31;
   const bool lead = u < 32;   // the env's first warp: Cholesky and vectors
-  const int b0 = blockIdx.x * kEnvTile;
+  const int b0 = blockIdx.x * ET;
   const size_t sB = (size_t)B;
   float* base = tsm + (tid / LPE) * TL::total;
   const float* Js = base + TL::J;     // J^T: J[r][k] at Js[k * NECP + r]
@@ -615,10 +675,10 @@ newton_tile_kernel(const float* __restrict__ M,
   const float* Ms = base + TL::M;
   float* Ls = base + TL::L;
   float* A = base + TL::V;
-  const float* AS = A + 32;
-  float* P = A + 64;
-  float* G = A + 96;
-  float* MDA = A + 128;
+  const float* AS = A + VW;
+  float* P = A + 2 * VW;
+  float* G = A + 3 * VW;
+  float* MDA = A + 4 * VW;
   float* S = base + TL::S;
   // the env's warps wait for each other (named barrier 1 + env), so the
   // envs of a block do not run their phases in lockstep
@@ -638,21 +698,22 @@ newton_tile_kernel(const float* __restrict__ M,
                     B % 4 == 0 && (reinterpret_cast<size_t>(J) & 15) == 0;
   if (vec4) {
     constexpr int U = 4;
-    constexpr int N4 = 2 * NEC * TL::NJC;   // (half tile, row, column)
+    constexpr int Q4 = ET / 4, SH = Q4 == 2 ? 1 : 0;   // 4-env runs a tile
+    constexpr int N4 = Q4 * NEC * TL::NJC;   // (4-env run, row, column)
     for (int i0 = tid; i0 < N4; i0 += U * nthr) {
       float4 v[U];
 #pragma unroll
       for (int q = 0; q < U; ++q) {
-        const int idx = i0 + q * nthr, t = 4 * (idx & 1);
-        const int r = (idx >> 1) % NEC, k = (idx >> 1) / NEC, b = b0 + t;
+        const int idx = i0 + q * nthr, t = 4 * (idx & (Q4 - 1));
+        const int r = (idx >> SH) % NEC, k = (idx >> SH) / NEC, b = b0 + t;
         v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (idx < N4 && r < ne && k < NV && b < B)
           v[q] = __ldg(reinterpret_cast<const float4*>(J + s.J.at(r, k, b)));
       }
 #pragma unroll
       for (int q = 0; q < U; ++q) {
-        const int idx = i0 + q * nthr, t = 4 * (idx & 1);
-        const int r = (idx >> 1) % NEC, k = (idx >> 1) / NEC;
+        const int idx = i0 + q * nthr, t = 4 * (idx & (Q4 - 1));
+        const int r = (idx >> SH) % NEC, k = (idx >> SH) / NEC;
         if (idx < N4) {
           float* d = tsm + t * TL::total + TL::J + k * NECP + r;
           d[0] = v[q].x;
@@ -663,9 +724,9 @@ newton_tile_kernel(const float* __restrict__ M,
       }
     }
   } else {
-    for (int idx = tid; idx < kEnvTile * NEC * TL::NJC; idx += nthr) {
-      const int t = idx % kEnvTile, r = (idx / kEnvTile) % NEC,
-                k = idx / (kEnvTile * NEC), b = b0 + t;
+    for (int idx = tid; idx < ET * NEC * TL::NJC; idx += nthr) {
+      const int t = idx % ET, r = (idx / ET) % NEC, k = idx / (ET * NEC),
+                b = b0 + t;
       float* d = tsm + t * TL::total + TL::J + k * NECP + r;
       if (r < ne && k < NV && b < B) cp_async4(d, J + s.J.at(r, k, b));
       else *d = 0.f;
@@ -673,23 +734,23 @@ newton_tile_kernel(const float* __restrict__ M,
   }
   // M's lower triangle, from the (i, j) square
 #pragma unroll 4
-  for (int idx = tid; idx < kEnvTile * NV * NV; idx += nthr) {
-    const int t = idx % kEnvTile, i = (idx / kEnvTile) / NV,
-              j = (idx / kEnvTile) % NV, b = b0 + t;
+  for (int idx = tid; idx < ET * NV * NV; idx += nthr) {
+    const int t = idx % ET, i = (idx / ET) / NV, j = (idx / ET) % NV,
+              b = b0 + t;
     if (j <= i)
       tsm[t * TL::total + TL::M + tri(i, j)] = b < B ? M[s.M.at(i, j, b)] : 0.f;
   }
-  for (int idx = tid; idx < kEnvTile * 32; idx += nthr) {
-    const int t = idx % kEnvTile, i = idx / kEnvTile, b = b0 + t;
+  for (int idx = tid; idx < ET * VW; idx += nthr) {
+    const int t = idx % ET, i = idx / ET, b = b0 + t;
     float* v = tsm + t * TL::total + TL::V;
     const bool ok = i < NV && b < B;
     v[i] = ok ? a_warm[s.a_warm.at(i, b)] : 0.f;
-    v[32 + i] = ok ? a_smooth[s.a_smooth.at(i, b)] : 0.f;
-    v[64 + i] = v[96 + i] = v[128 + i] = 0.f;
+    v[VW + i] = ok ? a_smooth[s.a_smooth.at(i, b)] : 0.f;
+    v[2 * VW + i] = v[3 * VW + i] = v[4 * VW + i] = 0.f;
   }
 #pragma unroll 4
-  for (int idx = tid; idx < kEnvTile * NEC; idx += nthr) {
-    const int t = idx % kEnvTile, r = idx / kEnvTile, b = b0 + t;
+  for (int idx = tid; idx < ET * NEC; idx += nthr) {
+    const int t = idx % ET, r = idx / ET, b = b0 + t;
     float* e = tsm + t * TL::total;
     float wr = 0.f, ar = 0.f;
     bool eq = false;
@@ -735,9 +796,9 @@ newton_tile_kernel(const float* __restrict__ M,
 
   // this lane's BS x BS block of H (bi, bj) and row slice: slice s_in of
   // its warp (lanes s_in NBLK ...), sl of the env; lanes past SPW NBLK idle
-  const int s_in = lane / NBLK, blk = lane % NBLK;
-  const bool own = s_in < SPW;
-  const int sl = (u >> 5) * SPW + s_in;
+  const int s_in = SPAN ? 0 : lane / NBLK, blk = SPAN ? u : lane % NBLK;
+  const bool own = SPAN ? u < NBLK : s_in < SPW;
+  const int sl = SPAN ? 0 : (u >> 5) * SPW + s_in;
   int bi = 0;
   while (tri(bi + 1, 0) <= blk) ++bi;
   const int bj = blk - tri(bi, 0);
@@ -752,11 +813,17 @@ newton_tile_kernel(const float* __restrict__ M,
       const float dw = dw_of(q, x[q]);
       DG[u + LPE * q] = make_float2(dw, dw * x[q]);
     }
-    if (lead && lane < NV) {
-      float acc = 0.f;
+    if (lead) {
 #pragma unroll
-      for (int j = 0; j < NV; ++j) acc += msym(lane, j) * (A[j] - AS[j]);
-      MDA[lane] = acc;
+      for (int c = 0; c < R; ++c) {
+        const int i = lane + 32 * c;
+        if (i < NV) {
+          float acc = 0.f;
+#pragma unroll
+          for (int j = 0; j < NV; ++j) acc += msym(i, j) * (A[j] - AS[j]);
+          MDA[i] = acc;
+        }
+      }
     }
     env_sync();
 
@@ -831,7 +898,7 @@ newton_tile_kernel(const float* __restrict__ M,
             if (i < NV && BS * bj + c <= i) fn(a, c, tri(i, BS * bj + c));
         }
       };
-      if constexpr (WPE > 1) {   // the other warps' sums through Ls and G
+      if constexpr (WPE > 1 && !SPAN) {   // the other warps' sums via Ls, G
         static_assert(WPE == 2, "two warps an env");
         if (!lead && first) {
           each([&](int a, int c, int q) { Ls[q] = h[a][c]; });
@@ -849,7 +916,7 @@ newton_tile_kernel(const float* __restrict__ M,
               if (BS * bi + a < NV) gs[a] += G[BS * bi + a];
         }
       }
-      if (lead && first) {
+      if (SPAN ? own : lead && first) {
         each([&](int a, int c, int q) { Ls[q] = Ms[q] + h[a][c]; });
         if (bi == bj)
 #pragma unroll
@@ -858,20 +925,35 @@ newton_tile_kernel(const float* __restrict__ M,
       }
     }
 
+    if constexpr (SPAN) env_sync();   // H and g came from every warp
     // (3) the lead warp: p = -H^-1 (M da + g), then p'Mp and p'M da
     if (lead) {
       __syncwarp();
-      const float mg = lane < NV ? -(MDA[lane] + G[lane]) : 0.f;
-      const float pl = warp_chol_solve<NV>(Ls, mg, lane);
-      if (lane < NV) P[lane] = pl;
-      __syncwarp();
-      float mp = 0.f;
-      if (lane < NV) {
+      float mg[R], pl[R];
 #pragma unroll
-        for (int j = 0; j < NV; ++j) mp += msym(lane, j) * P[j];
+      for (int c = 0; c < R; ++c) {
+        const int i = lane + 32 * c;
+        mg[c] = i < NV ? -(MDA[i] + G[i]) : 0.f;
       }
-      const float pMp = warp_sum(pl * mp);
-      const float pMa = warp_sum(lane < NV ? pl * MDA[lane] : 0.f);
+      warp_chol_solve<NV>(Ls, mg, pl, lane);
+#pragma unroll
+      for (int c = 0; c < R; ++c)
+        if (lane + 32 * c < NV) P[lane + 32 * c] = pl[c];
+      __syncwarp();
+      float pmp = 0.f, pma = 0.f;
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const int i = lane + 32 * c;
+        if (i < NV) {
+          float mp = 0.f;
+#pragma unroll
+          for (int j = 0; j < NV; ++j) mp += msym(i, j) * P[j];
+          pmp += pl[c] * mp;
+          pma += pl[c] * MDA[i];
+        }
+      }
+      const float pMp = warp_sum(pmp);
+      const float pMa = warp_sum(pma);
       if (lane == 0) {
         S[0] = pMp;
         S[1] = pMa;
@@ -923,7 +1005,11 @@ newton_tile_kernel(const float* __restrict__ M,
     }
     alpha = alpha < 0.f ? 0.f : (alpha > 4.f ? 4.f : alpha);
     // (5) a += alpha p
-    if (lead && lane < NV) A[lane] += alpha * P[lane];
+    if (lead) {
+#pragma unroll
+      for (int c = 0; c < R; ++c)
+        if (lane + 32 * c < NV) A[lane + 32 * c] += alpha * P[lane + 32 * c];
+    }
     env_sync();
   }
 
@@ -938,73 +1024,84 @@ newton_tile_kernel(const float* __restrict__ M,
   }
   env_sync();
   if (lead) {
-    float qfc = 0.f;   // J^T f, four rows a step (rows past ne give 0)
-    if (lane < NV) {
-      const float* Jc = Js + lane * NECP;
-      for (int r = 0; r < ne; r += 4) {
-        const float4 j4 = *reinterpret_cast<const float4*>(Jc + r);
-        const float4 f4 = *reinterpret_cast<const float4*>(F + r);
-        qfc += j4.x * f4.x;
-        qfc += j4.y * f4.y;
-        qfc += j4.z * f4.z;
-        qfc += j4.w * f4.w;
+    float qfc[R];   // J^T f, four rows a step (rows past ne give 0)
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int i = lane + 32 * c;
+      qfc[c] = 0.f;
+      if (i < NV) {
+        const float* Jc = Js + i * NECP;
+        for (int r = 0; r < ne; r += 4) {
+          const float4 j4 = *reinterpret_cast<const float4*>(Jc + r);
+          const float4 f4 = *reinterpret_cast<const float4*>(F + r);
+          qfc[c] += j4.x * f4.x;
+          qfc[c] += j4.y * f4.y;
+          qfc[c] += j4.z * f4.z;
+          qfc[c] += j4.w * f4.w;
+        }
       }
     }
     for (int q = lane; q < NT; q += 32) Ls[q] = Ms[q];
     __syncwarp();
-    const float dq = warp_chol_solve<NV>(Ls, qfc, lane);
-    if (lane < NV) G[lane] = AS[lane] + dq;   // qacc
+    float dq[R];
+    warp_chol_solve<NV>(Ls, qfc, dq, lane);
+#pragma unroll
+    for (int c = 0; c < R; ++c)   // qacc
+      if (lane + 32 * c < NV) G[lane + 32 * c] = AS[lane + 32 * c] + dq[c];
   }
   __syncthreads();
-  for (int idx = tid; idx < kEnvTile * ne; idx += nthr) {
-    const int t = idx % kEnvTile, r = idx / kEnvTile, b = b0 + t;
+  for (int idx = tid; idx < ET * ne; idx += nthr) {
+    const int t = idx % ET, r = idx / ET, b = b0 + t;
     if (b < B) f[r * sB + b] = tsm[t * TL::total + TL::DG + r];
   }
-  for (int idx = tid; idx < kEnvTile * NV; idx += nthr) {
-    const int t = idx % kEnvTile, i = idx / kEnvTile, b = b0 + t;
-    if (b < B) qacc[i * sB + b] = tsm[t * TL::total + TL::V + 96 + i];
+  for (int idx = tid; idx < ET * NV; idx += nthr) {
+    const int t = idx % ET, i = idx / ET, b = b0 + t;
+    if (b < B) qacc[i * sB + b] = tsm[t * TL::total + TL::V + 3 * VW + i];
   }
 }
 
-template <int NV, int WPE, int RPL>
+template <int NV, int WPE, int RPL, int ET>
 int launch_newton_tile(const float* M, const float* a_smooth,
                        const float* a_warm, const float* J, const float* aref,
                        const float* D, const unsigned char* active,
                        const unsigned char* is_eq, const NewtonStrides& st,
                        float* qacc, float* f, int ne, int B, int n_iter,
                        int n_ls, int smem, cudaStream_t s) {
-  using TL = TileLayout<NV, WPE, RPL>;
+  using TL = TileLayout<NV, WPE, RPL, ET>;
   if (ne > TL::NEC || smem < TL::block_bytes) return -1;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      newton_tile_kernel<NV, WPE, RPL>,
+      newton_tile_kernel<NV, WPE, RPL, ET>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, TL::block_bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  newton_tile_kernel<NV, WPE, RPL>
-      <<<(B + kEnvTile - 1) / kEnvTile, kEnvTile * WPE * 32, TL::block_bytes, s>>>(
+  newton_tile_kernel<NV, WPE, RPL, ET>
+      <<<(B + ET - 1) / ET, ET * WPE * 32, TL::block_bytes, s>>>(
           M, a_smooth, a_warm, J, aref, D, active, is_eq, st, qacc, f, ne, B,
           n_iter, n_ls);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of newton_tile_kernel<NV, WPE, RPL> one SM holds.
-template <int NV, int WPE, int RPL>
+// Blocks of newton_tile_kernel<NV, WPE, RPL, ET> one SM holds.
+template <int NV, int WPE, int RPL, int ET>
 int newton_tile_blocks_per_sm() {
-  using TL = TileLayout<NV, WPE, RPL>;
-  cudaFuncSetAttribute(newton_tile_kernel<NV, WPE, RPL>,
+  using TL = TileLayout<NV, WPE, RPL, ET>;
+  cudaFuncSetAttribute(newton_tile_kernel<NV, WPE, RPL, ET>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        TL::block_bytes);
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, newton_tile_kernel<NV, WPE, RPL>, kEnvTile * WPE * 32,
+      &n, newton_tile_kernel<NV, WPE, RPL, ET>, ET * WPE * 32,
       TL::block_bytes);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // ---------------------------------------------------------------------------
 // chol_tile_kernel<NV, COL_BACK>: the Cholesky solve M x = b at NV >= 3
-// (AntMaze NV = 14, FetchPush NV = 21; later slices up to 36), a block a
-// tile of kCholTile consecutive envs, LPE lanes an env (a half-warp where
-// NV <= 16, else a warp), lane u owning rows u and u + LPE (RPL rows).
+// (AntMaze NV = 14, FetchPush NV = 21, HandManipulateBlock NV = 36), a
+// block a tile of TILE consecutive envs (kCholTile; kCholTileWide at two
+// rows a lane, so that 256 threads a block leave a thread up to 255
+// registers for its 72-float rows and 1024 envs span 128 SMs, not 64), LPE
+// lanes an env (a half-warp where NV <= 16, else a warp), lane u owning
+// rows u and u + LPE (RPL rows).
 //
 // What bounds it on this card. At B = 2048 it moves 2.2 MB (NV = 21: 0.7
 // us at 3.35 TB/s) and does ~4.2k float operations an env (0.13 us), so
@@ -1053,22 +1150,24 @@ int newton_tile_blocks_per_sm() {
 //   subtracting L_ij x_i, so each x's subtractions run in descending k.
 // - Outputs through the tile's region, written with 16-byte stores where
 //   B % 4 == 0.
-// Shared memory: kCholTile (NT + NV) floats a block: 7.6 KB at NV = 14,
-// 16.1 KB at NV = 21, 44.9 KB at NV = 36 (RPL = 2), under the 48 KB of
+// Shared memory: TILE (NT + NV) floats a block: 7.6 KB at NV = 14,
+// 16.1 KB at NV = 21, 22.5 KB at NV = 36 (RPL = 2, 8 envs), under the 48 KB of
 // static launch. physics/solver.py::chol_geometry computes the same.
 // ---------------------------------------------------------------------------
 
-constexpr int kCholTile = 16;   // chol_tile_kernel: envs a block
+constexpr int kCholTile = 16;      // chol_tile_kernel: envs a block
+constexpr int kCholTileWide = 8;   // the same past NV = 32 (two rows a lane)
 
 template <int NV>
 struct CholLayout {
   static constexpr int LPE = NV <= 16 ? 16 : 32;    // lanes an env
   static constexpr int RPL = (NV + LPE - 1) / LPE;  // rows a lane
+  static constexpr int TILE = RPL > 1 ? kCholTileWide : kCholTile;
   static constexpr int NT = tri(NV, 0);
   static constexpr int NE = NT + NV;                // floats an env
-  static constexpr int threads = kCholTile * LPE;
-  static constexpr int block_bytes = kCholTile * NE * 4;
-  static_assert(NV >= 3 && NV <= 36 && RPL <= 2 && kCholTile % 4 == 0,
+  static constexpr int threads = TILE * LPE;
+  static constexpr int block_bytes = TILE * NE * 4;
+  static_assert(NV >= 3 && NV <= 36 && RPL <= 2 && TILE % 4 == 0,
                 "chol_tile_kernel takes 3 <= NV <= 36");
   static_assert(block_bytes <= 48 * 1024, "static shared memory limit");
 };
@@ -1097,10 +1196,10 @@ chol_tile_kernel(const float* __restrict__ M, Str3 sM,
                  int B) {
   using CL = CholLayout<NV>;
   constexpr int LPE = CL::LPE, RPL = CL::RPL, NT = CL::NT, NE = CL::NE;
-  constexpr int NQ = kCholTile / 4;   // groups of four envs
+  constexpr int NQ = CL::TILE / 4;   // groups of four envs
   extern __shared__ __align__(16) float csm[];
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int b0 = blockIdx.x * kCholTile;
+  const int b0 = blockIdx.x * CL::TILE;
   const size_t sB = (size_t)B;
 
   // --- staging: element e of a group of four envs, one copy a thread
@@ -1277,7 +1376,7 @@ int launch_chol_tile(const float* M, Str3 sM, const float* b, Str2 sb,
   using CL = CholLayout<NV>;
   if (smem < CL::block_bytes) return -1;
   chol_tile_kernel<NV, COL_BACK>
-      <<<(B + kCholTile - 1) / kCholTile, CL::threads, CL::block_bytes, s>>>(
+      <<<(B + CL::TILE - 1) / CL::TILE, CL::threads, CL::block_bytes, s>>>(
           M, sM, b, sb, x, B);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1302,7 +1401,7 @@ Str3 str3(const long long* p) { return {p[0], p[1], p[2]}; }
 extern "C" {
 
 // strides: the element strides of M (3) and b (2), in that order. nv = 2
-// runs chol_solve_kernel (one env per thread), nv = 14 and 21
+// runs chol_solve_kernel (one env per thread), nv = 14, 21 and 36
 // chol_tile_kernel; smem: the latter's block shared memory bytes
 // (physics/solver.py::chol_geometry), at least grt_chol_smem_bytes(nv).
 int grt_chol_solve_f32(const float* M, const float* b, float* x,
@@ -1320,29 +1419,35 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
       return launch_chol_tile<14, false>(M, sM, b, sb, x, B, smem, s);
     case 21:
       return launch_chol_tile<21, true>(M, sM, b, sb, x, B, smem, s);
+    case 36:
+      return launch_chol_tile<36, true>(M, sM, b, sb, x, B, smem, s);
     default:
       return -1;
   }
 }
 
-// Shared memory bytes of a chol_tile_kernel block at nv (14 or 21), and the
-// blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1
+// Shared memory bytes of a chol_tile_kernel block at nv (14, 21 or 36), and
+// the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1
 // for another nv.
 int grt_chol_smem_bytes(int nv) {
-  return nv == 14 ? CholLayout<14>::block_bytes
-         : nv == 21 ? CholLayout<21>::block_bytes : -1;
+  return nv == 14   ? CholLayout<14>::block_bytes
+         : nv == 21 ? CholLayout<21>::block_bytes
+         : nv == 36 ? CholLayout<36>::block_bytes
+                    : -1;
 }
 int grt_chol_blocks_per_sm(int nv) {
-  return nv == 14 ? chol_tile_blocks_per_sm<14, false>()
-         : nv == 21 ? chol_tile_blocks_per_sm<21, true>() : -1;
+  return nv == 14   ? chol_tile_blocks_per_sm<14, false>()
+         : nv == 21 ? chol_tile_blocks_per_sm<21, true>()
+         : nv == 36 ? chol_tile_blocks_per_sm<36, true>()
+                    : -1;
 }
 
 // strides: the element strides of M (3), a_smooth, a_warm (2 each), J (3),
 // aref, D, active and is_eq (2 each), in that order. nv = 2 runs
-// newton2_kernel<G, true> (G lanes an env, up to 64 rows), nv = 14 and 21
-// newton_tile_kernel (8 envs a block, up to 96 and 256 rows); smem: its
-// block's shared memory bytes (physics/solver.py::newton_geometry), at
-// least grt_newton_smem_bytes(nv).
+// newton2_kernel<G, true> (G lanes an env, up to 64 rows), nv = 14, 21 and
+// 36 newton_tile_kernel (8, 8 and 4 envs a block, up to 96, 256 and 288
+// rows); smem: its block's shared memory bytes
+// (physics/solver.py::newton_geometry), at least grt_newton_smem_bytes(nv).
 int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
                    const float* J, const float* aref, const float* D,
                    const unsigned char* active, const unsigned char* is_eq,
@@ -1359,27 +1464,35 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
     return launch_newton2<true>(M, a_smooth, a_warm, J, aref, D, active,
                                 is_eq, st, qacc, f, ne, B, n_iter, n_ls, s);
   } else if (nv == 14) {
-    return launch_newton_tile<14, 1, 3>(M, a_smooth, a_warm, J, aref, D,
-                                        active, is_eq, st, qacc, f, ne, B,
-                                        n_iter, n_ls, smem, s);
+    return launch_newton_tile<14, 1, 3, 8>(M, a_smooth, a_warm, J, aref, D,
+                                           active, is_eq, st, qacc, f, ne, B,
+                                           n_iter, n_ls, smem, s);
   } else if (nv == 21) {
-    return launch_newton_tile<21, 2, 4>(M, a_smooth, a_warm, J, aref, D,
-                                        active, is_eq, st, qacc, f, ne, B,
-                                        n_iter, n_ls, smem, s);
+    return launch_newton_tile<21, 2, 4, 8>(M, a_smooth, a_warm, J, aref, D,
+                                           active, is_eq, st, qacc, f, ne, B,
+                                           n_iter, n_ls, smem, s);
+  } else if (nv == 36) {
+    return launch_newton_tile<36, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
+                                           active, is_eq, st, qacc, f, ne, B,
+                                           n_iter, n_ls, smem, s);
   }
   return -1;
 }
 
-// Shared memory bytes of a newton_tile_kernel block at nv (14 or 21), and
-// the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// Shared memory bytes of a newton_tile_kernel block at nv (14, 21 or 36),
+// and the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
 // -1 for another nv.
 int grt_newton_smem_bytes(int nv) {
-  return nv == 14 ? TileLayout<14, 1, 3>::block_bytes
-         : nv == 21 ? TileLayout<21, 2, 4>::block_bytes : -1;
+  return nv == 14   ? TileLayout<14, 1, 3, 8>::block_bytes
+         : nv == 21 ? TileLayout<21, 2, 4, 8>::block_bytes
+         : nv == 36 ? TileLayout<36, 3, 3, 4>::block_bytes
+                    : -1;
 }
 int grt_newton_blocks_per_sm(int nv) {
-  return nv == 14 ? newton_tile_blocks_per_sm<14, 1, 3>()
-         : nv == 21 ? newton_tile_blocks_per_sm<21, 2, 4>() : -1;
+  return nv == 14   ? newton_tile_blocks_per_sm<14, 1, 3, 8>()
+         : nv == 21 ? newton_tile_blocks_per_sm<21, 2, 4, 8>()
+         : nv == 36 ? newton_tile_blocks_per_sm<36, 3, 3, 4>()
+                    : -1;
 }
 
 // The nv = 2 solve of the per-env route (newton2_kernel<G, false>: the

@@ -11,7 +11,8 @@ driven like ``soa.collision`` :1018-1081. The formulas the ported slices
 reach: plane-sphere :88, plane-capsule :95, plane-box :152, sphere-box
 :221-251, capsule-box :375, box-box :388-499, and the convex-hull formulas
 :510-781 (plane-hull, and box-hull and hull-hull with the MPR upgrade of
-``physics/mpr.py``), with the contact frame ``_contact_frame_soa`` :806.
+``physics/mpr.py``; on the unpruned table box-hull, :999-1021), with the
+contact frame ``_contact_frame_soa`` :806.
 
 Every slot reports a signed distance; slots far from touching simply carry
 a large positive one. Any other geom-type pair raises
@@ -572,6 +573,15 @@ PRIMITIVES = {
 HULL_GROUPS = (T.PLANE, T.BOX, T.MESH)
 
 
+# the slice that brings each hull group the port does not have
+_HULL_FAMILY = {
+    (T.SPHERE, T.MESH): "the first family that has sphere-hull pairs",
+    (T.CAPSULE, T.MESH): "the HandManipulatePen slice",
+    (T.ELLIPSOID, T.MESH): "the HandManipulateEgg slice",
+    (T.CYLINDER, T.MESH): "the FetchSlide slice",
+}
+
+
 def use_mpr(meta: T.Meta) -> bool:
     """Option.mpr gate (collision_vec.use_mpr_xla): on unless set False."""
     v = meta.opt.mpr
@@ -590,8 +600,8 @@ def _check_ported(meta: T.Meta, t1, t2):
             "narrowphase kernel, which is not ported yet (ROADMAP B4)")
     if T.MESH in (t1, t2):
         raise NotImplementedError(
-            f"narrowphase for {name} pairs (convex hulls) is not ported yet "
-            "(ROADMAP B4)")
+            f"narrowphase for {name} pairs (convex hulls) is not ported yet: "
+            f"it comes with {_HULL_FAMILY.get((t1, t2), 'ROADMAP B4')}")
     raise NotImplementedError(
         f"narrowphase for {name} pairs is not ported yet (the port has "
         "plane-sphere, plane-capsule, plane-box, sphere-box, capsule-box, "
@@ -704,13 +714,14 @@ def _local_aabb_ctr(meta: T.Meta, hull_vert):
 
 
 # ---------------------------------------------------------------------------
-# Unpruned table (the PointMaze path)
+# Unpruned table (the PointMaze and HandManipulateBlock paths)
 # ---------------------------------------------------------------------------
 
 
 class _NarrowPlan:
-    """Pair groups by type pair, with device index tensors, and the static
-    permutation from group-major to canonical pair-major slot order."""
+    """Pair groups by type pair, with device index tensors (and a box-hull
+    group's static hull operands), and the static permutation from
+    group-major to canonical pair-major slot order."""
 
     def __init__(self, m: T.Model):
         meta = m.meta
@@ -721,20 +732,28 @@ class _NarrowPlan:
             groups.setdefault(tp, []).append((g1, g2))
         for tp in groups:
             _check_ported(meta, *tp)
-            if tp not in PRIMITIVES:
+            if tp not in PRIMITIVES and tp != (T.BOX, T.MESH):
                 raise NotImplementedError(
-                    f"{_TYPE_NAMES[tp[0]]}-{_TYPE_NAMES[tp[1]]} pairs run only "
-                    "on the pair-topk table (Option.pair_topk > 0) so far")
+                    f"{_TYPE_NAMES[tp[0]]}-{_TYPE_NAMES[tp[1]]} pairs without "
+                    "pair_topk come with the first family that has them (no "
+                    "shipped one does); the unpruned table has box-hull")
         self.groups = []
         group_base, offset = {}, 0
         for tp, entries in groups.items():
             group_base[tp] = offset
             offset += len(entries) * pair_slots(*tp)
-            self.groups.append((
-                PRIMITIVES[tp], pair_slots(*tp), len(entries),
-                torch.as_tensor([e[0] for e in entries], device=dev),
-                torch.as_tensor([e[1] for e in entries], device=dev),
-            ))
+            g1 = torch.as_tensor([e[0] for e in entries], device=dev)
+            g2 = torch.as_tensor([e[1] for e in entries], device=dev)
+            if tp == (T.BOX, T.MESH):
+                # the hulls' tables as (.., k, 1) operands
+                # (collision_vec._make_narrowphase_core :977-987, MPR on)
+                hid = torch.as_tensor([meta.geom_hullid[e[1]] for e in entries],
+                                      device=dev)
+                hull = take_hull(m, hid[:, None])
+                fn = _make_box_hull(hull)
+            else:
+                fn = PRIMITIVES[tp]
+            self.groups.append((fn, pair_slots(*tp), len(entries), g1, g2))
         perm = np.zeros(offset, dtype=np.int64)
         pos_in_group = {tp: 0 for tp in groups}
         cursor = 0

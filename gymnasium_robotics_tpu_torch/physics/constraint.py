@@ -5,13 +5,13 @@ gymnasium_robotics_tpu/physics/soa.py: ``_impedance`` :1091, ``_kbi``
 :1811-1911, ``sensors`` :1938).
 
 This port has weld equality rows (:1324-1376), joint-limit rows
-(:1413-1436) and pyramidal contact rows of condim 1, 3 and 4
-(:1618-1667), static or traced: a pair-topk compact table (Contact.src)
-and the ``contact_cap`` selection (:1499-1560, one
+(:1413-1436), tendon-limit rows (:1438-1461) and pyramidal contact rows
+of condim 1, 3 and 4 (:1618-1667), static or traced: a pair-topk compact
+table (Contact.src) and the ``contact_cap`` selection (:1499-1560, one
 ``narrowphase.topk_select`` call for every capped condim group) pick slots
 per env, and the body ids, Jacobians and per-slot parameters are gathered
-per lane with plain gathers. The other equality types, tendon-limit and
-friction-loss rows, condim 6 and touch sensors raise
+per lane with plain gathers; and touch sensors (:1920-1981). The other
+equality types, friction-loss rows and condim 6 raise
 ``NotImplementedError`` until their slice.
 """
 
@@ -105,11 +105,6 @@ class _RowPlan:
                 + ", ".join(T.EQ_NAMES[t] for t in other)
                 + " (soa.build_rows :1301-1323, :1377-1411) are not ported "
                 "yet; the port has weld rows")
-        if any(mt.tendon_limited) and not mt.opt.disable_limit:
-            raise NotImplementedError(
-                "tendon limit rows (soa.build_rows :1438-1461) come with the "
-                "HandManipulateBlock slice"
-            )
 
         def ix(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
@@ -137,6 +132,10 @@ class _RowPlan:
                 d=ix([mt.jnt_dofadr[j] for j in lim]), n=ix(range(len(lim))),
             )
             n_rows += len(lim)
+        tlim = [t for t in range(mt.ntendon)
+                if mt.tendon_limited[t] and not mt.opt.disable_limit]
+        self.tlim = ix(tlim) if tlim else None
+        n_rows += 2 * len(tlim)
         self.n_loop = n_rows
 
         gb = np.array(mt.geom_bodyid)
@@ -274,8 +273,8 @@ def _weld_rows(m: T.Model, d: T.Data, w):
 
 def build_rows(m: T.Model, d: T.Data):
     """(J (rows, nv, B), aref, D, R, active (rows, B), is_eq (rows,),
-    layout): the weld rows, the joint-limit rows, then the contact rows per
-    condim group (soa.build_rows). ``layout`` lists, per contact group,
+    layout): the weld rows, the joint-limit rows, the tendon-limit rows,
+    then the contact rows per condim group (soa.build_rows). ``layout`` lists, per contact group,
     (condim, compact slots, static slot ids, first row) for the force
     decode."""
     mt = m.meta
@@ -308,6 +307,26 @@ def build_rows(m: T.Model, d: T.Data):
         rows[rp.lim["n"], rp.lim["d"]] = sign
         add(rows, dist - margin, m.jnt_solref[ji], m.jnt_solimp[ji],
             m.dof_invweight0[rp.lim["d"]], dist < margin)
+
+    if rp.tlim is not None:
+        # two rows a limited tendon, [lower, upper] (soa.build_rows :1438-1461)
+        ti, nt = rp.tlim, len(rp.tlim)
+        margin = m.tendon_margin[ti]                          # (nt, Bm)
+        length = d.ten_length[ti]
+        dist_lo = length - m.tendon_range[ti, 0]
+        dist_hi = m.tendon_range[ti, 1] - length
+        tj = d.ten_J[ti]                                      # (nt, nv, B)
+
+        def two(x):
+            return torch.repeat_interleave(x, 2, dim=0)
+
+        add(torch.stack([tj, -tj], dim=1).reshape(2 * nt, mt.nv, B),
+            torch.stack([dist_lo, dist_hi], dim=1).reshape(2 * nt, B)
+            - two(margin),
+            two(m.tendon_solref_lim[ti]), two(m.tendon_solimp_lim[ti]),
+            two(m.tendon_invweight0[ti]),
+            torch.stack([dist_lo < margin, dist_hi < margin],
+                        dim=1).reshape(2 * nt, B))
 
     c = d.contact
     pruned = c.src is not None
@@ -487,10 +506,103 @@ def _decode_contact_forces(m: T.Model, d: T.Data, f, layout):
     return con_force, cfrc_ext
 
 
+# site types of a touch sensor's zone (sensor._SPHERE ... _BOX)
+_SITE_SPHERE, _SITE_CAPSULE, _SITE_ELLIPSOID, _SITE_CYLINDER, _SITE_BOX = \
+    2, 3, 4, 5, 6
+
+
+def _inside_zone(site_type, size, loc):
+    """Whether points loc (k, 3, B) in a site's frame lie in its zone of
+    half sizes size (k, 3, Bm) -> (k, B) (soa._inside_zone :1920-1935; any
+    other type is a box)."""
+    if site_type == _SITE_SPHERE:
+        return torch.sqrt(torch.sum(loc * loc, dim=1)) <= size[:, 0]
+    if site_type == _SITE_CAPSULE:
+        z = torch.clamp(loc[:, 2], -size[:, 1], size[:, 1])
+        dz = torch.stack([loc[:, 0], loc[:, 1], loc[:, 2] - z], dim=1)
+        return torch.sqrt(torch.sum(dz * dz, dim=1)) <= size[:, 0]
+    if site_type == _SITE_ELLIPSOID:
+        return torch.sum(torch.square(loc / size), dim=1) <= 1.0
+    if site_type == _SITE_CYLINDER:
+        r = torch.sqrt(torch.sum(loc[:, :2] ** 2, dim=1))
+        return (r <= size[:, 0]) & (torch.abs(loc[:, 2]) <= size[:, 1])
+    return torch.all(torch.abs(loc) <= size + 1e-6, dim=1)
+
+
+class _SensorPlan:
+    """Touch sensors by site type. Each sensor sums the normal force of the
+    contact slots on its site's body that lie in the site's zone. Per
+    group: each sensor's output row, site and body (``sensor_*``, for a
+    pair-topk table, whose slot map is per lane) and every (sensor, static
+    slot) pair's output row, site and slot (``pair_*``, for the static
+    table)."""
+
+    def __init__(self, m: T.Model):
+        mt = m.meta
+        g1s, g2s = COL.slot_geoms_static(mt)
+        gb = np.array(mt.geom_bodyid)
+        b1s, b2s = gb[g1s], gb[g2s]
+        groups: dict = {}
+        for s in range(mt.nsensor):
+            if mt.sensor_type[s] != T.SENS_TOUCH:
+                continue
+            site = mt.sensor_objid[s]
+            body = mt.site_bodyid[site]
+            stype = mt.site_type[site] if mt.site_type else _SITE_BOX
+            g = groups.setdefault(stype, {k: [] for k in (
+                "sensor_adr", "sensor_site", "sensor_body", "pair_adr",
+                "pair_site", "pair_slot")})
+            g["sensor_adr"].append(mt.sensor_adr[s])
+            g["sensor_site"].append(site)
+            g["sensor_body"].append(body)
+            cis = np.nonzero((b1s == body) | (b2s == body))[0]
+            g["pair_adr"] += [mt.sensor_adr[s]] * len(cis)
+            g["pair_site"] += [site] * len(cis)
+            g["pair_slot"] += cis.tolist()
+        dev = m.device
+        self.groups = [
+            (stype, {k: torch.as_tensor(np.asarray(v, np.int64), device=dev)
+                     for k, v in g.items()})
+            for stype, g in sorted(groups.items())]
+        self.b1s = torch.as_tensor(b1s.astype(np.int64), device=dev)
+        self.b2s = torch.as_tensor(b2s.astype(np.int64), device=dev)
+
+
 def sensors(m: T.Model, d: T.Data) -> T.Data:
-    if m.meta.nsensordata:
-        raise NotImplementedError(
-            "sensors (soa.sensors :1938) come with the HandManipulateBlock "
-            "slice"
-        )
-    return d
+    """Touch sensors (soa.sensors :1938-1981): the positive normal forces
+    of the contact slots on the sensor's body inside its site's zone, over
+    the static slot list or, on a pair-topk table, every compact slot whose
+    per-lane geoms put it on the body. Sensors of other types read 0, as
+    in the reference's batch-last path."""
+    mt = m.meta
+    if not mt.nsensordata:
+        return d
+    B = d.qpos.shape[-1]
+    sp = m.plan("sensors", _SensorPlan)
+    c = d.contact
+    out = d.qpos.new_zeros((mt.nsensordata, B))
+    fn_all = torch.clamp(d.con_force[:, 0], min=0.0)           # (ncon, B)
+    for stype, g in sp.groups:
+        if c.src is not None:
+            # (s, ncon, 3, B): every compact slot, on the body per lane
+            site, body = g["sensor_site"], g["sensor_body"][:, None, None]
+            member = (sp.b1s[c.src][None] == body) | (sp.b2s[c.src][None] == body)
+            rel = c.pos[None] - d.site_xpos[site][:, None]
+            loc = torch.einsum("sijb,skib->skjb", d.site_xmat[site], rel)
+            ns, nc = loc.shape[:2]
+            size = m.site_size_arr[site][:, None].expand(-1, nc, -1, -1)
+            inside = _inside_zone(stype, size.reshape(ns * nc, 3, -1),
+                                  loc.reshape(ns * nc, 3, B)).reshape(ns, nc, B)
+            out[g["sensor_adr"]] = torch.sum(torch.where(
+                inside & member, fn_all[None], torch.zeros_like(loc[:, :, 0])),
+                dim=1)
+            continue
+        site, slot = g["pair_site"], g["pair_slot"]
+        if not len(slot):
+            continue
+        loc = torch.einsum("kijb,kib->kjb", d.site_xmat[site], c.pos[slot]
+                           - d.site_xpos[site])
+        inside = _inside_zone(stype, m.site_size_arr[site], loc)
+        fn = fn_all[slot]
+        out.index_add_(0, g["pair_adr"], torch.where(inside, fn, torch.zeros_like(fn)))
+    return dataclasses.replace(d, sensordata=out)

@@ -5,9 +5,10 @@ fwd_actuation :837, fwd_passive :923).
 
 Each stage takes and returns a batch-last ``Data``. Static index tables and
 the 0/1 tree matrices are built once per model (``Model.plan``) on the
-model's device. Stages a later slice brings (tendons, fluid forces, tendon
-and free/ball actuation, activation dynamics) raise
-``NotImplementedError`` when a model needs them.
+model's device. Fixed tendons and their springs are ported; stages a
+later slice brings (spatial tendons, fluid forces, tendon and free/ball
+actuation, activation dynamics) raise ``NotImplementedError`` when a model
+needs them.
 """
 
 from __future__ import annotations
@@ -357,16 +358,46 @@ def rne(m: T.Model, d: T.Data) -> T.Data:
     return dataclasses.replace(d, qfrc_bias=torch.sum(d.cdof * cfrc_dof, dim=-2))
 
 
+class _TendonPlan:
+    """Fixed tendons' wrap tables (soa.tendon): per wrap entry its tendon,
+    joint qpos and dof addresses and its coefficient's row of wrap_prm."""
+
+    def __init__(self, m: T.Model):
+        mt = m.meta
+        kinds = mt.tendon_kind or ("fixed",) * mt.ntendon
+        if "spatial2" in kinds:
+            raise NotImplementedError(
+                "spatial tendons (soa.tendon :750-776) come with the first "
+                "model that has them: no shipped asset does; the MJCF "
+                "importer's models may (ROADMAP queue A)")
+        w_idx, w_q, w_d, w_t = [], [], [], []
+        for t in range(mt.ntendon):
+            for w in range(mt.tendon_adr[t], mt.tendon_adr[t] + mt.tendon_num[t]):
+                j = mt.wrap_objid[w]
+                w_idx.append(w)
+                w_q.append(mt.jnt_qposadr[j])
+                w_d.append(mt.jnt_dofadr[j])
+                w_t.append(t)
+        dev = m.device
+        self.w, self.q, self.d, self.t = (_ix(x, dev) for x in (w_idx, w_q, w_d, w_t))
+
+
 def tendon(m: T.Model, d: T.Data) -> T.Data:
+    """Fixed tendons (soa.tendon :713-783): length = sum of coef * qpos over
+    the tendon's joints, ten_J scattered from the coefficients, velocity =
+    ten_J qvel."""
     mt = m.meta
-    if mt.ntendon:
-        raise NotImplementedError(
-            "tendons (soa.tendon :713) come with the HandManipulateBlock slice"
-        )
     B = d.qpos.shape[-1]
-    z = d.qpos.new_zeros((0, B))
+    ten_length = d.qpos.new_zeros((mt.ntendon, B))
+    ten_J = d.qpos.new_zeros((mt.ntendon, mt.nv, B))
+    if mt.ntendon:
+        tp = m.plan("tendon", _TendonPlan)
+        coefs = m.wrap_prm[tp.w]                             # (nw, Bm)
+        ten_length.index_add_(0, tp.t, coefs * d.qpos[tp.q])
+        ten_J.index_put_((tp.t, tp.d), M.bB(coefs, B), accumulate=True)
     return dataclasses.replace(
-        d, ten_length=z, ten_velocity=z, ten_J=d.qpos.new_zeros((0, mt.nv, B))
+        d, ten_length=ten_length,
+        ten_velocity=torch.einsum("tvb,vb->tb", ten_J, d.qvel), ten_J=ten_J,
     )
 
 
@@ -465,11 +496,6 @@ def fwd_actuation(m: T.Model, d: T.Data) -> T.Data:
 class _PassivePlan:
     def __init__(self, m: T.Model):
         mt = m.meta
-        if mt.ntendon:
-            raise NotImplementedError(
-                "tendon springs (soa.fwd_passive :937) come with the "
-                "HandManipulateBlock slice"
-            )
         if mt.opt.density > 0 or mt.opt.viscosity > 0:
             raise NotImplementedError(
                 "the inertia-box fluid model (soa._inertia_box_fluid :953) "
@@ -489,4 +515,13 @@ def fwd_passive(m: T.Model, d: T.Data) -> T.Data:
         qfrc[pp.d] += -m.jnt_stiffness[pp.j] * (
             d.qpos[pp.q] - m.qpos_spring[pp.q]
         )
+    if m.meta.ntendon:
+        # springs with the lengthspring dead band, and damping (soa :937-945)
+        lo = m.tendon_lengthspring[:, 0]
+        hi = m.tendon_lengthspring[:, 1]
+        L = d.ten_length
+        dsp = torch.where(L < lo, L - lo,
+                          torch.where(L > hi, L - hi, torch.zeros_like(L)))
+        frc = -m.tendon_stiffness * dsp - m.tendon_damping * d.ten_velocity
+        qfrc = qfrc + torch.einsum("tvb,tb->vb", d.ten_J, frc)
     return dataclasses.replace(d, qfrc_passive=qfrc)

@@ -28,15 +28,15 @@ import torch
 from gymnasium_robotics_tpu_torch import kernels
 
 LAUNCHES = {"chol": 0, "newton": 0, "newton_nv2": 0}
-KERNEL_NV = (2, 14, 21)  # nv values csrc/solver.cu instantiates
+KERNEL_NV = (2, 14, 21, 36)  # nv values csrc/solver.cu instantiates
 # largest row count the Newton kernel takes, per nv: newton2_kernel (a
-# group of lanes an env), newton_tile_kernel<14, 1, 3> and <21, 2, 4> (a
-# tile of NEWTON_TILE envs a block, one or two warps an env, three or four
-# rows a lane)
-NEWTON_MAX_ROWS = {2: 64, 14: 96, 21: 256}
-NEWTON_TILE = 8
-# newton_tile_kernel's instantiations: nv -> (warps an env, rows a lane)
-NEWTON_TILE_SHAPES = {14: (1, 3), 21: (2, 4)}
+# group of lanes an env), newton_tile_kernel<14, 1, 3, 8>, <21, 2, 4, 8>
+# and <36, 3, 3, 4> (a tile of envs a block, one to three warps an env,
+# three or four rows a lane)
+NEWTON_MAX_ROWS = {2: 64, 14: 96, 21: 256, 36: 288}
+# newton_tile_kernel's instantiations: nv -> (warps an env, rows a lane,
+# envs a tile)
+NEWTON_TILE_SHAPES = {14: (1, 3, 8), 21: (2, 4, 8), 36: (3, 3, 4)}
 NEWTON_BLOCK = 3   # side of the block of H a lane sums
 NEWTON_NV2_MAX_ROWS = 64  # newton2_kernel, the per-env route
 # newton2_kernel<G, CHOL>: NV2_ROWS_PER_LANE rows a lane, G lanes an env
@@ -44,67 +44,41 @@ NEWTON_NV2_MAX_ROWS = 64  # newton2_kernel, the per-env route
 NV2_ROWS_PER_LANE = 8
 NV2_LANES = (4, 8)
 NV2_THREADS = 128
-# chol_tile_kernel (nv 14, 21): a tile of CHOL_TILE envs a block, a
-# half-warp an env where nv <= 16, else a warp; nv = 2 runs
-# chol_solve_kernel, one env per thread
+# chol_tile_kernel (nv 14, 21, 36): a tile of CHOL_TILE envs a block
+# (CHOL_TILE_WIDE where a lane holds two rows, past nv = 32), a half-warp
+# an env where nv <= 16, else a warp; nv = 2 runs chol_solve_kernel, one
+# env per thread
 CHOL_TILE = 16
-CHOL_TILE_NV = (14, 21)
+CHOL_TILE_WIDE = 8
+CHOL_TILE_NV = (14, 21, 36)
 
 
-@functools.lru_cache(maxsize=None)
-def _tril_index(nv: int, device: torch.device):
-    idx = [i * nv + j for i in range(nv) for j in range(i + 1)]
-    return torch.tensor(idx, device=device)
-
-
-def pack_tril(M):
-    """(nv, nv, B) -> (nv*(nv+1)/2, B): the lower triangle in row order
-    (i, j <= i), as solver_pallas._pack_tril_soa."""
-    nv = M.shape[0]
-    return M.reshape(nv * nv, M.shape[-1])[_tril_index(nv, M.device)]
-
-
-def _chol_solve_rows(H, b, nv):
-    """Solve H x = b with rows of B values: H the packed lower triangle as
-    a list of rows, b a list of nv rows. Unrolled LL^T with the diagonal
-    floored at sqrt(max(s, 1e-20)) (solver_pallas._chol_solve_lanes)."""
-    L = {}
-    r = 0
-    Hd = {}
+def solve_pos_plain(M, b):
+    """Batch-last SPD solve M x = b: M (nv, nv, B), read on and below the
+    diagonal, b (nv, B) -> (nv, B), by LL^T with the diagonal floored at
+    sqrt(max(s, 1e-20)) (solver_pallas._chol_solve_lanes). Each element's
+    arithmetic is the unrolled solve's, operation for operation: t - a * b
+    in ascending k for every entry of L and of y, then a division by L_ii;
+    x_i = (y_i - sum over k > i of L_ki x_k, in ascending k) / L_ii. The
+    factor and the forward substitution take whole columns at once."""
+    nv = b.shape[0]
+    cols = []                      # cols[i] = L[i:, i], (nv - i, B)
     for i in range(nv):
-        for j in range(i + 1):
-            Hd[(i, j)] = H[r]
-            r += 1
-    for i in range(nv):
-        s = Hd[(i, i)]
+        c = M[i:, i]
         for k in range(i):
-            s = s - L[(i, k)] * L[(i, k)]
-        L[(i, i)] = torch.sqrt(torch.clamp(s, min=1e-20))
-        for j in range(i + 1, nv):
-            s = Hd[(j, i)]
-            for k in range(i):
-                s = s - L[(j, k)] * L[(i, k)]
-            L[(j, i)] = s / L[(i, i)]
-    y = []
+            c = c - cols[k][i - k:] * cols[k][i - k]
+        d = torch.sqrt(torch.clamp(c[0], min=1e-20))
+        cols.append(torch.cat([d[None], c[1:] / d]))
+    y, rest = [], b
     for i in range(nv):
-        s = b[i]
-        for k in range(i):
-            s = s - L[(i, k)] * y[k]
-        y.append(s / L[(i, i)])
+        y.append(rest[0] / cols[i][0])
+        rest = rest[1:] - cols[i][1:] * y[i]
     x = [None] * nv
     for i in reversed(range(nv)):
         s = y[i]
         for k in range(i + 1, nv):
-            s = s - L[(k, i)] * x[k]
-        x[i] = s / L[(i, i)]
-    return x
-
-
-def solve_pos_plain(M, b):
-    """Batch-last SPD solve M x = b: M (nv, nv, B), b (nv, B) -> (nv, B),
-    through the floored Cholesky of M's lower triangle."""
-    nv = b.shape[0]
-    x = _chol_solve_rows(list(pack_tril(M).unbind(0)), list(b.unbind(0)), nv)
+            s = s - cols[i][k - i] * x[k]
+        x[i] = s / cols[i][0]
     return torch.stack(x)
 
 
@@ -266,7 +240,7 @@ def _strides(*ts):
 def solve_pos(M, b):
     """Batch-last SPD solve M x = b: M (nv, nv, B), b (nv, B) -> (nv, B).
     CUDA tensors launch chol_solve_kernel (nv = 2) or chol_tile_kernel
-    (nv = 14, 21); CPU tensors take the plain version."""
+    (nv = 14, 21, 36); CPU tensors take the plain version."""
     nv, B = b.shape
     _check_shapes([("M", M, (nv, nv, B))])
     if not _route_to_kernel(nv, (M, b)):
@@ -288,7 +262,7 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
     (nv, nv, B), a_smooth/a_warm (nv, B), J (ne, nv, B), aref/D/active
     (ne, B), is_eq (ne,) per model row or (ne, B) -> (qacc (nv, B),
     f (ne, B)). CUDA tensors launch newton2_kernel<G, true> (nv = 2) or
-    newton_tile_kernel (nv = 14, 21); CPU tensors take the plain
+    newton_tile_kernel (nv = 14, 21, 36); CPU tensors take the plain
     version."""
     nv, ne, B = _check_newton_shapes(M, a_smooth, a_warm, J, aref, D,
                                      active, is_eq)
@@ -367,30 +341,31 @@ def newton2_geometry(ne: int, B: int) -> dict:
 
 
 def chol_geometry(nv: int, B: int) -> dict:
-    """Launch geometry of chol_tile_kernel (nv 14 or 21) at B envs: its
+    """Launch geometry of chol_tile_kernel (nv 14, 21 or 36) at B envs: its
     tile, lanes an env and rows a lane, grid, threads a block and shared
     memory bytes (per env M's packed triangle and the right-hand side, nv
     (nv + 3) / 2 floats), as csrc/solver.cu's CholLayout computes them."""
     if nv not in CHOL_TILE_NV:
         raise NotImplementedError(f"chol_tile_kernel has no nv={nv}")
     lanes = 16 if nv <= 16 else 32
-    return {"grid": -(-B // CHOL_TILE), "threads": CHOL_TILE * lanes,
-            "tile": CHOL_TILE, "lanes_per_env": lanes,
-            "rows_per_lane": -(-nv // lanes),
-            "smem": CHOL_TILE * nv * (nv + 3) // 2 * 4}
+    rpl = -(-nv // lanes)
+    tile = CHOL_TILE_WIDE if rpl > 1 else CHOL_TILE
+    return {"grid": -(-B // tile), "threads": tile * lanes, "tile": tile,
+            "lanes_per_env": lanes, "rows_per_lane": rpl,
+            "smem": tile * nv * (nv + 3) // 2 * 4}
 
 
 def newton_geometry(nv: int, ne: int, B: int) -> dict:
-    """Launch geometry of newton_tile_kernel (nv 14 or 21) at ne rows and B
-    envs: its grid, threads a block and dynamic shared memory bytes (per
-    env: J^T with a zero column where the blocks of H overhang nv and its
-    rows padded to the row cap + 4, each row's weight and D x, M's
-    triangle and H's, five 32-float vectors, 16 scalars and a byte per row;
-    padded to 4 mod 32 floats), as csrc/solver.cu's TileLayout computes
-    them."""
+    """Launch geometry of newton_tile_kernel (nv 14, 21 or 36) at ne rows
+    and B envs: its tile, grid, threads a block and dynamic shared memory
+    bytes (per env: J^T with a zero column where the blocks of H overhang
+    nv and its rows padded to the row cap + 4, each row's weight and D x,
+    M's triangle and H's, five vectors of 32 floats a 32 components, 16
+    scalars and a byte per row; padded to 4 mod 32 floats), as
+    csrc/solver.cu's TileLayout computes them."""
     if nv not in NEWTON_TILE_SHAPES:
         raise NotImplementedError(f"newton_tile_kernel has no nv={nv}")
-    wpe, rpl = NEWTON_TILE_SHAPES[nv]
+    wpe, rpl, tile = NEWTON_TILE_SHAPES[nv]
     bs = NEWTON_BLOCK
     nec = 32 * wpe * rpl
     if ne > nec:
@@ -399,11 +374,12 @@ def newton_geometry(nv: int, ne: int, B: int) -> dict:
             f"rows, not {ne}; add a larger row cap to csrc/solver.cu")
     njc = nv + 1 if -(-nv // bs) * bs > nv else nv   # + a zero column
     nt = nv * (nv + 1) // 2
-    used = njc * (nec + 4) + 2 * nec + 2 * nt + 5 * 32 + 16 + nec // 4
+    vw = 32 * -(-nv // 32)
+    used = njc * (nec + 4) + 2 * nec + 2 * nt + 5 * vw + 16 + nec // 4
     total = used + (36 - used % 32) % 32
-    return {"grid": -(-B // NEWTON_TILE), "threads": NEWTON_TILE * wpe * 32,
-            "tile": NEWTON_TILE, "warps_per_env": wpe, "rows_per_lane": rpl,
-            "smem": total * 4 * NEWTON_TILE}
+    return {"grid": -(-B // tile), "threads": tile * wpe * 32, "tile": tile,
+            "warps_per_env": wpe, "rows_per_lane": rpl,
+            "smem": total * 4 * tile}
 
 
 def _launch_newton(entry, nv_arg, M, a_smooth, a_warm, J, aref, D, active,

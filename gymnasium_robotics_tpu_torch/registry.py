@@ -1,11 +1,11 @@
 """Environment registry (port of gymnasium_robotics_tpu/registry.py ``make``,
-``make_gym`` and ``remake``, and of envs/__init__.py
-``_register_point_maze``, ``_register_ant_maze`` and ``_register_fetch``
-:53-109).
+``make_gym`` and ``remake``, of envs/__init__.py ``_register_point_maze``,
+``_register_ant_maze`` and ``_register_fetch`` :53-109, and of
+envs/hand/hand.py ``register_hand_envs`` :540-586 for HandManipulateBlock).
 
-The port registers the PointMaze, AntMaze, FetchPush and FetchPickAndPlace
-IDs; any other ID raises ``KeyError`` naming the slice of the port that
-brings its family.
+The port registers the PointMaze, AntMaze, FetchPush, FetchPickAndPlace
+and HandManipulateBlock IDs; any other ID raises ``KeyError`` naming the
+slice of the port that brings its family.
 """
 
 from __future__ import annotations
@@ -95,16 +95,53 @@ def _fetch_specs() -> Dict[str, EnvSpec]:
     return out
 
 
+# the Block's target modes (hand.py:556-568): (target_position,
+# target_rotation); Full and "" share theirs, and only the other modes have
+# touch-sensor variants
+_BLOCK_MODES = {
+    "RotateZ": ("ignore", "z"), "RotateParallel": ("ignore", "parallel"),
+    "RotateXYZ": ("ignore", "xyz"), "Full": ("random", "xyz"),
+    "": ("random", "xyz"),
+}
+_TOUCH = (("", None), ("_BooleanTouchSensors", "boolean"),
+          ("_ContinuousTouchSensors", "sensordata"))
+
+
+def _hand_specs() -> Dict[str, EnvSpec]:
+    """HandManipulateBlock: 4 target modes x 3 touch variants, plus Full,
+    x sparse and dense x v0 and v1, 100 steps an episode."""
+    from gymnasium_robotics_tpu_torch.envs.hand.hand import HandManipulateBlockEnv
+
+    out = {}
+    for mode, (pos, rot) in _BLOCK_MODES.items():
+        touch = _TOUCH if mode != "Full" else _TOUCH[:1]
+        for tsuffix, touch_obs in touch:
+            for ver in ("v0", "v1"):
+                for suffix, reward_type in _REWARDS:
+                    id_ = f"HandManipulateBlock{mode}{tsuffix}{suffix}-{ver}"
+                    out[id_] = EnvSpec(
+                        id=id_, entry_point=HandManipulateBlockEnv,
+                        kwargs={"reward_type": reward_type,
+                                "touch_obs": touch_obs,
+                                "target_position": pos,
+                                "target_rotation": rot},
+                        max_episode_steps=100)
+    return out
+
+
 def _specs() -> Dict[str, EnvSpec]:
-    return {**_point_maze_specs(), **_ant_maze_specs(), **_fetch_specs()}
+    return {**_point_maze_specs(), **_ant_maze_specs(), **_fetch_specs(),
+            **_hand_specs()}
 
 
 _SLICES = (
     ("FetchReach", "the FetchReach slice (the solver kernels at nv = 15)"),
     ("FetchSlide", "the FetchSlide slice (the plane-cylinder, "
                    "cylinder-hull and cylinder-box groups)"),
-    ("HandManipulate", "the HandManipulateBlock slice"),
-    ("HandReach", "the HandManipulateBlock slice"),
+    ("HandManipulateEgg", "the HandManipulateEgg slice (ellipsoid pairs)"),
+    ("HandManipulatePen", "the HandManipulatePen slice (capsule-capsule "
+                          "and capsule-hull pairs)"),
+    ("HandReach", "the HandReach slice (the solver kernels at nv = 24)"),
 )
 
 
@@ -117,8 +154,8 @@ def spec(id: str) -> EnvSpec:
         )
         raise KeyError(
             f"{id!r} is not in the port: it registers only the PointMaze, "
-            f"AntMaze, FetchPush and FetchPickAndPlace IDs so far; this "
-            f"family comes with {brings}"
+            f"AntMaze, FetchPush, FetchPickAndPlace and HandManipulateBlock "
+            f"IDs so far; this family comes with {brings}"
         )
     return specs[id]
 

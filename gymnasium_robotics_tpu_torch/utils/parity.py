@@ -5,13 +5,14 @@ The reference seeds one ``numpy.random.Generator`` per env and draws its
 reset randomness in a family-specific order (maze ``generate_target_goal``
 / ``generate_reset_pos`` / ``add_xy_position_noise``, maze_v4.py:276-368;
 fetch ``_reset_sim`` then ``_sample_goal``, fetch_env.py:153-166 and
-:376-402). These families draw nothing during a step, so the step needs
+:376-402; hand manipulation ``_reset_sim`` then ``_sample_goal``,
+manipulate.py:154-279). These families draw nothing during a step, so the step needs
 no sampler here (the kitchen's observation noise, franka_env.py:118-127,
 is the first that will). No on-device generator reproduces those sequences, so parity
 mode draws them on the host with a real NumPy Generator in the reference's
 order and injects the values through the env's ``reset_with_values``.
-Host-side numpy only: this module imports neither torch nor the JAX
-package.
+The draws are host-side numpy: this module reads the env's tensors as
+numpy arrays and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -29,9 +30,13 @@ def sample_reset_values(env, np_random: np.random.Generator, options=None):
         return _maze_values(env, np_random, options)
     if name in ("FetchPushEnv", "FetchPickAndPlaceEnv"):
         return _fetch_values(env, np_random)
+    if name == "HandManipulateBlockEnv":
+        return _hand_manipulate_values(env, np_random)
     raise NotImplementedError(
-        f"no parity sampler for {name}: the port has the maze and "
-        "FetchPush/FetchPickAndPlace families so far")
+        f"no parity sampler for {name}: the port has the maze, "
+        "FetchPush/FetchPickAndPlace and HandManipulateBlock families so "
+        "far; each other family's sampler comes with its slice "
+        "(ROADMAP queue A)")
 
 
 def _maze_values(env, rng: np.random.Generator, options=None):
@@ -85,3 +90,95 @@ def _fetch_values(env, rng: np.random.Generator):
     if env.target_in_the_air and rng.uniform() < 0.5:
         goal[2] += rng.uniform(0, 0.45)
     return {"object_xy": object_xpos, "goal": goal}
+
+
+# --- host-side float64 rotation helpers, formula for formula the
+# reference's utils/rotations.py:140-160 (euler2quat, 'xyz' convention, wxyz
+# quaternions) and :280-304 (quat_mul) ---
+
+def _euler2quat(euler):
+    euler = np.asarray(euler, np.float64)
+    ai, aj, ak = euler[2] / 2, -euler[1] / 2, euler[0] / 2
+    si, sj, sk = np.sin(ai), np.sin(aj), np.sin(ak)
+    ci, cj, ck = np.cos(ai), np.cos(aj), np.cos(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    return np.array([cj * cc + sj * ss, cj * cs - sj * sc,
+                     -(cj * ss + sj * cc), cj * sc - sj * cs])
+
+
+def _quat_mul(q1, q0):
+    w0, x0, y0, z0 = q0
+    w1, x1, y1, z1 = q1
+    return np.array([
+        w1 * w0 - x1 * x0 - y1 * y0 - z1 * z0,
+        w1 * x0 + x1 * w0 + y1 * z0 - z1 * y0,
+        w1 * y0 - x1 * z0 + y1 * w0 + z1 * x0,
+        w1 * z0 + x1 * y0 - y1 * x0 + z1 * w0,
+    ])
+
+
+def _quat_from_angle_and_axis(angle, axis):
+    """manipulate.py:12-18: normalized axis, normalized quat."""
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    quat = np.concatenate([[np.cos(angle / 2.0)], np.sin(angle / 2.0) * axis])
+    return quat / np.linalg.norm(quat)
+
+
+def _parallel_quats():
+    """euler2quat over the 24 axis-aligned rotations, in the reference's
+    order (manipulate.py; its rotations.py:394-408)."""
+    from gymnasium_robotics_tpu_torch.utils import rotations
+
+    return [_euler2quat(r) for r in rotations.get_parallel_rotations()]
+
+
+def _hand_manipulate_values(env, rng: np.random.Generator):
+    """manipulate.py:172-202 (_reset_sim's block randomization: the rotation
+    by target_rotation mode, then the position's normal noise) followed by
+    :226-279 (_sample_goal: the position offset, then the goal quaternion's
+    draws). The settle between them draws nothing."""
+    init_q = np.asarray(env._init_qpos.cpu().numpy(), np.float64)
+    qadr = int(env._obj_qadr)
+    pos0 = init_q[qadr:qadr + 3].copy()
+    quat0 = init_q[qadr + 3:qadr + 7].copy()
+    tr = env.target_rotation
+    if env.randomize_initial_rotation:
+        if tr == "z":
+            angle = rng.uniform(-np.pi, np.pi)
+            quat0 = _quat_mul(
+                quat0, _quat_from_angle_and_axis(angle, [0.0, 0.0, 1.0]))
+        elif tr == "parallel":
+            angle = rng.uniform(-np.pi, np.pi)
+            zq = _quat_from_angle_and_axis(angle, [0.0, 0.0, 1.0])
+            pqs = _parallel_quats()
+            pq = pqs[rng.integers(len(pqs))]
+            quat0 = _quat_mul(quat0, _quat_mul(zq, pq))
+        elif tr in ("xyz", "ignore"):
+            angle = rng.uniform(-np.pi, np.pi)
+            axis = rng.uniform(-1.0, 1.0, size=3)
+            quat0 = _quat_mul(quat0, _quat_from_angle_and_axis(angle, axis))
+    if env.randomize_initial_position and env.target_position != "fixed":
+        pos0 = pos0 + rng.normal(size=3, scale=0.005)
+    quat0 /= np.linalg.norm(quat0)
+
+    goal_offset = np.zeros(3)
+    if env.target_position == "random":
+        tpr = np.asarray(env.target_position_range.cpu().numpy(), np.float64)
+        goal_offset = rng.uniform(tpr[:, 0], tpr[:, 1])
+    goal_quat = np.array([1.0, 0.0, 0.0, 0.0])
+    if tr == "z":
+        goal_quat = _quat_from_angle_and_axis(
+            rng.uniform(-np.pi, np.pi), [0.0, 0.0, 1.0])
+    elif tr == "parallel":
+        goal_quat = _quat_from_angle_and_axis(
+            rng.uniform(-np.pi, np.pi), [0.0, 0.0, 1.0])
+        pqs = _parallel_quats()
+        goal_quat = _quat_mul(goal_quat, pqs[rng.integers(len(pqs))])
+    elif tr == "xyz":
+        angle = rng.uniform(-np.pi, np.pi)
+        axis = rng.uniform(-1.0, 1.0, size=3)
+        goal_quat = _quat_from_angle_and_axis(angle, axis)
+    return {"obj_qpos7": np.concatenate([pos0, quat0]),
+            "goal_offset": goal_offset, "goal_quat": goal_quat}

@@ -47,6 +47,9 @@ def test_building_the_env_imports_no_jax():
         "    env = registry.make(id_, num_envs=4, device='cpu')\n"
         "    env.reset(seed=0)\n"
         "    env.step(torch.zeros(4, nu))\n"
+        "hand = registry.make('HandManipulateBlock_ContinuousTouchSensors-v1',\n"
+        "                     device='cpu')\n"
+        "assert hand.obs_dim == 153\n"
         "from gymnasium_robotics_tpu_torch.physics import kinematics, pipeline\n"
         "m = env.env.model.with_options(fk_kernel=True)\n"
         "kinematics.kinematics(m, pipeline.make_data(m, 2))\n"

@@ -121,12 +121,13 @@ def _ported_topk_shapes():
 
 
 def test_topk_geometry_covers_ported_shapes():
-    """The 60 AntMaze IDs (four maze sizes) and the 8 Fetch IDs call
-    topk_select at seven shapes; at each, and at B from 1 up, the kernel's
-    grid covers every env and its shared memory fits a block."""
+    """The 60 AntMaze IDs (four maze sizes), the 8 Fetch IDs and the 52
+    HandManipulateBlock IDs call topk_select at eight shapes; at each, and
+    at B from 1 up, the kernel's grid covers every env and its shared
+    memory fits a block."""
     shapes = _ported_topk_shapes()
     assert shapes == {(2, 216, 8), (2, 240, 8), (2, 456, 8), (2, 744, 8),
-                      (1, 57, 16), (3, 85, 8), (2, 169, 24)}
+                      (1, 57, 16), (3, 85, 8), (2, 169, 24), (2, 160, 16)}
     for G, maxk, K in shapes:
         for B in (1, 31, 32, 2047, 2048, 8192):
             geo = tnp.topk_geometry(G, maxk, B, K)

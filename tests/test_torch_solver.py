@@ -68,10 +68,46 @@ def test_solve_pos_plain_matches_pallas(nv, B):
         solver.solve_pos(torch.tensor(M), torch.tensor(b)).numpy(), out)
 
 
-def test_pack_tril_order():
-    M = torch.arange(9.0).reshape(3, 3, 1)
-    # rows (i, j <= i): (0,0) (1,0) (1,1) (2,0) (2,1) (2,2)
-    assert solver.pack_tril(M)[:, 0].tolist() == [0, 3, 4, 6, 7, 8]
+def _chol_unrolled(M, b):
+    """The floored LL^T solve entry by entry, as the kernels and
+    solver_pallas._chol_solve_lanes order it: each entry of L and of y is
+    t - a * b in ascending k, then a division by L_ii; the back
+    substitution subtracts in ascending k."""
+    nv = b.shape[0]
+    L, y, x = {}, [], [None] * nv
+    for i in range(nv):
+        s = M[i, i]
+        for k in range(i):
+            s = s - L[(i, k)] * L[(i, k)]
+        L[(i, i)] = torch.sqrt(torch.clamp(s, min=1e-20))
+        for j in range(i + 1, nv):
+            s = M[j, i]
+            for k in range(i):
+                s = s - L[(j, k)] * L[(i, k)]
+            L[(j, i)] = s / L[(i, i)]
+    for i in range(nv):
+        s = b[i]
+        for k in range(i):
+            s = s - L[(i, k)] * y[k]
+        y.append(s / L[(i, i)])
+    for i in reversed(range(nv)):
+        s = y[i]
+        for k in range(i + 1, nv):
+            s = s - L[(k, i)] * x[k]
+        x[i] = s / L[(i, i)]
+    return torch.stack(x)
+
+
+@pytest.mark.parametrize("nv", [2, 14, 21])
+def test_solve_pos_plain_keeps_the_unrolled_order(nv):
+    """The plain Cholesky takes whole columns at once and gives the
+    entry-by-entry solve's results bit for bit, floored lanes included, in
+    float64 and float32."""
+    rs = np.random.RandomState(nv)
+    M, b = _spd(rs, nv, 9), rs.normal(size=(nv, 9))
+    for dtype in (torch.float64, torch.float32):
+        Mt, bt = torch.tensor(M, dtype=dtype), torch.tensor(b, dtype=dtype)
+        assert torch.equal(solver.solve_pos_plain(Mt, bt), _chol_unrolled(Mt, bt))
 
 
 def _newton_ref(args, n_iter, n_ls):
@@ -210,6 +246,44 @@ def test_solve_newton_plain_matches_pallas_fetch():
     _check_newton(args, n_iter=4, n_ls=4)
 
 
+def test_solve_pos_plain_matches_pallas_nv36():
+    """The HandManipulateBlock system size, with the floored lanes of
+    _spd."""
+    import jax.numpy as jnp
+
+    from gymnasium_robotics_tpu.physics import solver_pallas as SP
+
+    nv, B = 36, 4
+    rs = np.random.RandomState(36)
+    M = _spd(rs, nv, B)
+    b = rs.normal(size=(nv, B))
+    ref = np.asarray(SP.solve_pos_soa(jnp.asarray(M), jnp.asarray(b),
+                                      interpret=True))
+    out = solver.solve_pos_plain(torch.tensor(M), torch.tensor(b)).numpy()
+    assert rel_err(out, ref) <= TOL64
+
+
+def _hand_rows(rs, B, ne=272):
+    """Random rows at the HandManipulateBlock shapes (nv = 36, ne = 272: 24
+    joint-limit and 88 tendon-limit rows, then 16 capped contacts x 4 and x
+    6 pyramid edges), per-model is_eq (all False)."""
+    nv = 36
+    M = _spd(rs, nv, B + 3)[:, :, 3:]                  # no floor lanes
+    return [
+        M, rs.normal(size=(nv, B)), rs.normal(size=(nv, B)),
+        rs.normal(size=(ne, nv, B)), rs.normal(size=(ne, B)),
+        np.exp(rs.normal(size=(ne, B))), rs.uniform(size=(ne, B)) < 0.4,
+        np.zeros(ne, bool),
+    ]
+
+
+def test_solve_newton_plain_matches_pallas_hand():
+    """nv = 36 at 40 rows (the interpret run's time is the unrolled nv = 36
+    solve's, whatever the rows), with the hand's iterations."""
+    args = _hand_rows(np.random.RandomState(36), 2, ne=40)
+    _check_newton(args, n_iter=5, n_ls=4)
+
+
 def _nv2_ref(args, n_iter, n_ls):
     """solver_pallas.solve_small_nv2 (interpret mode) over the batch of the
     port's batch-last operands, vmapped as the per-env path vmaps it."""
@@ -291,16 +365,16 @@ def test_wrappers_route_and_check():
 
 def test_newton_geometry_covers_row_caps():
     """newton_tile_kernel's launch geometry for every ported system with a
-    tile Newton (the AntMaze IDs at nv = 14, the Fetch IDs at nv = 21) and
-    at the row caps, at B from 1 up: the grid covers every env, a block's
-    shared memory fits, the lanes hold the row cap; other nv and more rows
-    raise."""
+    tile Newton (the AntMaze IDs at nv = 14, the Fetch IDs at nv = 21, the
+    HandManipulateBlock IDs at nv = 36) and at the row caps, at B from 1
+    up: the grid covers every env, a block's shared memory fits, the lanes
+    hold the row cap; other nv and more rows raise."""
     systems = set()
     for id_ in registry.ids():
         m = registry.make(id_, num_envs=1, device="cpu").env.model
         if m.nv in solver.NEWTON_TILE_SHAPES:
             systems.add((m.nv, m.plan("rows", constraint._RowPlan).is_eq.numel()))
-    assert systems == {(14, 72), (21, 255)}
+    assert systems == {(14, 72), (21, 255), (36, 272)}
     for nv in solver.NEWTON_TILE_SHAPES:
         cap = solver.NEWTON_MAX_ROWS[nv]
         for ne in sorted({1, 45, cap} | {n for v, n in systems if v == nv}):
@@ -317,8 +391,8 @@ def test_newton_geometry_covers_row_caps():
 
 
 def test_chol_geometry_matches_source():
-    """chol_tile_kernel's launch geometry (nv 14 and 21) against the
-    constants of csrc/solver.cu (the tile, the lanes an env, the triangle
+    """chol_tile_kernel's launch geometry (nv 14, 21 and 36) against the
+    constants of csrc/solver.cu (the tiles, the lanes an env, the triangle
     and right-hand side a block stages) at B from 1 up: the grid covers
     every env, the shared memory fits a static launch, up to nv = 36;
     other nv raise."""
@@ -326,21 +400,23 @@ def test_chol_geometry_matches_source():
     import re
 
     src = open(os.path.join(kernels.CSRC, "solver.cu")).read()
-    tile = int(re.search(r"constexpr int kCholTile = (\d+);", src).group(1))
+    tile16 = int(re.search(r"constexpr int kCholTile = (\d+);", src).group(1))
+    tile8 = int(re.search(r"constexpr int kCholTileWide = (\d+);", src).group(1))
     small, big = map(int, re.search(
         r"static constexpr int LPE = NV <= 16 \? (\d+) : (\d+); +// lanes an env",
         src).groups())
-    assert tile == solver.CHOL_TILE
+    assert (tile16, tile8) == (solver.CHOL_TILE, solver.CHOL_TILE_WIDE)
     assert [solver.chol_geometry(nv, 1)["lanes_per_env"] for nv in (14, 21)] == [small, big]
     for nv in solver.CHOL_TILE_NV:
         lanes = small if nv <= 16 else big
+        tile = tile16 if nv <= lanes else tile8
         for B in (1, 7, 16, 2047, 2048, 8192):
             geo = solver.chol_geometry(nv, B)
             assert (geo["grid"] - 1) * tile < B <= geo["grid"] * tile
             assert geo["threads"] == tile * lanes
             assert geo["rows_per_lane"] * lanes >= nv
             assert geo["smem"] == tile * (nv * (nv + 1) // 2 + nv) * 4 <= 48 * 1024
-    assert tile * (36 * 37 // 2 + 36) * 4 <= 48 * 1024   # nv = 36, the design's top
+    assert tile16 * (36 * 37 // 2 + 36) * 4 <= 48 * 1024   # nv = 36, the design's top
     for nv in (2, 15):
         with pytest.raises(NotImplementedError, match=f"nv={nv}"):
             solver.chol_geometry(nv, 1)
@@ -515,15 +591,69 @@ def test_kernels_match_plain_on_card_nv21(cuda_device):
             assert err <= TOL32
 
 
+def gate64(args, n_iter, n_ls):
+    """(kernel error, float32 plain version's error) of the Newton kernel
+    against its plain version run in float64, on qacc and f each against
+    its largest entry: the gate of the systems float32 itself moves."""
+    got = solver.solve_newton(*args, n_iter=n_iter, n_ls=n_ls)
+    torch.cuda.synchronize()
+    plain = solver.solve_newton_plain(*args, n_iter=n_iter, n_ls=n_ls)
+    ref = solver.solve_newton_plain(
+        *[a.double() if a.is_floating_point() else a for a in args],
+        n_iter=n_iter, n_ls=n_ls)
+    return (max(rel_err(g.cpu(), r.cpu()) for g, r in zip(got, ref)),
+            max(rel_err(p.cpu(), r.cpu()) for p, r in zip(plain, ref)))
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card_nv36(cuda_device):
+    """nv = 36: chol_tile_kernel<36, true> on random SPD systems, and
+    newton_tile_kernel<36, 3, 3, 4> on random rows and on a
+    HandManipulateBlock batch's own rows (B = 1024), each within 2e-4 of its
+    plain version in float32, or no further from the plain version run in
+    float64 than max(2e-4, 2x the float32 plain version)."""
+    B = 1024
+    rs = np.random.RandomState(36)
+
+    def cuda(x):
+        x = np.asarray(x)
+        return torch.tensor(x, dtype=torch.bool if x.dtype == bool
+                            else torch.float32, device=cuda_device)
+
+    M, b = cuda(_spd(rs, 36, B)), cuda(rs.normal(size=(36, B)))
+    n0 = dict(solver.LAUNCHES)
+    x = solver.solve_pos(M, b)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES["chol"] == n0["chol"] + 1
+    ok = slice(3, None)
+    assert rel_err(x[:, ok].cpu(), solver.solve_pos_plain(M, b)[:, ok].cpu()) <= TOL32
+
+    env = registry.make("HandManipulateBlockRotateXYZ-v1", num_envs=B,
+                        device=cuda_device, reset_pool_size=1)
+    env.reset(seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(2):
+        env.step(torch.rand((B, 20), generator=gen, device=cuda_device) * 2 - 1)
+    m, d = env.env.model, env.state.data
+    J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+    assert J.shape[:2] == (272, 36)
+    real = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+    rand = [cuda(a) for a in _hand_rows(rs, B)]
+    for args in (rand, real):
+        err, p32 = gate64(args, 5, 4)
+        assert err <= max(TOL32, 2 * p32), (err, p32)
+
+
 @pytest.mark.cuda
 def test_newton_edges_on_card(cuda_device):
     """newton_tile_kernel at the edges of its shapes against its plain
-    version (nv = 14: within 2e-4 of it in float32; nv = 21, whose random
-    systems float32 itself moves: within max(2e-4, 2x the float32 plain
-    version's error) of the plain version run in float64): the
-    row caps 96 and 256, an ne that is not a multiple of 32, B = 1, a B that
-    is not a multiple of the 8-env tile, n_iter = 0, every row inactive and
-    J in a batch-leading layout (the strided staging). The wrapper's shared
+    version (nv = 14: within 2e-4 of it in float32; nv = 21 and 36, whose
+    random systems float32 itself moves: within max(2e-4, 2x the float32
+    plain version's error) of the plain version run in float64): the
+    row caps 96, 256 and 288, an ne that is not a multiple of 32, B = 1, a
+    B that is not a multiple of the env tile (and at nv = 36 the hand's 272
+    rows at B = 1023), n_iter = 0, every row inactive and J in a
+    batch-leading layout (the strided staging). The wrapper's shared
     memory is the source's."""
     rs = np.random.RandomState(9)
 
@@ -532,12 +662,13 @@ def test_newton_edges_on_card(cuda_device):
         return torch.tensor(x, dtype=torch.bool if x.dtype == bool
                             else torch.float32, device=cuda_device)
 
-    for nv, n_iter in ((14, 5), (21, 4)):
+    for nv, n_iter in ((14, 5), (21, 4), (36, 5)):
         cap = solver.NEWTON_MAX_ROWS[nv]
-        for ne, B, it, case in ((cap, 2048, n_iter, ""), (45, 13, n_iter, ""),
+        hand = [(272, 1023, n_iter, "")] if nv == 36 else []
+        for ne, B, it, case in [(cap, 2048, n_iter, ""), (45, 13, n_iter, ""),
                                 (cap - 1, 1, n_iter, ""), (72, 2047, n_iter, ""),
                                 (72, 64, 0, ""), (72, 64, n_iter, "inactive"),
-                                (72, 64, n_iter, "strided")):
+                                (72, 64, n_iter, "strided")] + hand:
             A = rs.normal(size=(nv, nv, B))
             is_eq = np.zeros(ne, bool)
             is_eq[:6] = True
@@ -550,27 +681,23 @@ def test_newton_edges_on_card(cuda_device):
             if case == "strided":   # (B, ne, nv) storage: batch stride ne nv
                 args[3] = args[3].permute(2, 0, 1).contiguous().permute(1, 2, 0)
             n0 = solver.LAUNCHES["newton"]
-            got = solver.solve_newton(*args, n_iter=it, n_ls=4)
-            torch.cuda.synchronize()
-            assert solver.LAUNCHES["newton"] == n0 + 1
-            plain = solver.solve_newton_plain(*args, n_iter=it, n_ls=4)
             if nv == 14:
+                got = solver.solve_newton(*args, n_iter=it, n_ls=4)
+                torch.cuda.synchronize()
+                plain = solver.solve_newton_plain(*args, n_iter=it, n_ls=4)
                 err = max(rel_err(g.cpu(), p.cpu()) for g, p in zip(got, plain))
                 assert err <= TOL32, (nv, ne, B, it, case, err)
             else:
-                ref = solver.solve_newton_plain(
-                    *[a.double() if a.is_floating_point() else a for a in args],
-                    n_iter=it, n_ls=4)
-                err = max(rel_err(g.cpu(), r.cpu()) for g, r in zip(got, ref))
-                p32 = max(rel_err(p.cpu(), r.cpu()) for p, r in zip(plain, ref))
+                err, p32 = gate64(args, it, 4)
                 assert err <= max(TOL32, 2 * p32), (nv, ne, B, it, case, err, p32)
+            assert solver.LAUNCHES["newton"] == n0 + 1
         assert (solver._lib().grt_newton_smem_bytes(nv)
                 == solver.newton_geometry(nv, cap, 1)["smem"])
 
 
 @pytest.mark.cuda
 def test_chol_edges_on_card(cuda_device):
-    """chol_tile_kernel at nv 14 and 21 against its plain version: B = 1 and
+    """chol_tile_kernel at nv 14, 21 and 36 against its plain version: B = 1 and
     B = 2047, M as a transposed and as a sliced view, b transposed, envs
     whose factor takes the 1e-20 floor exactly (equal to the plain
     version), an env with a NaN entry (NaN in both); and the same solves
@@ -578,7 +705,7 @@ def test_chol_edges_on_card(cuda_device):
     than twice the float32 plain version). The wrapper's shared memory is
     the source's."""
     rs = np.random.RandomState(12)
-    for nv in (14, 21):
+    for nv in (14, 21, 36):
         def spd(B):
             A = rs.normal(size=(nv, nv, B))
             return torch.tensor(np.einsum("ikb,jkb->ijb", A, A)

@@ -32,8 +32,8 @@ sys.path.insert(0, ROOT)
 MARKS = (
     (0, "  const bool vec4 = s.J.b == 1"),
     (1, "  // M's lower triangle, from the (i, j) square"),
-    (2, "  for (int idx = tid; idx < kEnvTile * 32; idx += nthr) {"),
-    (3, "  cp_async_wait_all();\n  __syncthreads();"),
+    (2, "  for (int idx = tid; idx < ET * VW; idx += nthr) {"),
+    (3, "  cp_async_wait_all();\n  __syncthreads();\n  // this lane's rows"),
     (4, "  // this lane's rows r = u + LPE q: weight, aref and equality flag"),
     (5, "    // (2) H = M + J^T diag(Dw) J"),
     (6, "    // (3) the lead warp: p = -H^-1"),
@@ -41,7 +41,7 @@ MARKS = (
     (8, "    // (5) a += alpha p"),
     (9, "  // forces on the final active set; unilateral rows pushed to f >= 0\n"
         "  float* F"),
-    (10, "  __syncthreads();\n  for (int idx = tid; idx < kEnvTile * ne;"),
+    (10, "  __syncthreads();\n  for (int idx = tid; idx < ET * ne;"),
 )
 NAMES = ("J", "M", "vectors_rows", "wait", "iter0_rows", "iter0_H",
          "iter0_chol", "iter0_line", "later_iters", "forces")
