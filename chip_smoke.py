@@ -33,7 +33,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      env-steps/s;
   8. trace: 4 steps traced, as in phase 4;
   9. reference: 8 envs on the card and on the CPU plain path from one
-     carried-across state: within 2e-4 after 1 env step; the error after 5
+     carried-across state: within 2e-4 after 1 env step; the error after 2
      steps is printed, not gated (contact dynamics are chaotic);
   10. kernels: each AntMaze kernel against its plain version at B = 2048, on
      random inputs (forced ties for topk_select) and on the arrays of a
@@ -47,13 +47,14 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
   topk_select at (3, 85) -> 8 and (2, 169) -> 24, chol and Newton at
   nv = 21; box-hull and hull-hull run with MPR as plain PyTorch):
   11. main path: registry.make("FetchPush-v4", num_envs=2048,
-     max_episode_steps=5), reset, 7 steps with random actions, so every env
+     max_episode_steps=5), reset, 6 steps with random actions, so every env
      auto-resets; per step 40 chol, 20 Newton, 40 topk_select (20 of each
      shape) and 20 narrowphase launches; prints ms/step and env-steps/s;
-  12. trace: 1 step traced, as in phase 4 (device activity only);
-  13. reference: 4 envs on the card and on the CPU plain path from one
-     carried-across state: within 2e-4 after 1 env step; the error after 2
-     steps is printed, not gated;
+  12. trace: 1 step traced, as in phase 4 (device activity only), with the
+     launches counted during it;
+  13. reference: 4 envs stepped twice on the card from a seeded reset, then
+     once more on the card and on the CPU plain path from the carried-across
+     state: within 2e-4 after that step;
   14. kernels: each FetchPush kernel against its plain version at B = 2048,
      on the main path's arrays and on a pressed state (the object against
      the fingers, the arm in the table, on the floor and folded onto
@@ -115,7 +116,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
   22. main path: registry.make("HandManipulateBlockRotateXYZ-v1",
      num_envs=1024, max_episode_steps=3), reset (the initial settle of a
      pool of 16 poses an env, one batch of 16384, 200 substeps; its
-     seconds printed), 5 steps with random actions, so every env
+     seconds printed), 4 steps with random actions, so every env
      auto-resets; per step 40 chol (the smooth solve and the Euler's damped
      velocity solve, each substep), 20 Newton and 20 topk_select launches,
      no narrowphase; prints ms/step and env-steps/s;
@@ -146,7 +147,38 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      v1", parity=True) on the card, a seeded parity reset (its settle), 3
      steps; launches per step as in phase 22 and 92 touch readings in the
      observation;
-  21. (run after phases 22-26) edge checks of the redesigned kernels
+  FetchSlide-v4 (B4's plane-cylinder, cylinder-box and cylinder-hull
+  kinds, topk_select at (4, 85) -> 8 and (2, 177) -> 24) and FetchReach-v4
+  (chol and Newton at nv = 15, topk_select at (3, 85) -> 8 and
+  (2, 156) -> 24):
+  27. main path: registry.make("FetchSlide-v4", num_envs=2048,
+     max_episode_steps=5), reset, 6 steps with random actions, so every env
+     auto-resets; per step 40 chol, 20 Newton, 40 topk_select (20 of each
+     shape) and 20 narrowphase launches; prints ms/step, env-steps/s and
+     the shapes, then a 1-step trace as in phase 12 with the launches
+     counted during it;
+  28. reference: as phase 13, within 2e-4; where a state squeezes a
+     puck between the welded gripper and the table (float32 rounding alone
+     moves that solve), the card held instead to the CPU path in float64,
+     no further from it than twice the CPU float32 path;
+  29. kernels: topk_select at both shapes as in phase 14; the narrowphase on
+     the main path's picks and on pressed pucks (under the gripper link,
+     tipped and upright on the floor, against the fingers, at random
+     orientations against the link, so that the envs pick different hulls),
+     every kernel row within 2e-4 of the plain version, each new kind alone
+     bit for bit the whole table's rows, timed on the whole table and on
+     each new kind alone (GroupTable.only), with the plain versions' times;
+  30. main path: registry.make("FetchReach-v4", ...) as phase 27, without
+     the trace (FetchSlide's stands for both, and the run keeps its time);
+  31. reference: as phase 28;
+  32. kernels: topk_select at (2, 156) -> 24; the Cholesky and the Newton
+     solve at nv = 15 on random systems, the main path's and a state with
+     the fingers pressed 0-4 mm into the table, held to their plain
+     versions in float64 as at nv = 21, timed, with solve_ex beside the
+     Cholesky;
+  33. make_gym("FetchSlide-v4") and make_gym("FetchReach-v4"): a parity
+     reset and 3 steps each, launches per step as in phase 27;
+  21. (run after phases 22-33) edge checks of the redesigned kernels
      (topk_select_kernel,
      newton_tile_kernel, chol_tile_kernel, narrowphase_kernel,
      newton2_kernel, fk_kernel) against
@@ -154,13 +186,13 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      (AntMaze_Large's shape) on tied ranks, at B = 1 and B = 2047, at the
      hand's (2, 160) -> 16 at B = 1 and 1023 and with a NaN lane, with K
      larger than the unmasked count, with an all-masked group and a NaN
-     lane; the Newton solve at nv = 14, 21 and 36 at the row caps (96, 256,
-     288), at an ne that is not a multiple of 32, at B = 1 and B = 2047
+     lane; the Newton solve at nv = 14, 15, 21 and 36 at the row caps (96,
+     256, 256, 288), at an ne that is not a multiple of 32, at B = 1 and B = 2047
      (and the hand's 272 rows at B = 1023), with n_iter = 0, with every row
-     inactive and with a strided J; the Cholesky at nv = 14, 21 and 36 at
+     inactive and with a strided J; the Cholesky at nv = 14, 15, 21 and 36 at
      B = 1, 1023 and 2047, with M transposed
      and sliced, envs on the 1e-20 floor and a NaN env; the narrowphase on
-     the pressed AntMaze and FetchPush states at B = 1 and B = 2047, each
+     the pressed AntMaze, FetchPush and FetchSlide states at B = 1 and B = 2047, each
      kind alone (bitwise equal to the whole table's rows), with picks out
      of range and int64 picks; and newton2_kernel on both nv = 2 routes on
      the rows of PointMaze_UMaze-v3 (19), PointMaze_Medium-v3 (39) and
@@ -193,8 +225,9 @@ STEPS = 320
 ANT_B = 2048
 ANT_STEPS = 25        # every env resets; kept short for the hand's phases
 ANT_LIMIT = 20        # max_episode_steps cut from 700
+ANT_REF_STEPS = 2     # reference steps on the CPU, the first gated
 FETCH_B = 2048
-FETCH_STEPS = 7
+FETCH_STEPS = 6
 FETCH_LIMIT = 5       # max_episode_steps cut from 50: every env resets
 FK_STEPS = 3
 FK_LIMIT = 2          # max_episode_steps cut from 50: every env resets
@@ -202,13 +235,13 @@ FK_PER_STEP = 22      # 20 substeps' forwards, the gripper refresh, the reset
 FK_STEP_SHARE = 0.9   # envs within TOL after one env step, FK kernel vs not
 FK_LEVEL_SLACK = 2    # FK kernel path's largest error vs float64 <= 2x level's
 FK_REF_ENVS = 64      # envs stepped in float64 on the CPU as the reference
-FK_SEEDS = (1, 2)     # the env-step action's seed: two states are checked
+FK_SEEDS = (1, 2)     # the env-step action's seed
 FK_BURST = 50         # fk_kernel launches traced back to back
 GYM_STEPS = 310       # past PointMaze's 300-step limit
 HAND_ID = "HandManipulateBlockRotateXYZ-v1"
 HAND_GYM_ID = "HandManipulateBlock_ContinuousTouchSensors-v1"
 HAND_B = 1024         # bench.py's rung of the hand
-HAND_STEPS = 5
+HAND_STEPS = 4
 HAND_LIMIT = 3        # max_episode_steps cut from 100: every env resets
 HAND_REF_ENVS = 64
 HAND_GENTLE = 0.1     # action amplitude of the settled reference
@@ -221,9 +254,15 @@ SOLVER_SRC = "gymnasium_robotics_tpu_torch/csrc/solver.cu"
 FK_SRC = "gymnasium_robotics_tpu_torch/csrc/kinematics.cu"
 # float operations of one pair of each narrowphase group kind (plane-sphere,
 # plane-capsule, sphere-box, capsule-box, plane-box, box-box, plane-hull at
-# 24 vertices), counted from the formulas of csrc/narrowphase.cu, each
-# slot's frame included
-NARROW_OPS = (40, 90, 115, 366, 624, 4442, 1104)
+# 24 vertices, plane-cylinder, cylinder-box), counted from the formulas of
+# csrc/narrowphase.cu, each slot's frame included; cylinder-hull's two
+# probes cost HULL_PROBE_OPS each plus HULL_FACE_OPS a real face of the
+# picked hull (narrow_ops)
+NARROW_OPS = (40, 90, 115, 366, 624, 4442, 1104, 133, 366)
+HULL_PROBE_OPS, HULL_FACE_OPS = 77, 7
+NEW_KINDS = (7, 8, 9)   # plane-cylinder, cylinder-box, cylinder-hull
+FETCH_REF_ENVS = 4
+FETCH_REF_WARM = 2    # card steps before the compared one
 BIG = 1e9             # contact distances above this: slots far from touching
 GEOMS = ("plane", "hfield", "sphere", "capsule", "ellipsoid", "cylinder",
          "box", "hull")
@@ -365,15 +404,55 @@ def bound(nbytes, ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def narrow_ops(m, table, sel, nb):
+    """The formulas' operations of one narrowphase call over nb envs
+    (NARROW_OPS a pair; a cylinder-hull pair's by the real faces, d above
+    -1e9, of the hull each env picked, as this run's picks need)."""
+    ops = 0
+    for g in table.groups:
+        if g.kind < len(NARROW_OPS):
+            ops += NARROW_OPS[g.kind] * g.k * nb
+            continue
+        faces = (m.hull_face[..., 3] > -1e9).sum(dim=1)          # per hull
+        hid = g.hull2[:, None] if g.sel_group < 0 else g.hull2[
+            sel[g.sel_group].long().clamp(0, len(g.g2) - 1)]
+        ops += int((2 * (HULL_PROBE_OPS + HULL_FACE_OPS * faces[hid])).sum()
+                   * (nb if g.sel_group < 0 else 1))
+    return ops
+
+
 def narrow_bound(m, table, sel, n_rows, nb):
-    """Bound of one narrowphase call over nb envs: per env the geoms' poses
-    (12 floats each) and the int32 picks sel (G, K, nb) read and 13 floats
-    written per kernel row; the model's sizes and hull vertex table, shared
-    by every env, read once; the formulas' operations (NARROW_OPS)."""
-    hulls = 0 if m.hull_vert is None else m.hull_vert.numel()
-    nbytes = ((m.meta.ngeom * 12 + n_rows * 13) * 4 * nb + sel.numel() * 4
-              + (m.geom_size.numel() + hulls) * 4)
-    return bound(nbytes, sum(NARROW_OPS[g.kind] * g.k for g in table.groups) * nb)
+    """Bound of one narrowphase call over nb envs: per env the poses (12
+    floats) of the geoms that env's pairs reference (every pair of a static
+    group, the picked pairs of a pruned one), the int32 picks of the
+    table's own pruned groups read, and 13 floats written per kernel row;
+    shared by every env and read once, the sizes of the geoms referenced
+    and the hull rows the table reads (the static plane-hull hulls'
+    vertices, the picked cylinder-hull hulls' real faces, d above -1e9);
+    the formulas' operations (narrow_ops)."""
+    import torch
+
+    used = torch.zeros((m.meta.ngeom, nb), dtype=torch.bool, device=sel.device)
+    envs = torch.arange(nb, device=sel.device)
+    n_sel, verts, faces = 0, set(), set()
+    for g in table.groups:
+        if g.sel_group < 0:
+            used[torch.cat([g.g1, g.g2])] = True
+            hid = g.hull2
+        else:
+            pick = sel[g.sel_group].long().clamp(0, len(g.g1) - 1)   # (K, nb)
+            used[g.g1[pick], envs] = True
+            used[g.g2[pick], envs] = True
+            n_sel += pick.numel()
+            hid = None if g.hull2 is None else g.hull2[pick]
+        if hid is not None:
+            (verts if g.kind == 6 else faces).update(hid.unique().tolist())
+    shared = (int(used.any(dim=1).sum()) * 3 * m.geom_size.shape[-1]
+              + sum(m.hull_vert[h].numel() for h in verts)
+              + sum(int((m.hull_face[h, :, 3] > -1e9).sum()) * 4 for h in faces))
+    nbytes = ((int(used.sum()) * 12 + n_rows * 13 * nb + shared) * 4
+              + n_sel * 4)
+    return bound(nbytes, narrow_ops(m, table, sel, nb))
 
 
 def int64_picks_ms(torch, narrowphase, tp, args, out):
@@ -708,7 +787,7 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
     env_c.state = convert.env_state_from_numpy(
         convert.env_state_to_numpy(env_g.state), "cpu")
     errs = []
-    for _ in range(5):
+    for _ in range(ANT_REF_STEPS):
         a = rng.uniform(-1, 1, (small, 8)).astype(np.float32)
         og = env_g.step(torch.as_tensor(a, device=dev))[0]
         oc = env_c.step(torch.as_tensor(a))[0]
@@ -719,7 +798,8 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
                     .any(dim=0).sum())
     print(f"ant reference: card vs CPU plain path, {small} envs, relerr "
           f"{errs[0]:.3e} after 1 step (gated), per step {errs} "
-          f"(5 steps, not gated); {n_contact} envs in contact", flush=True)
+          f"({ANT_REF_STEPS} steps, not gated); {n_contact} envs in contact",
+          flush=True)
 
     # --- 10. kernels against their plain versions, B = 2048
     m = env.env.model
@@ -746,28 +826,7 @@ def antmaze(torch, dev, card, solver, constraint, narrowphase, collision,
         (2, 216, 8): (collision.broadphase_rank(m, d, tp), tp.mask),
         (1, 57, 16): (pen[rp.cap_rows], rp.cap_mask),
     }
-    for (G, maxk, K), (rank, mask) in real_topk.items():
-        r_rand, m_rand = tie_ranks(rs, G, maxk, ANT_B)
-        sets = ((cuda(r_rand), cuda(m_rand, torch.bool)), (rank, mask))
-        for r, mk in sets:
-            got = narrowphase.topk_select(r, mk, K)
-            assert torch.equal(got, narrowphase.topk_select_plain(r, mk, K)), \
-                f"topk_select {(G, maxk, K)} indices differ"
-        ms = time_ms(torch, lambda: narrowphase.topk_select(rank, mask, K))
-        plain_ms = time_ms(torch, lambda: narrowphase.topk_select_plain(
-            rank, mask, K), n=10)
-        masked = torch.where(mask[:, :, None], rank, float("inf"))
-        lib_ms = time_ms(torch, lambda: torch.topk(masked, K, dim=1,
-                                                   largest=False))
-        # bytes: ranks and mask read, indices written; one comparison per
-        # entry at least
-        bnd = bound(G * maxk * ANT_B * 4 + G * maxk + G * K * ANT_B * 4,
-                    G * maxk * ANT_B)
-        rows.append(kernel_row(
-            f"topk_select_{G}x{maxk}_k{K}", NP_SRC,
-            "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:155",
-            shapes[(G, maxk, K)], 0.0, 0.0, ms, plain_ms, bnd, lib_ms,
-            [G, maxk, ANT_B, K]))
+    rows += topk_rows(torch, narrowphase, rs, cuda, real_topk, shapes, ANT_B)
 
     # narrowphase: random picks on other poses, and the main path's picks
     # (int32, clamped by the kernel, as collision passes them)
@@ -996,78 +1055,18 @@ def table_err(got, ref, rows):
 def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
               pipeline, convert, registry):
     """Phases 11-14; returns the kernels' JSON rows."""
-    t_phase = time.perf_counter()
-    # --- 11. main path
-    env = registry.make("FetchPush-v4", num_envs=FETCH_B,
-                        max_episode_steps=FETCH_LIMIT)
-    obs, info = env.reset(seed=0)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    finite = torch.ones(FETCH_B, dtype=torch.bool, device=dev)
-    was_reset = torch.zeros(FETCH_B, dtype=torch.bool, device=dev)
-    diverged = torch.zeros(FETCH_B, dtype=torch.bool, device=dev)
-    warm = 2
-    zero_counters(solver, narrowphase)
-    for i in range(FETCH_STEPS):
-        if i == warm:
-            torch.cuda.synchronize()
-            t_start = time.perf_counter()
-        a = torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1
-        obs, _, terminated, truncated, info = env.step(a)
-        finite &= torch.isfinite(obs["observation"]).all(dim=1)
-        was_reset |= terminated | truncated
-        diverged |= info["diverged"]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_start
-    launches = launch_counts(solver, narrowphase)
-    shapes = dict(narrowphase.TOPK_SHAPES)
-    ms_step = wall / (FETCH_STEPS - warm) * 1e3
-    n = FETCH_STEPS
-    assert obs["observation"].shape == (FETCH_B, 25), obs["observation"].shape
-    assert bool(finite.all()), "non-finite observations"
-    assert bool(was_reset.all()), f"{int((~was_reset).sum())} envs never reset"
-    assert launches == per_step(n, chol=40, newton=20, topk=40,
-                                narrowphase=20), launches
-    assert shapes == {(3, 85, 8): 20 * n, (2, 169, 24): 20 * n}, shapes
-    print(f"main path: FetchPush-v4 x{FETCH_B}, {n} steps, limit "
-          f"{FETCH_LIMIT}, launches {launches}; {ms_step:.4f} ms/step, "
-          f"{FETCH_B / ms_step * 1e3:.1f} env-steps/s over steps {warm}-{n}; "
-          f"{int(diverged.sum())} envs truncated as diverged [{card}] "
-          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
-
-    # --- 12. trace
-    t_phase = time.perf_counter()
-
-    def run(k):
-        for _ in range(k):
-            env.step(torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1)
-
-    trace(torch, run, 1, card, "fetch trace", cpu=False)
-    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    # --- 11-12. main path and trace
+    env, launches, shapes = fetch_main(
+        torch, dev, card, solver, narrowphase, registry, "FetchPush-v4",
+        ((3, 85, 8), (2, 169, 24)), 25, traced=True)
 
     # --- 13. the card against the CPU plain path from one state
     t_phase = time.perf_counter()
-    small = 4
-    env_g = registry.make("FetchPush-v4", num_envs=small)
-    env_c = registry.make("FetchPush-v4", num_envs=small, device="cpu")
-    env_g.reset(seed=3)
-    env_c.reset(seed=3)
-    rng = np.random.default_rng(0)
-    for _ in range(3):
-        env_g.step(torch.as_tensor(rng.uniform(-1, 1, (small, 4)),
-                                   dtype=torch.float32, device=dev))
-    env_c.state = convert.env_state_from_numpy(
-        convert.env_state_to_numpy(env_g.state), "cpu")
-    errs = []
-    for _ in range(2):
-        a = rng.uniform(-1, 1, (small, 4)).astype(np.float32)
-        og = env_g.step(torch.as_tensor(a, device=dev))[0]
-        oc = env_c.step(torch.as_tensor(a))[0]
-        errs.append(max(rel_err(og[k].cpu(), oc[k]) for k in oc))
-    assert errs[0] <= TOL, f"card vs CPU path after 1 step: relerr {errs[0]:.3e}"
-    print(f"fetch reference: card vs CPU plain path, {small} envs, relerr "
-          f"{errs[0]:.3e} after 1 step (gated), per step {errs} (2 steps, not "
-          f"gated) ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    err = fetch_reference(torch, dev, convert, registry, "FetchPush-v4")[0]
+    assert err <= TOL, f"card vs CPU path after 1 step: relerr {err:.3e}"
+    print(f"fetch reference: card vs CPU plain path, {FETCH_REF_ENVS} envs, "
+          f"relerr {err:.3e} after 1 step ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
 
     # --- 14. kernels against their plain versions, B = 2048
     t_phase = time.perf_counter()
@@ -1110,25 +1109,7 @@ def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
         (3, 85, 8): (collision.broadphase_rank(m, d_main, tp), tp.mask),
         (2, 169, 24): (pen[rp.cap_rows], rp.cap_mask),
     }
-    for (G, maxk, K), (rank, mask) in real_topk.items():
-        r_rand, m_rand = tie_ranks(rs, G, maxk, FETCH_B)
-        for r, mk in ((cuda(r_rand), cuda(m_rand, torch.bool)), (rank, mask)):
-            got = narrowphase.topk_select(r, mk, K)
-            assert torch.equal(got, narrowphase.topk_select_plain(r, mk, K)), \
-                f"topk_select {(G, maxk, K)} indices differ"
-        ms = time_ms(torch, lambda: narrowphase.topk_select(rank, mask, K))
-        plain_ms = time_ms(torch, lambda: narrowphase.topk_select_plain(
-            rank, mask, K), n=10)
-        masked = torch.where(mask[:, :, None], rank, float("inf"))
-        lib_ms = time_ms(torch, lambda: torch.topk(masked, K, dim=1,
-                                                   largest=False))
-        bnd = bound(G * maxk * FETCH_B * 4 + G * maxk + G * K * FETCH_B * 4,
-                    G * maxk * FETCH_B)
-        rows.append(kernel_row(
-            f"topk_select_{G}x{maxk}_k{K}", NP_SRC,
-            "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:155",
-            shapes[(G, maxk, K)], 0.0, 0.0, ms, plain_ms, bnd, lib_ms,
-            [G, maxk, FETCH_B, K]))
+    rows += topk_rows(torch, narrowphase, rs, cuda, real_topk, shapes, FETCH_B)
 
     # narrowphase: the main path's and the pressed state's tables
     np_rel = np_abs = 0.0
@@ -1577,6 +1558,406 @@ def handmanipulate(torch, dev, card, solver, constraint, narrowphase,
 
 
 
+def slide_poses(env, n, seed):
+    """(qpos (nq, n), qvel (nv, n)) of FetchSlide pucks touching things,
+    cycling through five poses, each jittered by up to 2 mm: upright on the
+    table 4 mm up into the gripper link; tipped 0.3 rad onto the floor;
+    upright on the floor (the axis along the plane's normal: the fallback
+    rim point and a NaN tangent); tipped 1.2 rad against the fingers and
+    the gripper link; at a random orientation 1-4 mm into the gripper
+    link's side."""
+    rs = np.random.RandomState(seed)
+    oq = env._obj_qadr
+    qpos = np.tile(env._init_qpos.cpu().numpy(), (n, 1))
+    poses = [[1.06, 0.7497, 0.4445, 1.0, 0.0, 0.0, 0.0],
+             [1.7, 1.4, 0.026, np.cos(0.15), np.sin(0.15), 0.0, 0.0],
+             [1.7, 1.4, 0.0195, 1.0, 0.0, 0.0, 0.0],
+             [1.05, 0.7497, 0.455, np.cos(0.6), 0.0, np.sin(0.6), 0.0]]
+    for i in range(n):
+        if i % 5 < 4:
+            qpos[i, oq:oq + 7] = poses[i % 5]
+        else:
+            q = rs.normal(size=4)
+            qpos[i, oq:oq + 7] = [1.0, 0.7497 + rs.uniform(-0.03, 0.03),
+                                  0.49 + rs.uniform(-0.01, 0.01),
+                                  *(q / np.linalg.norm(q))]
+        qpos[i, oq:oq + 2] += rs.uniform(-0.002, 0.002, 2)
+    qvel = np.zeros((n, env.model.nv))
+    qvel[:, -6:] = rs.normal(0, 0.05, (n, 6))
+    return qpos.T, qvel.T
+
+
+def fetch_reference(torch, dev, convert, registry, id_):
+    """Phases 13, 28 and 31: FETCH_REF_ENVS envs of ``id_`` stepped on the
+    card for FETCH_REF_WARM steps from a seeded reset, then once more on the card and, from
+    the carried state, on the CPU plain path: (card vs CPU float32 relerr;
+    when that exceeds TOL, card vs CPU float64 and CPU float32 vs CPU
+    float64, else None), each the largest over the envs and the
+    observation."""
+    n = FETCH_REF_ENVS
+    env_g = registry.make(id_, num_envs=n)
+    env_g.reset(seed=3)
+    rng = np.random.default_rng(0)
+    for _ in range(FETCH_REF_WARM):
+        env_g.step(torch.as_tensor(rng.uniform(-1, 1, (n, 4)),
+                                   dtype=torch.float32, device=dev))
+    fields = convert.env_state_to_numpy(env_g.state)
+    a = rng.uniform(-1, 1, (n, 4)).astype(np.float32)
+    og = env_g.step(torch.as_tensor(a, device=dev))[0]
+
+    def cpu_step(dtype):
+        e = registry.make(id_, num_envs=n, device="cpu", dtype=dtype)
+        e.state = cast_state(convert.env_state_from_numpy(fields, "cpu"), dtype)
+        return e.step(torch.as_tensor(a, dtype=dtype))[0]
+
+    oc = cpu_step(torch.float32)
+    err32 = max(rel_err(og[k].cpu(), oc[k]) for k in oc)
+    if err32 <= TOL:
+        return err32, None, None
+    o64 = cpu_step(torch.float64)
+    return (err32, max(rel_err(og[k].cpu(), o64[k]) for k in o64),
+            max(rel_err(oc[k], o64[k]) for k in o64))
+
+
+def fetch_main(torch, dev, card, solver, narrowphase, registry, id_, shapes,
+               width, traced):
+    """Phases 11, 27 and 30: ``id_`` x FETCH_B on the main path (limit
+    FETCH_LIMIT, FETCH_STEPS steps, every env auto-resets; per step 40
+    chol, 20 Newton, 40 topk_select (20 of each of ``shapes``) and 20
+    narrowphase launches), then, if ``traced``, a 1-step trace (phase 12). Returns the env, the launches and the topk_select shapes counted."""
+    t_phase = time.perf_counter()
+    env = registry.make(id_, num_envs=FETCH_B, max_episode_steps=FETCH_LIMIT)
+    env.reset(seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    finite = torch.ones(FETCH_B, dtype=torch.bool, device=dev)
+    was_reset = torch.zeros(FETCH_B, dtype=torch.bool, device=dev)
+    diverged = torch.zeros(FETCH_B, dtype=torch.bool, device=dev)
+    warm = 2
+    zero_counters(solver, narrowphase)
+    for i in range(FETCH_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        a = torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1
+        obs, _, terminated, truncated, info = env.step(a)
+        finite &= torch.isfinite(obs["observation"]).all(dim=1)
+        was_reset |= terminated | truncated
+        diverged |= info["diverged"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts(solver, narrowphase)
+    counted = dict(narrowphase.TOPK_SHAPES)
+    ms_step = wall / (FETCH_STEPS - warm) * 1e3
+    n = FETCH_STEPS
+    assert obs["observation"].shape == (FETCH_B, width), obs["observation"].shape
+    assert bool(finite.all()), f"{id_}: non-finite observations"
+    assert bool(was_reset.all()), f"{int((~was_reset).sum())} envs never reset"
+    assert launches == per_step(n, chol=40, newton=20, topk=40,
+                                narrowphase=20), launches
+    assert counted == {s: 20 * n for s in shapes}, counted
+    print(f"main path: {id_} x{FETCH_B}, {n} steps, limit {FETCH_LIMIT}, "
+          f"launches {launches}, topk_select shapes {counted}; {ms_step:.4f} "
+          f"ms/step, {FETCH_B / ms_step * 1e3:.1f} env-steps/s over steps "
+          f"{warm}-{n}; {int(diverged.sum())} envs truncated as diverged "
+          f"[{card}] ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    if not traced:
+        return env, launches, counted
+    t_phase = time.perf_counter()
+
+    def run(k):
+        for _ in range(k):
+            env.step(torch.rand((FETCH_B, 4), generator=gen, device=dev) * 2 - 1)
+
+    trace(torch, run, 1, card, f"{id_} trace", cpu=False,
+          counts=lambda: launch_counts(solver, narrowphase))
+    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return env, launches, counted
+
+
+def topk_rows(torch, narrowphase, rs, cuda, reals, shapes, nb):
+    """topk_select at each shape of ``reals`` ({(G, maxk, K): (rank,
+    mask)}, nb envs): indices equal to the plain version's on forced ties
+    and on the given ranks; the JSON rows with the kernel's, the plain
+    version's and torch.topk's times and the bound (ranks and mask read,
+    indices written; one comparison an entry at least), the launches from
+    ``shapes``."""
+    rows = []
+    for (G, maxk, K), (rank, mask) in reals.items():
+        r_rand, m_rand = tie_ranks(rs, G, maxk, nb)
+        for r, mk in ((cuda(r_rand), cuda(m_rand, torch.bool)), (rank, mask)):
+            got = narrowphase.topk_select(r, mk, K)
+            assert torch.equal(got, narrowphase.topk_select_plain(r, mk, K)), \
+                f"topk_select {(G, maxk, K)} indices differ"
+        ms = time_ms(torch, lambda: narrowphase.topk_select(rank, mask, K))
+        plain_ms = time_ms(torch, lambda: narrowphase.topk_select_plain(
+            rank, mask, K), n=10)
+        masked = torch.where(mask[:, :, None], rank, float("inf"))
+        lib_ms = time_ms(torch, lambda: torch.topk(masked, K, dim=1,
+                                                   largest=False))
+        bnd = bound(G * maxk * nb * 4 + G * maxk + G * K * nb * 4,
+                    G * maxk * nb)
+        rows.append(kernel_row(
+            f"topk_select_{G}x{maxk}_k{K}", NP_SRC,
+            "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:155",
+            shapes[(G, maxk, K)], 0.0, 0.0, ms, plain_ms, bnd, lib_ms,
+            [G, maxk, nb, K]))
+    return rows
+
+
+def fetch_slice(torch, dev, card, solver, constraint, narrowphase, collision,
+                pipeline, convert, registry):
+    """Phases 27-32 (FetchSlide-v4 and FetchReach-v4); returns the kernels'
+    JSON rows, FetchSlide's pressed state (model, data) for the edge
+    checks, and the narrowphase rows' group tables by row name."""
+    rows, tables = [], {}
+    # --- 27. FetchSlide main path and trace
+    env, launches, shapes = fetch_main(
+        torch, dev, card, solver, narrowphase, registry, "FetchSlide-v4",
+        ((4, 85, 8), (2, 177, 24)), 25, traced=True)
+
+    # --- 28. the card against the CPU plain path from one state
+    t_phase = time.perf_counter()
+    ref = fetch_reference(torch, dev, convert, registry, "FetchSlide-v4")
+    # as FetchPush's: within TOL of the CPU float32 path; where the state
+    # squeezes a puck between the welded gripper and the table, float32
+    # rounding alone moves the solve, and the card is held to the CPU
+    # float64 path instead, no further from it than NEWTON_SLACK times the
+    # CPU float32 path
+    assert ref[0] <= TOL or ref[1] <= max(TOL, NEWTON_SLACK * ref[2]), (
+        f"FetchSlide card vs CPU path after 1 step: {ref}")
+    print(f"slide reference: card vs CPU plain path, {FETCH_REF_ENVS} envs, "
+          f"relerr after 1 step (card vs CPU float32, card vs CPU float64, "
+          f"CPU float32 vs float64; the last two only where the first "
+          f"exceeds {TOL}) {ref} ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+    # --- 29. FetchSlide's kernels: B4's new kinds and topk_select
+    t_phase = time.perf_counter()
+    fenv = env.env
+    m = fenv.model
+    rs = np.random.RandomState(0)
+
+    def cuda(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    d_main = pipeline.forward(m, env.state.data)
+    qpos, qvel = slide_poses(fenv, FETCH_B, 1)
+    d_press = pipeline.make_data(m, FETCH_B)
+    d_press.qpos[:] = cuda(qpos)
+    d_press.qvel[:] = cuda(qvel)
+    d_press = pipeline.forward(m, d_press)
+    slide_ctx = (m, d_press, m.hull_vert)
+    tp = m.plan("pruned", collision._PrunedPlan)
+    rp = m.plan("rows", constraint._RowPlan)
+    table = tp.table
+    new = {k: "-".join(GEOMS[t] for t in narrowphase.KINDS[k])
+           for k in NEW_KINDS}
+    counts = {}   # per new kind, the envs with a penetrating row
+    for name in new.values():
+        rows_k = [r for g in table.groups if new.get(g.kind) == name
+                  for r in range(g.row_off, g.row_off + g.k * g.S)]
+        counts[name] = [int((d.contact.dist[rows_k] < 0).any(dim=0).sum())
+                        for d in (d_main, d_press)]
+    print(f"slide kernels: envs with a penetrating row per new kind (main "
+          f"path, pressed state): {counts}", flush=True)
+    assert all(c[1] > 0 for c in counts.values()), "a new kind never penetrates"
+    pen = d_main.contact.dist - m.con_includemargin[:, 0][d_main.contact.src]
+    rows += topk_rows(torch, narrowphase, rs, cuda, {
+        (4, 85, 8): (collision.broadphase_rank(m, d_main, tp), tp.mask),
+        (2, 177, 24): (pen[rp.cap_rows], rp.cap_mask)}, shapes, FETCH_B)
+    # the whole table and each new kind alone, on the main path's and the
+    # pressed state's picks; the pressed state's cylinder-hull picks differ
+    # between envs
+    hg = next(g for g in table.groups if g.kind == NEW_KINDS[-1])
+    np_rel = np_abs = 0.0
+    sets = []
+    for d in (d_main, d_press):
+        sel = narrowphase.topk_select(collision.broadphase_rank(m, d, tp),
+                                      tp.mask, tp.K)
+        sets.append((d.geom_xpos, d.geom_xmat, m.geom_size, sel, m.hull_vert,
+                     m.hull_face))
+        whole = narrowphase.narrowphase(table, *sets[-1])
+        rel, ab = table_err(whole, narrowphase.narrowphase_plain(
+            table, *sets[-1]), table.rows)
+        np_rel, np_abs = max(np_rel, rel), max(np_abs, ab)
+        for k in NEW_KINDS:   # alone: the whole table's rows, bit for bit
+            sub = table.only([k])
+            got = narrowphase.narrowphase(sub, *sets[-1])
+            assert all(torch.equal(g[sub.rows].view(torch.int32),
+                                   w[sub.rows].view(torch.int32))
+                       for g, w in zip(got, whole)), f"{new[k]} alone: bits"
+    picks = hg.g2[torch.clamp(sets[1][3][hg.sel_group].long(), 0, len(hg.g2) - 1)]
+    n_hulls = int(torch.unique(picks[0]).numel())
+    assert n_hulls > 1, "every env picked the same hull"
+    assert np_rel <= TOL, f"narrowphase (slide): relerr {np_rel:.3e}"
+    out = tuple(torch.empty_like(x) for x in (d_main.contact.dist,
+                                              d_main.contact.pos,
+                                              d_main.contact.frame))
+    args = sets[0]
+    n_rows = int(table.rows.numel())
+    rows.append(kernel_row(
+        "narrowphase_slide", NP_SRC,
+        "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:201",
+        launches["narrowphase"], np_abs, np_rel,
+        time_ms(torch, lambda: narrowphase.narrowphase(table, *args, out=out)),
+        time_ms(torch, lambda: narrowphase.narrowphase_plain(
+            table, *args, out=out), n=10),
+        narrow_bound(m, table, args[3], n_rows, FETCH_B), None,
+        [n_rows, FETCH_B],
+        ms_int64_picks=int64_picks_ms(torch, narrowphase, tp, (table,) + args, out),
+        ms_by_kind=kind_times(torch, narrowphase, table, args, out),
+        tasks=int(table.tasks.shape[0])))
+    tables["narrowphase_slide"] = table
+    for k in NEW_KINDS:
+        sub = table.only([k])
+        rel, ab = 0.0, 0.0
+        for a in sets:
+            r_, b_ = table_err(narrowphase.narrowphase(sub, *a),
+                               narrowphase.narrowphase_plain(sub, *a), sub.rows)
+            rel, ab = max(rel, r_), max(ab, b_)
+        name = f"narrowphase_{new[k].replace('-', '_')}"
+        rows.append(kernel_row(
+            name, NP_SRC,
+            "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:201",
+            launches["narrowphase"], ab, rel,
+            time_ms(torch, lambda: narrowphase.narrowphase(sub, *args, out=out)),
+            time_ms(torch, lambda: narrowphase.narrowphase_plain(
+                sub, *args, out=out), n=10),
+            narrow_bound(m, sub, args[3], int(sub.rows.numel()), FETCH_B),
+            None, [int(sub.rows.numel()), FETCH_B],
+            envs_penetrating=counts[new[k]], tasks=int(sub.tasks.shape[0]),
+            note="the kind's pairs alone (GroupTable.only); on the main path "
+                 "it runs inside narrowphase_slide's launches"))
+        tables[name] = sub
+    print(f"slide kernels: narrowphase relerr {np_rel:.3e}; the pressed "
+          f"state's envs picked {n_hulls} distinct hulls for the puck's "
+          f"closest pair ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 30. FetchReach main path
+    env_r, launches_r, shapes_r = fetch_main(
+        torch, dev, card, solver, narrowphase, registry, "FetchReach-v4",
+        ((3, 85, 8), (2, 156, 24)), 10, traced=False)
+
+    # --- 31. the card against the CPU plain path from one state
+    t_phase = time.perf_counter()
+    ref = fetch_reference(torch, dev, convert, registry, "FetchReach-v4")
+    assert ref[0] <= TOL or ref[1] <= max(TOL, NEWTON_SLACK * ref[2]), (
+        f"FetchReach card vs CPU path after 1 step: {ref}")
+    print(f"reach reference: card vs CPU plain path, {FETCH_REF_ENVS} envs, "
+          f"relerr after 1 step {ref} ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+    # --- 32. FetchReach's kernels: B1 and B2 at nv = 15, topk_select
+    t_phase = time.perf_counter()
+    m = env_r.env.model
+    d_main = pipeline.forward(m, env_r.state.data)
+    d_press = pipeline.make_data(m, FETCH_B)   # fingers 0-4 mm in the table
+    q = np.tile(env_r.env._init_qpos.cpu().numpy(), (FETCH_B, 1)).T
+    lower = 0.1165 + rs.uniform(0, 0.004, FETCH_B)
+    q[2] -= lower
+    d_press.qpos[:] = cuda(q)
+    d_press.mocap_pos[:] = env_r.env._init_mocap_pos[..., None]
+    d_press.mocap_pos[:, 2] -= cuda(lower)
+    d_press.mocap_quat[:] = env_r.env._init_mocap_quat[..., None]
+    d_press = pipeline.forward(m, d_press)
+    tp = m.plan("pruned", collision._PrunedPlan)
+    rp = m.plan("rows", constraint._RowPlan)
+    pen = d_main.contact.dist - m.con_includemargin[:, 0][d_main.contact.src]
+    rows += [r for r in topk_rows(torch, narrowphase, rs, cuda, {
+        (2, 156, 24): (pen[rp.cap_rows], rp.cap_mask)}, shapes_r, FETCH_B)]
+    nv = m.nv
+    A = rs.normal(size=(nv, nv, FETCH_B))
+    M = cuda(np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(nv)[:, :, None])
+    b = cuda(rs.normal(size=(nv, FETCH_B)))
+    real = (d_main.qM, d_main.qfrc_smooth)
+    systems = {"main qM": real,
+               "main damped system": pipeline.damped_system(m, d_main),
+               "pressed qM": (d_press.qM, d_press.qfrc_smooth),
+               "pressed damped system": pipeline.damped_system(m, d_press)}
+    chol_err, chol_abs = check_pair(solver.solve_pos, solver.solve_pos_plain,
+                                    [(M, b)] + list(systems.values()))
+    assert chol_err <= TOL, f"chol_solve nv=15: relerr {chol_err:.3e}"
+    f64 = chol_f64_gate(torch, solver, "chol nv=15", systems)
+    Mb = d_main.qM.permute(2, 0, 1).contiguous()
+    bb = d_main.qfrc_smooth.T.contiguous()[:, :, None]
+    nm = nv * (nv + 1) // 2
+    rows.append(kernel_row(
+        "chol_solve_nv15", SOLVER_SRC,
+        "gymnasium_robotics_tpu/physics/solver_pallas.py:455",
+        launches_r["chol"], chol_abs, chol_err,
+        time_ms(torch, lambda: solver.solve_pos(*real)),
+        time_ms(torch, lambda: solver.solve_pos_plain(*real), n=10),
+        bound((nm + 2 * nv) * 4 * FETCH_B, chol_ops(nv) * FETCH_B),
+        time_ms(torch, lambda: torch.linalg.solve_ex(Mb, bb), graph=False),
+        [nv, FETCH_B], f64_rel_err=f64[0], plain32_f64_rel_err=f64[1]))
+    n_iter = min(m.opt.iterations, 20)
+    n_ls = min(m.opt.ls_iterations, 8)
+    sets = []
+    for d in (d_main, d_press):
+        J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+        sets.append((d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq))
+    ne = sets[0][3].shape[0]
+    sets.insert(0, (M, cuda(rs.normal(size=(nv, FETCH_B))),
+                    cuda(rs.normal(size=(nv, FETCH_B))),
+                    cuda(rs.normal(size=(ne, nv, FETCH_B))),
+                    cuda(rs.normal(size=(ne, FETCH_B))),
+                    cuda(np.exp(rs.normal(size=(ne, FETCH_B)))),
+                    cuda(rs.uniform(size=(ne, FETCH_B)) < 0.6, torch.bool),
+                    sets[0][7]))
+    # the weld and the table squeeze the pressed fingers: held to the
+    # plain version's float64 answer as at nv = 21
+    errs = [newton_vs_f64(torch, solver, x, n_iter, n_ls) for x in sets]
+    print("reach newton nv=15 (random, main, pressed) against the float64 "
+          "plain version: (kernel relerr, float32 plain relerr, kernel vs "
+          f"float32 plain abs err) {errs}", flush=True)
+    for name, (k, p, _) in zip(("random", "main", "pressed"), errs):
+        assert k <= max(TOL, NEWTON_SLACK * p), (
+            f"newton nv=15 ({name}): relerr {k:.3e} against float64, the "
+            f"float32 plain version's {p:.3e}")
+    real = sets[1]
+    rows.append(kernel_row(
+        "newton_nv15", SOLVER_SRC,
+        "gymnasium_robotics_tpu/physics/solver_pallas.py:249",
+        launches_r["newton"], max(a for _, _, a in errs),
+        max(k for k, _, _ in errs),
+        time_ms(torch, lambda: solver.solve_newton(*real, n_iter=n_iter,
+                                                   n_ls=n_ls)),
+        time_ms(torch, lambda: solver.solve_newton_plain(
+            *real, n_iter=n_iter, n_ls=n_ls), n=5),
+        bound((nm + 2 * nv + ne * nv + 3 * ne + nv) * 4 * FETCH_B
+              + ne * FETCH_B + ne, newton_ops(nv, ne, n_iter, n_ls) * FETCH_B),
+        None, [nv, ne, FETCH_B, n_iter, n_ls],
+        plain32_rel_err=max(p for _, p, _ in errs),
+        gate="max_rel_err and plain32_rel_err against the plain version in "
+             "float64; max_abs_err against it in float32; max_rel_err <= "
+             f"max(tolerance, {NEWTON_SLACK} x plain32_rel_err) per set"))
+    n_active = [int(x[6][15:].any(dim=0).sum()) for x in sets[1:]]
+    print(f"reach kernels: {ne} rows; envs with active contact rows (main, "
+          f"pressed) {n_active} ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+    assert n_active[1] > 0, "no pressed finger touches the table"
+
+    # --- 33. FetchSlide and FetchReach through make_gym (the per-env path)
+    t_phase = time.perf_counter()
+    grng = np.random.default_rng(4)
+    for id_ in ("FetchSlide-v4", "FetchReach-v4"):
+        genv = registry.make_gym(id_, parity=True)
+        genv.reset(seed=1)
+        zero_counters(solver, narrowphase)
+        for _ in range(3):
+            obs = genv.step(grng.uniform(-1, 1, 4))[0]
+            assert all(np.isfinite(v).all() for v in obs.values()), id_
+        torch.cuda.synchronize()
+        launches = launch_counts(solver, narrowphase)
+        assert launches == per_step(3, chol=40, newton=20, topk=40,
+                                    narrowphase=20), (id_, launches)
+        print(f"single env {id_}: parity reset, 3 steps, launches {launches}, "
+              f"observation {obs['observation'].shape}", flush=True)
+    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return rows, slide_ctx, tables
+
+
 def fk_sites(torch, dev, kinematics, m, sites):
     """Each FK call site traced on its own, twice: as it is, then after one
     leading elementwise kernel in the same profiling session. Prints the
@@ -2017,14 +2398,15 @@ def redesign_fields(rows, ptx, solver, narrowphase, kinematics, tables, fk_model
             assert geo["smem"] == nlib.grt_topk_smem_bytes(maxk, geo["kcap"]), geo
             entry = f"topk_select_kernelILi{geo['kcap']}E"
             blocks = nlib.grt_topk_blocks_per_sm(geo["kcap"], geo["smem"])
-        elif row["name"] in ("newton_nv14", "newton_nv21", "newton_nv36"):
+        elif row["name"] in ("newton_nv14", "newton_nv15", "newton_nv21",
+                             "newton_nv36"):
             nv, ne, nb = row["shape"][:3]
             geo = solver.newton_geometry(nv, ne, nb)
             assert geo["smem"] == slib.grt_newton_smem_bytes(nv), geo
             entry = f"newton_tile_kernelILi{nv}E"
             blocks = slib.grt_newton_blocks_per_sm(nv)
-        elif row["name"] in ("chol_solve_nv14", "chol_solve_nv21",
-                             "chol_solve_nv36"):
+        elif row["name"] in ("chol_solve_nv14", "chol_solve_nv15",
+                             "chol_solve_nv21", "chol_solve_nv36"):
             nv, nb = row["shape"]
             geo = solver.chol_geometry(nv, nb)
             assert geo["smem"] == slib.grt_chol_smem_bytes(nv), geo
@@ -2069,7 +2451,7 @@ def edge_checks(torch, dev, solver, narrowphase):
     (also at the hand's shape). The Newton solve (nv = 14 within TOL of
     the float32 plain version; nv = 21 and 36 within max(TOL, NEWTON_SLACK
     x the float32 plain version's error) of the float64 plain version):
-    random rows at the row caps (96, 256, 288), at an ne that is not a
+    random rows at the row caps (96, 256, 256, 288), at an ne that is not a
     multiple of 32, at B = 1 and at a B that is not a multiple of the env
     tile (at nv = 36 also the hand's 272 rows at B = 1023), with
     n_iter = 0, with every row inactive, and with J in a batch-leading
@@ -2120,7 +2502,7 @@ def edge_checks(torch, dev, solver, narrowphase):
                 cuda(rs.uniform(size=(ne, nb)) < p_act), cuda(is_eq)]
 
     errs = {}
-    for nv, n_iter in ((14, 5), (21, 4), (36, 5)):
+    for nv, n_iter in ((14, 5), (15, 4), (21, 4), (36, 5)):
         cap = solver.NEWTON_MAX_ROWS[nv]
         hand = [("hand rows, B % 4 != 0", 272, HAND_B - 1, n_iter, 0.4)] \
             if nv == 36 else []
@@ -2152,7 +2534,7 @@ def edge_checks(torch, dev, solver, narrowphase):
 
 
 def chol_edges(torch, dev, solver):
-    """Phase 21, the Cholesky kernel (chol_tile_kernel) at nv = 14, 21 and
+    """Phase 21, the Cholesky kernel (chol_tile_kernel) at nv = 14, 15, 21 and
     36 against its plain version, within TOL of it on every env and NaN
     where it is NaN: random SPD systems at B = 1, 1023 and 2047, M as a
     transposed
@@ -2163,7 +2545,7 @@ def chol_edges(torch, dev, solver):
     t_phase = time.perf_counter()
     rs = np.random.RandomState(11)
     errs = {}
-    for nv in (14, 21, 36):
+    for nv in (14, 15, 21, 36):
         def spd(nb):
             A = rs.normal(size=(nv, nv, nb))
             return (np.einsum("ikb,jkb->ijb", A, A)
@@ -2207,20 +2589,21 @@ def chol_edges(torch, dev, solver):
 
 def narrowphase_edges(torch, narrowphase, collision, ctxs):
     """Phase 21, the narrowphase kernel against its plain version (every
-    kernel row, as in phase 14) on the pressed AntMaze and FetchPush
-    states: at B = 1 and B = 2047 (the first envs), each group kind alone
+    kernel row, as in phase 14) on the pressed AntMaze, FetchPush and
+    FetchSlide states: at B = 1 and B = 2047 (the first envs), each group kind alone
     (the table cut to it; its rows also bitwise equal to the whole
     table's), with picks out of range on both sides (the kernel clamps
     them) and with int64 picks."""
     t_phase = time.perf_counter()
     errs = {}
     for label, (m, d, hv) in ctxs.items():
+        hf = None if hv is None else m.hull_face
         tp = m.plan("pruned", collision._PrunedPlan)
         table = tp.table
         sel = narrowphase.topk_select(collision.broadphase_rank(m, d, tp),
                                       tp.mask, tp.K)
         whole = narrowphase.narrowphase(table, d.geom_xpos, d.geom_xmat,
-                                        m.geom_size, sel, hv)
+                                        m.geom_size, sel, hv, hf)
         rs = np.random.RandomState(13)
         wild = torch.as_tensor(rs.randint(-3, tp.mask.shape[1] + 3, tuple(sel.shape)),
                                dtype=torch.int32, device=sel.device)
@@ -2232,7 +2615,7 @@ def narrowphase_edges(torch, narrowphase, collision, ctxs):
                   ("int64 picks", table, d.geom_xpos, d.geom_xmat, sel.long())]
         for name, tab, P, R, sl in cases:
             n0 = narrowphase.LAUNCHES["narrowphase"]
-            args = (tab, P, R, m.geom_size, sl, hv)
+            args = (tab, P, R, m.geom_size, sl, hv, hf)
             got = narrowphase.narrowphase(*args)
             torch.cuda.synchronize()
             assert narrowphase.LAUNCHES["narrowphase"] == n0 + 1
@@ -2360,10 +2743,18 @@ def main():
     kern += rows
     print(f"handmanipulate phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    rows, slide_ctx, slide_tables = fetch_slice(
+        torch, dev, card, solver, constraint, narrowphase, collision, pipeline,
+        convert, registry)
+    kern += rows
+    print(f"fetchslide and fetchreach phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
     edge_checks(torch, dev, solver, narrowphase)
     chol_edges(torch, dev, solver)
     narrowphase_edges(torch, narrowphase, collision,
-                      {"AntMaze": ant_ctx, "FetchPush": fetch_ctx})
+                      {"AntMaze": ant_ctx, "FetchPush": fetch_ctx,
+                       "FetchSlide": slide_ctx})
     nv2_checks(torch, dev, solver, constraint, registry, kern)
     t1 = time.perf_counter()
     edge = fk_edges(torch, kinematics, *fk_ctx)
@@ -2374,6 +2765,7 @@ def main():
     tables = {name: ctx[0].plan("pruned", collision._PrunedPlan).table
               for name, ctx in (("narrowphase", ant_ctx),
                                 ("narrowphase_fetch", fetch_ctx))}
+    tables.update(slide_tables)
     redesign_fields(kern, ptx, solver, narrowphase, kinematics, tables, fk_ctx[0])
     print(json.dumps({"kernels": kern}))
     print(card)

@@ -12,10 +12,13 @@
 //   gymnasium_robotics_tpu/physics/narrowphase_pallas.py::
 //   narrowphase_megakernel (with GroupSpec/_emit_group) for the groups
 //   plane-sphere, plane-capsule, sphere-box, capsule-box, plane-box,
-//   box-box and plane-hull: the contact formulas of collision_vec.py
-//   (_plane_sphere :88, _plane_capsule :95, _plane_box :152 with
-//   _take_smallest :135, _sphere_box_at :221, _capsule_box :375, _box_box
-//   :388 with _box_box_edge :427 and _seg_seg_closest :344,
+//   box-box, plane-hull, plane-cylinder, cylinder-box and cylinder-hull:
+//   the contact formulas of collision_vec.py (_plane_sphere :88,
+//   _plane_capsule :95, _plane_box :152 with _take_smallest :135,
+//   _plane_cylinder :163, _sphere_box_at :221, _capsule_box :375 (also
+//   cylinder-box, _dispatch :800), _box_box :388 with _box_box_edge :427
+//   and _seg_seg_closest :344, _point_hull_depth :510 and
+//   _sphere_hull_probe :603 (cylinder-hull, _make_capsule_hull :624),
 //   _make_plane_hull :673) and the frame of _contact_frame_soa :806, a
 //   block taking 32 envs (one a lane) and a task of the group table (four
 //   warp items, below). The box-hull and hull-hull groups run with MPR
@@ -27,7 +30,8 @@
 // and mask (G, maxk) bool and writes (G, K, B) int32. narrowphase reads
 // geom_xpos (ngeom, 3, B), geom_xmat (ngeom, 3, 3, B), geom_size
 // (ngeom, 3, Bm) through its strides, the pruned groups' picks sel
-// (G, K, B) int32 and the hull vertex table (nhull, V, 3); it writes its
+// (G, K, B) int32 and the hull vertex and face tables (nhull, V, 3) and
+// (nhull, F, 4); it writes its
 // groups' rows of the compact table dist (ncon, B), pos (ncon, 3, B) and
 // frame (ncon, 3, 3, B), rows group-major and pair-major (row = pair * S +
 // slot), in place. Its static group table is one int32 column per
@@ -65,7 +69,8 @@
 // (tools/narrowphase_kinds.py times each kind alone and the other
 // assignments below):
 // - solo items, four to a block, one a warp: plane-sphere, plane-capsule,
-//   sphere-box, and each of capsule-box's three spheres;
+//   sphere-box, plane-cylinder, each of capsule-box's and cylinder-box's
+//   three spheres, and each of cylinder-hull's two end-sphere probes;
 // - plane-hull, solo: its 24 vertices on one warp measured faster than
 //   on four (a cooperative task holds four warps through warp 0's picks),
 //   and plane-box and box-box's corners faster on four than on one;
@@ -79,7 +84,8 @@
 //   argmins, log2 N deep, where the formula scans in order;
 // - two instantiations, launched one or the other: narrowphase_kernel<false>
 //   holds the primitive kinds alone (56 registers on sm_90a), <true> the
-//   candidate formulas too (111), so the AntMaze table runs at the former.
+//   candidate formulas and the cylinder kinds too (111), so the AntMaze
+//   table runs at the former.
 // Every row's arithmetic is unchanged: the same helpers and operand order,
 // candidates and picks passed through shared memory as exact floats, the edge
 // slot's selection (not associative: the first axis is always taken, a NaN
@@ -331,8 +337,11 @@ struct Mat {  // rows x cols
 // into a multiply-add), as the plain version's separate PyTorch operators
 // do. The box and hull formulas order candidates that tie in exact
 // arithmetic (the corners of a box resting flat, an edge axis along a face
-// axis), and a fused multiply-add would order them otherwise; the sphere
-// and capsule formulas keep it.
+// axis), and a fused multiply-add would order them otherwise; sphere-box
+// (and so capsule-box and cylinder-box) normalises the short vector from
+// the sphere's centre to the box surface, which a fused multiply-add
+// would move by more than the tolerance for a sphere pressed into the box.
+// The plane-sphere and plane-capsule formulas keep it.
 __device__ __forceinline__ V scale_rn(V a, float s) {
   return {__fmul_rn(a.x, s), __fmul_rn(a.y, s), __fmul_rn(a.z, s)};
 }
@@ -397,7 +406,7 @@ __device__ void plane_capsule(V p1, const Mat& R1, V p2, const Mat& R2, V s2,
 }
 
 __device__ Slot sphere_box_at(V c1, float r1, V p2, const Mat& R2, V s2) {
-  const V lv = R2.mulT(c1 - p2);  // sphere centre in the box frame
+  const V lv = R2.mulT_rn(c1 - p2);  // sphere centre in the box frame
   const float loc[3] = {lv.x, lv.y, lv.z};
   const float s[3] = {s2.x, s2.y, s2.z};
   float clamped[3], fd[3];
@@ -422,16 +431,16 @@ __device__ Slot sphere_box_at(V c1, float r1, V p2, const Mat& R2, V s2) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
     surf[i] = inside ? (i == k ? sgn * s_k : loc[i]) : clamped[i];
-  const V world = p2 + R2.mul({surf[0], surf[1], surf[2]});
+  const V world = p2 + R2.mul_rn({surf[0], surf[1], surf[2]});
   float d0;
-  const V nrm = normalize(world - c1, &d0);
+  const V nrm = normalize_rn(world - c1, &d0);
   const V n_out = d0 > 1e-9f ? nrm : R2.col(2);
   const float dist_out = d0 - r1;
   const float dist_in = -(jmin(jmin(fd[0], fd[1]), fd[2]) + r1);
   const V n_in = (k == 0 ? R2.col(0) : (k == 1 ? R2.col(1) : R2.col(2))) * (-sgn);
   const V n = inside ? n_in : n_out;
   const float dist = inside ? dist_in : dist_out;
-  return {dist, c1 + n * (r1 + 0.5f * dist), n, nan3()};
+  return {dist, c1 + scale_rn(n, r1 + 0.5f * dist), n, nan3()};
 }
 
 // Rows (normal, tan1, tan2) of one slot: tan1 the explicit one where it is
@@ -580,9 +589,12 @@ __device__ __forceinline__ void load_pair(
 // ---------------------------------------------------------------------------
 
 constexpr int kHullV = 32;   // largest hull vertex count
+constexpr int kHullF = 64;   // largest hull face count
 constexpr int kNpWarps = 4;  // warps a block
 constexpr int kNpEnvs = 32;  // envs a block, one a lane
 constexpr int kCoop = 1 << 28;         // a task item all four warps share
+constexpr int kPlaneBox = 4;           // the kinds the switches name
+constexpr int kPlaneCylinder = 7, kCylinderBox = 8, kCylinderHull = 9;
 constexpr int kShRows = 6 + 7 * 9;     // the edge slot's face and axis rows
 
 // The 4 smallest of N candidates (collision_vec._take_smallest) and their
@@ -662,6 +674,57 @@ __device__ void plane_hull(const Pair& q, const float* __restrict__ hv,
         const V wv = q.p2 + q.R2.mul({hv[3 * v], hv[3 * v + 1], hv[3 * v + 2]});
         o.store(q.row + s, val, wv - n * (0.5f * val), n, nan3());
       });
+}
+
+// plane-cylinder (collision_vec._plane_cylinder): a rim point on each end
+// cap, the deepest along the plane's normal. An upright cylinder's axis is
+// along the normal: there |perp| and |proj| are a rounding away from the
+// 1e-6 and 1e-8 that pick the fallback rim point and the NaN tangent, so
+// every product is rounded on its own, as the plain version's are; a
+// fused multiply-add (1 - a_z a_z) would move them across.
+__device__ void plane_cylinder(const Pair& q, Slot* out) {
+  const V n = q.R1.col(2), axis = q.R2.col(2);
+  const float na = dot_rn(n, axis);
+  float nrm;
+  const V pn_v = normalize_rn(n - scale_rn(axis, na), &nrm);
+  const V rad = nrm > 1e-6f ? scale_rn(pn_v, -q.s2.x) : scale_rn(q.R2.col(0), q.s2.x);
+  const float pn = dot_rn(q.p1, n);
+  float tn;
+  const V t1n = normalize_rn(axis - scale_rn(n, na), &tn);
+  const V tan = tn > 1e-8f ? t1n : nan3();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const V e = q.p2 + scale_rn(axis, (s == 0 ? 1.f : -1.f) * q.s2.y) + rad;
+    const float dist = dot_rn(e, n) - pn;
+    out[s] = {dist, e - scale_rn(n, 0.5f * dist), n, tan};
+  }
+}
+
+// One end-sphere probe of a cylinder (or capsule) against a hull
+// (collision_vec._sphere_hull_probe with _point_hull_depth): the sphere of
+// radius s1.x at t s1.y along geom 1's axis (t = -1 or 1), its centre in
+// the hull's frame, the first-index argmax of n.x + d over the hull's nf
+// face rows hf = (nf, 4) (a NaN first; padding rows have d = -1e10 and
+// never win), then the distance, the normal from the sphere into the hull
+// and the point. Rounded as the plain version's separate operators are.
+__device__ Slot sphere_hull_probe(const Pair& q, float t,
+                                  const float* __restrict__ hf, int nf) {
+  const V c = q.p1 + scale_rn(q.R1.col(2), t * q.s1.y);
+  const V cl = q.R2.mulT_rn(c - q.p2);
+  float best = 0.f;
+  int bi = 0;
+  for (int f = 0; f < nf; ++f) {
+    const float4 h = __ldg(reinterpret_cast<const float4*>(hf) + f);
+    const float d = dot_rn({h.x, h.y, h.z}, cl) + h.w;
+    if (f == 0 || (best == best && (d > best || d != d))) {
+      best = d;
+      bi = f;
+    }
+  }
+  const float4 h = __ldg(reinterpret_cast<const float4*>(hf) + bi);
+  const V n = q.R2.mul_rn({h.x, h.y, h.z}) * -1.f;
+  const float r = q.s1.x, dist = best - r;
+  return {dist, c + scale_rn(n, r + 0.5f * dist), n, nan3()};
 }
 
 // One corner of box a against box b's faces: the face distance (positive
@@ -829,12 +892,15 @@ __device__ __forceinline__ void box_box_part(const Pair& q, int part,
 
 // A block: 32 envs (one a lane) and one task of the table, four warp items
 // (8 column + part, -1 idle; plane-sphere, plane-capsule, sphere-box, a
-// sphere (part) of capsule-box, plane-hull), or one cooperative item that
-// every warp holds plus kCoop (plane-box, a part of box-box).
+// sphere (part) of capsule-box or cylinder-box, plane-hull,
+// plane-cylinder, an end-sphere probe (part) of cylinder-hull), or one
+// cooperative item that every warp holds plus kCoop (plane-box, a part of
+// box-box). The kinds are numbered as physics/narrowphase.py's KINDS.
 // BOXES = false compiles the primitive kinds alone (plane-sphere,
-// plane-capsule, sphere-box, capsule-box): a table without plane-box,
-// box-box or plane-hull then runs at their registers, not at those of the
-// candidate formulas.
+// plane-capsule, sphere-box, capsule-box): a table of those only then
+// runs at their registers, not at those of the candidate formulas.
+// Capsule-hull (Adroit, Kitchen) is cylinder-hull's formula: it comes as
+// one more kind on the kCylinderHull case.
 template <bool BOXES>
 __global__ void __launch_bounds__(kNpWarps * 32)
 narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
@@ -845,6 +911,7 @@ narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
                    const int* __restrict__ tasks,
                    const int* __restrict__ geom_hull,
                    const float* __restrict__ hull_vert, int nhv,
+                   const float* __restrict__ hull_face, int nhf,
                    float* __restrict__ dist, float* __restrict__ pos,
                    float* __restrict__ frame, int B) {
   __shared__ float sh[kShRows * kNpEnvs];
@@ -879,13 +946,30 @@ narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
         o.store(q.row, s.dist, s.pos, s.n, s.t);
         break;
       }
-      case 3: {  // capsule-box: sphere k at the capsule's ends and centre
+      case 3:  // capsule-box: sphere k at the capsule's ends and centre
+      case kCylinderBox: {  // cylinder-box: the same (collision_vec._dispatch)
         const V ax = q.R1.col(2);
-        const Slot s = sphere_box_at(q.p1 + ax * ((float)(part - 1) * q.s1.y),
+        const Slot s = sphere_box_at(q.p1 + scale_rn(ax, (float)(part - 1) * q.s1.y),
                                      q.s1.x, q.p2, q.R2, q.s2);
         o.store(q.row + part, s.dist, s.pos, s.n, s.t);
         break;
       }
+      case kPlaneCylinder:
+        if constexpr (BOXES) {
+          Slot s[2];
+          plane_cylinder(q, s);
+          o.store(q.row, s[0].dist, s[0].pos, s[0].n, s[0].t);
+          o.store(q.row + 1, s[1].dist, s[1].pos, s[1].n, s[1].t);
+        }
+        break;
+      case kCylinderHull:  // the probe at the axis' -end (part 0) or +end
+        if constexpr (BOXES) {
+          const Slot s = sphere_hull_probe(
+              q, part == 0 ? -1.f : 1.f,
+              hull_face + (size_t)geom_hull[q.g2] * nhf * 4, nhf);
+          o.store(q.row + part, s.dist, s.pos, s.n, s.t);
+        }
+        break;
       default:  // plane-hull
         if constexpr (BOXES)
           plane_hull(q, hull_vert + (size_t)geom_hull[q.g2] * nhv * 3, nhv, o);
@@ -900,7 +984,7 @@ narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
                 L, C, q);
     float* S = sh + lane;
     int* picks = spick + lane;
-    if (pairs[c] == 4)
+    if (pairs[c] == kPlaneBox)
       plane_box(q, S, picks, w, live, o);
     else
       box_box_part(q, part, S, picks, w, live, o);
@@ -988,28 +1072,32 @@ int grt_narrowphase_blocks_per_sm(int boxes) {
 
 // size strides: geom, component and batch (0 for a model table of Bm = 1).
 // pairs: (4, C) int32, lens: (C,), lists: (2, L), tasks: (T, 4) int32
-// (physics/narrowphase.py::GroupTable), boxes: whether the table holds
-// plane-box, box-box or plane-hull pairs, geom_hull: (ngeom,) hull id per
-// geom, hull_vert: (nhull, nhv, 3) (null without hull groups).
+// (physics/narrowphase.py::GroupTable), boxes: whether the table holds a
+// kind past the primitive four, geom_hull: (ngeom,) hull id per geom,
+// hull_vert: (nhull, nhv, 3) (null without plane-hull groups), hull_face:
+// (nhull, nhf, 4), 16-byte aligned (null without cylinder-hull groups).
 int grt_narrowphase_f32(const float* P, const float* Rm, const float* size,
                         long long ss0, long long ss1, long long ssb,
                         const int* sel, const int* pairs, const int* lens,
                         const int* lists, int L, int C, const int* tasks,
                         int T, int boxes, const int* geom_hull,
-                        const float* hull_vert, int nhv, float* dist,
+                        const float* hull_vert, int nhv,
+                        const float* hull_face, int nhf, float* dist,
                         float* pos, float* frame, int B, void* stream) {
   if (B <= 0 || T <= 0) return 0;
-  if (nhv > kHullV) return -1;
+  if (nhv > kHullV || nhf > kHullF ||
+      (reinterpret_cast<size_t>(hull_face) & 15) != 0)
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + kNpEnvs - 1) / kNpEnvs, T);
   if (boxes)
     narrowphase_kernel<true><<<grid, kNpWarps * 32, 0, s>>>(
         P, Rm, size, ss0, ss1, ssb, sel, pairs, lens, lists, L, C, tasks,
-        geom_hull, hull_vert, nhv, dist, pos, frame, B);
+        geom_hull, hull_vert, nhv, hull_face, nhf, dist, pos, frame, B);
   else
     narrowphase_kernel<false><<<grid, kNpWarps * 32, 0, s>>>(
         P, Rm, size, ss0, ss1, ssb, sel, pairs, lens, lists, L, C, tasks,
-        geom_hull, hull_vert, nhv, dist, pos, frame, B);
+        geom_hull, hull_vert, nhv, hull_face, nhf, dist, pos, frame, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,14 +1,15 @@
 // Per-env dense solves of the constraint pipeline.
 //
 // chol_solve_kernel<2> (one env per thread) and chol_tile_kernel<NV,
-//   COL_BACK> (NV = 14, 21, 36; a tile of 16 envs a block, 8 at NV = 36, a
+//   COL_BACK> (NV = 14, 15, 21, 36; a tile of 16 envs a block, 8 at NV = 36, a
 //   half-warp or a warp an env, below) replace the TPU kernel
 //   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol (entered
 //   through solve_pos_soa): the batched SPD solve M x = b by an unrolled
 //   LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
 // newton2_kernel<G, CHOL> (NV = 2; a group of G lanes an env, below) and
-// newton_tile_kernel<NV, WPE, RPL, ET> (NV = 14, 21, 36; a tile of ET = 8,
-//   8 and 4 envs a block, one, two or three warps an env, below) replace
+// newton_tile_kernel<NV, WPE, RPL, ET> (NV = 14, 15, 21, 36; a tile of
+//   ET = 8, 8, 8 and 4 envs a block, one, two, two or three warps an env,
+//   below) replace
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
@@ -430,9 +431,12 @@ int launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
 
 // ---------------------------------------------------------------------------
 // newton_tile_kernel<NV, WPE, RPL, ET>: the Newton solve for the larger
-// systems (AntMaze: NV = 14, ne = 72 of a 96-row cap; FetchPush: NV = 21,
-// ne = 255 of 256; HandManipulateBlock: NV = 36, ne = 272 of 288), a block
-// a tile of ET consecutive envs, WPE warps an env.
+// systems (AntMaze: NV = 14, ne = 72 of a 96-row cap; FetchReach: NV = 15,
+// ne = 255 of 256, in NV = 21's shape (two warps an env, four rows a lane),
+// its 15 blocks of H two row slices a warp and no zero column; FetchPush
+// and FetchSlide: NV = 21, ne = 255 of 256; HandManipulateBlock: NV = 36,
+// ne = 272 of 288), a block a tile of ET consecutive envs, WPE warps an
+// env.
 //
 // What bounds it on this card. Per env and iteration the function forms
 // H = M + J^T diag(Dw) J over every row (59k multiply-adds at NV = 21, 255
@@ -484,6 +488,7 @@ int launch_newton2(const float* M, const float* a_smooth, const float* a_warm,
 // floats (NEC = 32 WPE RPL rows, NJC = NV, or NV + 1 with the zero column,
 // NT = NV (NV + 1) / 2, VW = 32 or 64 floats a vector), padded to 4 mod 32 so the staging stores spread
 // over the banks: 26.8 KB at NV = 21 (214 KB a block, one block an SM),
+// 19.1 KB at NV = 15 (153 KB a block, one an SM),
 // 8.5 KB at NV = 14 (67.7 KB a block, two an SM), 50.1 KB at NV = 36
 // (200.6 KB a block of 4, one an SM). What bounds it then is
 // latency: one block of 8 envs takes about as long alone as in a full
@@ -1142,7 +1147,8 @@ int newton_tile_blocks_per_sm() {
 //   1e-20 floor through nan_max, divisions by L_ii (no reciprocals). The
 //   back substitution has two orders, each instantiation keeping the one
 //   of the kernel it replaced, so that its results stay bit for bit what
-//   they were: COL_BACK = false (NV = 14, as chol_solve):
+//   they were: COL_BACK = false (NV = 14, as chol_solve; NV = 15, new,
+//   takes the plain version's order too):
 //   x_i = (y_i - sum over k > i of L_ki x_k, in ascending k) / L_ii, every
 //   lane of the env computing each x_i from L's columns in shared memory;
 //   COL_BACK = true (NV = 21, as the one-warp-an-env kernel before it):
@@ -1150,7 +1156,8 @@ int newton_tile_blocks_per_sm() {
 //   subtracting L_ij x_i, so each x's subtractions run in descending k.
 // - Outputs through the tile's region, written with 16-byte stores where
 //   B % 4 == 0.
-// Shared memory: TILE (NT + NV) floats a block: 7.6 KB at NV = 14,
+// Shared memory: TILE (NT + NV) floats a block: 7.6 KB at NV = 14, 8.4 KB
+// at NV = 15,
 // 16.1 KB at NV = 21, 22.5 KB at NV = 36 (RPL = 2, 8 envs), under the 48 KB of
 // static launch. physics/solver.py::chol_geometry computes the same.
 // ---------------------------------------------------------------------------
@@ -1401,7 +1408,7 @@ Str3 str3(const long long* p) { return {p[0], p[1], p[2]}; }
 extern "C" {
 
 // strides: the element strides of M (3) and b (2), in that order. nv = 2
-// runs chol_solve_kernel (one env per thread), nv = 14, 21 and 36
+// runs chol_solve_kernel (one env per thread), nv = 14, 15, 21 and 36
 // chol_tile_kernel; smem: the latter's block shared memory bytes
 // (physics/solver.py::chol_geometry), at least grt_chol_smem_bytes(nv).
 int grt_chol_solve_f32(const float* M, const float* b, float* x,
@@ -1417,6 +1424,8 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
       return static_cast<int>(cudaGetLastError());
     case 14:
       return launch_chol_tile<14, false>(M, sM, b, sb, x, B, smem, s);
+    case 15:
+      return launch_chol_tile<15, false>(M, sM, b, sb, x, B, smem, s);
     case 21:
       return launch_chol_tile<21, true>(M, sM, b, sb, x, B, smem, s);
     case 36:
@@ -1426,17 +1435,19 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
   }
 }
 
-// Shared memory bytes of a chol_tile_kernel block at nv (14, 21 or 36), and
+// Shared memory bytes of a chol_tile_kernel block at nv (14, 15, 21 or 36), and
 // the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1
 // for another nv.
 int grt_chol_smem_bytes(int nv) {
   return nv == 14   ? CholLayout<14>::block_bytes
+         : nv == 15 ? CholLayout<15>::block_bytes
          : nv == 21 ? CholLayout<21>::block_bytes
          : nv == 36 ? CholLayout<36>::block_bytes
                     : -1;
 }
 int grt_chol_blocks_per_sm(int nv) {
   return nv == 14   ? chol_tile_blocks_per_sm<14, false>()
+         : nv == 15 ? chol_tile_blocks_per_sm<15, false>()
          : nv == 21 ? chol_tile_blocks_per_sm<21, true>()
          : nv == 36 ? chol_tile_blocks_per_sm<36, true>()
                     : -1;
@@ -1444,9 +1455,9 @@ int grt_chol_blocks_per_sm(int nv) {
 
 // strides: the element strides of M (3), a_smooth, a_warm (2 each), J (3),
 // aref, D, active and is_eq (2 each), in that order. nv = 2 runs
-// newton2_kernel<G, true> (G lanes an env, up to 64 rows), nv = 14, 21 and
-// 36 newton_tile_kernel (8, 8 and 4 envs a block, up to 96, 256 and 288
-// rows); smem: its block's shared memory bytes
+// newton2_kernel<G, true> (G lanes an env, up to 64 rows), nv = 14, 15, 21
+// and 36 newton_tile_kernel (8, 8, 8 and 4 envs a block, up to 96, 256, 256
+// and 288 rows); smem: its block's shared memory bytes
 // (physics/solver.py::newton_geometry), at least grt_newton_smem_bytes(nv).
 int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
                    const float* J, const float* aref, const float* D,
@@ -1467,6 +1478,10 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
     return launch_newton_tile<14, 1, 3, 8>(M, a_smooth, a_warm, J, aref, D,
                                            active, is_eq, st, qacc, f, ne, B,
                                            n_iter, n_ls, smem, s);
+  } else if (nv == 15) {
+    return launch_newton_tile<15, 2, 4, 8>(M, a_smooth, a_warm, J, aref, D,
+                                           active, is_eq, st, qacc, f, ne, B,
+                                           n_iter, n_ls, smem, s);
   } else if (nv == 21) {
     return launch_newton_tile<21, 2, 4, 8>(M, a_smooth, a_warm, J, aref, D,
                                            active, is_eq, st, qacc, f, ne, B,
@@ -1479,17 +1494,19 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
   return -1;
 }
 
-// Shared memory bytes of a newton_tile_kernel block at nv (14, 21 or 36),
+// Shared memory bytes of a newton_tile_kernel block at nv (14, 15, 21 or 36),
 // and the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
 // -1 for another nv.
 int grt_newton_smem_bytes(int nv) {
   return nv == 14   ? TileLayout<14, 1, 3, 8>::block_bytes
+         : nv == 15 ? TileLayout<15, 2, 4, 8>::block_bytes
          : nv == 21 ? TileLayout<21, 2, 4, 8>::block_bytes
          : nv == 36 ? TileLayout<36, 3, 3, 4>::block_bytes
                     : -1;
 }
 int grt_newton_blocks_per_sm(int nv) {
   return nv == 14   ? newton_tile_blocks_per_sm<14, 1, 3, 8>()
+         : nv == 15 ? newton_tile_blocks_per_sm<15, 2, 4, 8>()
          : nv == 21 ? newton_tile_blocks_per_sm<21, 2, 4, 8>()
          : nv == 36 ? newton_tile_blocks_per_sm<36, 3, 3, 4>()
                     : -1;

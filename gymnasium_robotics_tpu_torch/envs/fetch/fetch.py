@@ -1,13 +1,18 @@
 """Fetch family: the 7-DoF arm with mocap-welded Cartesian control (port of
-gymnasium_robotics_tpu/envs/fetch/fetch.py, for the tasks the port has:
-push and pick-and-place).
+gymnasium_robotics_tpu/envs/fetch/fetch.py: reach, push, slide and
+pick-and-place).
 
 action (B, 4) = dxyz * 0.05 and the gripper; the mocap body snaps to the
 welded gripper link's pose and is displaced (fetch.py:239-260); the finger
-position actuators, where the model has them, get ctrl = qpos + gripper;
-20 substeps per env step; with a blocked gripper the fingers are pinned at
-0 after the substeps and the kinematics refreshed (:262-268); the 25-wide
-observation (:156-180); sparse reward -(d > 0.05), dense -d. Physics:
+position actuators, where the model has them, get ctrl = qpos + gripper
+(the reach and slide models have none); 20 substeps per env step; with a
+blocked gripper the fingers are pinned at 0 after the substeps and the
+kinematics refreshed (:262-268); the observation (:156-181): 25 wide with
+an object (whose position is the achieved goal), 10 without (the grip
+position is); the goal (:131-143): the gripper's start plus a uniform
+offset, with an object also plus ``target_offset`` and then at the
+table's height (lifted at random where the target may be in the air);
+sparse reward -(d > 0.05), dense -d. Physics:
 Euler with implicit damping, pair-topk pruned contacts (pair_topk=8)
 capped at 24 per condim group, 4 Newton and 4 line-search iterations.
 Every method acts on the whole batch; goals and object positions are drawn
@@ -33,8 +38,10 @@ _FINGERS = ("robot0:l_gripper_finger_joint", "robot0:r_gripper_finger_joint")
 
 class FetchEnv:
     task: str = "push"
+    has_object: bool = True
     block_gripper: bool = True
     target_in_the_air: bool = False
+    target_offset = (0.0, 0.0, 0.0)
     obj_range: float = 0.15
     target_range: float = 0.15
     distance_threshold: float = 0.05
@@ -48,7 +55,7 @@ class FetchEnv:
         self.dtype = dtype
         model, extra = serialize.load_asset(f"fetch/{self.task}", dtype, dev)
         # pair_topk=8: the arm's 85-pair mesh-mesh group never has more than
-        # a few near pairs; the 905-slot table compacts to 277 slots
+        # a few near pairs; push's 905-slot table compacts to 277 slots
         self.model = m = model.with_options(
             contact_cap=24, pair_topk=8, iterations=4, ls_iterations=4,
             need_cfrc_ext=False)
@@ -66,19 +73,23 @@ class FetchEnv:
         self._grip_site = mt.site_names.index("robot0:grip")
         self._grip_body = mt.site_bodyid[self._grip_site]
         self._gripper_link = mt.body_names.index("robot0:gripper_link")
-        self._obj_site = mt.site_names.index("object0")
-        self._obj_body = mt.site_bodyid[self._obj_site]
-        self._obj_qadr = mt.jnt_qposadr[mt.joint_names.index("object0:joint")]
+        bodies = {self._grip_body}
+        if self.has_object:
+            self._obj_site = mt.site_names.index("object0")
+            self._obj_body = mt.site_bodyid[self._obj_site]
+            self._obj_qadr = mt.jnt_qposadr[mt.joint_names.index("object0:joint")]
+            bodies.add(self._obj_body)
+        self._target_offset = t(self.target_offset)
         self._act_qadr = [mt.jnt_qposadr[mt.actuator_trnid[u]]
                           for u in range(mt.nu)]
         fingers = [mt.joint_names.index(n) for n in _FINGERS]
         self._finger_qadr = [mt.jnt_qposadr[j] for j in fingers]
         self._finger_dofadr = [mt.jnt_dofadr[j] for j in fingers]
         masks = constraint._body_dof_masks(mt)
-        self._dof_mask = {b: t(masks[b])[:, None, None]
-                          for b in {self._grip_body, self._obj_body}}
+        self._dof_mask = {b: t(masks[b])[:, None, None] for b in bodies}
         self.dt = mt.opt.timestep * self.n_substeps
-        self.obs_dim, self.goal_dim, self.action_dim = 25, 3, 4
+        self.obs_dim = 25 if self.has_object else 10
+        self.goal_dim, self.action_dim = 3, 4
 
     # --- GoalEnv contract (fetch_env.py:74-80 in the reference) ---
     def compute_reward(self, achieved_goal, desired_goal, info=None):
@@ -112,6 +123,10 @@ class FetchEnv:
         grip_velp = self._site_vel(data, self._grip_site, self._grip_body)[0] * self.dt
         gripper_state = data.qpos[self._finger_qadr]
         gripper_vel = data.qvel[self._finger_dofadr] * self.dt
+        if not self.has_object:
+            parts = [grip_pos, gripper_state, grip_velp, gripper_vel]
+            return dict(observation=torch.cat(parts).T.contiguous(),
+                        achieved_goal=grip_pos.T.contiguous(), desired_goal=goal)
         object_pos = data.site_xpos[self._obj_site]
         object_rot = rotations.mat2euler(
             data.site_xmat[self._obj_site].permute(2, 0, 1)).T
@@ -130,6 +145,9 @@ class FetchEnv:
     def _sample_goal(self, n, generator):
         goal = self._init_grip + self._uniform(
             generator, (n, 3), -self.target_range, self.target_range)
+        if not self.has_object:
+            return goal
+        goal = goal + self._target_offset
         goal[:, 2] = self._height_offset
         if self.target_in_the_air:
             lift = self._uniform(generator, (n,), 0.0, 0.45)
@@ -170,7 +188,8 @@ class FetchEnv:
 
     # --- env API ---
     def initial(self, num_envs: int, generator) -> core.EnvState:
-        object_xy = self._sample_object_xy(num_envs, generator)
+        object_xy = (self._sample_object_xy(num_envs, generator)
+                     if self.has_object else None)
         return self._reset_state(num_envs, self._sample_goal(num_envs, generator),
                                  object_xy)
 
@@ -179,13 +198,15 @@ class FetchEnv:
         return self.initial(state.steps.shape[0], generator)
 
     def reset_with_values(self, state: core.EnvState, values) -> core.EnvState:
-        """Parity-mode reset: the goal (B, 3) and, where given, the object's
-        xy (B, 2) drawn on the host, under ``goal`` and ``object_xy``."""
+        """Parity-mode reset: the goal (B, 3) and, where given (a task with
+        an object), the object's xy (B, 2) drawn on the host, under
+        ``goal`` and ``object_xy``."""
 
         def t(x):
             return torch.tensor(np.asarray(x), dtype=self.dtype, device=self.device)
 
-        object_xy = t(values["object_xy"]) if "object_xy" in values else None
+        object_xy = (t(values["object_xy"])
+                     if self.has_object and "object_xy" in values else None)
         return self._reset_state(state.steps.shape[0], t(values["goal"]), object_xy)
 
     def step(self, state: core.EnvState, action, generator=None) -> core.EnvState:
@@ -219,10 +240,26 @@ class FetchEnv:
         )
 
 
+class FetchReachEnv(FetchEnv):
+    task = "reach"
+    has_object = False
+    block_gripper = True
+    target_in_the_air = True
+
+
 class FetchPushEnv(FetchEnv):
     task = "push"
     block_gripper = True
     target_in_the_air = False
+
+
+class FetchSlideEnv(FetchEnv):
+    task = "slide"
+    block_gripper = True
+    target_in_the_air = False
+    target_offset = (0.4, 0.0, 0.0)
+    obj_range = 0.1
+    target_range = 0.3
 
 
 class FetchPickAndPlaceEnv(FetchEnv):

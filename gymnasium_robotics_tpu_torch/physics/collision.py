@@ -8,11 +8,13 @@ counts, ``ncon``, the pair-topk ``prune_plan`` :102-175) and of
 per-lane gathers, per-group selection through ``narrowphase.topk_select``,
 the hybrid routing :1249-1323, ``src`` and the compact group-major table),
 driven like ``soa.collision`` :1018-1081. The formulas the ported slices
-reach: plane-sphere :88, plane-capsule :95, plane-box :152, sphere-box
-:221-251, capsule-box :375, box-box :388-499, and the convex-hull formulas
-:510-781 (plane-hull, and box-hull and hull-hull with the MPR upgrade of
-``physics/mpr.py``; on the unpruned table box-hull, :999-1021), with the
-contact frame ``_contact_frame_soa`` :806.
+reach: plane-sphere :88, plane-capsule :95, plane-box :152,
+plane-cylinder :163, sphere-box :221-251, capsule-box :375 (also
+cylinder-box, as ``_dispatch`` :800 maps it), box-box :388-499, and the
+convex-hull formulas :510-781 (plane-hull; cylinder-hull, the two
+end-sphere probes of ``_make_capsule_hull`` :624; box-hull and hull-hull
+with the MPR upgrade of ``physics/mpr.py``; on the unpruned table
+box-hull, :999-1021), with the contact frame ``_contact_frame_soa`` :806.
 
 Every slot reports a signed distance; slots far from touching simply carry
 a large positive one. Any other geom-type pair raises
@@ -227,6 +229,32 @@ def _plane_capsule(p1, R1, s1, p2, R2, s2):
     proj = axis - n * _dot(n, axis)[None]
     t1n, nrm = _normalize(proj, 1e-12)
     tan = torch.where((nrm > 1e-8)[None], t1n, torch.full_like(t1n, float("nan")))
+    return (torch.stack(outs_d), torch.stack(outs_p), torch.stack([n, n]),
+            torch.stack([tan, tan]))
+
+
+def _plane_cylinder(p1, R1, s1, p2, R2, s2):
+    """Two rim points, one on each end cap, at the cap's deepest point
+    along the plane's normal; where the axis is parallel to the normal
+    (an upright cylinder) the rim point falls back to the cylinder's x
+    axis. tan1 is the axis projected onto the plane, NaN where that
+    vanishes."""
+    n = R1[:, 2]
+    axis = R2[:, 2]
+    perp = n - axis * _dot(n, axis)[None]
+    pn_v, nrm = _normalize(perp, 1e-12)
+    rad = -pn_v * s2[0][None]
+    rad = torch.where((nrm > 1e-6)[None], rad, R2[:, 0] * s2[0][None])
+    pn = _dot(p1, n)
+    outs_d, outs_p = [], []
+    for sgn in (1.0, -1.0):
+        e = p2 + axis * (sgn * s2[1])[None] + rad
+        dist = _dot(e, n) - pn
+        outs_d.append(dist)
+        outs_p.append(e - 0.5 * dist[None] * n)
+    proj = axis - n * _dot(n, axis)[None]
+    t1n, tn = _normalize(proj, 1e-12)
+    tan = torch.where((tn > 1e-8)[None], t1n, torch.full_like(t1n, float("nan")))
     return (torch.stack(outs_d), torch.stack(outs_p), torch.stack([n, n]),
             torch.stack([tan, tan]))
 
@@ -515,6 +543,33 @@ def _mpr_upgrade(dA, pA, nA, p1, R1, hv1, p2, R2, hv2):
             torch.cat([torch.where(use[None], n_m, nA[0])[None], nA[1:]]))
 
 
+def _sphere_hull_probe(c, r, p2, R2, fn, fd):
+    """One contact of a sphere (centre c, radius r) against a hull posed
+    at (p2, R2): the deepest face's signed distance minus r, the normal
+    from the sphere into the hull."""
+    best, n_l = _point_hull_depth(_matTvec(R2, c - p2), fn, fd)
+    dist = best - r
+    n = -_matvec(R2, n_l)
+    pos = c + n * (r + 0.5 * dist)[None]
+    return dist[None], pos[None], n[None]
+
+
+def _make_capsule_hull(hull):
+    """Capsule or cylinder (geom1) vs hull (geom2): two sphere probes of
+    radius s1[0] at -s1[1] and +s1[1] along the axis, each against the
+    hull's face planes (collision_vec._make_capsule_hull, which
+    _mesh_group_fn calls for both types)."""
+    fn, fd = hull
+
+    def f(p1, R1, s1, p2, R2, s2):
+        ax = R1[:, 2]
+        outs = [_sphere_hull_probe(p1 + ax * (t * s1[1])[None], s1[0], p2, R2,
+                                   fn, fd) for t in (-1.0, 1.0)]
+        return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+    return f
+
+
 def _make_box_hull(hull):
     """Box (geom1) vs hull (geom2): box corners against the hull's faces
     (4 deepest) and hull vertices inside the box (4 deepest, penetrating
@@ -565,12 +620,14 @@ PRIMITIVES = {
     (T.PLANE, T.SPHERE): _plane_sphere,
     (T.PLANE, T.CAPSULE): _plane_capsule,
     (T.PLANE, T.BOX): _plane_box,
+    (T.PLANE, T.CYLINDER): _plane_cylinder,
     (T.SPHERE, T.BOX): _sphere_box,
     (T.CAPSULE, T.BOX): _capsule_box,
+    (T.CYLINDER, T.BOX): _capsule_box,
     (T.BOX, T.BOX): _box_box,
 }
 # hull groups by their first geom's type; box and mesh run with MPR
-HULL_GROUPS = (T.PLANE, T.BOX, T.MESH)
+HULL_GROUPS = (T.PLANE, T.CYLINDER, T.BOX, T.MESH)
 
 
 # the slice that brings each hull group the port does not have
@@ -578,7 +635,6 @@ _HULL_FAMILY = {
     (T.SPHERE, T.MESH): "the first family that has sphere-hull pairs",
     (T.CAPSULE, T.MESH): "the HandManipulatePen slice",
     (T.ELLIPSOID, T.MESH): "the HandManipulateEgg slice",
-    (T.CYLINDER, T.MESH): "the FetchSlide slice",
 }
 
 
@@ -593,7 +649,7 @@ def _check_ported(meta: T.Meta, t1, t2):
         return
     name = f"{_TYPE_NAMES[t1]}-{_TYPE_NAMES[t2]}"
     if t2 == T.MESH and t1 in HULL_GROUPS:
-        if t1 == T.PLANE or use_mpr(meta):
+        if t1 in (T.PLANE, T.CYLINDER) or use_mpr(meta):
             return
         raise NotImplementedError(
             f"{name} pairs with Option.mpr=False run face-SAT inside the "
@@ -604,8 +660,9 @@ def _check_ported(meta: T.Meta, t1, t2):
             f"it comes with {_HULL_FAMILY.get((t1, t2), 'ROADMAP B4')}")
     raise NotImplementedError(
         f"narrowphase for {name} pairs is not ported yet (the port has "
-        "plane-sphere, plane-capsule, plane-box, sphere-box, capsule-box, "
-        "box-box and plane, box and mesh against convex hulls)")
+        "plane-sphere, plane-capsule, plane-box, plane-cylinder, sphere-box, "
+        "capsule-box, cylinder-box, box-box and plane, cylinder, box and "
+        "mesh against convex hulls)")
 
 
 def contact_frame(n, t1=None):
@@ -749,7 +806,7 @@ class _NarrowPlan:
                 # (collision_vec._make_narrowphase_core :977-987, MPR on)
                 hid = torch.as_tensor([meta.geom_hullid[e[1]] for e in entries],
                                       device=dev)
-                hull = take_hull(m, hid[:, None])
+                hull = take_hull(m.hull_vert, m.hull_face, hid[:, None])
                 fn = _make_box_hull(hull)
             else:
                 fn = PRIMITIVES[tp]
@@ -784,10 +841,11 @@ def take_sel(P, Rm, sizes3, gid):
     return p, R, s
 
 
-def take_hull(m: T.Model, hid):
-    """Per-lane hull operands ((fn, fd), hv) of hull ids ``hid`` (K, B):
+def take_hull(hull_vert, hull_face, hid):
+    """Per-lane hull operands ((fn, fd), hv) of hull ids ``hid`` (K, B)
+    from the tables hull_vert (nhull, V, 3) and hull_face (nhull, F, 4):
     fn (F, 3, K, B), fd (F, K, B), hv (V, 3, K, B)."""
-    hv, hf = m.hull_vert[hid], m.hull_face[hid]
+    hv, hf = hull_vert[hid], hull_face[hid]
     return ((hf[..., :3].permute(2, 3, 0, 1), hf[..., 3].permute(2, 0, 1)),
             hv.permute(2, 3, 0, 1))
 
@@ -949,8 +1007,9 @@ def _run_hull_groups(m: T.Model, d: T.Data, run: _HullRun, sel, out):
         pick = sel[srow]                                      # (K, B)
         ops.append(((*take_sel(P, Rm, sizes3, g1[pick]),
                      *take_sel(P, Rm, sizes3, g2[pick])),
-                    None if h1 is None else take_hull(m, h1[pick]),
-                    take_hull(m, h2[pick])))
+                    None if h1 is None else take_hull(m.hull_vert, m.hull_face,
+                                                      h1[pick]),
+                    take_hull(m.hull_vert, m.hull_face, h2[pick])))
     o, h1, h2 = _cat_pairs(ops)
     fn = mesh_group_fn(run.tp[0], h1, h2)
     dist, pos, normal, _ = rows_of(fn(*o), run.k, run.S, B)
@@ -973,7 +1032,7 @@ def _collision_pruned(m: T.Model, d: T.Data):
     # hull groups fill theirs below. For the gathers one op clamps the
     # picks into each group and widens them to int64
     NP.narrowphase(tp.table, P, d.geom_xmat, m.geom_size, sel, m.hull_vert,
-                   out=out)
+                   m.hull_face, out=out)
     sel = torch.minimum(sel, tp.sel_max)                    # (G, K, B)
     for run in tp.runs:
         _run_hull_groups(m, d, run, sel, out)

@@ -6,11 +6,12 @@ Port of gymnasium_robotics_tpu/physics/narrowphase_pallas.py:
 of masked min + first-index argmin) and ``narrowphase`` replaces
 ``narrowphase_megakernel`` :201-287 (every group's contact formula in one
 dispatch, ``GroupSpec``/``_emit_group`` :64-152) for the groups the port
-has (plane-sphere, plane-capsule, plane-box, sphere-box, capsule-box,
-box-box and plane-hull). Where the TPU kernel took operand blocks gathered
-by XLA, this kernel reads the selected geom ids and gathers
-geom_xpos/geom_xmat/geom_size and the hull vertex table itself; its work
-is cut into warp items finer than a pair (GroupTable.tasks). The
+has (plane-sphere, plane-capsule, plane-box, plane-cylinder, sphere-box,
+capsule-box, cylinder-box, box-box, plane-hull and cylinder-hull). Where
+the TPU kernel took operand blocks gathered by XLA, this kernel reads the
+selected geom ids and gathers geom_xpos/geom_xmat/geom_size and the hull
+vertex and face tables itself; its work is cut into warp items finer than
+a pair (GroupTable.tasks). The
 box-hull and hull-hull groups run with MPR outside the kernel, as they do
 outside the TPU kernel (collision._run_hull_groups).
 
@@ -42,11 +43,13 @@ TOPK_TILE, TOPK_WARPS, TOPK_CHUNK = 32, 8, 128
 # group kinds, in the order csrc/narrowphase.cu numbers them
 KINDS = ((T.PLANE, T.SPHERE), (T.PLANE, T.CAPSULE), (T.SPHERE, T.BOX),
          (T.CAPSULE, T.BOX), (T.PLANE, T.BOX), (T.BOX, T.BOX),
-         (T.PLANE, T.MESH))
+         (T.PLANE, T.MESH), (T.PLANE, T.CYLINDER), (T.CYLINDER, T.BOX),
+         (T.CYLINDER, T.MESH))
 # narrowphase_kernel's work items: a block takes 32 envs and one task of
 # NP_WARPS warp items. Per kind, a rough count of the longest warp's
-# instructions for each of its items a pair (capsule-box: a sphere each;
-# box-box: box 2's corners in box 1, box 1's in box 2, the edge slot), used
+# instructions for each of its items a pair (capsule-box and cylinder-box:
+# a sphere each; box-box: box 2's corners in box 1, box 1's in box 2, the
+# edge slot; cylinder-hull: an end sphere's probe each), used
 # only to put the longest tasks first. The kinds of COOP_KINDS run each
 # item on all the block's warps (a cooperative task), the others four
 # items to a task, one a warp (tools/narrowphase_kinds.py times the kinds).
@@ -55,7 +58,8 @@ NP_COOP = 1 << 28     # csrc/narrowphase.cu's kCoop
 BOX_KINDS = 4         # kinds from here on: narrowphase_kernel<true> only
 COOP_KINDS = (4, 5)   # plane-box, box-box
 ITEMS = {0: (60,), 1: (150,), 2: (200,), 3: (200, 200, 200), 4: (260,),
-         5: (370, 370, 830), 6: (1000,)}
+         5: (370, 370, 830), 6: (1000,), 7: (180,), 8: (200, 200, 200),
+         9: (500, 500)}
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +178,10 @@ class GroupTable:
 
     @property
     def boxes(self) -> bool:
-        """Whether the table holds plane-box, box-box or plane-hull pairs:
-        the kernel's instantiation with their candidate formulas, which
-        needs more registers than the primitive kinds alone."""
+        """Whether the table holds a kind past the primitive four
+        (plane-box, box-box, plane-hull, plane-cylinder, cylinder-box,
+        cylinder-hull): the kernel's instantiation with their formulas,
+        which needs more registers than the primitive kinds alone."""
         return any(g.kind >= BOX_KINDS for g in self.groups)
 
     @staticmethod
@@ -268,11 +273,13 @@ def _nan_table(n, P):
 
 
 def narrowphase_plain(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
-                      out=None):
+                      hull_face=None, out=None):
     """The kernel's rows of the compact contact table: geom_xpos P
     (ngeom, 3, B), geom_xmat Rm (ngeom, 3, 3, B), geom_size sizes3
-    (ngeom, 3, Bm), sel (G, K, B) picks of the pruned groups, hull_vert
-    (nhull, V, 3) -> dist (ncon, B), pos (ncon, 3, B), frame
+    (ngeom, 3, Bm), sel (G, K, B) picks of the pruned groups, the hull
+    tables hull_vert (nhull, V, 3) (plane-hull reads the vertices) and
+    hull_face (nhull, F, 4) (cylinder-hull reads the face planes, of the
+    hull each env picked) -> dist (ncon, B), pos (ncon, 3, B), frame
     (ncon, 3, 3, B), rows group-major and pair-major (row = pair*S + slot)
     as collision_vec's pruned core emits them. The rows are written into
     ``out`` (dist, pos, frame) when given; a new table has NaN in the rows
@@ -289,8 +296,11 @@ def narrowphase_plain(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
             ops2 = COL.take_sel(P, Rm, sizes3, g.g2[pick])
         if g.hull2 is None:
             fn = COL.PRIMITIVES[KINDS[g.kind]]
-        else:   # plane-hull: plane groups are never pruned
+        elif KINDS[g.kind][0] == T.PLANE:   # plane groups are never pruned
             fn = COL._make_plane_hull(hull_vert[g.hull2].permute(1, 2, 0)[..., None])
+        else:   # cylinder-hull: the face planes of each env's picked hull
+            hid = g.hull2[:, None] if g.sel_group < 0 else g.hull2[pick]
+            fn = COL._make_capsule_hull(COL.take_hull(hull_vert, hull_face, hid)[0])
         dist, pos, normal, tan = COL.rows_of(fn(*ops1, *ops2), g.k, g.S, B)
         r0, r1 = g.row_off, g.row_off + g.k * g.S
         out[0][r0:r1] = dist
@@ -300,20 +310,27 @@ def narrowphase_plain(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
 
 
 def narrowphase(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
-                out=None):
+                hull_face=None, out=None):
     """The kernel's rows of the compact contact table (see
     narrowphase_plain). CUDA tensors launch narrowphase_kernel (float32);
     CPU tensors take the plain version."""
     ngeom, _, B = P.shape
     if tuple(Rm.shape) != (ngeom, 3, 3, B) or sizes3.shape[:2] != (ngeom, 3):
         raise ValueError("geom_xpos, geom_xmat and geom_size disagree on shape")
-    floats = (P, Rm, sizes3) + (() if hull_vert is None else (hull_vert,))
+    floats = (P, Rm, sizes3) + tuple(h for h in (hull_vert, hull_face)
+                                     if h is not None)
     if not kernels.on_card(floats, (), ints=(sel,)):
-        return narrowphase_plain(table, P, Rm, sizes3, sel, hull_vert, out)
+        return narrowphase_plain(table, P, Rm, sizes3, sel, hull_vert,
+                                 hull_face, out)
     if sizes3.shape[-1] not in (1, B):
         raise ValueError(f"geom_size has batch axis {sizes3.shape[-1]}, not 1 or {B}")
-    if hull_vert is None and any(g.hull2 is not None for g in table.groups):
-        raise ValueError("a hull group needs the hull vertex table")
+    for g in table.groups:
+        if g.hull2 is None:
+            continue
+        if KINDS[g.kind][0] == T.PLANE and hull_vert is None:
+            raise ValueError("a plane-hull group needs the hull vertex table")
+        if KINDS[g.kind][0] != T.PLANE and hull_face is None:
+            raise ValueError("a cylinder-hull group needs the hull face table")
     n = table.ncon
     out = _nan_table(n, P) if out is None else out
     for t, shape in zip(out, ((n, B), (n, 3, B), (n, 3, 3, B))):
@@ -323,6 +340,7 @@ def narrowphase(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
     P, Rm = P.contiguous(), Rm.contiguous()
     sel = sel.to(torch.int32).contiguous()
     hv = None if hull_vert is None else hull_vert.contiguous()
+    hf = None if hull_face is None else hull_face.contiguous()
     ss = sizes3.stride()
     rc = _lib().grt_narrowphase_f32(
         P.data_ptr(), Rm.data_ptr(), sizes3.data_ptr(), ss[0], ss[1],
@@ -331,7 +349,8 @@ def narrowphase(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
         table.lists.data_ptr(), table.lists.shape[1], table.pairs.shape[1],
         table.tasks.data_ptr(), table.tasks.shape[0], int(table.boxes),
         table.geom_hull.data_ptr(), None if hv is None else hv.data_ptr(),
-        0 if hv is None else hv.shape[1],
+        0 if hv is None else hv.shape[1], None if hf is None else hf.data_ptr(),
+        0 if hf is None else hf.shape[1],
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B,
         torch.cuda.current_stream(P.device).cuda_stream,
     )
@@ -357,7 +376,7 @@ def _lib():
         fn.restype = _i
     lib.grt_narrowphase_f32.argtypes = (
         [_vp] * 3 + [_ll] * 3 + [_vp] * 4 + [_i] * 2 + [_vp, _i, _i]
-        + [_vp] * 2 + [_i] + [_vp] * 3 + [_i, _vp])
+        + [_vp] * 2 + [_i, _vp, _i] + [_vp] * 3 + [_i, _vp])
     lib.grt_narrowphase_f32.restype = _i
     lib.grt_narrowphase_blocks_per_sm.argtypes = [_i]
     lib.grt_narrowphase_blocks_per_sm.restype = _i

@@ -3,9 +3,9 @@
 ``_register_ant_maze`` and ``_register_fetch`` :53-109, and of
 envs/hand/hand.py ``register_hand_envs`` :540-586 for HandManipulateBlock).
 
-The port registers the PointMaze, AntMaze, FetchPush, FetchPickAndPlace
-and HandManipulateBlock IDs; any other ID raises ``KeyError`` naming the
-slice of the port that brings its family.
+The port registers the PointMaze, AntMaze, Fetch (reach, push, slide,
+pick-and-place) and HandManipulateBlock IDs; any other ID raises
+``KeyError`` naming the slice of the port that brings its family.
 """
 
 from __future__ import annotations
@@ -78,13 +78,15 @@ def _ant_maze_specs() -> Dict[str, EnvSpec]:
 
 
 def _fetch_specs() -> Dict[str, EnvSpec]:
-    """FetchPush and FetchPickAndPlace, v1 (the reference's mujoco_py twin
-    of v4) and v4, sparse and dense, 50 steps an episode."""
+    """FetchReach, FetchPush, FetchSlide and FetchPickAndPlace, v1 (the
+    reference's mujoco_py twin of v4) and v4, sparse and dense, 50 steps an
+    episode."""
     from gymnasium_robotics_tpu_torch.envs.fetch.fetch import (
-        FetchPickAndPlaceEnv, FetchPushEnv)
+        FetchPickAndPlaceEnv, FetchPushEnv, FetchReachEnv, FetchSlideEnv)
 
     out = {}
-    for name, cls in (("FetchPush", FetchPushEnv),
+    for name, cls in (("FetchReach", FetchReachEnv), ("FetchPush", FetchPushEnv),
+                      ("FetchSlide", FetchSlideEnv),
                       ("FetchPickAndPlace", FetchPickAndPlaceEnv)):
         for ver in ("v1", "v4"):
             for suffix, reward_type in _REWARDS:
@@ -135,9 +137,6 @@ def _specs() -> Dict[str, EnvSpec]:
 
 
 _SLICES = (
-    ("FetchReach", "the FetchReach slice (the solver kernels at nv = 15)"),
-    ("FetchSlide", "the FetchSlide slice (the plane-cylinder, "
-                   "cylinder-hull and cylinder-box groups)"),
     ("HandManipulateEgg", "the HandManipulateEgg slice (ellipsoid pairs)"),
     ("HandManipulatePen", "the HandManipulatePen slice (capsule-capsule "
                           "and capsule-hull pairs)"),
@@ -154,8 +153,8 @@ def spec(id: str) -> EnvSpec:
         )
         raise KeyError(
             f"{id!r} is not in the port: it registers only the PointMaze, "
-            f"AntMaze, FetchPush, FetchPickAndPlace and HandManipulateBlock "
-            f"IDs so far; this family comes with {brings}"
+            f"AntMaze, Fetch and HandManipulateBlock IDs so far; this family "
+            f"comes with {brings}"
         )
     return specs[id]
 

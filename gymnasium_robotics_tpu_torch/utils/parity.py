@@ -28,15 +28,15 @@ def sample_reset_values(env, np_random: np.random.Generator, options=None):
     name = type(env).__name__
     if name in ("PointMazeEnv", "AntMazeEnv"):
         return _maze_values(env, np_random, options)
-    if name in ("FetchPushEnv", "FetchPickAndPlaceEnv"):
+    if name in ("FetchReachEnv", "FetchPushEnv", "FetchSlideEnv",
+                "FetchPickAndPlaceEnv"):
         return _fetch_values(env, np_random)
     if name == "HandManipulateBlockEnv":
         return _hand_manipulate_values(env, np_random)
     raise NotImplementedError(
-        f"no parity sampler for {name}: the port has the maze, "
-        "FetchPush/FetchPickAndPlace and HandManipulateBlock families so "
-        "far; each other family's sampler comes with its slice "
-        "(ROADMAP queue A)")
+        f"no parity sampler for {name}: the port has the maze, Fetch and "
+        "HandManipulateBlock families so far; each other family's sampler "
+        "comes with its slice (ROADMAP queue A)")
 
 
 def _maze_values(env, rng: np.random.Generator, options=None):
@@ -77,19 +77,27 @@ def _maze_values(env, rng: np.random.Generator, options=None):
 
 def _fetch_values(env, rng: np.random.Generator):
     """fetch_env.py:376-402 (the object placement, redrawn until 0.1 from
-    the gripper) then :153-166 (the goal): the object's draws come first.
-    Both ported tasks have an object and no target offset."""
+    the gripper; only a task with an object draws it) then :153-166 (the
+    goal; with an object it is moved by the target offset and put at the
+    table's height, then lifted at random where the target may be in the
+    air): the object's draws come first."""
     grip0 = np.asarray(env._init_grip.detach().cpu().numpy(), np.float64)
-    object_xpos = grip0[:2]
-    while np.linalg.norm(object_xpos - grip0[:2]) < 0.1:
-        object_xpos = grip0[:2] + rng.uniform(-env.obj_range, env.obj_range,
-                                              size=2)
+    values = {}
+    if env.has_object:
+        object_xpos = grip0[:2]
+        while np.linalg.norm(object_xpos - grip0[:2]) < 0.1:
+            object_xpos = grip0[:2] + rng.uniform(-env.obj_range,
+                                                  env.obj_range, size=2)
+        values["object_xy"] = object_xpos
     goal = grip0[:3] + rng.uniform(-env.target_range, env.target_range,
                                    size=3)
-    goal[2] = float(env._height_offset)
-    if env.target_in_the_air and rng.uniform() < 0.5:
-        goal[2] += rng.uniform(0, 0.45)
-    return {"object_xy": object_xpos, "goal": goal}
+    if env.has_object:
+        goal += np.asarray(env.target_offset, np.float64)
+        goal[2] = float(env._height_offset)
+        if env.target_in_the_air and rng.uniform() < 0.5:
+            goal[2] += rng.uniform(0, 0.45)
+    values["goal"] = goal
+    return values
 
 
 # --- host-side float64 rotation helpers, formula for formula the

@@ -251,14 +251,26 @@ def test_pick_and_place_steps():
 
 
 def test_every_fetch_id_makes():
+    """The 16 Fetch IDs of the JAX registry (reach, push, slide and
+    pick-and-place, v1 and v4, sparse and dense) construct on the CPU with
+    the JAX side's observation width (25 with an object, 10 for reach)."""
+    from gymnasium_robotics_tpu import registry as jreg
+    from gymnasium_robotics_tpu.envs import fetch as jfetch
+
     ids = [i for i in registry.ids() if i.startswith("Fetch")]
-    assert len(ids) == 8
+    assert ids == sorted(i for i in jreg.ids() if i.startswith("Fetch"))
+    assert len(ids) == 16
+    tasks = {"Reach": "reach", "Push": "push", "Slide": "slide",
+             "PickAndPlace": "pick_and_place"}
+    width = {}
+    for name, task in tasks.items():
+        jenv = getattr(jfetch, f"Fetch{name}Env")(dtype=jnp.float64)
+        width[task] = jenv.observation_space["observation"].shape[0]
+    assert width == {"reach": 10, "push": 25, "slide": 25, "pick_and_place": 25}
     for id_ in ids:
         env = registry.make(id_, device="cpu")
         assert env.max_episode_steps == 50
         assert env.reward_type == ("dense" if "Dense" in id_ else "sparse")
-        assert env.task == ("push" if "Push" in id_ else "pick_and_place")
+        assert env.task == tasks[id_[5:].split("-")[0].replace("Dense", "")]
+        assert env.obs_dim == width[env.task]
         assert env.model.opt.pair_topk == 8 and env.model.opt.contact_cap == 24
-    for id_, brings in (("FetchReach-v4", "nv = 15"), ("FetchSlide-v4", "cylinder")):
-        with pytest.raises(KeyError, match=brings):
-            registry.make(id_, device="cpu")

@@ -50,6 +50,10 @@ def test_building_the_env_imports_no_jax():
         "hand = registry.make('HandManipulateBlock_ContinuousTouchSensors-v1',\n"
         "                     device='cpu')\n"
         "assert hand.obs_dim == 153\n"
+        "slide = registry.make('FetchSlide-v4', device='cpu')\n"
+        "assert slide.obs_dim == 25\n"
+        "reach = registry.make_gym('FetchReach-v4', parity=True, device='cpu')\n"
+        "reach.reset(seed=0)\n"
         "from gymnasium_robotics_tpu_torch.physics import kinematics, pipeline\n"
         "m = env.env.model.with_options(fk_kernel=True)\n"
         "kinematics.kinematics(m, pipeline.make_data(m, 2))\n"
@@ -80,8 +84,8 @@ def test_make_without_device_needs_a_card():
 def test_unported_id_names_its_slice():
     from gymnasium_robotics_tpu_torch import registry
 
-    with pytest.raises(KeyError, match="FetchSlide slice"):
-        registry.make("FetchSlide-v4", num_envs=4, device="cpu")
+    with pytest.raises(KeyError, match="HandReach slice"):
+        registry.make("HandReach-v1", num_envs=4, device="cpu")
     assert "PointMaze_UMaze-v3" in registry.ids()
     assert registry.spec("PointMaze_UMaze-v3").max_episode_steps == 300
     assert registry.spec("AntMaze_UMaze-v5").max_episode_steps == 700

@@ -121,13 +121,14 @@ def _ported_topk_shapes():
 
 
 def test_topk_geometry_covers_ported_shapes():
-    """The 60 AntMaze IDs (four maze sizes), the 8 Fetch IDs and the 52
-    HandManipulateBlock IDs call topk_select at eight shapes; at each, and
-    at B from 1 up, the kernel's grid covers every env and its shared
+    """The 60 AntMaze IDs (four maze sizes), the 16 Fetch IDs and the 52
+    HandManipulateBlock IDs call topk_select at eleven shapes; at each,
+    and at B from 1 up, the kernel's grid covers every env and its shared
     memory fits a block."""
     shapes = _ported_topk_shapes()
     assert shapes == {(2, 216, 8), (2, 240, 8), (2, 456, 8), (2, 744, 8),
-                      (1, 57, 16), (3, 85, 8), (2, 169, 24), (2, 160, 16)}
+                      (1, 57, 16), (3, 85, 8), (2, 169, 24), (2, 160, 16),
+                      (4, 85, 8), (2, 177, 24), (2, 156, 24)}
     for G, maxk, K in shapes:
         for B in (1, 31, 32, 2047, 2048, 8192):
             geo = tnp.topk_geometry(G, maxk, B, K)
@@ -491,7 +492,8 @@ def test_narrowphase_plain_matches_megakernel_fetch():
 # kind, per part (csrc/narrowphase.cu)
 _ITEM_ROWS = {0: [[0]], 1: [[0, 1]], 2: [[0]], 3: [[0], [1], [2]],
               4: [[0, 1, 2, 3]], 5: [[0, 1, 2, 3], [4, 5, 6, 7], [8]],
-              6: [[0, 1, 2, 3]]}
+              6: [[0, 1, 2, 3]], 7: [[0, 1]], 8: [[0], [1], [2]],
+              9: [[0], [1]]}
 
 
 def _rows_written(table):
@@ -512,7 +514,8 @@ def _rows_written(table):
 
 
 @pytest.mark.parametrize("id_", ["AntMaze_UMaze-v5", "AntMaze_Large-v5",
-                                 "FetchPush-v4", "FetchPickAndPlace-v4"])
+                                 "FetchPush-v4", "FetchPickAndPlace-v4",
+                                 "FetchReach-v4", "FetchSlide-v4"])
 def test_group_table_tasks_write_each_row_once(id_):
     """The kernel's task table writes every compact row of its groups
     exactly once (for the whole table and cut to each kind), each
@@ -688,3 +691,63 @@ def test_kernels_match_plain_on_card_fetch(cuda_device):
     pen = (c.dist - m.con_includemargin[:, 0][c.src])[rp.cap_rows]
     assert torch.equal(tnp.topk_select(pen, rp.cap_mask, 24),
                        tnp.topk_select_plain(pen, rp.cap_mask, 24))
+
+
+def slide_inputs(B, device="cpu"):
+    """FetchSlide's model and a forwarded batch of B envs cycling through
+    four puck poses, jittered by up to 2 mm: upright under the gripper
+    link, 4 mm into it; tipped 0.3 rad onto the floor; upright on the floor
+    (its axis along the plane's normal: the fallback rim point, a NaN
+    tangent); tipped 1.2 rad against the fingers and the link."""
+    from gymnasium_robotics_tpu_torch.envs.fetch.fetch import FetchSlideEnv
+
+    env = FetchSlideEnv(dtype=torch.float32, device=device)
+    m, oq = env.model, env._obj_qadr
+    rs = np.random.RandomState(4)
+    qpos = np.tile(env._init_qpos.cpu().numpy(), (B, 1))
+    poses = [[1.06, 0.7497, 0.4445, 1.0, 0.0, 0.0, 0.0],
+             [1.7, 1.4, 0.026, np.cos(0.15), np.sin(0.15), 0.0, 0.0],
+             [1.7, 1.4, 0.0195, 1.0, 0.0, 0.0, 0.0],
+             [1.05, 0.7497, 0.455, np.cos(0.6), 0.0, np.sin(0.6), 0.0]]
+    for i in range(B):
+        qpos[i, oq:oq + 7] = poses[i % 4]
+        qpos[i, oq:oq + 2] += rs.uniform(-0.002, 0.002, 2) * (i >= 4)
+    d = tpipe.make_data(m, B)
+    d.qpos[:] = torch.tensor(qpos.T, dtype=torch.float32, device=device)
+    return m, tpipe.forward(m, d)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card_slide(cuda_device):
+    """FetchSlide's kernel groups at B = 2048 (plane-cylinder, cylinder-box
+    and the pruned cylinder-hull group beside FetchPush's kinds): every
+    kernel row against the plain version (distances on their own scale,
+    frames NaN-equal), each new kind alone bitwise equal to the whole
+    table's rows; the envs' cylinder-hull picks differ; a table without the
+    face table raises."""
+    B = 2048
+    m, d = slide_inputs(B, device=cuda_device)
+    tp = m.plan("pruned", tcol._PrunedPlan)
+    table = tp.table
+    sel = tnp.topk_select(tcol.broadphase_rank(m, d, tp), tp.mask, tp.K)
+    args = (table, d.geom_xpos, d.geom_xmat, m.geom_size, sel, m.hull_vert,
+            m.hull_face)
+    whole = tnp.narrowphase(*args)
+    torch.cuda.synchronize()
+    rows = table.rows.cpu().numpy()
+    ref = tnp.narrowphase_plain(*args)
+    assert_table_close([g.cpu().numpy() for g in whole],
+                       [r.cpu().numpy() for r in ref], rows, TOL32)
+    for kind in (7, 8, 9):
+        tab = table.only([kind])
+        got = tnp.narrowphase(tab, *args[1:])
+        for g, w in zip(got, whole):
+            assert torch.equal(g[tab.rows].view(torch.int32),
+                               w[tab.rows].view(torch.int32)), kind
+        g = next(g for g in table.groups if g.kind == kind)
+        assert bool((ref[0][g.row_off:g.row_off + g.k * g.S] < 0).any()), kind
+    hull = next(g for g in table.groups if g.kind == 9)
+    picks = hull.g2[torch.clamp(sel[hull.sel_group].long(), 0, len(hull.g2) - 1)]
+    assert int((picks[0] != picks[0, :1]).sum()) > 0   # hulls differ by env
+    with pytest.raises(ValueError, match="face table"):
+        tnp.narrowphase(*args[:6])

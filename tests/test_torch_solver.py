@@ -365,8 +365,9 @@ def test_wrappers_route_and_check():
 
 def test_newton_geometry_covers_row_caps():
     """newton_tile_kernel's launch geometry for every ported system with a
-    tile Newton (the AntMaze IDs at nv = 14, the Fetch IDs at nv = 21, the
-    HandManipulateBlock IDs at nv = 36) and at the row caps, at B from 1
+    tile Newton (the AntMaze IDs at nv = 14, FetchReach at nv = 15, the
+    other Fetch IDs at nv = 21, the HandManipulateBlock IDs at nv = 36)
+    and at the row caps, at B from 1
     up: the grid covers every env, a block's shared memory fits, the lanes
     hold the row cap; other nv and more rows raise."""
     systems = set()
@@ -374,7 +375,7 @@ def test_newton_geometry_covers_row_caps():
         m = registry.make(id_, num_envs=1, device="cpu").env.model
         if m.nv in solver.NEWTON_TILE_SHAPES:
             systems.add((m.nv, m.plan("rows", constraint._RowPlan).is_eq.numel()))
-    assert systems == {(14, 72), (21, 255), (36, 272)}
+    assert systems == {(14, 72), (15, 255), (21, 255), (36, 272)}
     for nv in solver.NEWTON_TILE_SHAPES:
         cap = solver.NEWTON_MAX_ROWS[nv]
         for ne in sorted({1, 45, cap} | {n for v, n in systems if v == nv}):
@@ -386,12 +387,12 @@ def test_newton_geometry_covers_row_caps():
                 assert 32 * geo["warps_per_env"] * geo["rows_per_lane"] == cap
         with pytest.raises(NotImplementedError, match="rows"):
             solver.newton_geometry(nv, cap + 1, 1)
-    with pytest.raises(NotImplementedError, match="nv=15"):
-        solver.newton_geometry(15, 10, 1)
+    with pytest.raises(NotImplementedError, match="nv=24"):
+        solver.newton_geometry(24, 10, 1)
 
 
 def test_chol_geometry_matches_source():
-    """chol_tile_kernel's launch geometry (nv 14, 21 and 36) against the
+    """chol_tile_kernel's launch geometry (nv 14, 15, 21 and 36) against the
     constants of csrc/solver.cu (the tiles, the lanes an env, the triangle
     and right-hand side a block stages) at B from 1 up: the grid covers
     every env, the shared memory fits a static launch, up to nv = 36;
@@ -417,7 +418,7 @@ def test_chol_geometry_matches_source():
             assert geo["rows_per_lane"] * lanes >= nv
             assert geo["smem"] == tile * (nv * (nv + 1) // 2 + nv) * 4 <= 48 * 1024
     assert tile16 * (36 * 37 // 2 + 36) * 4 <= 48 * 1024   # nv = 36, the design's top
-    for nv in (2, 15):
+    for nv in (2, 24):
         with pytest.raises(NotImplementedError, match=f"nv={nv}"):
             solver.chol_geometry(nv, 1)
 
@@ -645,12 +646,56 @@ def test_kernels_match_plain_on_card_nv36(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernels_match_plain_on_card_nv15(cuda_device):
+    """nv = 15: chol_tile_kernel<15, false> on random SPD systems within
+    2e-4 of its plain version, and newton_tile_kernel<15, 2, 4, 8>
+    on random rows and on a FetchReach batch's own rows (B = 2048, 255
+    rows), within max(2e-4, 2x the float32 plain version) of the plain
+    version run in float64."""
+    B = 2048
+    rs = np.random.RandomState(15)
+
+    def cuda(x):
+        x = np.asarray(x)
+        return torch.tensor(x, dtype=torch.bool if x.dtype == bool
+                            else torch.float32, device=cuda_device)
+
+    M, b = cuda(_spd(rs, 15, B)), cuda(rs.normal(size=(15, B)))
+    n0 = dict(solver.LAUNCHES)
+    x = solver.solve_pos(M, b)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES["chol"] == n0["chol"] + 1
+    ok = slice(3, None)
+    assert rel_err(x[:, ok].cpu(), solver.solve_pos_plain(M, b)[:, ok].cpu()) <= TOL32
+
+    env = registry.make("FetchReach-v4", num_envs=B, device=cuda_device)
+    env.reset(seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(2):
+        env.step(torch.rand((B, 4), generator=gen, device=cuda_device) * 2 - 1)
+    m, d = env.env.model, env.state.data
+    J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+    assert J.shape[:2] == (255, 15)
+    real = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+    A = rs.normal(size=(15, 15, B))
+    rand = [cuda(a) for a in (
+        np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(15)[:, :, None],
+        rs.normal(size=(15, B)), rs.normal(size=(15, B)),
+        rs.normal(size=(255, 15, B)), rs.normal(size=(255, B)),
+        np.exp(rs.normal(size=(255, B))), rs.uniform(size=(255, B)) < 0.6,
+        np.arange(255) < 6)]
+    for args in (rand, real):
+        err, p32 = gate64(args, 4, 4)
+        assert err <= max(TOL32, 2 * p32), (err, p32)
+
+
+@pytest.mark.cuda
 def test_newton_edges_on_card(cuda_device):
     """newton_tile_kernel at the edges of its shapes against its plain
-    version (nv = 14: within 2e-4 of it in float32; nv = 21 and 36, whose
-    random systems float32 itself moves: within max(2e-4, 2x the float32
-    plain version's error) of the plain version run in float64): the
-    row caps 96, 256 and 288, an ne that is not a multiple of 32, B = 1, a
+    version (nv = 14: within 2e-4 of it in float32; nv = 15, 21 and 36,
+    whose random systems float32 itself moves: within max(2e-4, 2x the
+    float32 plain version's error) of the plain version run in float64):
+    the row caps 96, 256, 256 and 288, an ne that is not a multiple of 32, B = 1, a
     B that is not a multiple of the env tile (and at nv = 36 the hand's 272
     rows at B = 1023), n_iter = 0, every row inactive and J in a
     batch-leading layout (the strided staging). The wrapper's shared
@@ -662,7 +707,7 @@ def test_newton_edges_on_card(cuda_device):
         return torch.tensor(x, dtype=torch.bool if x.dtype == bool
                             else torch.float32, device=cuda_device)
 
-    for nv, n_iter in ((14, 5), (21, 4), (36, 5)):
+    for nv, n_iter in ((14, 5), (15, 4), (21, 4), (36, 5)):
         cap = solver.NEWTON_MAX_ROWS[nv]
         hand = [(272, 1023, n_iter, "")] if nv == 36 else []
         for ne, B, it, case in [(cap, 2048, n_iter, ""), (45, 13, n_iter, ""),
@@ -697,7 +742,7 @@ def test_newton_edges_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_chol_edges_on_card(cuda_device):
-    """chol_tile_kernel at nv 14, 21 and 36 against its plain version: B = 1 and
+    """chol_tile_kernel at nv 14, 15, 21 and 36 against its plain version: B = 1 and
     B = 2047, M as a transposed and as a sliced view, b transposed, envs
     whose factor takes the 1e-20 floor exactly (equal to the plain
     version), an env with a NaN entry (NaN in both); and the same solves
@@ -705,7 +750,7 @@ def test_chol_edges_on_card(cuda_device):
     than twice the float32 plain version). The wrapper's shared memory is
     the source's."""
     rs = np.random.RandomState(12)
-    for nv in (14, 21, 36):
+    for nv in (14, 15, 21, 36):
         def spd(B):
             A = rs.normal(size=(nv, nv, B))
             return torch.tensor(np.einsum("ikb,jkb->ijb", A, A)

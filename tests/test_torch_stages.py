@@ -158,10 +158,19 @@ def test_build_rows_matches_soa(models, state):
 
 def test_unported_pair_type_raises(models):
     _, _, _, tm = models
-    gt = list(tm.meta.geom_type)
-    # the ball becomes a cylinder: plane-cylinder and cylinder-box pairs
-    gt[tm.meta.geom_names.index("particle_geom")] = TT.CYLINDER
-    m2 = dataclasses.replace(tm, meta=dataclasses.replace(tm.meta, geom_type=tuple(gt)))
+    def with_ball(t):
+        gt = list(tm.meta.geom_type)
+        gt[tm.meta.geom_names.index("particle_geom")] = t
+        return dataclasses.replace(tm, meta=dataclasses.replace(
+            tm.meta, geom_type=tuple(gt)))
+
+    # the ball becomes an ellipsoid: plane-ellipsoid and ellipsoid-box
+    # pairs are not ported
+    m2 = with_ball(TT.ELLIPSOID)
     d = tpipe.make_data(m2, 2)
-    with pytest.raises(NotImplementedError, match="plane-cylinder"):
+    with pytest.raises(NotImplementedError, match="plane-ellipsoid"):
         tcol.collision(m2, tsm.kinematics(m2, d))
+    # a cylinder's plane-cylinder and cylinder-box pairs are (FetchSlide)
+    m3 = with_ball(TT.CYLINDER)
+    c = tcol.collision(m3, tsm.kinematics(m3, tpipe.make_data(m3, 2))).contact
+    assert bool(torch.isfinite(c.dist).all())

@@ -6,7 +6,8 @@ redesigned kernels against an earlier commit's.
 
 Builds csrc/narrowphase.cu, makes the arrays the main paths hand the kernel
 at B = 2048 (AntMaze_UMaze-v5: the pressed state chip_smoke.py times it on;
-FetchPush-v4: the state after two env steps of registry.make), and times
+FetchPush-v4 and FetchSlide-v4: the state after two env steps of
+registry.make, then FetchSlide's pressed pucks, chip_smoke.slide_poses), and times
 the kernel on its whole group table and on each kind's pairs alone (the
 table cut to that kind's columns, GroupTable.only), with CUDA events over a
 CUDA graph of 50 launches as chip_smoke.py times kernels. Prints one JSON
@@ -16,7 +17,10 @@ With --parent DIR (an unpacked checkout of an earlier commit), it also
 builds that checkout's csrc/narrowphase.cu, csrc/solver.cu and
 csrc/kinematics.cu, calls their entry points through the parent's C
 interfaces (those of this tree, but grt_fk_f32 without the schedule and
-shared memory bytes: the one-thread-an-env kernel) on the same inputs,
+shared memory bytes where the parent's source has the one-thread-an-env
+kernel, and grt_narrowphase_f32 without the hull face table where it has
+none) on the
+same inputs (FetchSlide only where the parent has its kinds),
 and prints
 - whether the compact tables (on the main-path arrays and on the pressed
   states) and the Cholesky solutions (nv = 14 and 21 on the main paths' qM
@@ -39,6 +43,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -52,7 +57,8 @@ import chip_smoke as CS  # noqa: E402
 
 B = 2048
 KIND_NAMES = ("plane-sphere", "plane-capsule", "sphere-box", "capsule-box",
-              "plane-box", "box-box", "plane-hull")
+              "plane-box", "box-box", "plane-hull", "plane-cylinder",
+              "cylinder-box", "cylinder-hull")
 
 
 def build_parent(parent, names):
@@ -68,15 +74,24 @@ def build_parent(parent, names):
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
              os.path.join(parent, "gymnasium_robotics_tpu_torch", "csrc", name + ".cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    out["ptxas"] = {}
     for name, (p, so) in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"parent {name}.cu: nvcc exited {p.returncode}\n{log}")
         out[name] = ctypes.CDLL(so)
+        out["ptxas"].update({
+            k: line.strip() for k, line in zip(
+                (m for m in re.findall(r"Compiling entry function '(\S+)'", log)),
+                (x for x in log.splitlines() if "Used" in x and "registers" in x))})
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    src = open(os.path.join(parent, "gymnasium_robotics_tpu_torch", "csrc",
+                            "narrowphase.cu")).read()
+    out["faces"] = "const float* hull_face" in src   # its C interface
     out["narrowphase"].grt_narrowphase_f32.argtypes = (
         [vp] * 3 + [ll] * 3 + [vp] * 4 + [i] * 2 + [vp, i, i]
-        + [vp] * 2 + [i] + [vp] * 3 + [i, vp])
+        + [vp] * 2 + [i] + ([vp, i] if out["faces"] else []) + [vp] * 3
+        + [i, vp])
     out["narrowphase"].grt_narrowphase_f32.restype = i
     out["solver"].grt_chol_solve_f32.argtypes = [vp] * 4 + [i, i, i, vp]
     out["solver"].grt_chol_solve_f32.restype = i
@@ -84,13 +99,19 @@ def build_parent(parent, names):
     out["solver"].grt_newton_f32.restype = i
     out["solver"].grt_newton2_f32.argtypes = [vp] * 11 + [i] * 4 + [vp]
     out["solver"].grt_newton2_f32.restype = i
-    out["kinematics"].grt_fk_f32.argtypes = [vp] * 9 + [i, vp]
+    src = open(os.path.join(parent, "gymnasium_robotics_tpu_torch", "csrc",
+                            "kinematics.cu")).read()
+    out["fk_smem"] = "int B, int smem, void* stream" in src   # its C interface
+    out["kinematics"].grt_fk_f32.argtypes = (
+        [vp] * 9 + ([i, i, vp] if out["fk_smem"] else [i, vp]))
     out["kinematics"].grt_fk_f32.restype = i
     return out
 
 
-def parent_narrowphase(lib, torch, table, P, Rm, sizes3, sel, hull_vert, out):
-    """The parent's narrowphase_kernel on the wrapper's operands, into out."""
+def parent_narrowphase(lib, faces, torch, table, P, Rm, sizes3, sel, hull_vert,
+                       hull_face, out):
+    """The parent's narrowphase_kernel on the wrapper's operands, into out
+    (``faces``: whether its interface takes the hull face table)."""
     nb = P.shape[-1]
     P, Rm = P.contiguous(), Rm.contiguous()
     sel = sel.to(torch.int32).contiguous()
@@ -103,6 +124,8 @@ def parent_narrowphase(lib, torch, table, P, Rm, sizes3, sel, hull_vert, out):
         table.tasks.shape[0], int(table.boxes), table.geom_hull.data_ptr(),
         None if hull_vert is None else hull_vert.contiguous().data_ptr(),
         0 if hull_vert is None else hull_vert.shape[1],
+        *((None if hull_face is None else hull_face.contiguous().data_ptr(),
+           0 if hull_face is None else hull_face.shape[1]) if faces else ()),
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), nb,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0, f"parent narrowphase: {rc}"
@@ -120,19 +143,27 @@ def parent_chol(lib, torch, solver, M, b):
     return x
 
 
-def parent_fk(lib, torch, kinematics, m, d, out):
-    """The parent's fk_kernel (one thread an env) on d's poses, into out
-    (the wrapper's (rows, B) buffer): its int table is this tree's without
-    the schedule, its float table the same."""
+def parent_fk(lib, smem, torch, kinematics, m, d, out):
+    """The parent's fk_kernel on d's poses, into out (the wrapper's
+    (rows, B) buffer). ``smem``: whether its interface is this tree's (the
+    scheduled kernel: the whole int table, the dims, the shared memory
+    bytes); else the one-thread-an-env kernel, whose int table is this
+    tree's without the schedule. The float table is the same."""
     mt = m.meta
+    B = out.shape[1]
     tabs = m.plan("fk_kernel", kinematics._KernelTables)
-    itab = tabs.itab[:4 * mt.nbody + 2 * mt.njnt + mt.ngeom + mt.nsite]
+    if smem:
+        itab, dims = tabs.itab, tabs.dims
+        tail = (kinematics.fk_geometry(mt, B)["smem"],)
+    else:
+        itab = tabs.itab[:4 * mt.nbody + 2 * mt.njnt + mt.ngeom + mt.nsite]
+        dims = (ctypes.c_int * 5)(mt.nbody, mt.njnt, mt.nq, mt.ngeom, mt.nsite)
+        tail = ()
     st = [x for t in (d.qpos, d.mocap_pos, d.mocap_quat) for x in t.stride()]
     rc = lib.grt_fk_f32(
         d.qpos.data_ptr(), d.mocap_pos.data_ptr(), d.mocap_quat.data_ptr(),
         (ctypes.c_longlong * 8)(*st), tabs.ftab.data_ptr(), itab.data_ptr(),
-        (ctypes.c_int * 5)(mt.nbody, mt.njnt, mt.nq, mt.ngeom, mt.nsite),
-        tabs.row_offs, out.data_ptr(), out.shape[1],
+        dims, tabs.row_offs, out.data_ptr(), B, *tail,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0, f"parent fk: {rc}"
     return out
@@ -144,7 +175,7 @@ def fk_buffer(torch, kinematics, d):
     return torch.cat([getattr(d, f).reshape(-1, B) for f in kinematics.FIELDS])
 
 
-def fk_vs_parent(torch, lib, kinematics, pipeline, fetch, d_main, card):
+def fk_vs_parent(torch, lib, smem, kinematics, pipeline, fetch, d_main, card):
     """FK: bitwise equality with the parent's kernel on the main path's and
     random poses, and times in turns."""
     m = fetch.env.model
@@ -165,12 +196,12 @@ def fk_vs_parent(torch, lib, kinematics, pipeline, fetch, d_main, card):
     eq = []
     for d in (d_main, rand):
         got = fk_buffer(torch, kinematics, kinematics.kinematics(m, d))
-        ref = parent_fk(lib, torch, kinematics, m, d,
+        ref = parent_fk(lib, smem, torch, kinematics, m, d,
                         torch.full_like(p_out, float("nan")))
         eq.append(bits_equal(torch, got, ref))
     turns = []
     for who in ("parent", "tree", "tree", "parent"):
-        fn = ((lambda: parent_fk(lib, torch, kinematics, m, d_main, p_out))
+        fn = ((lambda: parent_fk(lib, smem, torch, kinematics, m, d_main, p_out))
               if who == "parent" else (lambda: kinematics.kinematics(m, d_main)))
         turns.append((who, CS.time_ms(torch, fn)))
     return {"kernel": "fk", "B": B, "card": card,
@@ -242,6 +273,10 @@ def main():
     dev = torch.device("cuda")
     plib = (build_parent(args.parent, ("narrowphase", "solver", "kinematics"))
             if args.parent else None)
+    if plib:
+        print(json.dumps({"parent_ptxas": {k: v for k, v in plib["ptxas"].items()
+                                           if "narrowphase_kernel" in k}}),
+              flush=True)
 
     ant = registry.make("AntMaze_UMaze-v5", num_envs=B)
     m_ant = ant.env.model
@@ -258,12 +293,24 @@ def main():
     d_fp.mocap_pos[:] = torch.as_tensor(mp, dtype=torch.float32, device=dev)
     d_fp.mocap_quat[:] = torch.as_tensor(mq, dtype=torch.float32, device=dev)
     d_fp = pipeline.forward(m_f, d_fp)
+    slide = registry.make("FetchSlide-v4", num_envs=B)
+    slide.reset(seed=0)
+    for _ in range(2):
+        slide.step(torch.rand((B, 4), generator=gen, device=dev) * 2 - 1)
+    m_s = slide.env.model
+    qpos, qvel = CS.slide_poses(slide.env, B, 1)
+    d_sp = pipeline.make_data(m_s, B)
+    d_sp.qpos[:] = torch.as_tensor(qpos, dtype=torch.float32, device=dev)
+    d_sp = pipeline.forward(m_s, d_sp)
     paths = {
         "AntMaze_UMaze-v5": (m_ant, [CS.pressed_state(torch, pipeline, m_ant, B, s, dev)
                                      for s in (1, 2)], None),
         "FetchPush-v4": (m_f, [d_f, d_fp], m_f.hull_vert),
+        "FetchSlide-v4": (m_s, [pipeline.forward(m_s, slide.state.data), d_sp],
+                          m_s.hull_vert),
     }
     for path, (m, ds, hv) in paths.items():
+        hf = None if hv is None else m.hull_face
         tp = m.plan("pruned", collision._PrunedPlan)
         table = tp.table
         sels = [narrowphase.topk_select(collision.broadphase_rank(m, d, tp),
@@ -271,7 +318,7 @@ def main():
         d, sel = ds[0], sels[0]
         out = tuple(torch.empty_like(x) for x in (d.contact.dist, d.contact.pos,
                                                   d.contact.frame))
-        ops = (d.geom_xpos, d.geom_xmat, m.geom_size, sel, hv)
+        ops = (d.geom_xpos, d.geom_xmat, m.geom_size, sel, hv, hf)
         kinds = sorted({g.kind for g in table.groups})
         line = {"path": path, "B": B, "pairs": int(table.pairs.shape[1]),
                 "rows": int(table.rows.numel()),
@@ -282,13 +329,13 @@ def main():
             sub = table.only([k])
             line["by_kind_ms"][KIND_NAMES[k]] = CS.time_ms(
                 torch, lambda: narrowphase.narrowphase(sub, *ops, out=out))
-        if plib:
-            lib = plib["narrowphase"]
+        if plib and (plib["faces"] or path != "FetchSlide-v4"):
+            lib, faces = plib["narrowphase"], plib["faces"]
             eq = []
             for dd, ss in zip(ds, sels):
-                o = (dd.geom_xpos, dd.geom_xmat, m.geom_size, ss, hv)
+                o = (dd.geom_xpos, dd.geom_xmat, m.geom_size, ss, hv, hf)
                 got = narrowphase.narrowphase(table, *o)
-                ref = parent_narrowphase(lib, torch, table, *o,
+                ref = parent_narrowphase(lib, faces, torch, table, *o,
                                          tuple(torch.full_like(x, float("nan"))
                                                for x in got))
                 rows = table.rows
@@ -298,7 +345,8 @@ def main():
             p_out = tuple(torch.empty_like(x) for x in out)
             turns = []
             for who in ("parent", "tree", "tree", "parent"):
-                fn = ((lambda: parent_narrowphase(lib, torch, table, *ops, p_out))
+                fn = ((lambda: parent_narrowphase(lib, faces, torch, table,
+                                                  *ops, p_out))
                       if who == "parent" else
                       (lambda: narrowphase.narrowphase(table, *ops, out=out)))
                 turns.append((who, CS.time_ms(torch, fn)))
@@ -321,8 +369,9 @@ def main():
             line["chol_turns_ms"] = turns
         print(json.dumps(line), flush=True)
     if plib:
-        print(json.dumps(fk_vs_parent(torch, plib["kinematics"], kinematics,
-                                      pipeline, fetch, fetch.state.data, card)),
+        print(json.dumps(fk_vs_parent(torch, plib["kinematics"], plib["fk_smem"],
+                                      kinematics, pipeline, fetch,
+                                      fetch.state.data, card)),
               flush=True)
         for line in nv2_vs_parent(torch, plib["solver"], solver, constraint,
                                   registry, dev, card):
