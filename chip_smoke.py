@@ -178,7 +178,39 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      Cholesky;
   33. make_gym("FetchSlide-v4") and make_gym("FetchReach-v4"): a parity
      reset and 3 steps each, launches per step as in phase 27;
-  21. (run after phases 22-33) edge checks of the redesigned kernels
+  The Adroit family (B4's capsule-capsule, capsule-cylinder,
+  cylinder-cylinder and sphere-capsule kinds, the whole pruned table inside
+  the kernel; chol and Newton at nv = 30 (Door, Pen), 33 (Hammer) and 36
+  (Relocate); topk_select at each task's two shapes, ADROIT_IDS):
+  34. main path: registry.make("AdroitHandDoor-v1", num_envs=1024,
+     max_episode_steps=5), reset, 6 steps with random actions, so every env
+     auto-resets and draws a new door; per step 10 chol, 5 Newton, 10
+     topk_select (5 of each shape) and 5 narrowphase launches; prints
+     ms/step and env-steps/s;
+  35. trace: 1 step traced, as in phase 12, with the launches counted
+     during it and the port's kernels' share of device busy;
+  36. reference: 8 envs of the main path's state stepped once on the card,
+     on the CPU plain path and on it in float64, held as the hand's (phase
+     24): the card's median env within 2e-4 of the float64 path or no
+     further than twice the CPU float32 path's median env;
+  37. kernels: topk_select at Door's shapes as in phase 14; the
+     narrowphase on the main path's state, on pressed hands (fingers bent
+     into the handle) and on jumbled geoms (every geom at a random pose in
+     a 4 cm cube), every kernel row within 2e-4 of the plain version, each
+     new kind alone bit for bit the whole table's rows, timed whole, by
+     kind and on each new kind alone; the Cholesky and the Newton solve at
+     nv = 30 on random systems, the main path's and the pressed state's,
+     held to their plain versions in float64 (the Newton env by env, as at
+     nv = 36), timed, with solve_ex beside the Cholesky;
+  38. make_gym("AdroitHandDoor-v1") (the per-env path): a parity reset and
+     3 steps, launches per step as in phase 34;
+  39. AdroitHandHammer-v1, AdroitHandPen-v1 and AdroitHandRelocate-v1 x
+     1024: 3 steps each (limit 2), launches and shapes as in phase 34, a
+     1-step reference as in phase 36, the narrowphase on each table's main,
+     pressed (fingers in the hammer, the pen, the ball) and jumbled states
+     as in phase 37, topk_select at each shape; Hammer's B1 and B2 at
+     nv = 33 as in phase 37, Relocate's sphere-capsule kind alone;
+  21. (run after phases 22-39) edge checks of the redesigned kernels
      (topk_select_kernel,
      newton_tile_kernel, chol_tile_kernel, narrowphase_kernel,
      newton2_kernel, fk_kernel) against
@@ -186,13 +218,15 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      (AntMaze_Large's shape) on tied ranks, at B = 1 and B = 2047, at the
      hand's (2, 160) -> 16 at B = 1 and 1023 and with a NaN lane, with K
      larger than the unmasked count, with an all-masked group and a NaN
-     lane; the Newton solve at nv = 14, 15, 21 and 36 at the row caps (96,
-     256, 256, 288), at an ne that is not a multiple of 32, at B = 1 and B = 2047
-     (and the hand's 272 rows at B = 1023), with n_iter = 0, with every row
-     inactive and with a strided J; the Cholesky at nv = 14, 15, 21 and 36 at
+     lane; the Newton solve at nv = 14, 15, 21, 30, 33 and 36 at the row
+     caps (96, 256, 256, 288, 288, 288), at an ne that is not a multiple of
+     32, at B = 1 and B = 2047 (and the hand's 272 rows, Door's 278 and
+     Hammer's 275 at B = 1023), with n_iter = 0, with every row inactive
+     and with a strided J; the Cholesky at nv = 14, 15, 21, 30, 33 and 36 at
      B = 1, 1023 and 2047, with M transposed
      and sliced, envs on the 1e-20 floor and a NaN env; the narrowphase on
-     the pressed AntMaze, FetchPush and FetchSlide states at B = 1 and B = 2047, each
+     the pressed AntMaze, FetchPush, FetchSlide and AdroitHandDoor states at
+     B = 1 and B = 2047 (Door: its 1024), each
      kind alone (bitwise equal to the whole table's rows), with picks out
      of range and int64 picks; and newton2_kernel on both nv = 2 routes on
      the rows of PointMaze_UMaze-v3 (19), PointMaze_Medium-v3 (39) and
@@ -252,15 +286,31 @@ FP32_OPS_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 NP_SRC = "gymnasium_robotics_tpu_torch/csrc/narrowphase.cu"
 SOLVER_SRC = "gymnasium_robotics_tpu_torch/csrc/solver.cu"
 FK_SRC = "gymnasium_robotics_tpu_torch/csrc/kinematics.cu"
-# float operations of one pair of each narrowphase group kind (plane-sphere,
-# plane-capsule, sphere-box, capsule-box, plane-box, box-box, plane-hull at
-# 24 vertices, plane-cylinder, cylinder-box), counted from the formulas of
-# csrc/narrowphase.cu, each slot's frame included; cylinder-hull's two
-# probes cost HULL_PROBE_OPS each plus HULL_FACE_OPS a real face of the
+# float operations of one pair of each narrowphase group kind by kind
+# (plane-sphere, plane-capsule, sphere-box, capsule-box, plane-box,
+# box-box, plane-hull at 24 vertices, plane-cylinder, cylinder-box;
+# capsule-capsule, capsule-cylinder (24 rounds of two point-cylinder
+# distances, 88 a round, then the contact, 148), cylinder-cylinder (two
+# such searches), sphere-capsule), counted from the formulas of
+# csrc/narrowphase.cu, each slot's frame included; cylinder-hull's (kind 9)
+# two probes cost HULL_PROBE_OPS each plus HULL_FACE_OPS a real face of the
 # picked hull (narrow_ops)
-NARROW_OPS = (40, 90, 115, 366, 624, 4442, 1104, 133, 366)
+NARROW_OPS = {0: 40, 1: 90, 2: 115, 3: 366, 4: 624, 5: 4442, 6: 1104, 7: 133,
+              8: 366, 10: 140, 11: 2260, 12: 4485, 13: 100}
 HULL_PROBE_OPS, HULL_FACE_OPS = 77, 7
 NEW_KINDS = (7, 8, 9)   # plane-cylinder, cylinder-box, cylinder-hull
+ADROIT_B = 1024       # bench.py's rung of AdroitHandDoor
+ADROIT_STEPS = 6
+ADROIT_LIMIT = 5      # max_episode_steps cut from 200: every env resets
+ADROIT_REF_ENVS = 8
+# capsule-capsule, capsule-cylinder, cylinder-cylinder, sphere-capsule
+ADROIT_NEW_KINDS = (10, 11, 12, 13)
+# each Adroit task's topk_select shapes: the pair-topk broadphase, the
+# contact cap
+ADROIT_IDS = {"AdroitHandDoor-v1": ((6, 64, 16), (2, 300, 16)),
+              "AdroitHandHammer-v1": ((5, 45, 16), (2, 247, 16)),
+              "AdroitHandPen-v1": ((2, 33, 24), (2, 170, 16)),
+              "AdroitHandRelocate-v1": ((2, 33, 16), (2, 146, 16))}
 FETCH_REF_ENVS = 4
 FETCH_REF_WARM = 2    # card steps before the compared one
 BIG = 1e9             # contact distances above this: slots far from touching
@@ -410,7 +460,7 @@ def narrow_ops(m, table, sel, nb):
     -1e9, of the hull each env picked, as this run's picks need)."""
     ops = 0
     for g in table.groups:
-        if g.kind < len(NARROW_OPS):
+        if g.kind in NARROW_OPS:
             ops += NARROW_OPS[g.kind] * g.k * nb
             continue
         faces = (m.hull_face[..., 3] > -1e9).sum(dim=1)          # per hull
@@ -530,17 +580,20 @@ def trace(torch, run, n, card, label, cpu=True, counts=None):
         c[0] += 1
         c[1] += (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    ported = ("chol_solve_kernel", "chol_tile_kernel", "newton2_kernel",
+              "newton_tile_kernel", "topk_select_kernel", "narrowphase_kernel",
+              "fk_kernel")
+    ported_ms = sum(ms for name, (_, ms) in by_name.items()
+                    if any(k in name for k in ported))
     print(f"{label}: " + json.dumps({
         "steps": n, "host_ms_per_step": host_ms,
         "traced_ms_per_step": traced_ms / n,
         "device_busy_ms_per_step": busy_ms / n,
         "device_idle_share": 1.0 - busy_ms / traced_ms,
         "kernels_per_step": len(events) / n,
+        "ported_kernels_share_of_busy": ported_ms / busy_ms,
         **({"counted_launches_per_step": counted} if counted else {}),
         "card": card}), flush=True)
-    ported = ("chol_solve_kernel", "chol_tile_kernel", "newton2_kernel",
-              "newton_tile_kernel", "topk_select_kernel", "narrowphase_kernel",
-              "fk_kernel")
     for i, (name, (c, ms)) in enumerate(top):
         if i < 15 or any(k in name for k in ported):
             print(f"  {ms / n:9.4f} ms/step {c / n:6.1f}x {name[:110]}")
@@ -1274,13 +1327,12 @@ def cast_state(state, dtype):
         info=cast(state.info), goal=cast(state.goal), aux=cast(state.aux))
 
 
-def hand_reference(torch, dev, convert, registry, state, amp):
-    """HAND_REF_ENVS envs of ``state`` stepped once with the same seeded
-    actions of amplitude ``amp`` on the card, on the CPU plain path and on
-    the CPU plain path in float64: per env the largest relative error over
-    the observation and sensordata of (card vs CPU float32, card vs CPU
-    float64, CPU float32 vs CPU float64), numpy (3, HAND_REF_ENVS)."""
-    n = HAND_REF_ENVS
+def env_reference(torch, dev, convert, registry, id_, state, amp, n):
+    """n envs of ``state`` (an ``id_`` batch) stepped once with the same
+    seeded actions of amplitude ``amp`` on the card, on the CPU plain path
+    and on the CPU plain path in float64: per env the largest relative
+    error over the observation and sensordata of (card vs CPU float32, card
+    vs CPU float64, CPU float32 vs CPU float64), numpy (3, n)."""
 
     def cut(x):          # the first envs of B-leading leaves, in float64
         if isinstance(x, dict):
@@ -1291,15 +1343,17 @@ def hand_reference(torch, dev, convert, registry, state, amp):
         return x.astype(np.float64) if x.dtype.kind == "f" else x
 
     fields = cut(convert.env_state_to_numpy(state))
-    a = np.random.default_rng(0).uniform(-amp, amp, (n, 20))
-    res = []
+    res, a = [], None
     for where, dtype in ((dev, torch.float32), ("cpu", torch.float32),
                          ("cpu", torch.float64)):
-        e = registry.make(HAND_ID, num_envs=n, device=where, dtype=dtype)
+        e = registry.make(id_, num_envs=n, device=where, dtype=dtype)
+        if a is None:
+            a = np.random.default_rng(0).uniform(-amp, amp, (n, e.env.action_dim))
         e.state = cast_state(convert.env_state_from_numpy(fields, where), dtype)
         e.generator = torch.Generator(device=where).manual_seed(3)
         o = e.step(torch.as_tensor(a, dtype=dtype, device=where))[0]
-        res.append([v.double().cpu() for v in o.values()]
+        res.append([v.double().cpu() for v in (o.values() if isinstance(o, dict)
+                                               else (o,))]
                    + [e.state.data.sensordata.double().cpu().T])
 
     def per_env(x, y):   # (n,): each env's largest error over the fields
@@ -1308,6 +1362,28 @@ def hand_reference(torch, dev, convert, registry, state, amp):
 
     return np.stack([per_env(res[0], res[1]), per_env(res[0], res[2]),
                      per_env(res[1], res[2])])
+
+
+def reference_gate(label, readings, n, t_phase):
+    """Phases 24, 36 and 39: each state's per-env errors (env_reference)
+    summarised and printed; the card is held to the CPU path in float64:
+    its median env within TOL of it, or no further than NEWTON_SLACK times
+    the CPU float32 path's median env (the float32 solves of the hands are
+    ill-conditioned: tendon rows at their limits)."""
+    stats = {
+        key: {name: {"median": float(np.median(e)), "p90": float(np.quantile(e, 0.9)),
+                     "max": float(e.max()), "within_tol": float((e <= TOL).mean())}
+              for name, e in zip(("card_vs_cpu32", "card_vs_cpu64",
+                                  "cpu32_vs_cpu64"), errs)}
+        for key, errs in readings.items()}
+    print(f"{label} reference: {n} envs, 1 env step, per-env relerr over the "
+          f"observation and sensordata: {json.dumps(stats)} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    for key, r in stats.items():
+        card, cpu = r["card_vs_cpu64"]["median"], r["cpu32_vs_cpu64"]["median"]
+        assert card <= max(TOL, NEWTON_SLACK * cpu), (
+            f"{label} reference ({key}): the card's median env {card:.3e} from "
+            f"the CPU float64 path, the CPU float32 path's {cpu:.3e}")
 
 
 def handmanipulate(torch, dev, card, solver, constraint, narrowphase,
@@ -1374,25 +1450,13 @@ def handmanipulate(torch, dev, card, solver, constraint, narrowphase,
     t_phase = time.perf_counter()
     # the main path's state with full-range actions, then settled hands
     # (fresh resets from the pool) with small actions
-    readings = {}
-    for label, state, amp in (
+    reference_gate("hand", {
+        label: env_reference(torch, dev, convert, registry, HAND_ID, state,
+                             amp, HAND_REF_ENVS)
+        for label, state, amp in (
             ("main", env.state, 1.0),
-            ("settled", hm.reset(env.state, gen), HAND_GENTLE)):
-        errs = hand_reference(torch, dev, convert, registry, state, amp)
-        readings[label] = {
-            name: {"median": float(np.median(e)), "p90": float(np.quantile(e, 0.9)),
-                   "max": float(e.max()), "within_tol": float((e <= TOL).mean())}
-            for name, e in zip(("card_vs_cpu32", "card_vs_cpu64",
-                                "cpu32_vs_cpu64"), errs)}
-    print(f"hand reference: {HAND_REF_ENVS} envs, 1 env step, per-env "
-          f"relerr over the observation and sensordata: "
-          f"{json.dumps(readings)} ({time.perf_counter() - t_phase:.1f} s)",
-          flush=True)
-    for label, r in readings.items():
-        card, cpu = r["card_vs_cpu64"]["median"], r["cpu32_vs_cpu64"]["median"]
-        assert card <= max(TOL, NEWTON_SLACK * cpu), (
-            f"hand reference ({label}): the card's median env {card:.3e} from "
-            f"the CPU float64 path, the CPU float32 path's {cpu:.3e}")
+            ("settled", hm.reset(env.state, gen), HAND_GENTLE))},
+        HAND_REF_ENVS, t_phase)
 
     # --- 25. kernels against their plain versions on the main path's arrays
     t_phase = time.perf_counter()
@@ -1958,6 +2022,476 @@ def fetch_slice(torch, dev, card, solver, constraint, narrowphase, collision,
     return rows, slide_ctx, tables
 
 
+def adroit_pressed(torch, pipeline, env, n, seed):
+    """(per-env model, forwarded Data) of n envs of an Adroit task pressed:
+    the fingers (and the door's hinge and latch) at random angles within
+    their ranges, the scene drawn, then the task's object (the door's
+    handle, the hammer, the pen, the ball) moved to the grasp site (the
+    pen's target ball) plus up to 3 cm, three rounds along its slide joints'
+    world axes (the door by its position), so that fingers press into it;
+    the hand moving (qvel normal, 0.1)."""
+    rs = np.random.RandomState(seed)
+    m = env.model
+    mt = m.meta
+    lo, hi = (m.jnt_range[:, i, 0].cpu().numpy() for i in (0, 1))
+    q = np.tile(env._init_qpos.cpu().numpy(), (n, 1))
+    for j, name in enumerate(mt.joint_names):
+        if name[:2] in ("FF", "MF", "RF", "LF", "TH") or name in (
+                "door_hinge", "latch"):
+            q[:, mt.jnt_qposadr[j]] = rs.uniform(lo[j], hi[j], n)
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    aux = env._sample_aux(n, gen)
+    d = pipeline.make_data(m, n)
+    d.qpos[:] = env._t(q.T)
+    d.qvel[:] = env._t(rs.normal(0, 0.1, (mt.nv, n)))
+    site = env._eps_ball if env.task == "pen" else env._grasp_site
+    off = env._t(rs.uniform(-0.03, 0.03, (3, n)))
+    for _ in range(3):
+        k = pipeline.refresh_kin(env._model_for(aux), d)
+        target = k.site_xpos[site] + off
+        if env.task == "door":
+            aux["door_body_pos"] = aux["door_body_pos"] + (
+                target - k.site_xpos[env._handle_site]).T
+            continue
+        err = target - k.xpos[env._obj_body]
+        for name in ("OBJTx", "OBJTy", "OBJTz"):
+            j = mt.joint_names.index(name)
+            d.qpos[mt.jnt_qposadr[j]] += (k.xaxis[j] * err).sum(0)
+    mp = env._model_for(aux)
+    return mp, pipeline.forward(mp, d)
+
+
+def jumbled(torch, d, seed):
+    """``d`` with every geom at a random pose within a 4 cm cube (random
+    rotations), so that every pair of every group is close or overlapping:
+    the formulas at poses no main path reaches."""
+    rs = np.random.RandomState(seed)
+    ng, _, nb = d.geom_xpos.shape
+    q = rs.normal(size=(4, ng, nb))
+    q /= np.linalg.norm(q, axis=0)
+    w, x, y, z = q
+    R = np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+    dev = d.geom_xpos.device
+    return dataclasses.replace(
+        d, geom_xpos=torch.as_tensor(rs.uniform(-0.02, 0.02, (ng, 3, nb)),
+                                     dtype=torch.float32, device=dev),
+        geom_xmat=torch.as_tensor(np.moveaxis(R, 2, 0), dtype=torch.float32,
+                                  device=dev).contiguous())
+
+
+def adroit_main(torch, dev, card, solver, narrowphase, registry, id_, steps,
+                limit, traced):
+    """Phases 34 and 39: ``id_`` x ADROIT_B on the main path (limit
+    ``limit``, ``steps`` steps, every env auto-resets with a new scene; per
+    step 10 chol, 5 Newton, 10 topk_select (5 of each of its shapes,
+    ADROIT_IDS) and 5 narrowphase launches: 5 substeps of 2 Cholesky solves
+    (qacc_smooth and the Euler's damped system), a Newton solve, the
+    pair-topk broadphase and the contact cap, and the narrowphase of the
+    whole compact table), then, if ``traced``, a 1-step trace (phase 35).
+    Returns the env and the launches and topk_select shapes counted."""
+    t_phase = time.perf_counter()
+    env = registry.make(id_, num_envs=ADROIT_B, max_episode_steps=limit)
+    obs, _ = env.reset(seed=0)
+    nu, width = env.env.action_dim, obs.shape[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    finite = torch.ones(ADROIT_B, dtype=torch.bool, device=dev)
+    was_reset = torch.zeros(ADROIT_B, dtype=torch.bool, device=dev)
+    diverged = torch.zeros(ADROIT_B, dtype=torch.bool, device=dev)
+    scene0 = {k: v.clone() for k, v in env.state.aux.items()}
+    warm = 2 if steps > 3 else 1
+    zero_counters(solver, narrowphase)
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        a = torch.rand((ADROIT_B, nu), generator=gen, device=dev) * 2 - 1
+        obs, _, terminated, truncated, info = env.step(a)
+        finite &= torch.isfinite(obs).all(dim=1)
+        was_reset |= terminated | truncated
+        diverged |= info["diverged"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts(solver, narrowphase)
+    counted = dict(narrowphase.TOPK_SHAPES)
+    ms_step = wall / (steps - warm) * 1e3
+    assert obs.shape == (ADROIT_B, width), obs.shape
+    assert bool(finite.all()), f"{id_}: non-finite observations"
+    assert bool(was_reset.all()), f"{int((~was_reset).sum())} envs never reset"
+    moved = sum(int((v != scene0[k]).reshape(ADROIT_B, -1).any(dim=1).sum())
+                for k, v in env.state.aux.items())
+    assert moved > 0, f"{id_}: no env drew a new scene at its reset"
+    assert launches == per_step(steps, chol=10, newton=5, topk=10,
+                                narrowphase=5), launches
+    assert counted == {s: 5 * steps for s in ADROIT_IDS[id_]}, counted
+    print(f"main path: {id_} x{ADROIT_B}, {steps} steps, limit {limit}, "
+          f"launches {launches}, topk_select shapes {counted}; {ms_step:.4f} "
+          f"ms/step, {ADROIT_B / ms_step * 1e3:.1f} env-steps/s over steps "
+          f"{warm}-{steps}; {moved} scene leaves redrawn by the auto-resets; "
+          f"{int(diverged.sum())} envs truncated as diverged [{card}] "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    if traced:
+        t_phase = time.perf_counter()
+
+        def run(k):
+            for _ in range(k):
+                env.step(torch.rand((ADROIT_B, nu), generator=gen, device=dev)
+                         * 2 - 1)
+
+        trace(torch, run, 1, card, f"{id_} trace", cpu=False,
+              counts=lambda: launch_counts(solver, narrowphase))
+        print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return env, launches, counted
+
+
+def table_f64_gate(narrowphase, table, args, got):
+    """The narrowphase kernel's rows ``got`` on ``args`` held to the plain
+    version: table_err against the float32 plain version, and per row and
+    env each field (its components' largest error, on the field's
+    max(1, |ref|)) within TOL of it, except at most one element in a
+    thousand, where float32 is ill-conditioned (a normal between two deeply
+    overlapping or nearly parallel segments, a face picked among near
+    ties): over those the kernel's median error against the plain version
+    run in float64 no larger than NEWTON_SLACK times the float32 plain
+    version's, as the hand's Newton solve is held by its median env.
+    Returns (relerr, abs err, per field the elements so held with their
+    kinds and the two medians)."""
+    import torch
+
+    ref = narrowphase.narrowphase_plain(table, *args)
+    rel, ab = table_err(got, ref, table.rows)
+    ref64 = narrowphase.narrowphase_plain(
+        table, *(a.double() if a is not None and a.is_floating_point() else a
+                 for a in args))
+    kind_of = {}
+    for g in table.groups:
+        for r in range(g.row_off, g.row_off + g.k * g.S):
+            kind_of[r] = "-".join(GEOMS[t] for t in narrowphase.KINDS[g.kind])
+    rows = table.rows.tolist()
+    held = {}
+    for name, g, r, r6 in zip(("dist", "pos", "frame"), got, ref, ref64):
+        g, r, r6 = (x[table.rows].double().nan_to_num(0.0) for x in (g, r, r6))
+        if name == "dist":
+            near = (r6 < BIG).double()
+            g, r, r6 = g * near, r * near, r6 * near
+        scale = max(1.0, float(r6.abs().max()))
+
+        def per(x):   # (rows, B): the largest over the components
+            return x.reshape(x.shape[0], -1, x.shape[-1]).amax(1)
+
+        e32, ek, ep = per((g - r).abs()), per((g - r6).abs()), per((r - r6).abs())
+        off = e32 > TOL * scale
+        n = int(off.sum())
+        if not n:
+            continue
+        med_k, med_p = float(ek[off].median()), float(ep[off].median())
+        kinds = sorted({kind_of[rows[i]] for i in off.any(dim=1).nonzero()[:, 0].tolist()})
+        held[name] = {"n": n, "kinds": kinds, "kernel_f64_median": med_k,
+                      "plain32_f64_median": med_p}
+        assert n <= 1e-3 * off.numel() and med_k <= max(TOL * scale,
+                                                        NEWTON_SLACK * med_p), (
+            f"narrowphase {name}: {held[name]} of {off.numel()} elements beyond "
+            f"TOL of the float32 plain version")
+    return rel, ab, held
+
+
+def adroit_tables(torch, narrowphase, collision, m, sets):
+    """The narrowphase kernel against its plain version on each
+    (label, Data) of ``sets`` (the picks from topk_select on its ranks):
+    every kernel row through table_f64_gate, and each new kind alone
+    bitwise the whole table's rows; returns ({label: (relerr against the
+    float32 plain version, elements held to float64 by field)}, the
+    largest abs err, the operand sets)."""
+    tp = m.plan("pruned", collision._PrunedPlan)
+    table = tp.table
+    errs, ab, ops = {}, 0.0, []
+    for label, d in sets:
+        sel = narrowphase.topk_select(collision.broadphase_rank(m, d, tp),
+                                      tp.mask, tp.K)
+        args = (d.geom_xpos, d.geom_xmat, m.geom_size, sel)
+        whole = narrowphase.narrowphase(table, *args)
+        rel, a, held = table_f64_gate(narrowphase, table, args, whole)
+        errs[label], ab = (rel, held), max(ab, a)
+        for k in {g.kind for g in table.groups} & set(ADROIT_NEW_KINDS):
+            sub = table.only([k])
+            got = narrowphase.narrowphase(sub, *args)
+            assert all(torch.equal(g[sub.rows].view(torch.int32),
+                                   w[sub.rows].view(torch.int32))
+                       for g, w in zip(got, whole)), f"kind {k} alone ({label}): bits"
+        ops.append(args)
+    return errs, ab, ops
+
+
+def penetrating(narrowphase, table, d):
+    """{kind name: envs with a penetrating row of that kind}."""
+    out = {}
+    for g in table.groups:
+        name = "-".join(GEOMS[t] for t in narrowphase.KINDS[g.kind])
+        rows = d.contact.dist[g.row_off:g.row_off + g.k * g.S]
+        out[name] = out.get(name, 0) + int((rows < 0).any(dim=0).sum())
+    return out
+
+
+def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
+                launches, rs, label):
+    """B1 and B2 at m's nv (phase 37): the Cholesky on random SPD systems,
+    the main path's and the pressed state's qM and damped systems, within
+    TOL of its plain version and held to the plain version in float64; the
+    Newton solve on random rows, the main path's and the pressed state's,
+    held to the plain version in float64 env by env (its median env within
+    TOL, or no further than NEWTON_SLACK times the float32 plain version's
+    median env), as at nv = 36; the JSON rows with times, bounds and
+    solve_ex beside the Cholesky."""
+    nv, nb = m.nv, d_main.qpos.shape[-1]
+
+    def cuda(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    A = rs.normal(size=(nv, nv, nb))
+    M = cuda(np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(nv)[:, :, None])
+    b = cuda(rs.normal(size=(nv, nb)))
+    real = (d_main.qM, d_main.qfrc_smooth)
+    systems = {"main qM": real,
+               "main damped system": pipeline.damped_system(m, d_main),
+               "pressed qM": (d_press.qM, d_press.qfrc_smooth),
+               "pressed damped system": pipeline.damped_system(m, d_press)}
+    chol_err, chol_abs = check_pair(solver.solve_pos, solver.solve_pos_plain,
+                                    [(M, b)] + list(systems.values()))
+    assert chol_err <= TOL, f"chol_solve nv={nv}: relerr {chol_err:.3e}"
+    f64 = chol_f64_gate(torch, solver, f"{label} chol nv={nv}", systems)
+    Mb = d_main.qM.permute(2, 0, 1).contiguous()
+    bb = d_main.qfrc_smooth.T.contiguous()[:, :, None]
+    nm = nv * (nv + 1) // 2
+    rows = [kernel_row(
+        f"chol_solve_nv{nv}", SOLVER_SRC,
+        "gymnasium_robotics_tpu/physics/solver_pallas.py:455",
+        launches["chol"], chol_abs, chol_err,
+        time_ms(torch, lambda: solver.solve_pos(*real)),
+        time_ms(torch, lambda: solver.solve_pos_plain(*real), n=10),
+        bound((nm + 2 * nv) * 4 * nb, chol_ops(nv) * nb),
+        time_ms(torch, lambda: torch.linalg.solve_ex(Mb, bb), graph=False),
+        [nv, nb], f64_rel_err=f64[0], plain32_f64_rel_err=f64[1])]
+    n_iter = min(m.opt.iterations, 20)
+    n_ls = min(m.opt.ls_iterations, 8)
+    sets = []
+    for d in (d_main, d_press):
+        J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+        sets.append((d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq))
+    ne = sets[0][3].shape[0]
+    sets.insert(0, (M, cuda(rs.normal(size=(nv, nb))), cuda(rs.normal(size=(nv, nb))),
+                    cuda(rs.normal(size=(ne, nv, nb)) * 0.3),
+                    cuda(rs.normal(size=(ne, nb))),
+                    cuda(np.exp(rs.normal(size=(ne, nb)))),
+                    cuda(rs.uniform(size=(ne, nb)) < 0.4, torch.bool), sets[0][7]))
+    stats, k_abs = {}, 0.0
+    for name, x in zip(("random", "main", "pressed"), sets):
+        e = newton_env_errs(torch, solver, x, n_iter, n_ls)
+        stats[name] = {"kernel_median": float(np.median(e[0])),
+                       "plain32_median": float(np.median(e[1])),
+                       "kernel_max": float(e[0].max()),
+                       "plain32_max": float(e[1].max())}
+        got = solver.solve_newton(*x, n_iter=n_iter, n_ls=n_ls)
+        ref = solver.solve_newton_plain(*x, n_iter=n_iter, n_ls=n_ls)
+        k_abs = max(k_abs, max(float((g.double() - r.double()).abs().max())
+                               for g, r in zip(got, ref)))
+    print(f"{label} newton nv={nv} ({ne} rows) against the float64 plain "
+          f"version, env by env: {json.dumps(stats)}", flush=True)
+    for name, st in stats.items():
+        assert st["kernel_median"] <= max(TOL, NEWTON_SLACK * st["plain32_median"]), (
+            f"newton nv={nv} ({name}): median env relerr {st['kernel_median']:.3e}"
+            f" against float64, the float32 plain version's "
+            f"{st['plain32_median']:.3e}")
+    real = sets[1]
+    rows.append(kernel_row(
+        f"newton_nv{nv}", SOLVER_SRC,
+        "gymnasium_robotics_tpu/physics/solver_pallas.py:249",
+        launches["newton"], k_abs,
+        max(st["kernel_median"] for st in stats.values()),
+        time_ms(torch, lambda: solver.solve_newton(*real, n_iter=n_iter,
+                                                   n_ls=n_ls)),
+        time_ms(torch, lambda: solver.solve_newton_plain(
+            *real, n_iter=n_iter, n_ls=n_ls), n=5),
+        bound((nm + 2 * nv + ne * nv + 3 * ne + nv) * 4 * nb + ne * nb + ne,
+              newton_ops(nv, ne, n_iter, n_ls) * nb),
+        None, [nv, ne, nb, n_iter, n_ls], by_set=stats,
+        gate="max_rel_err: the largest median env relerr against the plain "
+             "version in float64 over the sets (by_set); max_abs_err against "
+             "it in float32; each set's median env <= max(tolerance, "
+             f"{NEWTON_SLACK} x the float32 plain version's)"))
+    return rows
+
+
+def adroit_slice(torch, dev, card, solver, constraint, narrowphase, collision,
+                 pipeline, convert, registry):
+    """Phases 34-39 (the Adroit family); returns the kernels' JSON rows,
+    Door's pressed state (model, data) for the edge checks, and the
+    narrowphase rows' group tables by row name."""
+    rows, tables = [], {}
+    rs = np.random.RandomState(10)
+    door_id = "AdroitHandDoor-v1"
+    # --- 34-35. AdroitHandDoor main path and trace
+    env, launches, shapes = adroit_main(torch, dev, card, solver, narrowphase,
+                                        registry, door_id, ADROIT_STEPS,
+                                        ADROIT_LIMIT, traced=True)
+
+    # --- 36. the card against the CPU plain path from one state
+    t_phase = time.perf_counter()
+    reference_gate(door_id, {"main": env_reference(
+        torch, dev, convert, registry, door_id, env.state, 1.0,
+        ADROIT_REF_ENVS)}, ADROIT_REF_ENVS, t_phase)
+
+    # --- 37. Door's kernels: B4's new kinds, B1 and B2 at nv = 30, B3
+    t_phase = time.perf_counter()
+    denv = env.env
+    m = denv._model_for(env.state.aux)
+    d_main = pipeline.forward(m, env.state.data)
+    m_p, d_press = adroit_pressed(torch, pipeline, denv, ADROIT_B, 14)
+    tp = m.plan("pruned", collision._PrunedPlan)
+    rp = m.plan("rows", constraint._RowPlan)
+    table = tp.table
+    pen_counts = {"main": penetrating(narrowphase, table, d_main),
+                  "pressed": penetrating(narrowphase, table, d_press)}
+    print(f"door kernels: envs with a penetrating row per kind "
+          f"{json.dumps(pen_counts)}", flush=True)
+    for kind in ("capsule-cylinder", "capsule-capsule"):
+        assert pen_counts["pressed"][kind] > 0, f"no pressed {kind} row penetrates"
+    errs, np_abs, ops = adroit_tables(
+        torch, narrowphase, collision, m,
+        [("main", d_main), ("pressed", d_press), ("jumbled", jumbled(torch, d_main, 5))])
+    print(f"door kernels: narrowphase (relerr against the float32 plain "
+          f"version, elements held to float64 by field) {errs}", flush=True)
+    pen = d_main.contact.dist - m.con_includemargin[:, 0][d_main.contact.src]
+    shp = ADROIT_IDS[door_id]
+    rows += topk_rows(torch, narrowphase, rs, lambda x, dtype=torch.float32:
+                      torch.as_tensor(np.asarray(x), dtype=dtype, device=dev), {
+                          shp[0]: (collision.broadphase_rank(m, d_main, tp), tp.mask),
+                          shp[1]: (pen[rp.cap_rows], rp.cap_mask)},
+                      shapes, ADROIT_B)
+    out = tuple(torch.empty_like(x) for x in (d_main.contact.dist,
+                                              d_main.contact.pos,
+                                              d_main.contact.frame))
+    args = ops[0]
+    n_rows = int(table.rows.numel())
+    rows.append(kernel_row(
+        "narrowphase_door", NP_SRC,
+        "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:201",
+        launches["narrowphase"], np_abs, max(e[0] for e in errs.values()),
+        time_ms(torch, lambda: narrowphase.narrowphase(table, *args, out=out)),
+        time_ms(torch, lambda: narrowphase.narrowphase_plain(
+            table, *args, out=out), n=5),
+        narrow_bound(m, table, args[3], n_rows, ADROIT_B), None,
+        [n_rows, ADROIT_B],
+        ms_by_kind=kind_times(torch, narrowphase, table, args, out),
+        tasks=int(table.tasks.shape[0]), by_set=errs,
+        gate="table_f64_gate: each element within tolerance of the float32 "
+             "plain version but at most 1e-3 of them, whose median error "
+             "against the float64 plain version is within "
+             f"{NEWTON_SLACK}x the float32 plain version's"))
+    tables["narrowphase_door"] = table
+    for k in ADROIT_NEW_KINDS[:3]:
+        rows.append(kind_row(torch, narrowphase, table, k, ops, out,
+                             launches["narrowphase"], m, pen_counts, "door"))
+        tables[rows[-1]["name"]] = table.only([k])
+    rows += solver_rows(torch, dev, solver, constraint, pipeline, m, d_main,
+                        d_press, launches, rs, "door")
+    print(f"door kernels ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    door_ctx = (m_p, d_press, None)
+
+    # --- 38. make_gym("AdroitHandDoor-v1"): the per-env path
+    t_phase = time.perf_counter()
+    genv = registry.make_gym(door_id, parity=True)
+    genv.reset(seed=1)
+    grng = np.random.default_rng(4)
+    zero_counters(solver, narrowphase)
+    for _ in range(3):
+        obs = genv.step(grng.uniform(-1, 1, 28))[0]
+        assert np.isfinite(obs).all() and obs.shape == (39,)
+    torch.cuda.synchronize()
+    launches_g = launch_counts(solver, narrowphase)
+    assert launches_g == per_step(3, chol=10, newton=5, topk=10,
+                                  narrowphase=5), launches_g
+    print(f"single env {door_id}: parity reset, 3 steps, launches "
+          f"{launches_g}, observation {obs.shape} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 39. Hammer, Pen and Relocate: main paths, references, tables
+    for id_ in ("AdroitHandHammer-v1", "AdroitHandPen-v1",
+                "AdroitHandRelocate-v1"):
+        e, la, sh = adroit_main(torch, dev, card, solver, narrowphase, registry,
+                                id_, 3, 2, traced=False)
+        t_phase = time.perf_counter()
+        reference_gate(id_, {"main": env_reference(
+            torch, dev, convert, registry, id_, e.state, 1.0,
+            ADROIT_REF_ENVS)}, ADROIT_REF_ENVS, t_phase)
+        te = e.env
+        m = te._model_for(e.state.aux)
+        d_main = pipeline.forward(m, e.state.data)
+        m_p, d_press = adroit_pressed(torch, pipeline, te, ADROIT_B, 11)
+        tp = m.plan("pruned", collision._PrunedPlan)
+        rp = m.plan("rows", constraint._RowPlan)
+        table = tp.table
+        pc = {"main": penetrating(narrowphase, table, d_main),
+              "pressed": penetrating(narrowphase, table, d_press)}
+        errs, np_abs, ops = adroit_tables(
+            torch, narrowphase, collision, m,
+            [("main", d_main), ("pressed", d_press),
+             ("jumbled", jumbled(torch, d_main, 6))])
+        print(f"{id_} kernels: envs with a penetrating row per kind "
+              f"{json.dumps(pc)}; narrowphase (relerr, elements held to "
+              f"float64) {errs}", flush=True)
+        pen = d_main.contact.dist - m.con_includemargin[:, 0][d_main.contact.src]
+        shp = ADROIT_IDS[id_]
+        rows += topk_rows(torch, narrowphase, rs, lambda x, dtype=torch.float32:
+                          torch.as_tensor(np.asarray(x), dtype=dtype, device=dev), {
+                              shp[0]: (collision.broadphase_rank(m, d_main, tp), tp.mask),
+                              shp[1]: (pen[rp.cap_rows], rp.cap_mask)},
+                          sh, ADROIT_B)
+        if id_ == "AdroitHandRelocate-v1":
+            assert pc["pressed"]["sphere-capsule"] > 0, "no pressed ball row"
+            out = tuple(torch.empty_like(x) for x in (d_main.contact.dist,
+                                                      d_main.contact.pos,
+                                                      d_main.contact.frame))
+            rows.append(kind_row(torch, narrowphase, table, 13, ops, out,
+                                 la["narrowphase"], m, pc, "relocate"))
+            tables[rows[-1]["name"]] = table.only([13])
+        if id_ == "AdroitHandHammer-v1":
+            rows += solver_rows(torch, dev, solver, constraint, pipeline, m,
+                                d_main, d_press, la, rs, "hammer")
+        print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return rows, door_ctx, tables
+
+
+def kind_row(torch, narrowphase, table, k, ops, out, launches, m, counts, label):
+    """The JSON row of kind k alone on ``table`` (GroupTable.only): its rows
+    through table_f64_gate on every operand set, timed on the first."""
+    sub = table.only([k])
+    rel = ab = 0.0
+    held = []
+    for a in ops:
+        r_, b_, h = table_f64_gate(narrowphase, sub, a,
+                                   narrowphase.narrowphase(sub, *a))
+        rel, ab = max(rel, r_), max(ab, b_)
+        held.append(h)
+    name = "-".join(GEOMS[t] for t in narrowphase.KINDS[k])
+    args = ops[0]
+    return kernel_row(
+        f"narrowphase_{name.replace('-', '_')}", NP_SRC,
+        "gymnasium_robotics_tpu/physics/narrowphase_pallas.py:201",
+        launches, ab, rel,
+        time_ms(torch, lambda: narrowphase.narrowphase(sub, *args, out=out)),
+        time_ms(torch, lambda: narrowphase.narrowphase_plain(sub, *args, out=out),
+                n=5),
+        narrow_bound(m, sub, args[3], int(sub.rows.numel()), args[0].shape[-1]),
+        None, [int(sub.rows.numel()), args[0].shape[-1]],
+        envs_penetrating=[counts["main"].get(name, 0), counts["pressed"].get(name, 0)],
+        tasks=int(sub.tasks.shape[0]), table=label, held_to_f64_by_set=held,
+        note=f"the kind's pairs alone (GroupTable.only) on {label}'s table; "
+             "on the main path it runs inside that table's launches")
+
+
 def fk_sites(torch, dev, kinematics, m, sites):
     """Each FK call site traced on its own, twice: as it is, then after one
     leading elementwise kernel in the same profiling session. Prints the
@@ -2399,14 +2933,15 @@ def redesign_fields(rows, ptx, solver, narrowphase, kinematics, tables, fk_model
             entry = f"topk_select_kernelILi{geo['kcap']}E"
             blocks = nlib.grt_topk_blocks_per_sm(geo["kcap"], geo["smem"])
         elif row["name"] in ("newton_nv14", "newton_nv15", "newton_nv21",
-                             "newton_nv36"):
+                             "newton_nv30", "newton_nv33", "newton_nv36"):
             nv, ne, nb = row["shape"][:3]
             geo = solver.newton_geometry(nv, ne, nb)
             assert geo["smem"] == slib.grt_newton_smem_bytes(nv), geo
             entry = f"newton_tile_kernelILi{nv}E"
             blocks = slib.grt_newton_blocks_per_sm(nv)
         elif row["name"] in ("chol_solve_nv14", "chol_solve_nv15",
-                             "chol_solve_nv21", "chol_solve_nv36"):
+                             "chol_solve_nv21", "chol_solve_nv30",
+                             "chol_solve_nv33", "chol_solve_nv36"):
             nv, nb = row["shape"]
             geo = solver.chol_geometry(nv, nb)
             assert geo["smem"] == slib.grt_chol_smem_bytes(nv), geo
@@ -2449,11 +2984,12 @@ def edge_checks(torch, dev, solver, narrowphase):
     B = 1 and 2047, and at the hand's (2, 160) -> 16 at B = 1 and 1023;
     K larger than the unmasked count; an all-masked group and a NaN lane
     (also at the hand's shape). The Newton solve (nv = 14 within TOL of
-    the float32 plain version; nv = 21 and 36 within max(TOL, NEWTON_SLACK
-    x the float32 plain version's error) of the float64 plain version):
-    random rows at the row caps (96, 256, 256, 288), at an ne that is not a
-    multiple of 32, at B = 1 and at a B that is not a multiple of the env
-    tile (at nv = 36 also the hand's 272 rows at B = 1023), with
+    the float32 plain version; nv = 15, 21, 30, 33 and 36 within max(TOL,
+    NEWTON_SLACK x the float32 plain version's error) of the float64 plain
+    version): random rows at the row caps (96, 256, 256, 288, 288, 288), at
+    an ne that is not a multiple of 32, at B = 1 and at a B that is not a
+    multiple of the env tile (at nv = 36 also the hand's 272 rows, at
+    nv = 30 and 33 Door's 278 and Hammer's 275, at B = 1023), with
     n_iter = 0, with every row inactive, and with J in a batch-leading
     layout (the strided staging path)."""
     t_phase = time.perf_counter()
@@ -2502,10 +3038,12 @@ def edge_checks(torch, dev, solver, narrowphase):
                 cuda(rs.uniform(size=(ne, nb)) < p_act), cuda(is_eq)]
 
     errs = {}
-    for nv, n_iter in ((14, 5), (15, 4), (21, 4), (36, 5)):
+    for nv, n_iter in ((14, 5), (15, 4), (21, 4), (30, 5), (33, 5), (36, 5)):
         cap = solver.NEWTON_MAX_ROWS[nv]
-        hand = [("hand rows, B % 4 != 0", 272, HAND_B - 1, n_iter, 0.4)] \
-            if nv == 36 else []
+        hand = {36: [("hand rows, B % 4 != 0", 272, HAND_B - 1, n_iter, 0.4)],
+                30: [("door rows, B % 4 != 0", 278, ADROIT_B - 1, n_iter, 0.4)],
+                33: [("hammer rows, B % 4 != 0", 275, ADROIT_B - 1, n_iter, 0.4)]
+                }.get(nv, [])
         for name, ne, nb, it, p_act in [
                 ("row cap", cap, ANT_B, n_iter, 0.6),
                 ("ne % 32 != 0", 45, 13, n_iter, 0.6),
@@ -2534,8 +3072,8 @@ def edge_checks(torch, dev, solver, narrowphase):
 
 
 def chol_edges(torch, dev, solver):
-    """Phase 21, the Cholesky kernel (chol_tile_kernel) at nv = 14, 15, 21 and
-    36 against its plain version, within TOL of it on every env and NaN
+    """Phase 21, the Cholesky kernel (chol_tile_kernel) at nv = 14, 15, 21,
+    30, 33 and 36 against its plain version, within TOL of it on every env and NaN
     where it is NaN: random SPD systems at B = 1, 1023 and 2047, M as a
     transposed
     view (batch stride nv^2) and as a sliced one (every other env of a
@@ -2545,7 +3083,7 @@ def chol_edges(torch, dev, solver):
     t_phase = time.perf_counter()
     rs = np.random.RandomState(11)
     errs = {}
-    for nv in (14, 15, 21, 36):
+    for nv in (14, 15, 21, 30, 33, 36):
         def spd(nb):
             A = rs.normal(size=(nv, nv, nb))
             return (np.einsum("ikb,jkb->ijb", A, A)
@@ -2589,8 +3127,9 @@ def chol_edges(torch, dev, solver):
 
 def narrowphase_edges(torch, narrowphase, collision, ctxs):
     """Phase 21, the narrowphase kernel against its plain version (every
-    kernel row, as in phase 14) on the pressed AntMaze, FetchPush and
-    FetchSlide states: at B = 1 and B = 2047 (the first envs), each group kind alone
+    kernel row, as in phase 14; on the pressed Door through table_f64_gate,
+    as in phase 37) on the pressed AntMaze, FetchPush, FetchSlide and
+    AdroitHandDoor states: at B = 1 and B = 2047 (the first envs), each group kind alone
     (the table cut to it; its rows also bitwise equal to the whole
     table's), with picks out of range on both sides (the kernel clamps
     them) and with int64 picks."""
@@ -2619,8 +3158,12 @@ def narrowphase_edges(torch, narrowphase, collision, ctxs):
             got = narrowphase.narrowphase(*args)
             torch.cuda.synchronize()
             assert narrowphase.LAUNCHES["narrowphase"] == n0 + 1
-            rel, _ = table_err(got, narrowphase.narrowphase_plain(*args), tab.rows)
-            assert rel <= TOL, f"narrowphase {label} ({name}): relerr {rel:.3e}"
+            if label.startswith("Adroit"):   # the pressed fingers' segments
+                rel = table_f64_gate(narrowphase, tab, args[1:], got)[0]
+            else:
+                rel, _ = table_err(got, narrowphase.narrowphase_plain(*args),
+                                   tab.rows)
+                assert rel <= TOL, f"narrowphase {label} ({name}): relerr {rel:.3e}"
             if name.startswith("kind"):
                 assert all(torch.equal(g[tab.rows].view(torch.int32),
                                        w[tab.rows].view(torch.int32))
@@ -2750,11 +3293,17 @@ def main():
     print(f"fetchslide and fetchreach phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
+    rows, door_ctx, adroit_tabs = adroit_slice(
+        torch, dev, card, solver, constraint, narrowphase, collision, pipeline,
+        convert, registry)
+    kern += rows
+    print(f"adroit phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     edge_checks(torch, dev, solver, narrowphase)
     chol_edges(torch, dev, solver)
     narrowphase_edges(torch, narrowphase, collision,
                       {"AntMaze": ant_ctx, "FetchPush": fetch_ctx,
-                       "FetchSlide": slide_ctx})
+                       "FetchSlide": slide_ctx, "AdroitHandDoor": door_ctx})
     nv2_checks(torch, dev, solver, constraint, registry, kern)
     t1 = time.perf_counter()
     edge = fk_edges(torch, kinematics, *fk_ctx)
@@ -2766,6 +3315,7 @@ def main():
               for name, ctx in (("narrowphase", ant_ctx),
                                 ("narrowphase_fetch", fetch_ctx))}
     tables.update(slide_tables)
+    tables.update(adroit_tabs)
     redesign_fields(kern, ptx, solver, narrowphase, kinematics, tables, fk_ctx[0])
     print(json.dumps({"kernels": kern}))
     print(card)

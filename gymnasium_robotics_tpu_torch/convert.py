@@ -126,17 +126,26 @@ def _env_leaf(x, dev):
     return torch.tensor(np.asarray(x)).to(dev)
 
 
+def _map_obs(obs, fn):
+    """fn on an observation: a dict of leaves (the goal envs) or one
+    (Adroit's flat vector)."""
+    if isinstance(obs, dict):
+        return {k: fn(v) for k, v in obs.items()}
+    return fn(obs)
+
+
 def env_state_from_numpy(fields: dict, device=None):
     """The port's ``EnvState`` from B-leading numpy leaves: ``data`` (as for
-    ``data_from_numpy``), ``obs`` (dict), ``reward``, ``terminated``,
-    ``truncated``, ``info`` (dict: ``success`` and, when present,
-    ``diverged``), ``goal``, ``steps`` and, where given, ``aux`` (dict:
-    the hand's pool of settled poses). Per-env RNG keys are not carried:
-    the port's resets draw from a ``torch.Generator``."""
+    ``data_from_numpy``), ``obs`` (a dict, or one array: Adroit's),
+    ``reward``, ``terminated``, ``truncated``, ``info`` (dict: ``success``
+    and, when present, ``diverged``), ``goal``, ``steps`` and, where given,
+    ``aux`` (dict: the hand's pool of settled poses, Adroit's scene). Per-env
+    RNG keys are not carried: the port's resets draw from a
+    ``torch.Generator``."""
     dev = _device.resolve(device)
     return core.EnvState(
         data=data_from_numpy(fields["data"], dev),
-        obs={k: _env_leaf(v, dev) for k, v in fields["obs"].items()},
+        obs=_map_obs(fields["obs"], lambda v: _env_leaf(v, dev)),
         reward=_env_leaf(fields["reward"], dev),
         terminated=_env_leaf(fields["terminated"], dev),
         truncated=_env_leaf(fields["truncated"], dev),
@@ -156,7 +165,7 @@ def env_state_to_numpy(state) -> dict:
 
     return dict(
         data=data_to_numpy(state.data),
-        obs={k: np_(v) for k, v in state.obs.items()},
+        obs=_map_obs(state.obs, np_),
         reward=np_(state.reward),
         terminated=np_(state.terminated),
         truncated=np_(state.truncated),

@@ -22,15 +22,18 @@ class EnvState:
     """Complete state of a batch of env instances."""
 
     data: Any              # batch-last physics Data
-    obs: Any               # dict of (B, ...) tensors
+    obs: Any               # (B, n) tensor, or a dict of (B, ...) tensors
     reward: Any            # (B,)
     terminated: Any        # (B,) bool
     truncated: Any         # (B,) bool
     info: Dict[str, Any]   # (B,) tensors
     goal: Any              # (B, ...)
     steps: Any             # (B,) int32, steps since the last reset
-    # per-family state the step carries unchanged (B-leading): the hand's
-    # pool of settled reset poses
+    # per-family, per-env state (B-leading tensors) beside the physics:
+    # the hand's pool of settled reset poses (a reset keeps it), Adroit's
+    # scene (door position, board height, pen target, ball and target
+    # positions), drawn anew at every reset. auto_reset picks it per env
+    # with the rest of the state.
     aux: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -40,6 +43,15 @@ def _where_batch_last(mask, a, b):
 
 def _where_batch_first(mask, a, b):
     return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+def _pick_first(done, fresh, stepped):
+    """Per env, ``fresh`` where ``done`` and ``stepped`` elsewhere, for a
+    B-leading tensor or a dict of them."""
+    if isinstance(stepped, dict):
+        return {k: _where_batch_first(done, fresh[k], v)
+                for k, v in stepped.items()}
+    return _where_batch_first(done, fresh, stepped)
 
 
 def _pick_data(done, fresh: T.Data, stepped: T.Data) -> T.Data:
@@ -93,15 +105,14 @@ def auto_reset(env, state: EnvState, action, generator) -> EnvState:
         info["diverged"] = bad
     return EnvState(
         data=_pick_data(done, fresh.data, data),
-        obs={k: _where_batch_first(done, fresh.obs[k], v)
-             for k, v in stepped.obs.items()},
+        obs=_pick_first(done, fresh.obs, stepped.obs),
         reward=stepped.reward,
         terminated=stepped.terminated,
         truncated=truncated,
         info=info,
         goal=_where_batch_first(done, fresh.goal, stepped.goal),
         steps=torch.where(done, fresh.steps, stepped.steps),
-        aux=stepped.aux,
+        aux=_pick_first(done, fresh.aux, stepped.aux),
     )
 
 

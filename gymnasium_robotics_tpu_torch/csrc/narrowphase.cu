@@ -12,13 +12,17 @@
 //   gymnasium_robotics_tpu/physics/narrowphase_pallas.py::
 //   narrowphase_megakernel (with GroupSpec/_emit_group) for the groups
 //   plane-sphere, plane-capsule, sphere-box, capsule-box, plane-box,
-//   box-box, plane-hull, plane-cylinder, cylinder-box and cylinder-hull:
-//   the contact formulas of collision_vec.py (_plane_sphere :88,
-//   _plane_capsule :95, _plane_box :152 with _take_smallest :135,
-//   _plane_cylinder :163, _sphere_box_at :221, _capsule_box :375 (also
-//   cylinder-box, _dispatch :800), _box_box :388 with _box_box_edge :427
-//   and _seg_seg_closest :344, _point_hull_depth :510 and
-//   _sphere_hull_probe :603 (cylinder-hull, _make_capsule_hull :624),
+//   box-box, plane-hull, plane-cylinder, cylinder-box, cylinder-hull,
+//   capsule-capsule, capsule-cylinder, cylinder-cylinder and
+//   sphere-capsule: the contact formulas of collision_vec.py
+//   (_plane_sphere :88, _plane_capsule :95, _plane_box :152 with
+//   _take_smallest :135, _plane_cylinder :163, _sphere_sphere_at :188,
+//   _sphere_capsule :213, _sphere_box_at :221, _point_cylinder :252 with
+//   _sphere_cylinder_at :301, _capsule_cylinder :313,
+//   _cylinder_cylinder :332, _capsule_capsule :366, _capsule_box :375
+//   (also cylinder-box, _dispatch :800), _box_box :388 with
+//   _box_box_edge :427 and _seg_seg_closest :344, _point_hull_depth :510
+//   and _sphere_hull_probe :603 (cylinder-hull, _make_capsule_hull :624),
 //   _make_plane_hull :673) and the frame of _contact_frame_soa :806, a
 //   block taking 32 envs (one a lane) and a task of the group table (four
 //   warp items, below). The box-hull and hull-hull groups run with MPR
@@ -70,7 +74,12 @@
 // assignments below):
 // - solo items, four to a block, one a warp: plane-sphere, plane-capsule,
 //   sphere-box, plane-cylinder, each of capsule-box's and cylinder-box's
-//   three spheres, and each of cylinder-hull's two end-sphere probes;
+//   three spheres, each of cylinder-hull's two end-sphere probes,
+//   sphere-capsule, capsule-capsule and capsule-cylinder (its 24-round
+//   ternary search, the longest item of the kernel: 48 point-cylinder
+//   distances in a chain, so its tasks go first);
+// - cylinder-cylinder, cooperative: its two searches (each cylinder as a
+//   capsule against the other) on warps 0 and 1, joined by warp 0;
 // - plane-hull, solo: its 24 vertices on one warp measured faster than
 //   on four (a cooperative task holds four warps through warp 0's picks),
 //   and plane-box and box-box's corners faster on four than on one;
@@ -595,6 +604,8 @@ constexpr int kNpEnvs = 32;  // envs a block, one a lane
 constexpr int kCoop = 1 << 28;         // a task item all four warps share
 constexpr int kPlaneBox = 4;           // the kinds the switches name
 constexpr int kPlaneCylinder = 7, kCylinderBox = 8, kCylinderHull = 9;
+constexpr int kCapsuleCapsule = 10, kCapsuleCylinder = 11;
+constexpr int kCylinderCylinder = 12, kSphereCapsule = 13;
 constexpr int kShRows = 6 + 7 * 9;     // the edge slot's face and axis rows
 
 // The 4 smallest of N candidates (collision_vec._take_smallest) and their
@@ -890,17 +901,149 @@ __device__ __forceinline__ void box_box_part(const Pair& q, int part,
     box_box_edge(q, q.row + 8, S, w, live, o);
 }
 
+// ---------------------------------------------------------------------------
+// The sphere, capsule and cylinder pairs (kinds 10-13), every product
+// rounded on its own as the plain version's operators round them.
+// ---------------------------------------------------------------------------
+
+// collision_vec._sphere_sphere_at: the normal from c1 to c2, +z where the
+// centres coincide (d0 <= 1e-9).
+__device__ Slot sphere_sphere_at(V c1, float r1, V c2, float r2) {
+  float d0;
+  const V nrm = normalize_rn(c2 - c1, &d0);
+  const V n = d0 > 1e-9f ? nrm : V{0.f, 0.f, 1.f};
+  const float dist = d0 - r1 - r2;
+  return {dist, c1 + scale_rn(n, r1 + 0.5f * dist), n, nan3()};
+}
+
+// sphere-capsule (collision_vec._sphere_capsule with _closest_on_seg): the
+// sphere against the closest point of the capsule's segment a-b.
+__device__ Slot sphere_capsule(const Pair& q) {
+  const V ax = scale_rn(q.R2.col(2), q.s2.y);
+  const V a = q.p2 - ax, ab = (q.p2 + ax) - a;
+  const float t = clip01(dot_rn(q.p1 - a, ab) / jmax(dot_rn(ab, ab), 1e-12f));
+  return sphere_sphere_at(q.p1, q.s1.x, a + scale_rn(ab, t), q.s2.x);
+}
+
+// capsule-capsule (collision_vec._capsule_capsule): the segments' closest
+// points (seg_seg_closest, also box-box's edge slot's) as spheres.
+__device__ Slot capsule_capsule(const Pair& q) {
+  const V o1 = scale_rn(q.R1.col(2), q.s1.y), o2 = scale_rn(q.R2.col(2), q.s2.y);
+  V c1, c2;
+  seg_seg_closest(q.p1 - o1, q.p1 + o1, q.p2 - o2, q.p2 + o2, &c1, &c2);
+  return sphere_sphere_at(c1, q.s1.x, c2, q.s2.x);
+}
+
+// collision_vec._point_cylinder: the signed distance of point P to the
+// cylinder at (pc, Rc) of radius s.x and half height s.y; with FULL also
+// the closest surface point and the outward normal there. The branches
+// keep the formula's thresholds: rlen > 1e-9 (else the radial direction is
+// the x axis), z >= 0 for the cap's side, dn > 1e-9 at the rim, dr > dz
+// inside.
+struct CylPoint {
+  float sd;
+  V surf, n;
+};
+template <bool FULL>
+__device__ __forceinline__ CylPoint point_cylinder(V P, V pc, const Mat& Rc,
+                                                   V s) {
+  const V q = Rc.mulT_rn(P - pc);
+  const float z = q.z;
+  const float rlen = sqrtf(jmax(__fmul_rn(q.x, q.x) + __fmul_rn(q.y, q.y), 0.f));
+  const float safe = jmax(rlen, 1e-12f);
+  const bool on_r = rlen > 1e-9f;
+  const float rx = on_r ? q.x / safe : 1.f, ry = on_r ? q.y / safe : 0.f;
+  const float dr = rlen - s.x, dz = fabsf(z) - s.y;
+  const bool out_r = dr > 0.f, out_z = dz > 0.f, both = out_r && out_z;
+  CylPoint o;
+  o.sd = both ? sqrtf(__fmul_rn(dr, dr) + __fmul_rn(dz, dz))
+              : (out_r ? dr : (out_z ? dz : jmax(dr, dz)));
+  if constexpr (FULL) {
+    const float zs = z >= 0.f ? 1.f : -1.f;
+    const bool lat_wins = dr > dz;
+    const float rmin = jmin(rlen, s.x);
+    const V lat = {__fmul_rn(rx, s.x), __fmul_rn(ry, s.x), jmin(jmax(z, -s.y), s.y)};
+    const V cap = {__fmul_rn(rx, rmin), __fmul_rn(ry, rmin), zs * s.y};
+    const V rim = {lat.x, lat.y, zs * s.y};
+    const V loc = both ? rim : (out_r ? lat : (out_z ? cap : (lat_wins ? lat : cap)));
+    o.surf = pc + Rc.mul_rn(loc);
+    const V n_lat = Rc.mul_rn({rx, ry, 0.f});
+    const V n_cap = Rc.col(2) * zs;
+    float dn;
+    const V n_away = normalize_rn(P - o.surf, &dn);
+    o.n = both ? (dn > 1e-9f ? n_away : n_lat)
+               : (out_r ? n_lat : (out_z ? n_cap : (lat_wins ? n_lat : n_cap)));
+  }
+  return o;
+}
+
+// capsule-cylinder (collision_vec._capsule_cylinder): a ternary search of
+// 24 rounds for t along the capsule's axis (two point-cylinder distances a
+// round, the right third dropped on a tie), then the sphere of the
+// capsule's radius at t against the cylinder (_sphere_cylinder_at). The
+// comparison sd(m1) > sd(m2) is decided by rounding wherever sd is flat
+// along the axis (a capsule parallel to the cylinder's side, or across a
+// cap), where a flip moves the point by up to the capsule's half length:
+// so the probes, the distances and (hi - lo) / 3 are rounded as the plain
+// version's operators round them (IEEE division and square root).
+__device__ Slot capsule_cylinder(V p1, const Mat& R1, V s1, V p2,
+                                 const Mat& R2, V s2) {
+  const V ax = R1.col(2);
+  float lo = -1.f, hi = 1.f;
+#pragma unroll 1
+  for (int it = 0; it < 24; ++it) {
+    const float m1 = lo + (hi - lo) / 3.f;
+    const float m2 = hi - (hi - lo) / 3.f;
+    const float f1 = point_cylinder<false>(p1 + scale_rn(ax, __fmul_rn(m1, s1.y)), p2, R2, s2).sd;
+    const float f2 = point_cylinder<false>(p1 + scale_rn(ax, __fmul_rn(m2, s1.y)), p2, R2, s2).sd;
+    const bool go_right = f1 > f2;
+    lo = go_right ? m1 : lo;
+    hi = go_right ? hi : m2;
+  }
+  const float t = 0.5f * (lo + hi);
+  const V c = p1 + scale_rn(ax, __fmul_rn(t, s1.y));
+  const CylPoint cp = point_cylinder<true>(c, p2, R2, s2);
+  const V n = cp.n * -1.f;
+  return {cp.sd - s1.x, ((c + scale_rn(n, s1.x)) + cp.surf) * 0.5f, n, nan3()};
+}
+
+// cylinder-cylinder (collision_vec._cylinder_cylinder), a cooperative
+// item: warp 0 searches cylinder 1 as a capsule against cylinder 2, warp 1
+// cylinder 2 against cylinder 1 (its normal turned into cylinder 2), each
+// into shared rows (dist, pos, normal); warp 0 keeps a's where d_a >= d_b.
+__device__ void cylinder_cylinder(const Pair& q, float* S, int w, bool live,
+                                  const Out& o) {
+  if (live && w < 2) {
+    const Slot s = w == 0 ? capsule_cylinder(q.p1, q.R1, q.s1, q.p2, q.R2, q.s2)
+                          : capsule_cylinder(q.p2, q.R2, q.s2, q.p1, q.R1, q.s1);
+    const V n = w == 0 ? s.n : s.n * -1.f;
+    float* e = S + 32 * 7 * w;
+    e[0] = s.dist;
+    e[32] = s.pos.x;
+    e[64] = s.pos.y;
+    e[96] = s.pos.z;
+    e[128] = n.x;
+    e[160] = n.y;
+    e[192] = n.z;
+  }
+  __syncthreads();
+  if (w != 0 || !live) return;
+  const float* e = S[0] >= S[32 * 7] ? S : S + 32 * 7;
+  o.store(q.row, e[0], {e[32], e[64], e[96]}, {e[128], e[160], e[192]}, nan3());
+}
+
 // A block: 32 envs (one a lane) and one task of the table, four warp items
 // (8 column + part, -1 idle; plane-sphere, plane-capsule, sphere-box, a
 // sphere (part) of capsule-box or cylinder-box, plane-hull,
-// plane-cylinder, an end-sphere probe (part) of cylinder-hull), or one
-// cooperative item that every warp holds plus kCoop (plane-box, a part of
-// box-box). The kinds are numbered as physics/narrowphase.py's KINDS.
-// BOXES = false compiles the primitive kinds alone (plane-sphere,
+// plane-cylinder, an end-sphere probe (part) of cylinder-hull,
+// capsule-capsule, capsule-cylinder, sphere-capsule), or one cooperative
+// item that every warp holds plus kCoop (plane-box, a part of box-box,
+// cylinder-cylinder). The kinds are numbered as physics/narrowphase.py's
+// KINDS. BOXES = false compiles the primitive kinds alone (plane-sphere,
 // plane-capsule, sphere-box, capsule-box): a table of those only then
 // runs at their registers, not at those of the candidate formulas.
-// Capsule-hull (Adroit, Kitchen) is cylinder-hull's formula: it comes as
-// one more kind on the kCylinderHull case.
+// Capsule-hull (Kitchen) is cylinder-hull's formula: it comes as one more
+// kind on the kCylinderHull case.
 template <bool BOXES>
 __global__ void __launch_bounds__(kNpWarps * 32)
 narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
@@ -970,6 +1113,24 @@ narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
           o.store(q.row + part, s.dist, s.pos, s.n, s.t);
         }
         break;
+      case kCapsuleCapsule:
+        if constexpr (BOXES) {
+          const Slot s = capsule_capsule(q);
+          o.store(q.row, s.dist, s.pos, s.n, s.t);
+        }
+        break;
+      case kCapsuleCylinder:
+        if constexpr (BOXES) {
+          const Slot s = capsule_cylinder(q.p1, q.R1, q.s1, q.p2, q.R2, q.s2);
+          o.store(q.row, s.dist, s.pos, s.n, s.t);
+        }
+        break;
+      case kSphereCapsule:
+        if constexpr (BOXES) {
+          const Slot s = sphere_capsule(q);
+          o.store(q.row, s.dist, s.pos, s.n, s.t);
+        }
+        break;
       default:  // plane-hull
         if constexpr (BOXES)
           plane_hull(q, hull_vert + (size_t)geom_hull[q.g2] * nhv * 3, nhv, o);
@@ -986,6 +1147,8 @@ narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
     int* picks = spick + lane;
     if (pairs[c] == kPlaneBox)
       plane_box(q, S, picks, w, live, o);
+    else if (pairs[c] == kCylinderCylinder)
+      cylinder_cylinder(q, S, w, live, o);
     else
       box_box_part(q, part, S, picks, w, live, o);
   }

@@ -1,15 +1,15 @@
 // Per-env dense solves of the constraint pipeline.
 //
 // chol_solve_kernel<2> (one env per thread) and chol_tile_kernel<NV,
-//   COL_BACK> (NV = 14, 15, 21, 36; a tile of 16 envs a block, 8 at NV = 36, a
-//   half-warp or a warp an env, below) replace the TPU kernel
+//   COL_BACK> (NV = 14, 15, 21, 30, 33, 36; a tile of 16 envs a block, 8
+//   past NV = 32, a half-warp or a warp an env, below) replace the TPU kernel
 //   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol (entered
 //   through solve_pos_soa): the batched SPD solve M x = b by an unrolled
 //   LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
 // newton2_kernel<G, CHOL> (NV = 2; a group of G lanes an env, below) and
-// newton_tile_kernel<NV, WPE, RPL, ET> (NV = 14, 15, 21, 36; a tile of
-//   ET = 8, 8, 8 and 4 envs a block, one, two, two or three warps an env,
-//   below) replace
+// newton_tile_kernel<NV, WPE, RPL, ET> (NV = 14, 15, 21, 30, 33, 36; a tile
+//   of ET = 8, 8, 8, 4, 4 and 4 envs a block, one, two, two or three warps an
+//   env, below) replace
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
@@ -59,7 +59,11 @@
 // mask bytes and writes 308 floats an env (49 MB, 15 us) and does about
 // 2.4M float operations an env (37 us), so operations bound it; the
 // Cholesky moves 1368 floats an env (5.6 MB, 1.7 us) and does 19k
-// operations an env (0.29 us): its chain bounds it.
+// operations an env (0.29 us): its chain bounds it. The Adroit hands run
+// the same shape at NV = 30 (door, pen; 278 and 272 rows) and NV = 33
+// (hammer, 275 rows): three warps an env over the 288-row cap, one of the
+// 55 or 66 3x3 blocks of H a lane, and a lane holding two rows of the
+// Cholesky past NV = 32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsolver.so solver.cu
@@ -1408,8 +1412,8 @@ Str3 str3(const long long* p) { return {p[0], p[1], p[2]}; }
 extern "C" {
 
 // strides: the element strides of M (3) and b (2), in that order. nv = 2
-// runs chol_solve_kernel (one env per thread), nv = 14, 15, 21 and 36
-// chol_tile_kernel; smem: the latter's block shared memory bytes
+// runs chol_solve_kernel (one env per thread), nv = 14, 15, 21, 30, 33
+// and 36 chol_tile_kernel; smem: the latter's block shared memory bytes
 // (physics/solver.py::chol_geometry), at least grt_chol_smem_bytes(nv).
 int grt_chol_solve_f32(const float* M, const float* b, float* x,
                        const long long* strides, int nv, int B, int smem,
@@ -1428,6 +1432,10 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
       return launch_chol_tile<15, false>(M, sM, b, sb, x, B, smem, s);
     case 21:
       return launch_chol_tile<21, true>(M, sM, b, sb, x, B, smem, s);
+    case 30:
+      return launch_chol_tile<30, true>(M, sM, b, sb, x, B, smem, s);
+    case 33:
+      return launch_chol_tile<33, true>(M, sM, b, sb, x, B, smem, s);
     case 36:
       return launch_chol_tile<36, true>(M, sM, b, sb, x, B, smem, s);
     default:
@@ -1435,13 +1443,15 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
   }
 }
 
-// Shared memory bytes of a chol_tile_kernel block at nv (14, 15, 21 or 36), and
+// Shared memory bytes of a chol_tile_kernel block at nv (14, 15, 21, 30, 33 or 36), and
 // the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1
 // for another nv.
 int grt_chol_smem_bytes(int nv) {
   return nv == 14   ? CholLayout<14>::block_bytes
          : nv == 15 ? CholLayout<15>::block_bytes
          : nv == 21 ? CholLayout<21>::block_bytes
+         : nv == 30 ? CholLayout<30>::block_bytes
+         : nv == 33 ? CholLayout<33>::block_bytes
          : nv == 36 ? CholLayout<36>::block_bytes
                     : -1;
 }
@@ -1449,15 +1459,17 @@ int grt_chol_blocks_per_sm(int nv) {
   return nv == 14   ? chol_tile_blocks_per_sm<14, false>()
          : nv == 15 ? chol_tile_blocks_per_sm<15, false>()
          : nv == 21 ? chol_tile_blocks_per_sm<21, true>()
+         : nv == 30 ? chol_tile_blocks_per_sm<30, true>()
+         : nv == 33 ? chol_tile_blocks_per_sm<33, true>()
          : nv == 36 ? chol_tile_blocks_per_sm<36, true>()
                     : -1;
 }
 
 // strides: the element strides of M (3), a_smooth, a_warm (2 each), J (3),
 // aref, D, active and is_eq (2 each), in that order. nv = 2 runs
-// newton2_kernel<G, true> (G lanes an env, up to 64 rows), nv = 14, 15, 21
-// and 36 newton_tile_kernel (8, 8, 8 and 4 envs a block, up to 96, 256, 256
-// and 288 rows); smem: its block's shared memory bytes
+// newton2_kernel<G, true> (G lanes an env, up to 64 rows), nv = 14, 15, 21,
+// 30, 33 and 36 newton_tile_kernel (8, 8, 8, 4, 4 and 4 envs a block, up to
+// 96, 256, 256, 288, 288 and 288 rows); smem: its block's shared memory bytes
 // (physics/solver.py::newton_geometry), at least grt_newton_smem_bytes(nv).
 int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
                    const float* J, const float* aref, const float* D,
@@ -1486,6 +1498,14 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
     return launch_newton_tile<21, 2, 4, 8>(M, a_smooth, a_warm, J, aref, D,
                                            active, is_eq, st, qacc, f, ne, B,
                                            n_iter, n_ls, smem, s);
+  } else if (nv == 30) {
+    return launch_newton_tile<30, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
+                                           active, is_eq, st, qacc, f, ne, B,
+                                           n_iter, n_ls, smem, s);
+  } else if (nv == 33) {
+    return launch_newton_tile<33, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
+                                           active, is_eq, st, qacc, f, ne, B,
+                                           n_iter, n_ls, smem, s);
   } else if (nv == 36) {
     return launch_newton_tile<36, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
                                            active, is_eq, st, qacc, f, ne, B,
@@ -1494,13 +1514,15 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
   return -1;
 }
 
-// Shared memory bytes of a newton_tile_kernel block at nv (14, 15, 21 or 36),
+// Shared memory bytes of a newton_tile_kernel block at nv (14, 15, 21, 30, 33 or 36),
 // and the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
 // -1 for another nv.
 int grt_newton_smem_bytes(int nv) {
   return nv == 14   ? TileLayout<14, 1, 3, 8>::block_bytes
          : nv == 15 ? TileLayout<15, 2, 4, 8>::block_bytes
          : nv == 21 ? TileLayout<21, 2, 4, 8>::block_bytes
+         : nv == 30 ? TileLayout<30, 3, 3, 4>::block_bytes
+         : nv == 33 ? TileLayout<33, 3, 3, 4>::block_bytes
          : nv == 36 ? TileLayout<36, 3, 3, 4>::block_bytes
                     : -1;
 }
@@ -1508,6 +1530,8 @@ int grt_newton_blocks_per_sm(int nv) {
   return nv == 14   ? newton_tile_blocks_per_sm<14, 1, 3, 8>()
          : nv == 15 ? newton_tile_blocks_per_sm<15, 2, 4, 8>()
          : nv == 21 ? newton_tile_blocks_per_sm<21, 2, 4, 8>()
+         : nv == 30 ? newton_tile_blocks_per_sm<30, 3, 3, 4>()
+         : nv == 33 ? newton_tile_blocks_per_sm<33, 3, 3, 4>()
          : nv == 36 ? newton_tile_blocks_per_sm<36, 3, 3, 4>()
                     : -1;
 }

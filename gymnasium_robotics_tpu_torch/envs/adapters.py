@@ -6,7 +6,8 @@ observations, seeding through ``np_random``) runs unchanged on the port.
 The instance is a batch of one of the port's env, on the env's device.
 Its model runs the per-env path (``Option.soa=False``), as the JAX
 package's single env does; there the nv = 2 constraint solve is the closed
-form (solver.solve_newton_nv2). A step does not auto-reset: it reports
+form (solver.solve_newton_nv2). Observations are the GoalEnv dict or, for
+Adroit, one flat vector. A step does not auto-reset: it reports
 ``truncated`` once ``max_episode_steps`` steps have passed, as gymnasium's
 TimeLimit does. Rendering is not ported yet (ROADMAP A.12), so a
 ``render_mode`` other than None raises.
@@ -36,9 +37,10 @@ OBS_DTYPE, ACTION_DTYPE = np.float64, np.float32
 
 
 def _spaces(env):
-    """(observation_space, action_space) of ``env``: a Dict of
-    observation / achieved_goal / desired_goal Boxes and a [-1, 1] action
-    Box; (None, None) without gymnasium."""
+    """(observation_space, action_space) of ``env``: for a goal env (one
+    with ``goal_dim``) a Dict of observation / achieved_goal /
+    desired_goal Boxes, else one flat Box (Adroit); a [-1, 1] action Box;
+    (None, None) without gymnasium."""
     if gym is None:
         return None, None
     from gymnasium import spaces
@@ -46,9 +48,10 @@ def _spaces(env):
     def box(n):
         return spaces.Box(-np.inf, np.inf, (n,), OBS_DTYPE)
 
-    obs = spaces.Dict(dict(observation=box(env.obs_dim),
-                           achieved_goal=box(env.goal_dim),
-                           desired_goal=box(env.goal_dim)))
+    obs = box(env.obs_dim)
+    if hasattr(env, "goal_dim"):
+        obs = spaces.Dict(dict(observation=obs, achieved_goal=box(env.goal_dim),
+                               desired_goal=box(env.goal_dim)))
     return obs, spaces.Box(-1.0, 1.0, (env.action_dim,), ACTION_DTYPE)
 
 
@@ -123,10 +126,13 @@ class GymAdapter(gym.Env if gym else object):
                 truncated, self._info())
 
     def _obs(self):
+        obs = self._state.obs
+        if not isinstance(obs, dict):   # a flat observation (Adroit)
+            return np.asarray(obs[0].detach().cpu().numpy(), OBS_DTYPE)
         space = self.observation_space
         return {k: np.asarray(v[0].detach().cpu().numpy(),
                               OBS_DTYPE if space is None else space[k].dtype)
-                for k, v in self._state.obs.items()}
+                for k, v in obs.items()}
 
     def _info(self):
         return {k: v[0].detach().cpu().numpy()
@@ -172,10 +178,20 @@ class GymAdapter(gym.Env if gym else object):
 
         return (registry.remake, (spec,))
 
-    # env-state checkpointing: the whole EnvState round-trips
+    # env-state checkpointing: a family with the reference's state dicts
+    # (Adroit: qpos, qvel and the scene) speaks them, one env's numpy
+    # arrays; for the others the whole EnvState round-trips
     def get_env_state(self) -> dict:
-        """The instance's EnvState as B-leading numpy leaves (B = 1)."""
+        """The reference's state dict where the env has one, else the
+        instance's EnvState as B-leading numpy leaves (B = 1)."""
+        if hasattr(self.env, "get_env_state"):
+            return {k: v[0].detach().cpu().numpy()
+                    for k, v in self.env.get_env_state(self._state).items()}
         return convert.env_state_to_numpy(self._state)
 
     def set_env_state(self, state: dict):
-        self._state = convert.env_state_from_numpy(state, self.device)
+        if hasattr(self.env, "set_env_state"):
+            self._state = self.env.set_env_state(
+                self._state, {k: np.asarray(v)[None] for k, v in state.items()})
+        else:
+            self._state = convert.env_state_from_numpy(state, self.device)

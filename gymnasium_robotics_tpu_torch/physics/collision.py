@@ -9,7 +9,10 @@ per-lane gathers, per-group selection through ``narrowphase.topk_select``,
 the hybrid routing :1249-1323, ``src`` and the compact group-major table),
 driven like ``soa.collision`` :1018-1081. The formulas the ported slices
 reach: plane-sphere :88, plane-capsule :95, plane-box :152,
-plane-cylinder :163, sphere-box :221-251, capsule-box :375 (also
+plane-cylinder :163, sphere-box :221-251, sphere-capsule :213 (with
+``_sphere_sphere_at`` :188), the cylinder formulas ``_point_cylinder``
+:252, ``_sphere_cylinder_at`` :301, capsule-cylinder :313 and
+cylinder-cylinder :332, capsule-capsule :366, capsule-box :375 (also
 cylinder-box, as ``_dispatch`` :800 maps it), box-box :388-499, and the
 convex-hull formulas :510-781 (plane-hull; cylinder-hull, the two
 end-sphere probes of ``_make_capsule_hull`` :624; box-hull and hull-hull
@@ -186,6 +189,14 @@ def _dot(a, b):
     return torch.sum(a * b, dim=0)
 
 
+def _dot3(a, b):
+    """_dot summed in a fixed order, ((x + y) + z), as the kernel's dot_rn
+    sums: the sphere, capsule and cylinder formulas take it, so that the
+    capsule-cylinder search's comparisons round alike in both (torch.sum
+    over the first axis of a CUDA tensor takes its own order)."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
 def _cross(a, b):
     return torch.stack([
         a[1] * b[2] - a[2] * b[1],
@@ -194,17 +205,17 @@ def _cross(a, b):
     ])
 
 
-def _normalize(a, eps=1e-12):
-    n = torch.sqrt(torch.clamp(_dot(a, a), min=0.0))
+def _normalize(a, eps=1e-12, dot=_dot):
+    n = torch.sqrt(torch.clamp(dot(a, a), min=0.0))
     return a / torch.clamp(n, min=eps)[None], n
 
 
-def _matvec(R, v):
-    return torch.stack([_dot(R[i], v) for i in range(3)])
+def _matvec(R, v, dot=_dot):
+    return torch.stack([dot(R[i], v) for i in range(3)])
 
 
-def _matTvec(R, v):
-    return torch.stack([_dot(R[:, i], v) for i in range(3)])
+def _matTvec(R, v, dot=_dot):
+    return torch.stack([dot(R[:, i], v) for i in range(3)])
 
 
 def _plane_sphere(p1, R1, s1, p2, R2, s2):
@@ -262,7 +273,7 @@ def _plane_cylinder(p1, R1, s1, p2, R2, s2):
 def _closest_on_seg(p, a, b):
     ab = b - a
     t = torch.clamp(
-        _dot(p - a, ab) / torch.clamp(_dot(ab, ab), min=1e-12), 0.0, 1.0
+        _dot3(p - a, ab) / torch.clamp(_dot3(ab, ab), min=1e-12), 0.0, 1.0
     )
     return a + t[None] * ab
 
@@ -347,15 +358,15 @@ def _plane_box(p1, R1, s1, p2, R2, s2):
     return d4, pos, n[None].expand((4,) + n.shape)
 
 
-def _seg_seg_closest(a1, b1, a2, b2):
+def _seg_seg_closest(a1, b1, a2, b2, dot=_dot):
     d1 = b1 - a1
     d2 = b2 - a2
     r = a1 - a2
-    A = _dot(d1, d1)
-    e = _dot(d2, d2)
-    f = _dot(d2, r)
-    c = _dot(d1, r)
-    b = _dot(d1, d2)
+    A = dot(d1, d1)
+    e = dot(d2, d2)
+    f = dot(d2, r)
+    c = dot(d1, r)
+    b = dot(d1, d2)
     denom = A * e - b * b
     zero = torch.zeros_like(denom)
     s = torch.where(torch.abs(denom) > 1e-12,
@@ -367,6 +378,132 @@ def _seg_seg_closest(a1, b1, a2, b2):
     s = torch.clamp(torch.where(A > 1e-12, (b * t - c) / torch.clamp(A, min=1e-12),
                                 zero), 0.0, 1.0)
     return a1 + s[None] * d1, a2 + t[None] * d2
+
+
+def _sphere_sphere_at(c1, r1, c2, r2):
+    """Spheres at c1 and c2: the normal from c1 to c2, +z where the
+    centres coincide (within 1e-9)."""
+    nrm, d0 = _normalize(c2 - c1, dot=_dot3)
+    z = torch.zeros_like(d0)
+    n = torch.where((d0 > 1e-9)[None], nrm, torch.stack([z, z, z + 1.0]))
+    dist = d0 - r1 - r2
+    pos = c1 + n * (r1 + 0.5 * dist)[None]
+    return dist[None], pos[None], n[None]
+
+
+def _sphere_capsule(p1, R1, s1, p2, R2, s2):
+    """The sphere against the closest point of the capsule's segment."""
+    axis = R2[:, 2]
+    c = _closest_on_seg(p1, p2 - axis * s2[1][None], p2 + axis * s2[1][None])
+    return _sphere_sphere_at(p1, s1[0], c, s2[0])
+
+
+def _capsule_capsule(p1, R1, s1, p2, R2, s2):
+    """The two segments' closest points as spheres."""
+    ax1, ax2 = R1[:, 2], R2[:, 2]
+    c1, c2 = _seg_seg_closest(
+        p1 - ax1 * s1[1][None], p1 + ax1 * s1[1][None],
+        p2 - ax2 * s2[1][None], p2 + ax2 * s2[1][None], dot=_dot3)
+    return _sphere_sphere_at(c1, s1[0], c2, s2[0])
+
+
+def _point_cylinder(P, pc, Rc, s):
+    """Signed distance of points P (3, k, B) to the cylinder at (pc, Rc)
+    of radius s[0] and half height s[1]: (sd (k, B), the closest surface
+    point (3, k, B), the outward normal there (3, k, B)). On the axis
+    (rlen <= 1e-9) the radial direction is the cylinder's x axis; z = 0
+    takes the +z cap."""
+    q = _matTvec(Rc, P - pc, _dot3)
+    z = q[2]
+    rlen = torch.sqrt(torch.clamp(q[0] * q[0] + q[1] * q[1], min=0.0))
+    safe = torch.clamp(rlen, min=1e-12)
+    on_r = rlen > 1e-9
+    one = torch.ones_like(rlen)
+    rdir = (torch.where(on_r, q[0] / safe, one),
+            torch.where(on_r, q[1] / safe, one - 1.0))
+    dr = rlen - s[0]
+    dz = torch.abs(z) - s[1]
+    zsign = torch.where(z >= 0, one, -one)
+    out_r, out_z = dr > 0, dz > 0
+    both = out_r & out_z
+    lat = torch.stack([rdir[0] * s[0], rdir[1] * s[0],
+                       torch.minimum(torch.maximum(z, -s[1]), s[1])])
+    rmin = torch.minimum(rlen, s[0])
+    cap = torch.stack([rdir[0] * rmin, rdir[1] * rmin, zsign * s[1]])
+    rim = torch.stack([rdir[0] * s[0], rdir[1] * s[0], zsign * s[1]])
+    lat_wins = (dr > dz)[None]
+    inter = torch.where(lat_wins, lat, cap)
+    surf_loc = torch.where(both[None], rim, torch.where(
+        out_r[None], lat, torch.where(out_z[None], cap, inter)))
+    sd = torch.where(both, torch.sqrt(dr * dr + dz * dz), torch.where(
+        out_r, dr, torch.where(out_z, dz, torch.maximum(dr, dz))))
+    surf = pc + _matvec(Rc, surf_loc, _dot3)
+    n_lat = _matvec(Rc, torch.stack([rdir[0], rdir[1], torch.zeros_like(z)]),
+                    _dot3)
+    n_cap = Rc[:, 2] * zsign[None]
+    n_away, dn = _normalize(P - surf, dot=_dot3)
+    n_out = torch.where(both[None], torch.where((dn > 1e-9)[None], n_away, n_lat),
+                        torch.where(out_r[None], n_lat, torch.where(
+                            out_z[None], n_cap, torch.where(lat_wins, n_lat, n_cap))))
+    return sd, surf, n_out
+
+
+def _sphere_cylinder_at(c1, r1, p2, R2, s2):
+    sd, surf, n_out = _point_cylinder(c1, p2, R2, s2)
+    dist = sd - r1
+    n = -n_out
+    pos = 0.5 * ((c1 + n * r1[None]) + surf)
+    return dist[None], pos[None], n[None]
+
+
+CYL_SEARCH_ROUNDS = 24
+
+
+def capsule_cylinder_t(p1, R1, s1, p2, R2, s2):
+    """Where along the capsule's axis (t in [-1, 1], times its half
+    length) its centre line comes closest to the cylinder: a ternary
+    search of CYL_SEARCH_ROUNDS rounds, each comparing the signed distance
+    at two probes and keeping the side of the smaller (the left one on a
+    tie), then the middle of the last interval -> t (k, B)."""
+    ax = R1[:, 2]
+
+    def sd_at(t):
+        return _point_cylinder(p1 + ax * (t * s1[1])[None], p2, R2, s2)[0]
+
+    lo = torch.full(p1.shape[1:], -1.0, dtype=p1.dtype, device=p1.device)
+    hi = -lo
+    # (hi - lo) / 3 an IEEE division, as the kernel's: divided by a Python
+    # number, a CUDA tensor is multiplied by the number's reciprocal, and
+    # a rounding's difference in the probes moves the result by up to the
+    # last interval (a contact normal near a rim by 1e-3)
+    three = torch.full_like(lo, 3.0)
+    for _ in range(CYL_SEARCH_ROUNDS):
+        m1 = lo + (hi - lo) / three
+        m2 = hi - (hi - lo) / three
+        go_right = sd_at(m1) > sd_at(m2)
+        lo = torch.where(go_right, m1, lo)
+        hi = torch.where(go_right, hi, m2)
+    return 0.5 * (lo + hi)
+
+
+def _capsule_cylinder(p1, R1, s1, p2, R2, s2):
+    """The sphere of the capsule's radius at capsule_cylinder_t's point
+    against the cylinder."""
+    t = capsule_cylinder_t(p1, R1, s1, p2, R2, s2)
+    c = p1 + R1[:, 2] * (t * s1[1])[None]
+    return _sphere_cylinder_at(c, s1[0], p2, R2, s2)
+
+
+def _cylinder_cylinder(p1, R1, s1, p2, R2, s2):
+    """Each cylinder searched as a capsule against the other; the pair's
+    one slot the larger distance of the two (a on b where they tie), b on
+    a with its normal turned from a into b."""
+    d_a, pos_a, n_a = _capsule_cylinder(p1, R1, s1, p2, R2, s2)
+    d_b, pos_b, n_b = _capsule_cylinder(p2, R2, s2, p1, R1, s1)
+    use_a = d_a >= d_b
+    return (torch.where(use_a, d_a, d_b),
+            torch.where(use_a[:, None], pos_a, pos_b),
+            torch.where(use_a[:, None], n_a, -n_b))
 
 
 def _verts_in_box(pa, Ra, sa, pb, Rb, sb, sign):
@@ -625,6 +762,10 @@ PRIMITIVES = {
     (T.CAPSULE, T.BOX): _capsule_box,
     (T.CYLINDER, T.BOX): _capsule_box,
     (T.BOX, T.BOX): _box_box,
+    (T.SPHERE, T.CAPSULE): _sphere_capsule,
+    (T.CAPSULE, T.CAPSULE): _capsule_capsule,
+    (T.CAPSULE, T.CYLINDER): _capsule_cylinder,
+    (T.CYLINDER, T.CYLINDER): _cylinder_cylinder,
 }
 # hull groups by their first geom's type; box and mesh run with MPR
 HULL_GROUPS = (T.PLANE, T.CYLINDER, T.BOX, T.MESH)
@@ -661,8 +802,9 @@ def _check_ported(meta: T.Meta, t1, t2):
     raise NotImplementedError(
         f"narrowphase for {name} pairs is not ported yet (the port has "
         "plane-sphere, plane-capsule, plane-box, plane-cylinder, sphere-box, "
-        "capsule-box, cylinder-box, box-box and plane, cylinder, box and "
-        "mesh against convex hulls)")
+        "sphere-capsule, capsule-capsule, capsule-box, capsule-cylinder, "
+        "cylinder-box, cylinder-cylinder, box-box and plane, cylinder, box "
+        "and mesh against convex hulls)")
 
 
 def contact_frame(n, t1=None):

@@ -33,9 +33,6 @@ LAUNCHES = {"fk": 0}
 MAX_BODIES = 36          # kinematics_pallas.supported's tree-size gate
 FIELDS = ("xpos", "xquat", "xmat", "xipos", "ximat", "xanchor", "xaxis",
           "geom_xpos", "geom_xmat", "site_xpos", "site_xmat")
-_FK_TABLES = ("body_pos", "body_quat", "body_ipos", "body_iquat", "jnt_pos",
-              "jnt_axis", "qpos0", "geom_pos", "geom_quat", "site_pos",
-              "site_quat")
 
 
 def supported(m: T.Model) -> bool:
@@ -47,7 +44,7 @@ def supported(m: T.Model) -> bool:
     mt = m.meta
     if mt.nbody > MAX_BODIES:
         return False
-    if any(getattr(m, name).shape[-1] != 1 for name in _FK_TABLES):
+    if any(getattr(m, name).shape[-1] != 1 for name in T.FK_TABLES):
         return False
     return all(jt in (T.FREE, T.BALL, T.SLIDE, T.HINGE) for jt in mt.jnt_type)
 

@@ -7,7 +7,9 @@ of masked min + first-index argmin) and ``narrowphase`` replaces
 ``narrowphase_megakernel`` :201-287 (every group's contact formula in one
 dispatch, ``GroupSpec``/``_emit_group`` :64-152) for the groups the port
 has (plane-sphere, plane-capsule, plane-box, plane-cylinder, sphere-box,
-capsule-box, cylinder-box, box-box, plane-hull and cylinder-hull). Where
+sphere-capsule, capsule-box, capsule-capsule, capsule-cylinder,
+cylinder-box, cylinder-cylinder, box-box, plane-hull and cylinder-hull).
+Where
 the TPU kernel took operand blocks gathered by XLA, this kernel reads the
 selected geom ids and gathers geom_xpos/geom_xmat/geom_size and the hull
 vertex and face tables itself; its work is cut into warp items finer than
@@ -44,22 +46,26 @@ TOPK_TILE, TOPK_WARPS, TOPK_CHUNK = 32, 8, 128
 KINDS = ((T.PLANE, T.SPHERE), (T.PLANE, T.CAPSULE), (T.SPHERE, T.BOX),
          (T.CAPSULE, T.BOX), (T.PLANE, T.BOX), (T.BOX, T.BOX),
          (T.PLANE, T.MESH), (T.PLANE, T.CYLINDER), (T.CYLINDER, T.BOX),
-         (T.CYLINDER, T.MESH))
+         (T.CYLINDER, T.MESH), (T.CAPSULE, T.CAPSULE),
+         (T.CAPSULE, T.CYLINDER), (T.CYLINDER, T.CYLINDER),
+         (T.SPHERE, T.CAPSULE))
 # narrowphase_kernel's work items: a block takes 32 envs and one task of
 # NP_WARPS warp items. Per kind, a rough count of the longest warp's
 # instructions for each of its items a pair (capsule-box and cylinder-box:
 # a sphere each; box-box: box 2's corners in box 1, box 1's in box 2, the
-# edge slot; cylinder-hull: an end sphere's probe each), used
-# only to put the longest tasks first. The kinds of COOP_KINDS run each
-# item on all the block's warps (a cooperative task), the others four
-# items to a task, one a warp (tools/narrowphase_kinds.py times the kinds).
+# edge slot; cylinder-hull: an end sphere's probe each; capsule-cylinder:
+# its 24-round search, 48 point-cylinder distances; cylinder-cylinder: two
+# such searches, one a warp), used only to put the longest tasks first.
+# The kinds of COOP_KINDS run each item on all the block's warps (a
+# cooperative task), the others four items to a task, one a warp
+# (tools/narrowphase_kinds.py times the kinds).
 NP_WARPS, NP_ENVS = 4, 32
 NP_COOP = 1 << 28     # csrc/narrowphase.cu's kCoop
 BOX_KINDS = 4         # kinds from here on: narrowphase_kernel<true> only
-COOP_KINDS = (4, 5)   # plane-box, box-box
+COOP_KINDS = (4, 5, 12)   # plane-box, box-box, cylinder-cylinder
 ITEMS = {0: (60,), 1: (150,), 2: (200,), 3: (200, 200, 200), 4: (260,),
          5: (370, 370, 830), 6: (1000,), 7: (180,), 8: (200, 200, 200),
-         9: (500, 500)}
+         9: (500, 500), 10: (250,), 11: (2600,), 12: (2600,), 13: (150,)}
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +186,10 @@ class GroupTable:
     def boxes(self) -> bool:
         """Whether the table holds a kind past the primitive four
         (plane-box, box-box, plane-hull, plane-cylinder, cylinder-box,
-        cylinder-hull): the kernel's instantiation with their formulas,
-        which needs more registers than the primitive kinds alone."""
+        cylinder-hull, capsule-capsule, capsule-cylinder,
+        cylinder-cylinder, sphere-capsule): the kernel's instantiation with
+        their formulas, which needs more registers than the primitive kinds
+        alone."""
         return any(g.kind >= BOX_KINDS for g in self.groups)
 
     @staticmethod

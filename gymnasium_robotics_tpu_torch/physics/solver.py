@@ -28,16 +28,17 @@ import torch
 from gymnasium_robotics_tpu_torch import kernels
 
 LAUNCHES = {"chol": 0, "newton": 0, "newton_nv2": 0}
-KERNEL_NV = (2, 14, 15, 21, 36)  # nv values csrc/solver.cu instantiates
+KERNEL_NV = (2, 14, 15, 21, 30, 33, 36)  # nv values csrc/solver.cu instantiates
 # largest row count the Newton kernel takes, per nv: newton2_kernel (a
 # group of lanes an env), newton_tile_kernel<14, 1, 3, 8>, <15, 2, 4, 8>,
-# <21, 2, 4, 8> and <36, 3, 3, 4> (a tile of envs a block, one to three
-# warps an env, three or four rows a lane)
-NEWTON_MAX_ROWS = {2: 64, 14: 96, 15: 256, 21: 256, 36: 288}
+# <21, 2, 4, 8>, <30, 3, 3, 4>, <33, 3, 3, 4> and <36, 3, 3, 4> (a tile of
+# envs a block, one to three warps an env, three or four rows a lane)
+NEWTON_MAX_ROWS = {2: 64, 14: 96, 15: 256, 21: 256, 30: 288, 33: 288,
+                   36: 288}
 # newton_tile_kernel's instantiations: nv -> (warps an env, rows a lane,
 # envs a tile)
 NEWTON_TILE_SHAPES = {14: (1, 3, 8), 15: (2, 4, 8), 21: (2, 4, 8),
-                      36: (3, 3, 4)}
+                      30: (3, 3, 4), 33: (3, 3, 4), 36: (3, 3, 4)}
 NEWTON_BLOCK = 3   # side of the block of H a lane sums
 NEWTON_NV2_MAX_ROWS = 64  # newton2_kernel, the per-env route
 # newton2_kernel<G, CHOL>: NV2_ROWS_PER_LANE rows a lane, G lanes an env
@@ -45,13 +46,13 @@ NEWTON_NV2_MAX_ROWS = 64  # newton2_kernel, the per-env route
 NV2_ROWS_PER_LANE = 8
 NV2_LANES = (4, 8)
 NV2_THREADS = 128
-# chol_tile_kernel (nv 14, 15, 21, 36): a tile of CHOL_TILE envs a block
+# chol_tile_kernel (nv 14, 15, 21, 30, 33, 36): a tile of CHOL_TILE envs a block
 # (CHOL_TILE_WIDE where a lane holds two rows, past nv = 32), a half-warp
 # an env where nv <= 16, else a warp; nv = 2 runs chol_solve_kernel, one
 # env per thread
 CHOL_TILE = 16
 CHOL_TILE_WIDE = 8
-CHOL_TILE_NV = (14, 15, 21, 36)
+CHOL_TILE_NV = (14, 15, 21, 30, 33, 36)
 
 
 def solve_pos_plain(M, b):
@@ -241,7 +242,7 @@ def _strides(*ts):
 def solve_pos(M, b):
     """Batch-last SPD solve M x = b: M (nv, nv, B), b (nv, B) -> (nv, B).
     CUDA tensors launch chol_solve_kernel (nv = 2) or chol_tile_kernel
-    (nv = 14, 15, 21, 36); CPU tensors take the plain version."""
+    (nv = 14, 15, 21, 30, 33, 36); CPU tensors take the plain version."""
     nv, B = b.shape
     _check_shapes([("M", M, (nv, nv, B))])
     if not _route_to_kernel(nv, (M, b)):
@@ -263,7 +264,7 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
     (nv, nv, B), a_smooth/a_warm (nv, B), J (ne, nv, B), aref/D/active
     (ne, B), is_eq (ne,) per model row or (ne, B) -> (qacc (nv, B),
     f (ne, B)). CUDA tensors launch newton2_kernel<G, true> (nv = 2) or
-    newton_tile_kernel (nv = 14, 15, 21, 36); CPU tensors take the plain
+    newton_tile_kernel (nv = 14, 15, 21, 30, 33, 36); CPU tensors take the plain
     version."""
     nv, ne, B = _check_newton_shapes(M, a_smooth, a_warm, J, aref, D,
                                      active, is_eq)
@@ -342,7 +343,7 @@ def newton2_geometry(ne: int, B: int) -> dict:
 
 
 def chol_geometry(nv: int, B: int) -> dict:
-    """Launch geometry of chol_tile_kernel (nv 14, 15, 21 or 36) at B envs: its
+    """Launch geometry of chol_tile_kernel (CHOL_TILE_NV) at B envs: its
     tile, lanes an env and rows a lane, grid, threads a block and shared
     memory bytes (per env M's packed triangle and the right-hand side, nv
     (nv + 3) / 2 floats), as csrc/solver.cu's CholLayout computes them."""
@@ -357,7 +358,7 @@ def chol_geometry(nv: int, B: int) -> dict:
 
 
 def newton_geometry(nv: int, ne: int, B: int) -> dict:
-    """Launch geometry of newton_tile_kernel (nv 14, 15, 21 or 36) at ne rows
+    """Launch geometry of newton_tile_kernel (NEWTON_TILE_SHAPES) at ne rows
     and B envs: its tile, grid, threads a block and dynamic shared memory
     bytes (per env: J^T with a zero column where the blocks of H overhang
     nv and its rows padded to the row cap + 4, each row's weight and D x,

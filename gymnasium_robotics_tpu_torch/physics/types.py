@@ -170,6 +170,20 @@ class Meta:
 
 # Model leaves that keep no trailing batch axis (per-hull tables).
 HULL_FIELDS = ("hull_vert", "hull_face")
+# The model constants forward kinematics reads (the FK kernel's tables).
+FK_TABLES = ("body_pos", "body_quat", "body_ipos", "body_iquat", "jnt_pos",
+             "jnt_axis", "qpos0", "geom_pos", "geom_quat", "site_pos",
+             "site_quat")
+# The Model fields each plan's builder reads besides meta and device, by
+# the plan's name (Model.plan); a builder not named reads none. A copy made
+# by Model.rebind shares the plans that read none of its rebound fields.
+PLAN_READS = {
+    "fk_kernel": FK_TABLES,
+    "narrow": ("hull_vert", "hull_face"),
+    "pruned": ("geom_size", "hull_vert"),
+    "rows": ("qpos0",),
+    "tree": ("qpos0",),
+}
 
 
 @dataclasses.dataclass
@@ -277,12 +291,32 @@ class Model:
     def plan(self, name: str, build):
         """Static per-model tables (index tensors on the model's device),
         built once by ``build(model)`` and kept on this instance. A copy made
-        by ``with_options`` starts with no tables, since its Meta differs."""
+        by ``with_options`` starts with no tables, since its Meta differs;
+        one made by ``rebind`` shares its origin's tables where the builder
+        reads none of the rebound fields (PLAN_READS)."""
         cache = self.__dict__.setdefault("_plans", {})
+        shared = self.__dict__.get("_shared_plans")
+        if shared is not None and not self.__dict__["_rebound"].intersection(
+                PLAN_READS.get(name, ())):
+            cache = shared
         p = cache.get(name)
         if p is None:
             p = cache[name] = build(self)
         return p
+
+    def rebind(self, **fields) -> "Model":
+        """A copy with the given array fields replaced, e.g. a body_pos of
+        (nbody, 3, B) that places each env's scene: the per-env model an env
+        step runs. It shares this model's plans except those whose builders
+        read a rebound field, so rebinding at every step builds no table
+        anew but those."""
+        out = dataclasses.replace(self, **fields)
+        root = self.__dict__.get("_shared_plans")
+        out.__dict__["_shared_plans"] = (
+            self.__dict__.setdefault("_plans", {}) if root is None else root)
+        out.__dict__["_rebound"] = frozenset(fields).union(
+            self.__dict__.get("_rebound", ()))
+        return out
 
     @property
     def device(self):

@@ -1,10 +1,11 @@
 """Environment registry (port of gymnasium_robotics_tpu/registry.py ``make``,
 ``make_gym`` and ``remake``, of envs/__init__.py ``_register_point_maze``,
-``_register_ant_maze`` and ``_register_fetch`` :53-109, and of
-envs/hand/hand.py ``register_hand_envs`` :540-586 for HandManipulateBlock).
+``_register_ant_maze`` and ``_register_fetch`` :53-109, of
+envs/hand/hand.py ``register_hand_envs`` :540-586 for HandManipulateBlock,
+and of envs/adroit/adroit.py ``register_adroit_envs`` :479-496).
 
 The port registers the PointMaze, AntMaze, Fetch (reach, push, slide,
-pick-and-place) and HandManipulateBlock IDs; any other ID raises
+pick-and-place), HandManipulateBlock and Adroit IDs; any other ID raises
 ``KeyError`` naming the slice of the port that brings its family.
 """
 
@@ -131,15 +132,32 @@ def _hand_specs() -> Dict[str, EnvSpec]:
     return out
 
 
+def _adroit_specs() -> Dict[str, EnvSpec]:
+    """AdroitHandDoor, Hammer, Pen and Relocate, dense and sparse, v1 and v2
+    (v2 the reference's registered version, v1 its alias), 200 steps an
+    episode (adroit.py:479-496)."""
+    from gymnasium_robotics_tpu_torch.envs.adroit.adroit import CLASSES
+
+    out = {}
+    for name, cls in CLASSES.items():
+        for suffix, reward_type in (("", "dense"), ("Sparse", "sparse")):
+            for ver in ("v1", "v2"):
+                id_ = f"{name}{suffix}-{ver}"
+                out[id_] = EnvSpec(id=id_, entry_point=cls,
+                                   kwargs={"reward_type": reward_type},
+                                   max_episode_steps=200)
+    return out
+
+
 def _specs() -> Dict[str, EnvSpec]:
     return {**_point_maze_specs(), **_ant_maze_specs(), **_fetch_specs(),
-            **_hand_specs()}
+            **_hand_specs(), **_adroit_specs()}
 
 
 _SLICES = (
     ("HandManipulateEgg", "the HandManipulateEgg slice (ellipsoid pairs)"),
-    ("HandManipulatePen", "the HandManipulatePen slice (capsule-capsule "
-                          "and capsule-hull pairs)"),
+    ("HandManipulatePen", "the HandManipulatePen slice (capsule-hull "
+                          "pairs on the unpruned table)"),
     ("HandReach", "the HandReach slice (the solver kernels at nv = 24)"),
 )
 
@@ -153,8 +171,8 @@ def spec(id: str) -> EnvSpec:
         )
         raise KeyError(
             f"{id!r} is not in the port: it registers only the PointMaze, "
-            f"AntMaze, Fetch and HandManipulateBlock IDs so far; this family "
-            f"comes with {brings}"
+            f"AntMaze, Fetch, HandManipulateBlock and Adroit IDs so far; "
+            f"this family comes with {brings}"
         )
     return specs[id]
 

@@ -6,7 +6,8 @@ reset randomness in a family-specific order (maze ``generate_target_goal``
 / ``generate_reset_pos`` / ``add_xy_position_noise``, maze_v4.py:276-368;
 fetch ``_reset_sim`` then ``_sample_goal``, fetch_env.py:153-166 and
 :376-402; hand manipulation ``_reset_sim`` then ``_sample_goal``,
-manipulate.py:154-279). These families draw nothing during a step, so the step needs
+manipulate.py:154-279; Adroit ``reset_model``, adroit_door.py:359-371 and
+its siblings). These families draw nothing during a step, so the step needs
 no sampler here (the kitchen's observation noise, franka_env.py:118-127,
 is the first that will). No on-device generator reproduces those sequences, so parity
 mode draws them on the host with a real NumPy Generator in the reference's
@@ -33,10 +34,12 @@ def sample_reset_values(env, np_random: np.random.Generator, options=None):
         return _fetch_values(env, np_random)
     if name == "HandManipulateBlockEnv":
         return _hand_manipulate_values(env, np_random)
+    if name.startswith("AdroitHand"):
+        return _adroit_values(env, np_random)
     raise NotImplementedError(
-        f"no parity sampler for {name}: the port has the maze, Fetch and "
-        "HandManipulateBlock families so far; each other family's sampler "
-        "comes with its slice (ROADMAP queue A)")
+        f"no parity sampler for {name}: the port has the maze, Fetch, "
+        "HandManipulateBlock and Adroit families so far; each other "
+        "family's sampler comes with its slice (ROADMAP queue A)")
 
 
 def _maze_values(env, rng: np.random.Generator, options=None):
@@ -190,3 +193,28 @@ def _hand_manipulate_values(env, rng: np.random.Generator):
         goal_quat = _quat_from_angle_and_axis(angle, axis)
     return {"obj_qpos7": np.concatenate([pos0, quat0]),
             "goal_offset": goal_offset, "goal_quat": goal_quat}
+
+
+def _adroit_values(env, rng: np.random.Generator):
+    """reset_model's draws, one value dict of the env's scene (the keys of
+    its ``aux``): adroit_door.py:359-371 (the door's position),
+    adroit_hammer.py:374 (the board's height), adroit_pen.py:380-383 (the
+    target's Euler angles about x and y, as a quaternion) and
+    adroit_relocate.py:354-369 (the ball's xy, then the target)."""
+    task = env.task
+    if task == "door":
+        return {"door_body_pos": np.array([
+            rng.uniform(low=-0.3, high=-0.2), rng.uniform(low=0.25, high=0.35),
+            rng.uniform(low=0.252, high=0.35)])}
+    if task == "hammer":
+        return {"board_z": rng.uniform(low=0.1, high=0.25)}
+    if task == "pen":
+        desired_orien = np.zeros(3)
+        desired_orien[0] = rng.uniform(low=-1, high=1)
+        desired_orien[1] = rng.uniform(low=-1, high=1)
+        return {"target_quat": _euler2quat(desired_orien)}
+    return {"obj_xy": np.array([rng.uniform(low=-0.15, high=0.15),
+                                rng.uniform(low=-0.15, high=0.3)]),
+            "target_pos": np.array([rng.uniform(low=-0.2, high=0.2),
+                                    rng.uniform(low=-0.2, high=0.2),
+                                    rng.uniform(low=0.15, high=0.35)])}

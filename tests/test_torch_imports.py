@@ -54,6 +54,9 @@ def test_building_the_env_imports_no_jax():
         "assert slide.obs_dim == 25\n"
         "reach = registry.make_gym('FetchReach-v4', parity=True, device='cpu')\n"
         "reach.reset(seed=0)\n"
+        "door = registry.make('AdroitHandDoor-v1', num_envs=2, device='cpu')\n"
+        "door.reset(seed=0)\n"
+        "assert door.step(torch.zeros(2, 28))[0].shape == (2, 39)\n"
         "from gymnasium_robotics_tpu_torch.physics import kinematics, pipeline\n"
         "m = env.env.model.with_options(fk_kernel=True)\n"
         "kinematics.kinematics(m, pipeline.make_data(m, 2))\n"

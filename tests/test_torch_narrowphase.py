@@ -121,14 +121,16 @@ def _ported_topk_shapes():
 
 
 def test_topk_geometry_covers_ported_shapes():
-    """The 60 AntMaze IDs (four maze sizes), the 16 Fetch IDs and the 52
-    HandManipulateBlock IDs call topk_select at eleven shapes; at each,
-    and at B from 1 up, the kernel's grid covers every env and its shared
-    memory fits a block."""
+    """The 60 AntMaze IDs (four maze sizes), the 16 Fetch IDs, the 52
+    HandManipulateBlock IDs and the 16 Adroit IDs call topk_select at
+    nineteen shapes; at each, and at B from 1 up, the kernel's grid covers
+    every env and its shared memory fits a block."""
     shapes = _ported_topk_shapes()
     assert shapes == {(2, 216, 8), (2, 240, 8), (2, 456, 8), (2, 744, 8),
                       (1, 57, 16), (3, 85, 8), (2, 169, 24), (2, 160, 16),
-                      (4, 85, 8), (2, 177, 24), (2, 156, 24)}
+                      (4, 85, 8), (2, 177, 24), (2, 156, 24),
+                      (6, 64, 16), (2, 300, 16), (5, 45, 16), (2, 247, 16),
+                      (2, 33, 24), (2, 170, 16), (2, 33, 16), (2, 146, 16)}
     for G, maxk, K in shapes:
         for B in (1, 31, 32, 2047, 2048, 8192):
             geo = tnp.topk_geometry(G, maxk, B, K)
@@ -493,7 +495,7 @@ def test_narrowphase_plain_matches_megakernel_fetch():
 _ITEM_ROWS = {0: [[0]], 1: [[0, 1]], 2: [[0]], 3: [[0], [1], [2]],
               4: [[0, 1, 2, 3]], 5: [[0, 1, 2, 3], [4, 5, 6, 7], [8]],
               6: [[0, 1, 2, 3]], 7: [[0, 1]], 8: [[0], [1], [2]],
-              9: [[0], [1]]}
+              9: [[0], [1]], 10: [[0]], 11: [[0]], 12: [[0]], 13: [[0]]}
 
 
 def _rows_written(table):
@@ -515,19 +517,25 @@ def _rows_written(table):
 
 @pytest.mark.parametrize("id_", ["AntMaze_UMaze-v5", "AntMaze_Large-v5",
                                  "FetchPush-v4", "FetchPickAndPlace-v4",
-                                 "FetchReach-v4", "FetchSlide-v4"])
+                                 "FetchReach-v4", "FetchSlide-v4",
+                                 "AdroitHandDoor-v1", "AdroitHandHammer-v1",
+                                 "AdroitHandPen-v1", "AdroitHandRelocate-v1"])
 def test_group_table_tasks_write_each_row_once(id_):
     """The kernel's task table writes every compact row of its groups
     exactly once (for the whole table and cut to each kind), each
-    cooperative item is a task of its own and only plane-box's and
-    box-box's are, the longest tasks come first; the launch takes the
-    primitive-only instantiation where the table has no box or hull
-    kinds."""
+    cooperative item is a task of its own and only plane-box's, box-box's
+    and cylinder-cylinder's are, the longest tasks come first; the launch
+    takes the primitive-only instantiation where the table has no box,
+    hull or sphere-capsule-cylinder kinds (Adroit's whole table is inside
+    the kernel)."""
     from gymnasium_robotics_tpu_torch import registry
 
     m = registry.make(id_, num_envs=1, device="cpu").env.model
-    table = m.plan("pruned", tcol._PrunedPlan).table
-    assert table.boxes == id_.startswith("Fetch")   # the instantiation
+    tp = m.plan("pruned", tcol._PrunedPlan)
+    table = tp.table
+    assert table.boxes == id_.startswith(("Fetch", "Adroit"))   # the instantiation
+    if id_.startswith("Adroit"):    # no group runs outside the kernel
+        assert not tp.runs and sorted(table.rows.tolist()) == list(range(table.ncon))
     geo = tnp.narrowphase_geometry(table, 2047)
     assert geo["grid"] == (64, table.tasks.shape[0]) and geo["threads"] == 128
     for tab in [table] + [table.only([g.kind]) for g in table.groups]:

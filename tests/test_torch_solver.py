@@ -366,8 +366,9 @@ def test_wrappers_route_and_check():
 def test_newton_geometry_covers_row_caps():
     """newton_tile_kernel's launch geometry for every ported system with a
     tile Newton (the AntMaze IDs at nv = 14, FetchReach at nv = 15, the
-    other Fetch IDs at nv = 21, the HandManipulateBlock IDs at nv = 36)
-    and at the row caps, at B from 1
+    other Fetch IDs at nv = 21, AdroitHandDoor and Pen at nv = 30, Hammer
+    at nv = 33, the HandManipulateBlock IDs and AdroitHandRelocate at
+    nv = 36) and at the row caps, at B from 1
     up: the grid covers every env, a block's shared memory fits, the lanes
     hold the row cap; other nv and more rows raise."""
     systems = set()
@@ -375,7 +376,8 @@ def test_newton_geometry_covers_row_caps():
         m = registry.make(id_, num_envs=1, device="cpu").env.model
         if m.nv in solver.NEWTON_TILE_SHAPES:
             systems.add((m.nv, m.plan("rows", constraint._RowPlan).is_eq.numel()))
-    assert systems == {(14, 72), (15, 255), (21, 255), (36, 272)}
+    assert systems == {(14, 72), (15, 255), (21, 255), (30, 278), (30, 272),
+                       (33, 275), (36, 272), (36, 278)}
     for nv in solver.NEWTON_TILE_SHAPES:
         cap = solver.NEWTON_MAX_ROWS[nv]
         for ne in sorted({1, 45, cap} | {n for v, n in systems if v == nv}):
@@ -392,7 +394,7 @@ def test_newton_geometry_covers_row_caps():
 
 
 def test_chol_geometry_matches_source():
-    """chol_tile_kernel's launch geometry (nv 14, 15, 21 and 36) against the
+    """chol_tile_kernel's launch geometry (nv 14, 15, 21, 30, 33 and 36) against the
     constants of csrc/solver.cu (the tiles, the lanes an env, the triangle
     and right-hand side a block stages) at B from 1 up: the grid covers
     every env, the shared memory fits a static launch, up to nv = 36;

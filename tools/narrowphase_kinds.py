@@ -7,7 +7,9 @@ redesigned kernels against an earlier commit's.
 Builds csrc/narrowphase.cu, makes the arrays the main paths hand the kernel
 at B = 2048 (AntMaze_UMaze-v5: the pressed state chip_smoke.py times it on;
 FetchPush-v4 and FetchSlide-v4: the state after two env steps of
-registry.make, then FetchSlide's pressed pucks, chip_smoke.slide_poses), and times
+registry.make, then FetchSlide's pressed pucks, chip_smoke.slide_poses) and
+at B = 1024 for the four Adroit tasks (the state after two env steps, then
+the pressed hands of chip_smoke.adroit_pressed), and times
 the kernel on its whole group table and on each kind's pairs alone (the
 table cut to that kind's columns, GroupTable.only), with CUDA events over a
 CUDA graph of 50 launches as chip_smoke.py times kernels. Prints one JSON
@@ -23,8 +25,10 @@ none) on the
 same inputs (FetchSlide only where the parent has its kinds),
 and prints
 - whether the compact tables (on the main-path arrays and on the pressed
-  states) and the Cholesky solutions (nv = 14 and 21 on the main paths' qM
-  and the Euler's damped system) are bitwise equal;
+  states; on the Adroit tables the rows of the kinds the parent has, the
+  table cut to them, GroupTable.only) and the Cholesky solutions (nv = 14
+  and 21 on the main paths' qM and the Euler's damped system) are bitwise
+  equal;
 - whether the FK kernel's eleven outputs are bitwise equal on FetchPush's
   main-path poses (the state after two env steps) and on random poses, at
   B = 2048;
@@ -58,7 +62,10 @@ import chip_smoke as CS  # noqa: E402
 B = 2048
 KIND_NAMES = ("plane-sphere", "plane-capsule", "sphere-box", "capsule-box",
               "plane-box", "box-box", "plane-hull", "plane-cylinder",
-              "cylinder-box", "cylinder-hull")
+              "cylinder-box", "cylinder-hull", "capsule-capsule",
+              "capsule-cylinder", "cylinder-cylinder", "sphere-capsule")
+ADROIT = {"AdroitHandDoor-v1": 14, "AdroitHandHammer-v1": 11,
+          "AdroitHandPen-v1": 11, "AdroitHandRelocate-v1": 11}   # pressed seeds
 
 
 def build_parent(parent, names):
@@ -88,6 +95,11 @@ def build_parent(parent, names):
     src = open(os.path.join(parent, "gymnasium_robotics_tpu_torch", "csrc",
                             "narrowphase.cu")).read()
     out["faces"] = "const float* hull_face" in src   # its C interface
+    # the group kinds the parent's kernel has (its physics/narrowphase.py)
+    psrc = open(os.path.join(parent, "gymnasium_robotics_tpu_torch", "physics",
+                             "narrowphase.py")).read()
+    kinds = re.search(r"^KINDS = \((.*?)\)\n# ", psrc, re.S | re.M).group(1)
+    out["kinds"] = re.findall(r"\(T\.\w+, T\.\w+\)", kinds)
     out["narrowphase"].grt_narrowphase_f32.argtypes = (
         [vp] * 3 + [ll] * 3 + [vp] * 4 + [i] * 2 + [vp, i, i]
         + [vp] * 2 + [i] + ([vp, i] if out["faces"] else []) + [vp] * 3
@@ -309,10 +321,21 @@ def main():
         "FetchSlide-v4": (m_s, [pipeline.forward(m_s, slide.state.data), d_sp],
                           m_s.hull_vert),
     }
+    for id_, seed in ADROIT.items():
+        env = registry.make(id_, num_envs=CS.ADROIT_B)
+        env.reset(seed=0)
+        for _ in range(2):
+            env.step(torch.rand((CS.ADROIT_B, env.env.action_dim), generator=gen,
+                                device=dev) * 2 - 1)
+        m = env.env._model_for(env.state.aux)
+        paths[id_] = (m, [pipeline.forward(m, env.state.data),
+                          CS.adroit_pressed(torch, pipeline, env.env,
+                                            CS.ADROIT_B, seed)[1]], None)
     for path, (m, ds, hv) in paths.items():
         hf = None if hv is None else m.hull_face
         tp = m.plan("pruned", collision._PrunedPlan)
         table = tp.table
+        nb = ds[0].qpos.shape[-1]
         sels = [narrowphase.topk_select(collision.broadphase_rank(m, d, tp),
                                         tp.mask, tp.K) for d in ds]
         d, sel = ds[0], sels[0]
@@ -320,7 +343,7 @@ def main():
                                                   d.contact.frame))
         ops = (d.geom_xpos, d.geom_xmat, m.geom_size, sel, hv, hf)
         kinds = sorted({g.kind for g in table.groups})
-        line = {"path": path, "B": B, "pairs": int(table.pairs.shape[1]),
+        line = {"path": path, "B": nb, "pairs": int(table.pairs.shape[1]),
                 "rows": int(table.rows.numel()),
                 "ms": CS.time_ms(torch, lambda: narrowphase.narrowphase(
                     table, *ops, out=out)),
@@ -331,6 +354,10 @@ def main():
                 torch, lambda: narrowphase.narrowphase(sub, *ops, out=out))
         if plib and (plib["faces"] or path != "FetchSlide-v4"):
             lib, faces = plib["narrowphase"], plib["faces"]
+            adroit = path in ADROIT
+            if adroit:   # the kinds the parent has; no Cholesky (nv 30, 33)
+                table = table.only([k for k in kinds if k < len(plib["kinds"])])
+                line["parent_kinds"] = sorted({g.kind for g in table.groups})
             eq = []
             for dd, ss in zip(ds, sels):
                 o = (dd.geom_xpos, dd.geom_xmat, m.geom_size, ss, hv, hf)
@@ -351,6 +378,9 @@ def main():
                       (lambda: narrowphase.narrowphase(table, *ops, out=out)))
                 turns.append((who, CS.time_ms(torch, fn)))
             line["turns_ms"] = turns
+            if adroit:
+                print(json.dumps(line), flush=True)
+                continue
             # the Cholesky at this path's nv: qM / qfrc_smooth and the
             # Euler's damped system, on the main path's and pressed states
             slib = plib["solver"]
