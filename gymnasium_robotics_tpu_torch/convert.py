@@ -127,10 +127,11 @@ def _env_leaf(x, dev):
 
 
 def _map_obs(obs, fn):
-    """fn on an observation: a dict of leaves (the goal envs) or one
+    """fn on an observation: a dict of leaves or of dicts of leaves (the
+    goal envs; the kitchen's goals are dicts by task) or one leaf
     (Adroit's flat vector)."""
     if isinstance(obs, dict):
-        return {k: fn(v) for k, v in obs.items()}
+        return {k: _map_obs(v, fn) for k, v in obs.items()}
     return fn(obs)
 
 

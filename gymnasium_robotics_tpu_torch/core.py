@@ -47,10 +47,10 @@ def _where_batch_first(mask, a, b):
 
 def _pick_first(done, fresh, stepped):
     """Per env, ``fresh`` where ``done`` and ``stepped`` elsewhere, for a
-    B-leading tensor or a dict of them."""
+    B-leading tensor or a dict of them, nested at any depth (the kitchen's
+    goals are dicts by task)."""
     if isinstance(stepped, dict):
-        return {k: _where_batch_first(done, fresh[k], v)
-                for k, v in stepped.items()}
+        return {k: _pick_first(done, fresh[k], v) for k, v in stepped.items()}
     return _where_batch_first(done, fresh, stepped)
 
 

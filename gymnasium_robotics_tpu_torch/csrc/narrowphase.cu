@@ -13,8 +13,8 @@
 //   narrowphase_megakernel (with GroupSpec/_emit_group) for the groups
 //   plane-sphere, plane-capsule, sphere-box, capsule-box, plane-box,
 //   box-box, plane-hull, plane-cylinder, cylinder-box, cylinder-hull,
-//   capsule-capsule, capsule-cylinder, cylinder-cylinder and
-//   sphere-capsule: the contact formulas of collision_vec.py
+//   capsule-capsule, capsule-cylinder, cylinder-cylinder, sphere-capsule
+//   and capsule-hull: the contact formulas of collision_vec.py
 //   (_plane_sphere :88, _plane_capsule :95, _plane_box :152 with
 //   _take_smallest :135, _plane_cylinder :163, _sphere_sphere_at :188,
 //   _sphere_capsule :213, _sphere_box_at :221, _point_cylinder :252 with
@@ -22,7 +22,8 @@
 //   _cylinder_cylinder :332, _capsule_capsule :366, _capsule_box :375
 //   (also cylinder-box, _dispatch :800), _box_box :388 with
 //   _box_box_edge :427 and _seg_seg_closest :344, _point_hull_depth :510
-//   and _sphere_hull_probe :603 (cylinder-hull, _make_capsule_hull :624),
+//   and _sphere_hull_probe :603 (cylinder-hull and capsule-hull,
+//   _make_capsule_hull :624),
 //   _make_plane_hull :673) and the frame of _contact_frame_soa :806, a
 //   block taking 32 envs (one a lane) and a task of the group table (four
 //   warp items, below). The box-hull and hull-hull groups run with MPR
@@ -606,6 +607,7 @@ constexpr int kPlaneBox = 4;           // the kinds the switches name
 constexpr int kPlaneCylinder = 7, kCylinderBox = 8, kCylinderHull = 9;
 constexpr int kCapsuleCapsule = 10, kCapsuleCylinder = 11;
 constexpr int kCylinderCylinder = 12, kSphereCapsule = 13;
+constexpr int kCapsuleHull = 14;
 constexpr int kShRows = 6 + 7 * 9;     // the edge slot's face and axis rows
 
 // The 4 smallest of N candidates (collision_vec._take_smallest) and their
@@ -1035,15 +1037,16 @@ __device__ void cylinder_cylinder(const Pair& q, float* S, int w, bool live,
 // A block: 32 envs (one a lane) and one task of the table, four warp items
 // (8 column + part, -1 idle; plane-sphere, plane-capsule, sphere-box, a
 // sphere (part) of capsule-box or cylinder-box, plane-hull,
-// plane-cylinder, an end-sphere probe (part) of cylinder-hull,
-// capsule-capsule, capsule-cylinder, sphere-capsule), or one cooperative
+// plane-cylinder, an end-sphere probe (part) of cylinder-hull or
+// capsule-hull, capsule-capsule, capsule-cylinder, sphere-capsule), or one cooperative
 // item that every warp holds plus kCoop (plane-box, a part of box-box,
 // cylinder-cylinder). The kinds are numbered as physics/narrowphase.py's
 // KINDS. BOXES = false compiles the primitive kinds alone (plane-sphere,
 // plane-capsule, sphere-box, capsule-box): a table of those only then
 // runs at their registers, not at those of the candidate formulas.
-// Capsule-hull (Kitchen) is cylinder-hull's formula: it comes as one more
-// kind on the kCylinderHull case.
+// Capsule-hull is cylinder-hull's formula (the reference's
+// _make_capsule_hull reads a capsule's size as a cylinder's: radius, half
+// length): one more kind on the kCylinderHull case.
 template <bool BOXES>
 __global__ void __launch_bounds__(kNpWarps * 32)
 narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
@@ -1106,6 +1109,7 @@ narrowphase_kernel(const float* __restrict__ P, const float* __restrict__ Rm,
         }
         break;
       case kCylinderHull:  // the probe at the axis' -end (part 0) or +end
+      case kCapsuleHull:
         if constexpr (BOXES) {
           const Slot s = sphere_hull_probe(
               q, part == 0 ? -1.f : 1.f,

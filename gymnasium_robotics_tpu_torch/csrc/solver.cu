@@ -1,15 +1,15 @@
 // Per-env dense solves of the constraint pipeline.
 //
 // chol_solve_kernel<2> (one env per thread) and chol_tile_kernel<NV,
-//   COL_BACK> (NV = 14, 15, 21, 30, 33, 36; a tile of 16 envs a block, 8
+//   COL_BACK> (NV = 14, 15, 21, 24, 29, 30, 33, 36; a tile of 16 envs a block, 8
 //   past NV = 32, a half-warp or a warp an env, below) replace the TPU kernel
 //   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol (entered
 //   through solve_pos_soa): the batched SPD solve M x = b by an unrolled
 //   LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
 // newton2_kernel<G, CHOL> (NV = 2; a group of G lanes an env, below) and
-// newton_tile_kernel<NV, WPE, RPL, ET> (NV = 14, 15, 21, 30, 33, 36; a tile
-//   of ET = 8, 8, 8, 4, 4 and 4 envs a block, one, two, two or three warps an
-//   env, below) replace
+// newton_tile_kernel<NV, WPE, RPL, ET> (NV = 14, 15, 21, 24, 29, 30, 33, 36;
+//   a tile of ET = 8, 8, 8 and from NV = 24 on 4 envs a block, one, two,
+//   two and from NV = 24 on three warps an env, below) replace
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
@@ -63,7 +63,13 @@
 // the same shape at NV = 30 (door, pen; 278 and 272 rows) and NV = 33
 // (hammer, 275 rows): three warps an env over the 288-row cap, one of the
 // 55 or 66 3x3 blocks of H a lane, and a lane holding two rows of the
-// Cholesky past NV = 32.
+// Cholesky past NV = 32. HandReach (NV = 24, 272 rows: the Block hand's
+// 24 joint limits, 88 tendon-limit rows and 16 + 16 capped contacts) and
+// the Franka Kitchen (NV = 29, 188 rows: 5 joint equalities, 23 joint
+// limits, 8 contacts each of condim 3, 4 and 6; 8 Newton iterations) run
+// it too: 272 rows need the 288-row cap, and at NV = 29 a tile of eight
+// envs or of two warps an env over 256 rows would pass the 227 KB of
+// shared memory a block, so both keep NV = 30's three warps and 4 envs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsolver.so solver.cu
@@ -1151,13 +1157,15 @@ int newton_tile_blocks_per_sm() {
 //   1e-20 floor through nan_max, divisions by L_ii (no reciprocals). The
 //   back substitution has two orders, each instantiation keeping the one
 //   of the kernel it replaced, so that its results stay bit for bit what
-//   they were: COL_BACK = false (NV = 14, as chol_solve; NV = 15, new,
-//   takes the plain version's order too):
+//   they were: COL_BACK = false (NV = 14, as chol_solve; NV = 15 and 24,
+//   new, take the plain version's order too):
 //   x_i = (y_i - sum over k > i of L_ki x_k, in ascending k) / L_ii, every
 //   lane of the env computing each x_i from L's columns in shared memory;
-//   COL_BACK = true (NV = 21, as the one-warp-an-env kernel before it):
-//   column by column, x_i by shuffle from its owner and every upper row
-//   subtracting L_ij x_i, so each x's subtractions run in descending k.
+//   COL_BACK = true (NV = 21, as the one-warp-an-env kernel before it;
+//   NV = 29, 30, 33, 36): column by column, x_i by shuffle from its owner
+//   and every upper row subtracting L_ij x_i, so each x's subtractions run
+//   in descending k. At NV = 24 the column order compiled to 64 registers
+//   with 16 bytes of spill (ptxas trading them for two blocks an SM).
 // - Outputs through the tile's region, written with 16-byte stores where
 //   B % 4 == 0.
 // Shared memory: TILE (NT + NV) floats a block: 7.6 KB at NV = 14, 8.4 KB
@@ -1412,8 +1420,8 @@ Str3 str3(const long long* p) { return {p[0], p[1], p[2]}; }
 extern "C" {
 
 // strides: the element strides of M (3) and b (2), in that order. nv = 2
-// runs chol_solve_kernel (one env per thread), nv = 14, 15, 21, 30, 33
-// and 36 chol_tile_kernel; smem: the latter's block shared memory bytes
+// runs chol_solve_kernel (one env per thread), nv = 14, 15, 21, 24, 29,
+// 30, 33 and 36 chol_tile_kernel; smem: the latter's block shared memory bytes
 // (physics/solver.py::chol_geometry), at least grt_chol_smem_bytes(nv).
 int grt_chol_solve_f32(const float* M, const float* b, float* x,
                        const long long* strides, int nv, int B, int smem,
@@ -1432,6 +1440,10 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
       return launch_chol_tile<15, false>(M, sM, b, sb, x, B, smem, s);
     case 21:
       return launch_chol_tile<21, true>(M, sM, b, sb, x, B, smem, s);
+    case 24:
+      return launch_chol_tile<24, false>(M, sM, b, sb, x, B, smem, s);
+    case 29:
+      return launch_chol_tile<29, true>(M, sM, b, sb, x, B, smem, s);
     case 30:
       return launch_chol_tile<30, true>(M, sM, b, sb, x, B, smem, s);
     case 33:
@@ -1443,13 +1455,16 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
   }
 }
 
-// Shared memory bytes of a chol_tile_kernel block at nv (14, 15, 21, 30, 33 or 36), and
+// Shared memory bytes of a chol_tile_kernel block at nv (14, 15, 21, 24, 29,
+// 30, 33 or 36), and
 // the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1
 // for another nv.
 int grt_chol_smem_bytes(int nv) {
   return nv == 14   ? CholLayout<14>::block_bytes
          : nv == 15 ? CholLayout<15>::block_bytes
          : nv == 21 ? CholLayout<21>::block_bytes
+         : nv == 24 ? CholLayout<24>::block_bytes
+         : nv == 29 ? CholLayout<29>::block_bytes
          : nv == 30 ? CholLayout<30>::block_bytes
          : nv == 33 ? CholLayout<33>::block_bytes
          : nv == 36 ? CholLayout<36>::block_bytes
@@ -1459,6 +1474,8 @@ int grt_chol_blocks_per_sm(int nv) {
   return nv == 14   ? chol_tile_blocks_per_sm<14, false>()
          : nv == 15 ? chol_tile_blocks_per_sm<15, false>()
          : nv == 21 ? chol_tile_blocks_per_sm<21, true>()
+         : nv == 24 ? chol_tile_blocks_per_sm<24, false>()
+         : nv == 29 ? chol_tile_blocks_per_sm<29, true>()
          : nv == 30 ? chol_tile_blocks_per_sm<30, true>()
          : nv == 33 ? chol_tile_blocks_per_sm<33, true>()
          : nv == 36 ? chol_tile_blocks_per_sm<36, true>()
@@ -1468,8 +1485,8 @@ int grt_chol_blocks_per_sm(int nv) {
 // strides: the element strides of M (3), a_smooth, a_warm (2 each), J (3),
 // aref, D, active and is_eq (2 each), in that order. nv = 2 runs
 // newton2_kernel<G, true> (G lanes an env, up to 64 rows), nv = 14, 15, 21,
-// 30, 33 and 36 newton_tile_kernel (8, 8, 8, 4, 4 and 4 envs a block, up to
-// 96, 256, 256, 288, 288 and 288 rows); smem: its block's shared memory bytes
+// 24, 29, 30, 33 and 36 newton_tile_kernel (8, 8, 8, 4, 4, 4, 4 and 4 envs a
+// block, up to 96, 256, 256, 288, 288, 288, 288 and 288 rows); smem: its block's shared memory bytes
 // (physics/solver.py::newton_geometry), at least grt_newton_smem_bytes(nv).
 int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
                    const float* J, const float* aref, const float* D,
@@ -1498,6 +1515,14 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
     return launch_newton_tile<21, 2, 4, 8>(M, a_smooth, a_warm, J, aref, D,
                                            active, is_eq, st, qacc, f, ne, B,
                                            n_iter, n_ls, smem, s);
+  } else if (nv == 24) {
+    return launch_newton_tile<24, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
+                                           active, is_eq, st, qacc, f, ne, B,
+                                           n_iter, n_ls, smem, s);
+  } else if (nv == 29) {
+    return launch_newton_tile<29, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
+                                           active, is_eq, st, qacc, f, ne, B,
+                                           n_iter, n_ls, smem, s);
   } else if (nv == 30) {
     return launch_newton_tile<30, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
                                            active, is_eq, st, qacc, f, ne, B,
@@ -1514,13 +1539,16 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
   return -1;
 }
 
-// Shared memory bytes of a newton_tile_kernel block at nv (14, 15, 21, 30, 33 or 36),
+// Shared memory bytes of a newton_tile_kernel block at nv (14, 15, 21, 24, 29,
+// 30, 33 or 36),
 // and the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
 // -1 for another nv.
 int grt_newton_smem_bytes(int nv) {
   return nv == 14   ? TileLayout<14, 1, 3, 8>::block_bytes
          : nv == 15 ? TileLayout<15, 2, 4, 8>::block_bytes
          : nv == 21 ? TileLayout<21, 2, 4, 8>::block_bytes
+         : nv == 24 ? TileLayout<24, 3, 3, 4>::block_bytes
+         : nv == 29 ? TileLayout<29, 3, 3, 4>::block_bytes
          : nv == 30 ? TileLayout<30, 3, 3, 4>::block_bytes
          : nv == 33 ? TileLayout<33, 3, 3, 4>::block_bytes
          : nv == 36 ? TileLayout<36, 3, 3, 4>::block_bytes
@@ -1530,6 +1558,8 @@ int grt_newton_blocks_per_sm(int nv) {
   return nv == 14   ? newton_tile_blocks_per_sm<14, 1, 3, 8>()
          : nv == 15 ? newton_tile_blocks_per_sm<15, 2, 4, 8>()
          : nv == 21 ? newton_tile_blocks_per_sm<21, 2, 4, 8>()
+         : nv == 24 ? newton_tile_blocks_per_sm<24, 3, 3, 4>()
+         : nv == 29 ? newton_tile_blocks_per_sm<29, 3, 3, 4>()
          : nv == 30 ? newton_tile_blocks_per_sm<30, 3, 3, 4>()
          : nv == 33 ? newton_tile_blocks_per_sm<33, 3, 3, 4>()
          : nv == 36 ? newton_tile_blocks_per_sm<36, 3, 3, 4>()

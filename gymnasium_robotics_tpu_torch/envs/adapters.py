@@ -2,12 +2,16 @@
 one env instance, stateful, with numpy in and out, so code written against
 the reference (``gym.make`` -> ``reset``/``step``, the GoalEnv dict
 observations, seeding through ``np_random``) runs unchanged on the port.
+``metadata`` is the env's (its frame rate; no render mode yet).
 
 The instance is a batch of one of the port's env, on the env's device.
 Its model runs the per-env path (``Option.soa=False``), as the JAX
 package's single env does; there the nv = 2 constraint solve is the closed
-form (solver.solve_newton_nv2). Observations are the GoalEnv dict or, for
-Adroit, one flat vector. A step does not auto-reset: it reports
+form (solver.solve_newton_nv2). Observations are the GoalEnv dict (for
+the kitchen with goals that are dicts by task) or, for Adroit, one flat
+vector. With ``parity`` the reset randomness, and the kitchen's
+observation noise at every step, are drawn on the host in the
+reference's order (utils/parity.py). A step does not auto-reset: it reports
 ``truncated`` once ``max_episode_steps`` steps have passed, as gymnasium's
 TimeLimit does. Rendering is not ported yet (ROADMAP A.12), so a
 ``render_mode`` other than None raises.
@@ -39,8 +43,9 @@ OBS_DTYPE, ACTION_DTYPE = np.float64, np.float32
 def _spaces(env):
     """(observation_space, action_space) of ``env``: for a goal env (one
     with ``goal_dim``) a Dict of observation / achieved_goal /
-    desired_goal Boxes, else one flat Box (Adroit); a [-1, 1] action Box;
-    (None, None) without gymnasium."""
+    desired_goal Boxes, for the kitchen (``goal_shapes``) goals that are
+    Dicts of a Box by task, else one flat Box (Adroit); a [-1, 1] action
+    Box; (None, None) without gymnasium."""
     if gym is None:
         return None, None
     from gymnasium import spaces
@@ -48,16 +53,27 @@ def _spaces(env):
     def box(n):
         return spaces.Box(-np.inf, np.inf, (n,), OBS_DTYPE)
 
+    def goal():
+        if hasattr(env, "goal_shapes"):
+            return spaces.Dict({t: box(n) for t, n in env.goal_shapes.items()})
+        return box(env.goal_dim)
+
     obs = box(env.obs_dim)
-    if hasattr(env, "goal_dim"):
-        obs = spaces.Dict(dict(observation=obs, achieved_goal=box(env.goal_dim),
-                               desired_goal=box(env.goal_dim)))
+    if hasattr(env, "goal_dim") or hasattr(env, "goal_shapes"):
+        obs = spaces.Dict(dict(observation=obs, achieved_goal=goal(),
+                               desired_goal=goal()))
     return obs, spaces.Box(-1.0, 1.0, (env.action_dim,), ACTION_DTYPE)
 
 
-class GymAdapter(gym.Env if gym else object):
-    metadata = {"render_modes": [], "render_fps": 25}
+def _np_leaves(x, fn):
+    """fn on every leaf of a tensor or a dict of them, nested at any
+    depth."""
+    if isinstance(x, dict):
+        return {k: _np_leaves(v, fn) for k, v in x.items()}
+    return fn(x)
 
+
+class GymAdapter(gym.Env if gym else object):
     def __init__(self, env, render_mode: Optional[str] = None,
                  parity: bool = False):
         if render_mode is not None:
@@ -66,6 +82,8 @@ class GymAdapter(gym.Env if gym else object):
                 "ported yet (ROADMAP A.12)")
         env.model = env.model.with_options(soa=False)
         self.env = env
+        # the env's own frame rate, as the reference adapter copies it
+        self.metadata = dict(env.metadata)
         self.parity = parity
         self.render_mode = None
         self.device = env.device
@@ -114,11 +132,20 @@ class GymAdapter(gym.Env if gym else object):
         return self._obs(), self._info()
 
     def step(self, action):
+        """One step; with ``parity``, a family that draws during a step
+        (the kitchen's observation noise) takes the draws from
+        ``np_random`` in the reference's order."""
         if self._state is None:
             raise RuntimeError("call reset() before step()")
         a = torch.as_tensor(np.asarray(action, np.float64), dtype=self.env.dtype,
                             device=self.device).reshape(1, -1)
-        self._state = s = self.env.step(self._state, a, self._gen)
+        values = (P.sample_step_values(self.env, self.np_random)
+                  if self.parity else None)
+        if values is not None:
+            self._state = s = self.env.step_with_values(
+                self._state, a, {k: np.asarray(v)[None] for k, v in values.items()})
+        else:
+            self._state = s = self.env.step(self._state, a, self._gen)
         limit = self.env.max_episode_steps
         truncated = bool(s.truncated[0]) or (
             limit is not None and int(s.steps[0]) >= limit)
@@ -126,13 +153,10 @@ class GymAdapter(gym.Env if gym else object):
                 truncated, self._info())
 
     def _obs(self):
-        obs = self._state.obs
-        if not isinstance(obs, dict):   # a flat observation (Adroit)
-            return np.asarray(obs[0].detach().cpu().numpy(), OBS_DTYPE)
-        space = self.observation_space
-        return {k: np.asarray(v[0].detach().cpu().numpy(),
-                              OBS_DTYPE if space is None else space[k].dtype)
-                for k, v in obs.items()}
+        """The instance's observation as numpy in its space's dtypes (every
+        ported family's spaces are float64)."""
+        return _np_leaves(self._state.obs, lambda v: np.asarray(
+            v[0].detach().cpu().numpy(), OBS_DTYPE))
 
     def _info(self):
         return {k: v[0].detach().cpu().numpy()
@@ -144,7 +168,8 @@ class GymAdapter(gym.Env if gym else object):
             return torch.as_tensor(np.asarray(x, np.float64),
                                    dtype=self.env.dtype, device=self.device)
 
-        return fn(t(achieved_goal), t(desired_goal), info).cpu().numpy()
+        return fn(_np_leaves(achieved_goal, t), _np_leaves(desired_goal, t),
+                  info).cpu().numpy()
 
     def compute_reward(self, achieved_goal, desired_goal, info=None):
         return self._goal_fn(self.env.compute_reward, achieved_goal,

@@ -48,6 +48,8 @@ def _bonus(cond, value):
 
 
 class AdroitEnv:
+    # the reference's frame rate; no render mode until rendering is ported
+    metadata = {"render_modes": [], "render_fps": 100}
     task = "door"
     frame_skip = 5
     obs_dim = 39

@@ -37,6 +37,8 @@ _FINGERS = ("robot0:l_gripper_finger_joint", "robot0:r_gripper_finger_joint")
 
 
 class FetchEnv:
+    # the reference's frame rate; no render mode until rendering is ported
+    metadata = {"render_modes": [], "render_fps": 25}
     task: str = "push"
     has_object: bool = True
     block_gripper: bool = True

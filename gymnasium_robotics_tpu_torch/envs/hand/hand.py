@@ -1,7 +1,14 @@
-"""Shadow Dexterous Hand manipulation (port of
+"""Shadow Dexterous Hand: reach and manipulation (port of
 gymnasium_robotics_tpu/envs/hand/hand.py ``HandBaseEnv``,
-``HandManipulateEnv`` and ``HandManipulateBlockEnv``; the reference's
-manipulate.py and manipulate_touch_sensors.py).
+``HandReachEnv``, ``HandManipulateEnv`` and ``HandManipulateBlockEnv``;
+the reference's reach.py, manipulate.py and manipulate_touch_sensors.py).
+
+HandReach: the five fingertips reach a goal pattern (15-D: the tips'
+positions) in which the thumb and one other finger meet near a point
+over the palm; the observation is the 24 joint positions and velocities
+and the tips' positions (63-D); reward -1/0 by the 0.01 threshold or the
+negative distance; never terminated. A reset restores the initial pose
+and draws a new goal.
 
 20 position actuators over 24 joints, the J1/J0 couplings as tendon-limit
 rows; action (B, 20) in [-1, 1] mapped into the actuators' ctrlrange,
@@ -15,7 +22,7 @@ velocity and pose, then the touch sensors' readings where asked
 table capped at 16 rows per condim group, 5 Newton and 4 line-search
 iterations, the contact forces decoded for the touch sensors only.
 
-Resets: ``initial`` settles a pool of ``reset_pool_size`` randomized block
+Manipulation resets: ``initial`` settles a pool of ``reset_pool_size`` randomized block
 poses per env (10 x 20 substeps with zero action; a block that fell off
 the palm keeps its unsettled pose), all of them as one batch, and each
 reset restores one pool entry and draws a new goal. Every method acts on
@@ -36,6 +43,9 @@ from gymnasium_robotics_tpu_torch.mjcf import serialize
 from gymnasium_robotics_tpu_torch.physics import pipeline
 from gymnasium_robotics_tpu_torch.utils import rotations
 
+FINGERTIP_SITES = ["robot0:S_fftip", "robot0:S_mftip", "robot0:S_rftip",
+                   "robot0:S_lftip", "robot0:S_thtip"]
+
 
 def _normalize(v):
     """v (..., n) over its last axis, the norm floored at 1e-12."""
@@ -51,6 +61,8 @@ def quat_from_angle_and_axis(angle, axis):
 
 
 class HandBaseEnv:
+    # the reference's frame rate; no render mode until rendering is ported
+    metadata = {"render_modes": [], "render_fps": 25}
     n_substeps = 20
     relative_control = False
 
@@ -63,6 +75,7 @@ class HandBaseEnv:
             need_cfrc_ext=False)   # the touch sensors read con_force only
         self._init_qpos = self._t(extra["initial_qpos"])      # (nq,)
         self._init_qvel = self._t(extra["initial_qvel"])      # (nv,)
+        self._extra = extra
         mt = m.meta
         # the robot's joints, named robot0:* (the first 24)
         self._robot_nq = sum(1 for n in mt.joint_names if n.startswith("robot0:"))
@@ -96,6 +109,113 @@ class HandBaseEnv:
             center = self._act_center
         ctrl = center + action.T * self._act_range
         return torch.clamp(ctrl, self._ctrl_lo, self._ctrl_hi)
+
+
+class HandReachEnv(HandBaseEnv):
+    """reach.py:55-431: the five fingertip sites reach a sampled meeting
+    pattern, batched."""
+
+    distance_threshold = 0.01
+
+    def __init__(self, reward_type="sparse", relative_control=False,
+                 max_episode_steps=None, dtype=torch.float32, device=None):
+        self.reward_type = reward_type
+        self.relative_control = relative_control
+        self.max_episode_steps = max_episode_steps
+        self._load("hand/reach", dtype, device)
+        extra = self._extra
+        self._initial_goal = self._t(extra["initial_goal"]).reshape(5, 3)
+        self._palm_xpos = self._t(extra["palm_xpos"])
+        self._meeting0 = self._palm_xpos + self._t([0.0, -0.09, 0.05])
+        mt = self.model.meta
+        self._tip_sites = [mt.site_names.index(s) for s in FINGERTIP_SITES]
+        self.obs_dim, self.goal_dim, self.action_dim = 63, 15, 20
+
+    def compute_reward(self, achieved_goal, desired_goal, info=None):
+        d = torch.linalg.vector_norm(achieved_goal - desired_goal, dim=-1)
+        if self.reward_type == "sparse":
+            return -(d > self.distance_threshold).to(d.dtype)
+        return -d
+
+    def compute_terminated(self, achieved_goal, desired_goal, info=None):
+        return torch.zeros(achieved_goal.shape[:-1], dtype=torch.bool,
+                           device=achieved_goal.device)
+
+    def _sample_goal(self, n, generator):
+        """(n, 15) goals (reach.py:99-126): the thumb and one of the four
+        other fingers (drawn) moved to 0.005 short of a meeting point, the
+        palm's point plus normal noise of 0.005; one goal in ten (drawn)
+        the initial pattern."""
+        dev = self.device
+        finger = torch.randint(4, (n,), generator=generator, device=dev)
+        meeting = self._meeting0 + 0.005 * torch.randn(
+            (n, 3), generator=generator, dtype=self.dtype, device=dev)
+        goal = self._initial_goal.expand(n, 5, 3).clone()
+        env = torch.arange(n, device=dev)
+        for idx in (torch.full_like(finger, 4), finger):
+            direction = _normalize(meeting - goal[env, idx])
+            goal[env, idx] = meeting - 0.005 * direction
+        revert = torch.rand((n,), generator=generator, dtype=self.dtype,
+                            device=dev) < 0.1
+        goal = torch.where(revert[:, None, None], self._initial_goal, goal)
+        return goal.reshape(n, 15)
+
+    def _achieved(self, data):
+        return data.site_xpos[self._tip_sites].permute(2, 0, 1).reshape(-1, 15)
+
+    def _get_obs(self, data, goal):
+        nq = self._robot_nq
+        achieved = self._achieved(data)
+        obs = torch.cat([data.qpos[:nq].T, data.qvel[:nq].T, achieved], dim=-1)
+        return dict(observation=obs, achieved_goal=achieved, desired_goal=goal)
+
+    def _reset_state(self, goal) -> core.EnvState:
+        """The initial pose of every env, kinematics refreshed, with goals
+        goal (n, 15)."""
+        n = goal.shape[0]
+        data = dataclasses.replace(
+            pipeline.make_data(self.model, n),
+            qpos=self._init_qpos[:, None].expand(-1, n).clone(),
+            qvel=self._init_qvel[:, None].expand(-1, n).clone())
+        data = pipeline.refresh_kin(self.model, data)
+        zeros = torch.zeros(n, dtype=torch.bool, device=self.device)
+        return core.EnvState(
+            data=data, obs=self._get_obs(data, goal),
+            reward=torch.zeros(n, dtype=self.dtype, device=self.device),
+            terminated=zeros, truncated=zeros.clone(),
+            info={"is_success": torch.zeros(n, dtype=self.dtype,
+                                            device=self.device)},
+            goal=goal, steps=torch.zeros(n, dtype=torch.int32, device=self.device))
+
+    def initial(self, num_envs: int, generator) -> core.EnvState:
+        return self._reset_state(self._sample_goal(num_envs, generator))
+
+    def reset(self, state: core.EnvState, generator) -> core.EnvState:
+        """A freshly reset state for every env of the batch."""
+        return self.initial(state.steps.shape[0], generator)
+
+    def reset_with_values(self, state: core.EnvState, values) -> core.EnvState:
+        """Parity-mode reset: the goals (B, 15) drawn on the host in the
+        reference's order (reach.py:99-126 via utils/parity.py), under
+        ``goal``."""
+        return self._reset_state(self._t(values["goal"]))
+
+    def step(self, state: core.EnvState, action, generator=None) -> core.EnvState:
+        """One env step of the batch (20 Euler substeps)."""
+        action = torch.clamp(torch.as_tensor(action, dtype=self.dtype,
+                                             device=self.device), -1.0, 1.0)
+        ctrl = self._apply_action(state.data, action)
+        data = pipeline.step_n(self.model, state.data, ctrl, self.n_substeps)
+        obs = self._get_obs(data, state.goal)
+        achieved = obs["achieved_goal"]
+        d = torch.linalg.vector_norm(achieved - state.goal, dim=-1)
+        zeros = torch.zeros(d.shape[0], dtype=torch.bool, device=self.device)
+        return core.EnvState(
+            data=data, obs=obs,
+            reward=self.compute_reward(achieved, state.goal),
+            terminated=zeros, truncated=zeros.clone(),
+            info={"is_success": (d < self.distance_threshold).to(self.dtype)},
+            goal=state.goal, steps=state.steps + 1)
 
 
 class HandManipulateEnv(HandBaseEnv):

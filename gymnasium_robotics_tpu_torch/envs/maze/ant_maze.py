@@ -23,6 +23,9 @@ from gymnasium_robotics_tpu_torch.physics import pipeline
 
 
 class AntMazeEnv(maze_core.MazeTask):
+    # the reference's frame rate; no render mode until rendering is ported
+    metadata = {"render_modes": [], "render_fps": 50}
+
     def __init__(self, maze_map=None, reward_type: str = "sparse",
                  continuing_task: bool = True, reset_target: bool = False,
                  position_noise_range: float = 0.25, version: str = "v5",

@@ -768,15 +768,16 @@ PRIMITIVES = {
     (T.CYLINDER, T.CYLINDER): _cylinder_cylinder,
 }
 # hull groups by their first geom's type; box and mesh run with MPR
-HULL_GROUPS = (T.PLANE, T.CYLINDER, T.BOX, T.MESH)
+HULL_GROUPS = (T.PLANE, T.CAPSULE, T.CYLINDER, T.BOX, T.MESH)
 
 
-# the slice that brings each hull group the port does not have
+# the slice that brings each hull group the port does not have: on any
+# table, and (capsule-hull) on the unpruned table
 _HULL_FAMILY = {
     (T.SPHERE, T.MESH): "the first family that has sphere-hull pairs",
-    (T.CAPSULE, T.MESH): "the HandManipulatePen slice",
     (T.ELLIPSOID, T.MESH): "the HandManipulateEgg slice",
 }
+_UNPRUNED_FAMILY = {(T.CAPSULE, T.MESH): "the HandManipulatePen slice"}
 
 
 def use_mpr(meta: T.Meta) -> bool:
@@ -790,7 +791,7 @@ def _check_ported(meta: T.Meta, t1, t2):
         return
     name = f"{_TYPE_NAMES[t1]}-{_TYPE_NAMES[t2]}"
     if t2 == T.MESH and t1 in HULL_GROUPS:
-        if t1 in (T.PLANE, T.CYLINDER) or use_mpr(meta):
+        if t1 in (T.PLANE, T.CAPSULE, T.CYLINDER) or use_mpr(meta):
             return
         raise NotImplementedError(
             f"{name} pairs with Option.mpr=False run face-SAT inside the "
@@ -803,8 +804,8 @@ def _check_ported(meta: T.Meta, t1, t2):
         f"narrowphase for {name} pairs is not ported yet (the port has "
         "plane-sphere, plane-capsule, plane-box, plane-cylinder, sphere-box, "
         "sphere-capsule, capsule-capsule, capsule-box, capsule-cylinder, "
-        "cylinder-box, cylinder-cylinder, box-box and plane, cylinder, box "
-        "and mesh against convex hulls)")
+        "cylinder-box, cylinder-cylinder, box-box and plane, capsule, "
+        "cylinder, box and mesh against convex hulls)")
 
 
 def contact_frame(n, t1=None):
@@ -932,10 +933,12 @@ class _NarrowPlan:
         for tp in groups:
             _check_ported(meta, *tp)
             if tp not in PRIMITIVES and tp != (T.BOX, T.MESH):
+                brings = _UNPRUNED_FAMILY.get(
+                    tp, "the first family that has them (no shipped one does)")
                 raise NotImplementedError(
                     f"{_TYPE_NAMES[tp[0]]}-{_TYPE_NAMES[tp[1]]} pairs without "
-                    "pair_topk come with the first family that has them (no "
-                    "shipped one does); the unpruned table has box-hull")
+                    f"pair_topk come with {brings}; the unpruned table has "
+                    "box-hull")
         self.groups = []
         group_base, offset = {}, 0
         for tp, entries in groups.items():

@@ -4,15 +4,15 @@ gymnasium_robotics_tpu/physics/soa.py: ``_impedance`` :1091, ``_kbi``
 :1276-1691, ``solve_constraints`` :1723-1755, ``_decode_contact_forces``
 :1811-1911, ``sensors`` :1938).
 
-This port has weld equality rows (:1324-1376), joint-limit rows
-(:1413-1436), tendon-limit rows (:1438-1461) and pyramidal contact rows
-of condim 1, 3 and 4 (:1618-1667), static or traced: a pair-topk compact
-table (Contact.src) and the ``contact_cap`` selection (:1499-1560, one
-``narrowphase.topk_select`` call for every capped condim group) pick slots
-per env, and the body ids, Jacobians and per-slot parameters are gathered
-per lane with plain gathers; and touch sensors (:1920-1981). The other
-equality types, friction-loss rows and condim 6 raise
-``NotImplementedError`` until their slice.
+This port has weld and joint equality rows (:1324-1400), joint-limit
+rows (:1413-1436), tendon-limit rows (:1438-1461) and pyramidal contact
+rows of condim 1, 3, 4 and 6 (:1618-1667), static or traced: a pair-topk
+compact table (Contact.src) and the ``contact_cap`` selection
+(:1499-1560, one ``narrowphase.topk_select`` call for every capped condim
+group) pick slots per env, and the body ids, Jacobians and per-slot
+parameters are gathered per lane with plain gathers; and touch sensors
+(:1920-1981). Connect and tendon equality rows, friction-loss rows and the
+other condims raise ``NotImplementedError`` until a model needs them.
 """
 
 from __future__ import annotations
@@ -89,22 +89,24 @@ class _ContactGroup:
 
 
 class _RowPlan:
-    """Static row tables: the weld rows' bodies, the joint-limit rows, per
-    condim group of contact slots the slot ids (and for a static group its
-    bodies' roots and dof masks), the merged contact_cap selection and the
-    per-row is_eq flags."""
+    """Static row tables: the weld rows' bodies, the joint equalities'
+    addresses, the joint-limit rows, per condim group of contact slots the
+    slot ids (and for a static group its bodies' roots and dof masks), the
+    merged contact_cap selection and the per-row is_eq flags."""
 
     def __init__(self, m: T.Model):
         mt = m.meta
         dev, dtype = m.device, m.qpos0.dtype
         eq_on = mt.neq > 0     # soa.build_rows reads no disable_equality
-        other = sorted({t for t in mt.eq_type if t != T.EQ_WELD}) if eq_on else []
+        other = sorted({t for t in mt.eq_type
+                        if t not in (T.EQ_WELD, T.EQ_JOINT)}) if eq_on else []
         if other:
             raise NotImplementedError(
                 "equality rows of type "
                 + ", ".join(T.EQ_NAMES[t] for t in other)
-                + " (soa.build_rows :1301-1323, :1377-1411) are not ported "
-                "yet; the port has weld rows")
+                + " (soa.build_rows :1301-1323, :1401-1411) are not ported "
+                "yet; the port has weld and joint rows, and no model the "
+                "JAX package loads or builds has the others")
 
         def ix(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
@@ -114,7 +116,8 @@ class _RowPlan:
         self.masks = torch.as_tensor(masks, dtype=dtype, device=dev)
         welds = [e for e in range(mt.neq) if eq_on and mt.eq_type[e] == T.EQ_WELD]
         self.weld = None
-        n_rows = 6 * len(welds)
+        jeqs = [e for e in range(mt.neq) if eq_on and mt.eq_type[e] == T.EQ_JOINT]
+        n_rows = 6 * len(welds) + len(jeqs)
         if welds:
             b1 = np.array([mt.eq_obj1id[e] for e in welds])
             b2 = np.array([mt.eq_obj2id[e] for e in welds])
@@ -122,6 +125,20 @@ class _RowPlan:
                 e=ix(welds), b1=ix(b1), b2=ix(b2), root1=ix(roots[b1]),
                 root2=ix(roots[b2]), mask1=self.masks[ix(b1)][:, :, None, None],
                 mask2=self.masks[ix(b2)][:, :, None, None])
+        # joint equalities: joint 1's qpos address and dof, and joint 2's
+        # where there is one (obj2 -1: joint 1 held at data[0])
+        self.jeq = None
+        if jeqs:
+            j1 = [mt.eq_obj1id[e] for e in jeqs]
+            j2 = [mt.eq_obj2id[e] for e in jeqs]
+            two = [j >= 0 for j in j2]
+            self.jeq = dict(
+                e=ix(jeqs), n=ix(range(len(jeqs))),
+                q1=ix([mt.jnt_qposadr[j] for j in j1]),
+                d1=ix([mt.jnt_dofadr[j] for j in j1]),
+                q2=ix([mt.jnt_qposadr[j] if j >= 0 else 0 for j in j2]),
+                d2=ix([mt.jnt_dofadr[j] if j >= 0 else 0 for j in j2]),
+                two=torch.as_tensor(two, device=dev), two_n=ix(np.nonzero(two)[0]))
         lim = [j for j in range(mt.njnt)
                if mt.jnt_limited[j] and not mt.opt.disable_limit
                and mt.jnt_type[j] in (T.HINGE, T.SLIDE)]
@@ -151,10 +168,10 @@ class _RowPlan:
         cap_rows = []
         if len(cond) and not mt.opt.disable_contact and mt.pairs:
             for cd in sorted(set(cond.tolist())):
-                if cd not in (1, 3, 4):
+                if cd not in (1, 3, 4, 6):
                     raise NotImplementedError(
                         f"condim {cd} contact rows (soa.build_rows :1630-1636)"
-                        " are not ported yet (the port has condim 1, 3, 4)"
+                        " are not ported yet (the port has condim 1, 3, 4, 6)"
                     )
                 idx = np.nonzero(cond == cd)[0]
                 capped = bool(cap) and len(idx) > cap
@@ -186,7 +203,7 @@ class _RowPlan:
                 np.stack([np.arange(maxg) < len(r) for r in cap_rows]),
                 device=dev)
         self.is_eq = torch.zeros(n_rows, dtype=torch.bool, device=dev)
-        self.is_eq[:6 * len(welds)] = True
+        self.is_eq[:6 * len(welds) + len(jeqs)] = True
 
 
 def _lane_take(x, i):
@@ -271,12 +288,36 @@ def _weld_rows(m: T.Model, d: T.Data, w):
             rep(d.eq_active[e]), rep(nrm))
 
 
+def _joint_eq_rows(m: T.Model, d: T.Data, q):
+    """One row a joint equality (soa.build_rows :1377-1400): q1 - poly(q2)
+    with the quartic of eq_data, both positions taken from qpos0, and
+    -dpoly/dq2 at joint 2's dof; where obj2 is -1, q1 - data[0]. -> (J,
+    pos, solref, solimp, invweight, active)."""
+    B = d.qpos.shape[-1]
+    e, n = q["e"], len(q["e"])
+    data = m.eq_data[e]                                       # (k, 11, Bm)
+    q1 = d.qpos[q["q1"]] - m.qpos0[q["q1"]]                   # (k, B)
+    q2 = d.qpos[q["q2"]] - m.qpos0[q["q2"]]
+    c = [data[:, i] for i in range(5)]
+    q2s = q2 * q2
+    poly = c[0] + c[1] * q2 + c[2] * q2s + c[3] * (q2s * q2) + c[4] * (q2s * q2s)
+    dpoly = c[1] + 2 * c[2] * q2 + 3 * c[3] * q2s + 4 * c[4] * (q2s * q2)
+    two = q["two"][:, None]
+    err = q1 - torch.where(two, poly, M.bB(c[0], B))
+    rows = q1.new_zeros((n, m.meta.nv, B))
+    rows[q["n"], q["d1"]] = 1.0
+    t = q["two_n"]
+    rows[t, q["d2"][t]] = -M.bB(dpoly, B)[t]
+    return (rows, err, m.eq_solref[e], m.eq_solimp[e],
+            m.dof_invweight0[q["d1"]], d.eq_active[e])
+
+
 def build_rows(m: T.Model, d: T.Data):
     """(J (rows, nv, B), aref, D, R, active (rows, B), is_eq (rows,),
-    layout): the weld rows, the joint-limit rows, the tendon-limit rows,
-    then the contact rows per condim group (soa.build_rows). ``layout`` lists, per contact group,
-    (condim, compact slots, static slot ids, first row) for the force
-    decode."""
+    layout): the weld rows, the joint equality rows, the joint-limit rows,
+    the tendon-limit rows, then the contact rows per condim group
+    (soa.build_rows). ``layout`` lists, per contact group, (condim, compact
+    slots, static slot ids, first row) for the force decode."""
     mt = m.meta
     B = d.qpos.shape[-1]
     rp = m.plan("rows", _RowPlan)
@@ -293,6 +334,8 @@ def build_rows(m: T.Model, d: T.Data):
 
     if rp.weld is not None:
         add(*_weld_rows(m, d, rp.weld))
+    if rp.jeq is not None:
+        add(*_joint_eq_rows(m, d, rp.jeq))
 
     if rp.lim is not None:
         ji, n = rp.lim["j"], len(rp.lim["j"])
@@ -373,10 +416,12 @@ def build_rows(m: T.Model, d: T.Data):
                 base += k
                 continue
             # pyramid edges Jn +- mu * J_axis, rows [i+, i-] blocks of k: the
-            # two tangents, and for condim 4 the torsion about the normal
+            # two tangents, for condim 4 the torsion about the normal, and
+            # for condim 6 the rolling about both tangents
             nfr = g.cd - 1
             mu = M.bB(_param(m.con_friction, sel), B)[:, :nfr].transpose(0, 1)
-            axes = [(Jp, 1), (Jp, 2)] + ([(jr2 - jr1, 0)] if g.cd > 3 else [])
+            Jr = jr2 - jr1 if nfr > 2 else None
+            axes = [(Jp, 1), (Jp, 2)] + [(Jr, r) for r in range(nfr - 2)]
             ax = torch.stack([torch.einsum("kvcb,kcb->kvb", Jx, frame_s[:, r])
                               for Jx, r in axes])             # (nfr, k, nv, B)
             edge = mu[:, :, None] * ax

@@ -8,7 +8,8 @@ of masked min + first-index argmin) and ``narrowphase`` replaces
 dispatch, ``GroupSpec``/``_emit_group`` :64-152) for the groups the port
 has (plane-sphere, plane-capsule, plane-box, plane-cylinder, sphere-box,
 sphere-capsule, capsule-box, capsule-capsule, capsule-cylinder,
-cylinder-box, cylinder-cylinder, box-box, plane-hull and cylinder-hull).
+cylinder-box, cylinder-cylinder, box-box, plane-hull, cylinder-hull and
+capsule-hull).
 Where
 the TPU kernel took operand blocks gathered by XLA, this kernel reads the
 selected geom ids and gathers geom_xpos/geom_xmat/geom_size and the hull
@@ -48,14 +49,15 @@ KINDS = ((T.PLANE, T.SPHERE), (T.PLANE, T.CAPSULE), (T.SPHERE, T.BOX),
          (T.PLANE, T.MESH), (T.PLANE, T.CYLINDER), (T.CYLINDER, T.BOX),
          (T.CYLINDER, T.MESH), (T.CAPSULE, T.CAPSULE),
          (T.CAPSULE, T.CYLINDER), (T.CYLINDER, T.CYLINDER),
-         (T.SPHERE, T.CAPSULE))
+         (T.SPHERE, T.CAPSULE), (T.CAPSULE, T.MESH))
 # narrowphase_kernel's work items: a block takes 32 envs and one task of
 # NP_WARPS warp items. Per kind, a rough count of the longest warp's
 # instructions for each of its items a pair (capsule-box and cylinder-box:
 # a sphere each; box-box: box 2's corners in box 1, box 1's in box 2, the
-# edge slot; cylinder-hull: an end sphere's probe each; capsule-cylinder:
-# its 24-round search, 48 point-cylinder distances; cylinder-cylinder: two
-# such searches, one a warp), used only to put the longest tasks first.
+# edge slot; cylinder-hull and capsule-hull: an end sphere's probe each;
+# capsule-cylinder: its 24-round search, 48 point-cylinder distances;
+# cylinder-cylinder: two such searches, one a warp), used only to put the
+# longest tasks first.
 # The kinds of COOP_KINDS run each item on all the block's warps (a
 # cooperative task), the others four items to a task, one a warp
 # (tools/narrowphase_kinds.py times the kinds).
@@ -65,7 +67,8 @@ BOX_KINDS = 4         # kinds from here on: narrowphase_kernel<true> only
 COOP_KINDS = (4, 5, 12)   # plane-box, box-box, cylinder-cylinder
 ITEMS = {0: (60,), 1: (150,), 2: (200,), 3: (200, 200, 200), 4: (260,),
          5: (370, 370, 830), 6: (1000,), 7: (180,), 8: (200, 200, 200),
-         9: (500, 500), 10: (250,), 11: (2600,), 12: (2600,), 13: (150,)}
+         9: (500, 500), 10: (250,), 11: (2600,), 12: (2600,), 13: (150,),
+         14: (500, 500)}
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +190,8 @@ class GroupTable:
         """Whether the table holds a kind past the primitive four
         (plane-box, box-box, plane-hull, plane-cylinder, cylinder-box,
         cylinder-hull, capsule-capsule, capsule-cylinder,
-        cylinder-cylinder, sphere-capsule): the kernel's instantiation with
+        cylinder-cylinder, sphere-capsule, capsule-hull): the kernel's
+        instantiation with
         their formulas, which needs more registers than the primitive kinds
         alone."""
         return any(g.kind >= BOX_KINDS for g in self.groups)
@@ -286,8 +290,8 @@ def narrowphase_plain(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
     (ngeom, 3, B), geom_xmat Rm (ngeom, 3, 3, B), geom_size sizes3
     (ngeom, 3, Bm), sel (G, K, B) picks of the pruned groups, the hull
     tables hull_vert (nhull, V, 3) (plane-hull reads the vertices) and
-    hull_face (nhull, F, 4) (cylinder-hull reads the face planes, of the
-    hull each env picked) -> dist (ncon, B), pos (ncon, 3, B), frame
+    hull_face (nhull, F, 4) (cylinder-hull and capsule-hull read the face
+    planes, of the hull each env picked) -> dist (ncon, B), pos (ncon, 3, B), frame
     (ncon, 3, 3, B), rows group-major and pair-major (row = pair*S + slot)
     as collision_vec's pruned core emits them. The rows are written into
     ``out`` (dist, pos, frame) when given; a new table has NaN in the rows
@@ -306,7 +310,7 @@ def narrowphase_plain(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
             fn = COL.PRIMITIVES[KINDS[g.kind]]
         elif KINDS[g.kind][0] == T.PLANE:   # plane groups are never pruned
             fn = COL._make_plane_hull(hull_vert[g.hull2].permute(1, 2, 0)[..., None])
-        else:   # cylinder-hull: the face planes of each env's picked hull
+        else:   # cylinder- or capsule-hull: each env's picked hull's faces
             hid = g.hull2[:, None] if g.sel_group < 0 else g.hull2[pick]
             fn = COL._make_capsule_hull(COL.take_hull(hull_vert, hull_face, hid)[0])
         dist, pos, normal, tan = COL.rows_of(fn(*ops1, *ops2), g.k, g.S, B)
@@ -338,7 +342,8 @@ def narrowphase(table: GroupTable, P, Rm, sizes3, sel, hull_vert=None,
         if KINDS[g.kind][0] == T.PLANE and hull_vert is None:
             raise ValueError("a plane-hull group needs the hull vertex table")
         if KINDS[g.kind][0] != T.PLANE and hull_face is None:
-            raise ValueError("a cylinder-hull group needs the hull face table")
+            raise ValueError("a cylinder- or capsule-hull group needs the "
+                             "hull face table")
     n = table.ncon
     out = _nan_table(n, P) if out is None else out
     for t, shape in zip(out, ((n, B), (n, 3, B), (n, 3, 3, B))):

@@ -28,17 +28,19 @@ import torch
 from gymnasium_robotics_tpu_torch import kernels
 
 LAUNCHES = {"chol": 0, "newton": 0, "newton_nv2": 0}
-KERNEL_NV = (2, 14, 15, 21, 30, 33, 36)  # nv values csrc/solver.cu instantiates
+# nv values csrc/solver.cu instantiates
+KERNEL_NV = (2, 14, 15, 21, 24, 29, 30, 33, 36)
 # largest row count the Newton kernel takes, per nv: newton2_kernel (a
 # group of lanes an env), newton_tile_kernel<14, 1, 3, 8>, <15, 2, 4, 8>,
-# <21, 2, 4, 8>, <30, 3, 3, 4>, <33, 3, 3, 4> and <36, 3, 3, 4> (a tile of
-# envs a block, one to three warps an env, three or four rows a lane)
-NEWTON_MAX_ROWS = {2: 64, 14: 96, 15: 256, 21: 256, 30: 288, 33: 288,
-                   36: 288}
+# <21, 2, 4, 8>, then <nv, 3, 3, 4> from nv = 24 on (a tile of envs a
+# block, one to three warps an env, three or four rows a lane)
+NEWTON_MAX_ROWS = {2: 64, 14: 96, 15: 256, 21: 256, 24: 288, 29: 288,
+                   30: 288, 33: 288, 36: 288}
 # newton_tile_kernel's instantiations: nv -> (warps an env, rows a lane,
 # envs a tile)
 NEWTON_TILE_SHAPES = {14: (1, 3, 8), 15: (2, 4, 8), 21: (2, 4, 8),
-                      30: (3, 3, 4), 33: (3, 3, 4), 36: (3, 3, 4)}
+                      24: (3, 3, 4), 29: (3, 3, 4), 30: (3, 3, 4),
+                      33: (3, 3, 4), 36: (3, 3, 4)}
 NEWTON_BLOCK = 3   # side of the block of H a lane sums
 NEWTON_NV2_MAX_ROWS = 64  # newton2_kernel, the per-env route
 # newton2_kernel<G, CHOL>: NV2_ROWS_PER_LANE rows a lane, G lanes an env
@@ -46,13 +48,13 @@ NEWTON_NV2_MAX_ROWS = 64  # newton2_kernel, the per-env route
 NV2_ROWS_PER_LANE = 8
 NV2_LANES = (4, 8)
 NV2_THREADS = 128
-# chol_tile_kernel (nv 14, 15, 21, 30, 33, 36): a tile of CHOL_TILE envs a block
+# chol_tile_kernel (CHOL_TILE_NV): a tile of CHOL_TILE envs a block
 # (CHOL_TILE_WIDE where a lane holds two rows, past nv = 32), a half-warp
 # an env where nv <= 16, else a warp; nv = 2 runs chol_solve_kernel, one
 # env per thread
 CHOL_TILE = 16
 CHOL_TILE_WIDE = 8
-CHOL_TILE_NV = (14, 15, 21, 30, 33, 36)
+CHOL_TILE_NV = (14, 15, 21, 24, 29, 30, 33, 36)
 
 
 def solve_pos_plain(M, b):
@@ -242,7 +244,7 @@ def _strides(*ts):
 def solve_pos(M, b):
     """Batch-last SPD solve M x = b: M (nv, nv, B), b (nv, B) -> (nv, B).
     CUDA tensors launch chol_solve_kernel (nv = 2) or chol_tile_kernel
-    (nv = 14, 15, 21, 30, 33, 36); CPU tensors take the plain version."""
+    (CHOL_TILE_NV); CPU tensors take the plain version."""
     nv, B = b.shape
     _check_shapes([("M", M, (nv, nv, B))])
     if not _route_to_kernel(nv, (M, b)):
@@ -264,7 +266,7 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
     (nv, nv, B), a_smooth/a_warm (nv, B), J (ne, nv, B), aref/D/active
     (ne, B), is_eq (ne,) per model row or (ne, B) -> (qacc (nv, B),
     f (ne, B)). CUDA tensors launch newton2_kernel<G, true> (nv = 2) or
-    newton_tile_kernel (nv = 14, 15, 21, 30, 33, 36); CPU tensors take the plain
+    newton_tile_kernel (NEWTON_TILE_SHAPES); CPU tensors take the plain
     version."""
     nv, ne, B = _check_newton_shapes(M, a_smooth, a_warm, J, aref, D,
                                      active, is_eq)

@@ -1,12 +1,14 @@
 """Environment registry (port of gymnasium_robotics_tpu/registry.py ``make``,
 ``make_gym`` and ``remake``, of envs/__init__.py ``_register_point_maze``,
 ``_register_ant_maze`` and ``_register_fetch`` :53-109, of
-envs/hand/hand.py ``register_hand_envs`` :540-586 for HandManipulateBlock,
-and of envs/adroit/adroit.py ``register_adroit_envs`` :479-496).
+envs/hand/hand.py ``register_hand_envs`` :540-586 for HandReach and
+HandManipulateBlock, of envs/adroit/adroit.py ``register_adroit_envs``
+:479-496 and of envs/kitchen/kitchen.py ``register_kitchen_envs``).
 
 The port registers the PointMaze, AntMaze, Fetch (reach, push, slide,
-pick-and-place), HandManipulateBlock and Adroit IDs; any other ID raises
-``KeyError`` naming the slice of the port that brings its family.
+pick-and-place), HandReach, HandManipulateBlock, Adroit and
+FrankaKitchen-v1 IDs; any other ID raises ``KeyError`` naming the slice
+of the port that brings its family.
 """
 
 from __future__ import annotations
@@ -111,11 +113,19 @@ _TOUCH = (("", None), ("_BooleanTouchSensors", "boolean"),
 
 
 def _hand_specs() -> Dict[str, EnvSpec]:
-    """HandManipulateBlock: 4 target modes x 3 touch variants, plus Full,
+    """HandReach, sparse and dense x v0 and v3, 50 steps an episode;
+    HandManipulateBlock: 4 target modes x 3 touch variants, plus Full,
     x sparse and dense x v0 and v1, 100 steps an episode."""
-    from gymnasium_robotics_tpu_torch.envs.hand.hand import HandManipulateBlockEnv
+    from gymnasium_robotics_tpu_torch.envs.hand.hand import (
+        HandManipulateBlockEnv, HandReachEnv)
 
     out = {}
+    for ver in ("v0", "v3"):
+        for suffix, reward_type in _REWARDS:
+            id_ = f"HandReach{suffix}-{ver}"
+            out[id_] = EnvSpec(id=id_, entry_point=HandReachEnv,
+                               kwargs={"reward_type": reward_type},
+                               max_episode_steps=50)
     for mode, (pos, rot) in _BLOCK_MODES.items():
         touch = _TOUCH if mode != "Full" else _TOUCH[:1]
         for tsuffix, touch_obs in touch:
@@ -149,16 +159,24 @@ def _adroit_specs() -> Dict[str, EnvSpec]:
     return out
 
 
+def _kitchen_specs() -> Dict[str, EnvSpec]:
+    """FrankaKitchen-v1, every task, 280 steps an episode."""
+    from gymnasium_robotics_tpu_torch.envs.kitchen.kitchen import KitchenEnv
+
+    return {"FrankaKitchen-v1": EnvSpec(id="FrankaKitchen-v1",
+                                        entry_point=KitchenEnv, kwargs={},
+                                        max_episode_steps=280)}
+
+
 def _specs() -> Dict[str, EnvSpec]:
     return {**_point_maze_specs(), **_ant_maze_specs(), **_fetch_specs(),
-            **_hand_specs(), **_adroit_specs()}
+            **_hand_specs(), **_adroit_specs(), **_kitchen_specs()}
 
 
 _SLICES = (
     ("HandManipulateEgg", "the HandManipulateEgg slice (ellipsoid pairs)"),
     ("HandManipulatePen", "the HandManipulatePen slice (capsule-hull "
                           "pairs on the unpruned table)"),
-    ("HandReach", "the HandReach slice (the solver kernels at nv = 24)"),
 )
 
 
@@ -171,8 +189,8 @@ def spec(id: str) -> EnvSpec:
         )
         raise KeyError(
             f"{id!r} is not in the port: it registers only the PointMaze, "
-            f"AntMaze, Fetch, HandManipulateBlock and Adroit IDs so far; "
-            f"this family comes with {brings}"
+            f"AntMaze, Fetch, HandReach, HandManipulateBlock, Adroit and "
+            f"FrankaKitchen-v1 IDs so far; this family comes with {brings}"
         )
     return specs[id]
 

@@ -5,13 +5,15 @@ The reference seeds one ``numpy.random.Generator`` per env and draws its
 reset randomness in a family-specific order (maze ``generate_target_goal``
 / ``generate_reset_pos`` / ``add_xy_position_noise``, maze_v4.py:276-368;
 fetch ``_reset_sim`` then ``_sample_goal``, fetch_env.py:153-166 and
-:376-402; hand manipulation ``_reset_sim`` then ``_sample_goal``,
-manipulate.py:154-279; Adroit ``reset_model``, adroit_door.py:359-371 and
-its siblings). These families draw nothing during a step, so the step needs
-no sampler here (the kitchen's observation noise, franka_env.py:118-127,
-is the first that will). No on-device generator reproduces those sequences, so parity
-mode draws them on the host with a real NumPy Generator in the reference's
-order and injects the values through the env's ``reset_with_values``.
+:376-402; hand reach ``_sample_goal``, reach.py:99-126; hand manipulation
+``_reset_sim`` then ``_sample_goal``, manipulate.py:154-279; Adroit
+``reset_model``, adroit_door.py:359-371 and its siblings; the kitchen's
+observation noise, franka_env.py:118-127 and kitchen_env.py:376-385). The
+kitchen alone also draws during a step: its observation noise, at every
+step. No on-device generator reproduces those sequences, so parity mode
+draws them on the host with a real NumPy Generator in the reference's
+order and injects the values through the env's ``reset_with_values``
+(and the kitchen's ``step_with_values``).
 The draws are host-side numpy: this module reads the env's tensors as
 numpy arrays and imports nothing of the JAX package.
 """
@@ -32,14 +34,42 @@ def sample_reset_values(env, np_random: np.random.Generator, options=None):
     if name in ("FetchReachEnv", "FetchPushEnv", "FetchSlideEnv",
                 "FetchPickAndPlaceEnv"):
         return _fetch_values(env, np_random)
+    if name == "HandReachEnv":
+        return _hand_reach_values(env, np_random)
     if name == "HandManipulateBlockEnv":
         return _hand_manipulate_values(env, np_random)
     if name.startswith("AdroitHand"):
         return _adroit_values(env, np_random)
+    if name == "KitchenEnv":
+        return _kitchen_noise(env, np_random)
     raise NotImplementedError(
         f"no parity sampler for {name}: the port has the maze, Fetch, "
-        "HandManipulateBlock and Adroit families so far; each other "
-        "family's sampler comes with its slice (ROADMAP queue A)")
+        "HandReach, HandManipulateBlock, Adroit and Kitchen families so "
+        "far; each other family's sampler comes with its slice (ROADMAP "
+        "queue A)")
+
+
+def sample_step_values(env, np_random: np.random.Generator):
+    """The randomness one ``env`` instance draws during a step, from
+    ``np_random`` in the reference's order: the value dict for
+    ``env.step_with_values``, or None for a family that draws nothing
+    there (every ported family but the kitchen)."""
+    if type(env).__name__ == "KitchenEnv":
+        return _kitchen_noise(env, np_random)
+    return None
+
+
+def _kitchen_noise(env, rng: np.random.Generator):
+    """franka_env.py:118-127 then kitchen_env.py:376-385: the robot's
+    position and velocity noise, then the objects' position and velocity
+    noise, as raw U(-1, 1) vectors (the env scales them)."""
+    nq, nv = env.model.meta.nq, env.model.meta.nv
+    return {
+        "robot_pos": rng.uniform(low=-1.0, high=1.0, size=9),
+        "robot_vel": rng.uniform(low=-1.0, high=1.0, size=9),
+        "obj_pos": rng.uniform(low=-1.0, high=1.0, size=nq - 9),
+        "obj_vel": rng.uniform(low=-1.0, high=1.0, size=nv - 9),
+    }
 
 
 def _maze_values(env, rng: np.random.Generator, options=None):
@@ -143,6 +173,28 @@ def _parallel_quats():
     from gymnasium_robotics_tpu_torch.utils import rotations
 
     return [_euler2quat(r) for r in rotations.get_parallel_rotations()]
+
+
+def _hand_reach_values(env, rng: np.random.Generator):
+    """reach.py:99-126: the finger's draw, the meeting point's normal
+    noise, then the 10 % revert to the initial pattern; the palm and the
+    initial pattern as the env holds them."""
+    finger_names = ["robot0:S_fftip", "robot0:S_mftip", "robot0:S_rftip",
+                    "robot0:S_lftip"]
+    finger_idx = finger_names.index(rng.choice(finger_names))
+    thumb_idx = 4
+    palm = np.asarray(env._palm_xpos.cpu().numpy(), np.float64)
+    initial_goal = np.asarray(env._initial_goal.cpu().numpy(), np.float64)
+    meeting = palm + np.array([0.0, -0.09, 0.05])
+    meeting = meeting + rng.normal(scale=0.005, size=3)
+    goal = initial_goal.copy().reshape(-1, 3)
+    for idx in (thumb_idx, finger_idx):
+        direction = meeting - goal[idx]
+        direction /= np.linalg.norm(direction)
+        goal[idx] = meeting - 0.005 * direction
+    if rng.uniform() < 0.1:
+        goal = initial_goal.copy().reshape(-1, 3)
+    return {"goal": goal.reshape(-1)}
 
 
 def _hand_manipulate_values(env, rng: np.random.Generator):

@@ -35,6 +35,10 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
+from _jax_ref import _Ref
+
 from gymnasium_robotics_tpu import registry as jreg
 from gymnasium_robotics_tpu.envs.adroit import adroit as JA
 from gymnasium_robotics_tpu.physics import collision_vec as CV
@@ -323,19 +327,6 @@ def test_new_kinds_match_megakernel(task, kinds):
 # ---------------------------------------------------------------------------
 
 
-class _Ref:
-    """A Pallas ref over an array, for running a kernel body eagerly."""
-
-    def __init__(self, a):
-        self.a = jnp.asarray(a)
-
-    def __getitem__(self, i):
-        return self.a[i]
-
-    def __setitem__(self, i, v):
-        self.a = self.a.at[i].set(v)
-
-
 @pytest.mark.parametrize("task", ["door", "hammer"])
 def test_solves_match_kernel_bodies(task):
     """solve_newton_plain and solve_pos_plain at the model's nv and row
@@ -384,7 +375,7 @@ def test_registry_matches_jax():
     ids = [i for i in registry.ids() if i.startswith("Adroit")]
     jids = [i for i in jreg.ids() if i.startswith("Adroit")]
     assert sorted(ids) == sorted(jids) and len(ids) == 16
-    assert len(registry.ids()) == 164
+    assert len(registry.ids()) == 169
     for id_ in ids:
         s, js = registry.spec(id_), jreg.spec(id_)
         assert s.kwargs == js.kwargs and s.max_episode_steps == js.max_episode_steps == 200

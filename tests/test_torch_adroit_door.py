@@ -17,6 +17,8 @@ that penetrate."""
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 import _adroit_cases as C
 
 TASK = "door"

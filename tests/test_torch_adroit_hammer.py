@@ -16,6 +16,8 @@ capsule-capsule rows (fingers in the hammer's handle) that penetrate."""
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 import _adroit_cases as C
 
 TASK = "hammer"

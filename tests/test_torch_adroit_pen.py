@@ -16,6 +16,8 @@ capsule-cylinder rows (fingers in the pen) that penetrate."""
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 import _adroit_cases as C
 
 TASK = "pen"

@@ -16,6 +16,8 @@ sphere-capsule rows (fingers in the ball) that penetrate."""
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 import _adroit_cases as C
 
 TASK = "relocate"

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu.envs.maze.ant_maze import AntMazeEnv as JAnt
 from gymnasium_robotics_tpu.mjcf import serialize as jser
 from gymnasium_robotics_tpu.physics import pipeline as jpipe

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
 from gymnasium_robotics_tpu.envs.fetch.fetch import FetchPushEnv as JPush
 from gymnasium_robotics_tpu_torch import convert, core, registry

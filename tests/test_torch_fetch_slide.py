@@ -36,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
 from gymnasium_robotics_tpu.envs.fetch.fetch import FetchSlideEnv as JSlide
 from gymnasium_robotics_tpu.physics import collision_vec as CV

@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu.envs.fetch.fetch import FetchPickAndPlaceEnv as JPnP
 from gymnasium_robotics_tpu.envs.fetch.fetch import FetchPushEnv as JPush
 from gymnasium_robotics_tpu.mjcf import serialize as jser

@@ -13,6 +13,8 @@ against the JAX package's.
   trip, pickling, and the route of the per-env solve.
 - AntMaze and FetchPush through the adapter equal the port's BatchedEnv at
   B = 1 from the same state (no JAX FetchPush single env is compiled).
+- metadata: the frame rate of every ported family equal to the JAX
+  make_gym's (the env's own, which both adapters copy), no render mode.
 
 The test marked ``cuda`` steps make_gym on the card past its time limit,
 one newton_nv2 launch a step and no newton launch; it skips where no card
@@ -23,6 +25,8 @@ import pickle
 import numpy as np
 import pytest
 import torch
+
+import _port_cpu  # noqa: F401
 
 from gymnasium_robotics_tpu_torch import convert, core, registry
 from gymnasium_robotics_tpu_torch.physics import solver
@@ -79,6 +83,19 @@ def test_reset_values_match_jax(id_):
             np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     with pytest.raises(NotImplementedError, match="no parity sampler"):
         parity.sample_reset_values(object(), np.random.default_rng(0))
+
+
+@pytest.mark.parametrize("id_", ["PointMaze_UMaze-v3", "AntMaze_UMaze-v5",
+                                 "FetchPush-v4", "HandReach-v3",
+                                 "HandManipulateBlockRotateXYZ-v1",
+                                 "AdroitHandDoor-v1", "FrankaKitchen-v1"])
+def test_metadata_matches_jax(id_):
+    from gymnasium_robotics_tpu import registry as jreg
+
+    je = jreg.make_gym(id_)
+    te = registry.make_gym(id_, device="cpu")
+    assert te.metadata["render_fps"] == je.metadata["render_fps"]
+    assert te.metadata["render_modes"] == []
 
 
 def test_options_truncation_state_and_pickle():

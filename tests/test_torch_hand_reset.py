@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu import core as jcore
 from gymnasium_robotics_tpu.envs.hand.hand import HandManipulateBlockEnv as JBlock
 from gymnasium_robotics_tpu.physics import pipeline as jpipe

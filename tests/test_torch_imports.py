@@ -11,6 +11,8 @@ import sys
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
     p for p in glob.glob(
@@ -57,6 +59,10 @@ def test_building_the_env_imports_no_jax():
         "door = registry.make('AdroitHandDoor-v1', num_envs=2, device='cpu')\n"
         "door.reset(seed=0)\n"
         "assert door.step(torch.zeros(2, 28))[0].shape == (2, 39)\n"
+        "hreach = registry.make_gym('HandReach-v3', parity=True, device='cpu')\n"
+        "hreach.reset(seed=0)\n"
+        "kitchen = registry.make('FrankaKitchen-v1', num_envs=2, device='cpu')\n"
+        "kitchen.reset(seed=0)\n"
         "from gymnasium_robotics_tpu_torch.physics import kinematics, pipeline\n"
         "m = env.env.model.with_options(fk_kernel=True)\n"
         "kinematics.kinematics(m, pipeline.make_data(m, 2))\n"
@@ -87,8 +93,8 @@ def test_make_without_device_needs_a_card():
 def test_unported_id_names_its_slice():
     from gymnasium_robotics_tpu_torch import registry
 
-    with pytest.raises(KeyError, match="HandReach slice"):
-        registry.make("HandReach-v1", num_envs=4, device="cpu")
+    with pytest.raises(KeyError, match="HandManipulateEgg slice"):
+        registry.make("HandManipulateEgg-v1", num_envs=4, device="cpu")
     assert "PointMaze_UMaze-v3" in registry.ids()
     assert registry.spec("PointMaze_UMaze-v3").max_episode_steps == 300
     assert registry.spec("AntMaze_UMaze-v5").max_episode_steps == 700

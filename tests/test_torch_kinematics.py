@@ -34,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu_torch import convert, kernels, registry
 from gymnasium_robotics_tpu_torch.physics import kinematics as KIN
 from gymnasium_robotics_tpu_torch.physics import pipeline as tpipe

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu.mjcf import serialize as jser
 from gymnasium_robotics_tpu.physics import types as JT
 from gymnasium_robotics_tpu_torch.mjcf import serialize as tser

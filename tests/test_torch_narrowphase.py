@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu_torch import kernels
 from gymnasium_robotics_tpu_torch.envs.maze import maps, maze_core
 from gymnasium_robotics_tpu_torch.physics import collision as tcol
@@ -122,15 +124,17 @@ def _ported_topk_shapes():
 
 def test_topk_geometry_covers_ported_shapes():
     """The 60 AntMaze IDs (four maze sizes), the 16 Fetch IDs, the 52
-    HandManipulateBlock IDs and the 16 Adroit IDs call topk_select at
-    nineteen shapes; at each, and at B from 1 up, the kernel's grid covers
-    every env and its shared memory fits a block."""
+    HandManipulateBlock and 4 HandReach IDs, the 16 Adroit IDs and
+    FrankaKitchen-v1 call topk_select at twenty-one shapes; at each, and at
+    B from 1 up, the kernel's grid covers every env and its shared memory
+    fits a block."""
     shapes = _ported_topk_shapes()
     assert shapes == {(2, 216, 8), (2, 240, 8), (2, 456, 8), (2, 744, 8),
                       (1, 57, 16), (3, 85, 8), (2, 169, 24), (2, 160, 16),
                       (4, 85, 8), (2, 177, 24), (2, 156, 24),
                       (6, 64, 16), (2, 300, 16), (5, 45, 16), (2, 247, 16),
-                      (2, 33, 24), (2, 170, 16), (2, 33, 16), (2, 146, 16)}
+                      (2, 33, 24), (2, 170, 16), (2, 33, 16), (2, 146, 16),
+                      (20, 1126, 8), (3, 272, 8)}
     for G, maxk, K in shapes:
         for B in (1, 31, 32, 2047, 2048, 8192):
             geo = tnp.topk_geometry(G, maxk, B, K)
@@ -495,7 +499,8 @@ def test_narrowphase_plain_matches_megakernel_fetch():
 _ITEM_ROWS = {0: [[0]], 1: [[0, 1]], 2: [[0]], 3: [[0], [1], [2]],
               4: [[0, 1, 2, 3]], 5: [[0, 1, 2, 3], [4, 5, 6, 7], [8]],
               6: [[0, 1, 2, 3]], 7: [[0, 1]], 8: [[0], [1], [2]],
-              9: [[0], [1]], 10: [[0]], 11: [[0]], 12: [[0]], 13: [[0]]}
+              9: [[0], [1]], 10: [[0]], 11: [[0]], 12: [[0]], 13: [[0]],
+              14: [[0], [1]]}
 
 
 def _rows_written(table):
@@ -519,7 +524,8 @@ def _rows_written(table):
                                  "FetchPush-v4", "FetchPickAndPlace-v4",
                                  "FetchReach-v4", "FetchSlide-v4",
                                  "AdroitHandDoor-v1", "AdroitHandHammer-v1",
-                                 "AdroitHandPen-v1", "AdroitHandRelocate-v1"])
+                                 "AdroitHandPen-v1", "AdroitHandRelocate-v1",
+                                 "FrankaKitchen-v1"])
 def test_group_table_tasks_write_each_row_once(id_):
     """The kernel's task table writes every compact row of its groups
     exactly once (for the whole table and cut to each kind), each
@@ -533,7 +539,7 @@ def test_group_table_tasks_write_each_row_once(id_):
     m = registry.make(id_, num_envs=1, device="cpu").env.model
     tp = m.plan("pruned", tcol._PrunedPlan)
     table = tp.table
-    assert table.boxes == id_.startswith(("Fetch", "Adroit"))   # the instantiation
+    assert table.boxes == id_.startswith(("Fetch", "Adroit", "Franka"))   # the instantiation
     if id_.startswith("Adroit"):    # no group runs outside the kernel
         assert not tp.runs and sorted(table.rows.tolist()) == list(range(table.ncon))
     geo = tnp.narrowphase_geometry(table, 2047)
@@ -671,6 +677,48 @@ def test_narrowphase_edges_on_card(cuda_device):
                 for g, w in zip(got, whole):
                     assert torch.equal(g[tab.rows].view(torch.int32),
                                        w[tab.rows].view(torch.int32)), i
+
+
+@pytest.mark.cuda
+def test_capsule_hull_on_card(cuda_device):
+    """The kitchen at B = 512 with the arm turned into the scene: its two
+    topk_select shapes, indices equal to the plain version's; capsule-hull
+    (kind 14) alone within 2e-4 of its plain version and bitwise the whole
+    table's rows, some of them penetrating."""
+    from gymnasium_robotics_tpu_torch import registry
+    from gymnasium_robotics_tpu_torch.physics import pipeline
+
+    B = 512
+    env = registry.make("FrankaKitchen-v1", device=cuda_device)
+    m = env.model
+    rs = np.random.RandomState(15)
+    q = np.tile(env._init_qpos.cpu().numpy(), (B, 1))
+    q[:, :7] += rs.uniform(-1.2, 1.2, (B, 7))
+    d = pipeline.make_data(m, B)
+    d.qpos[:] = torch.tensor(q.T, dtype=torch.float32, device=cuda_device)
+    d = pipeline.forward(m, d)
+    tp = m.plan("pruned", tcol._PrunedPlan)
+    rp = m.plan("rows", tcst._RowPlan)
+    pen = d.contact.dist - m.con_includemargin[:, 0][d.contact.src]
+    for rank, mask, K in ((tcol.broadphase_rank(m, d, tp), tp.mask, tp.K),
+                          (pen[rp.cap_rows], rp.cap_mask, rp.cap)):
+        assert torch.equal(tnp.topk_select(rank, mask, K),
+                           tnp.topk_select_plain(rank, mask, K)), rank.shape
+    sel = tnp.topk_select(tcol.broadphase_rank(m, d, tp), tp.mask, tp.K)
+    args = (d.geom_xpos, d.geom_xmat, m.geom_size, sel, m.hull_vert, m.hull_face)
+    whole = tnp.narrowphase(tp.table, *args)
+    sub = tp.table.only([14])
+    n0 = tnp.LAUNCHES["narrowphase"]
+    got = tnp.narrowphase(sub, *args)
+    torch.cuda.synchronize()
+    assert tnp.LAUNCHES["narrowphase"] == n0 + 1
+    rows = sub.rows.cpu().numpy()
+    assert_table_close([g.cpu().numpy() for g in got],
+                       [r.cpu().numpy() for r in tnp.narrowphase_plain(sub, *args)],
+                       rows, TOL32)
+    for g, w in zip(got, whole):
+        assert torch.equal(g[sub.rows].view(torch.int32), w[sub.rows].view(torch.int32))
+    assert bool((got[0][sub.rows] < 0).any())
 
 
 @pytest.mark.cuda

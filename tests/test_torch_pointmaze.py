@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
 from gymnasium_robotics_tpu.envs.maze.point_maze import PointMazeEnv as JPointMaze
 from gymnasium_robotics_tpu_torch import convert, registry

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu_torch import kernels, registry
 from gymnasium_robotics_tpu_torch.physics import constraint, solver
 
@@ -366,9 +368,10 @@ def test_wrappers_route_and_check():
 def test_newton_geometry_covers_row_caps():
     """newton_tile_kernel's launch geometry for every ported system with a
     tile Newton (the AntMaze IDs at nv = 14, FetchReach at nv = 15, the
-    other Fetch IDs at nv = 21, AdroitHandDoor and Pen at nv = 30, Hammer
-    at nv = 33, the HandManipulateBlock IDs and AdroitHandRelocate at
-    nv = 36) and at the row caps, at B from 1
+    other Fetch IDs at nv = 21, HandReach at nv = 24, FrankaKitchen-v1 at
+    nv = 29, AdroitHandDoor and Pen at nv = 30, Hammer at nv = 33, the
+    HandManipulateBlock IDs and AdroitHandRelocate at nv = 36) and at the
+    row caps, at B from 1
     up: the grid covers every env, a block's shared memory fits, the lanes
     hold the row cap; other nv and more rows raise."""
     systems = set()
@@ -376,8 +379,8 @@ def test_newton_geometry_covers_row_caps():
         m = registry.make(id_, num_envs=1, device="cpu").env.model
         if m.nv in solver.NEWTON_TILE_SHAPES:
             systems.add((m.nv, m.plan("rows", constraint._RowPlan).is_eq.numel()))
-    assert systems == {(14, 72), (15, 255), (21, 255), (30, 278), (30, 272),
-                       (33, 275), (36, 272), (36, 278)}
+    assert systems == {(14, 72), (15, 255), (21, 255), (24, 272), (29, 188),
+                       (30, 278), (30, 272), (33, 275), (36, 272), (36, 278)}
     for nv in solver.NEWTON_TILE_SHAPES:
         cap = solver.NEWTON_MAX_ROWS[nv]
         for ne in sorted({1, 45, cap} | {n for v, n in systems if v == nv}):
@@ -389,12 +392,12 @@ def test_newton_geometry_covers_row_caps():
                 assert 32 * geo["warps_per_env"] * geo["rows_per_lane"] == cap
         with pytest.raises(NotImplementedError, match="rows"):
             solver.newton_geometry(nv, cap + 1, 1)
-    with pytest.raises(NotImplementedError, match="nv=24"):
-        solver.newton_geometry(24, 10, 1)
+    with pytest.raises(NotImplementedError, match="nv=23"):
+        solver.newton_geometry(23, 10, 1)
 
 
 def test_chol_geometry_matches_source():
-    """chol_tile_kernel's launch geometry (nv 14, 15, 21, 30, 33 and 36) against the
+    """chol_tile_kernel's launch geometry (nv 14, 15, 21, 24, 29, 30, 33 and 36) against the
     constants of csrc/solver.cu (the tiles, the lanes an env, the triangle
     and right-hand side a block stages) at B from 1 up: the grid covers
     every env, the shared memory fits a static launch, up to nv = 36;
@@ -420,7 +423,7 @@ def test_chol_geometry_matches_source():
             assert geo["rows_per_lane"] * lanes >= nv
             assert geo["smem"] == tile * (nv * (nv + 1) // 2 + nv) * 4 <= 48 * 1024
     assert tile16 * (36 * 37 // 2 + 36) * 4 <= 48 * 1024   # nv = 36, the design's top
-    for nv in (2, 24):
+    for nv in (2, 23):
         with pytest.raises(NotImplementedError, match=f"nv={nv}"):
             solver.chol_geometry(nv, 1)
 
@@ -694,12 +697,13 @@ def test_kernels_match_plain_on_card_nv15(cuda_device):
 @pytest.mark.cuda
 def test_newton_edges_on_card(cuda_device):
     """newton_tile_kernel at the edges of its shapes against its plain
-    version (nv = 14: within 2e-4 of it in float32; nv = 15, 21 and 36,
-    whose random systems float32 itself moves: within max(2e-4, 2x the
-    float32 plain version's error) of the plain version run in float64):
-    the row caps 96, 256, 256 and 288, an ne that is not a multiple of 32, B = 1, a
-    B that is not a multiple of the env tile (and at nv = 36 the hand's 272
-    rows at B = 1023), n_iter = 0, every row inactive and J in a
+    version (nv = 14: within 2e-4 of it in float32; nv = 15, 21, 24, 29
+    and 36, whose random systems float32 itself moves: within max(2e-4, 2x
+    the float32 plain version's error) of the plain version run in
+    float64): the row caps 96, 256, 256 and 288, an ne that is not a
+    multiple of 32, B = 1, a B that is not a multiple of the env tile (and
+    at nv = 36 and 24 the hands' 272 rows at B = 1023, at nv = 29 the
+    kitchen's 188 at B = 511, 8 iterations), n_iter = 0, every row inactive and J in a
     batch-leading layout (the strided staging). The wrapper's shared
     memory is the source's."""
     rs = np.random.RandomState(9)
@@ -709,9 +713,10 @@ def test_newton_edges_on_card(cuda_device):
         return torch.tensor(x, dtype=torch.bool if x.dtype == bool
                             else torch.float32, device=cuda_device)
 
-    for nv, n_iter in ((14, 5), (15, 4), (21, 4), (36, 5)):
+    for nv, n_iter in ((14, 5), (15, 4), (21, 4), (24, 5), (29, 8), (36, 5)):
         cap = solver.NEWTON_MAX_ROWS[nv]
-        hand = [(272, 1023, n_iter, "")] if nv == 36 else []
+        hand = {36: [(272, 1023, n_iter, "")], 24: [(272, 1023, n_iter, "")],
+                29: [(188, 511, n_iter, "")]}.get(nv, [])
         for ne, B, it, case in [(cap, 2048, n_iter, ""), (45, 13, n_iter, ""),
                                 (cap - 1, 1, n_iter, ""), (72, 2047, n_iter, ""),
                                 (72, 64, 0, ""), (72, 64, n_iter, "inactive"),
@@ -744,7 +749,7 @@ def test_newton_edges_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_chol_edges_on_card(cuda_device):
-    """chol_tile_kernel at nv 14, 15, 21 and 36 against its plain version: B = 1 and
+    """chol_tile_kernel at nv 14, 15, 21, 24, 29 and 36 against its plain version: B = 1 and
     B = 2047, M as a transposed and as a sliced view, b transposed, envs
     whose factor takes the 1e-20 floor exactly (equal to the plain
     version), an env with a NaN entry (NaN in both); and the same solves
@@ -752,7 +757,7 @@ def test_chol_edges_on_card(cuda_device):
     than twice the float32 plain version). The wrapper's shared memory is
     the source's."""
     rs = np.random.RandomState(12)
-    for nv in (14, 15, 21, 36):
+    for nv in (14, 15, 21, 24, 29, 36):
         def spd(B):
             A = rs.normal(size=(nv, nv, B))
             return torch.tensor(np.einsum("ikb,jkb->ijb", A, A)

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import _port_cpu  # noqa: F401
+
 from gymnasium_robotics_tpu.envs.maze.point_maze import PointMazeEnv
 from gymnasium_robotics_tpu.mjcf import serialize as jser
 from gymnasium_robotics_tpu.physics import pipeline as jpipe

@@ -9,7 +9,9 @@ at B = 2048 (AntMaze_UMaze-v5: the pressed state chip_smoke.py times it on;
 FetchPush-v4 and FetchSlide-v4: the state after two env steps of
 registry.make, then FetchSlide's pressed pucks, chip_smoke.slide_poses) and
 at B = 1024 for the four Adroit tasks (the state after two env steps, then
-the pressed hands of chip_smoke.adroit_pressed), and times
+the pressed hands of chip_smoke.adroit_pressed) and at B = 512 for
+FrankaKitchen-v1 (the state after two env steps, then the pressed arms of
+chip_smoke.kitchen_pressed), and times
 the kernel on its whole group table and on each kind's pairs alone (the
 table cut to that kind's columns, GroupTable.only), with CUDA events over a
 CUDA graph of 50 launches as chip_smoke.py times kernels. Prints one JSON
@@ -25,10 +27,10 @@ none) on the
 same inputs (FetchSlide only where the parent has its kinds),
 and prints
 - whether the compact tables (on the main-path arrays and on the pressed
-  states; on the Adroit tables the rows of the kinds the parent has, the
-  table cut to them, GroupTable.only) and the Cholesky solutions (nv = 14
-  and 21 on the main paths' qM and the Euler's damped system) are bitwise
-  equal;
+  states; on the Adroit and kitchen tables the rows of the kinds the
+  parent has, the table cut to them, GroupTable.only) and the Cholesky
+  solutions (nv = 14 and 21 on the main paths' qM and the Euler's damped
+  system) are bitwise equal;
 - whether the FK kernel's eleven outputs are bitwise equal on FetchPush's
   main-path poses (the state after two env steps) and on random poses, at
   B = 2048;
@@ -63,9 +65,11 @@ B = 2048
 KIND_NAMES = ("plane-sphere", "plane-capsule", "sphere-box", "capsule-box",
               "plane-box", "box-box", "plane-hull", "plane-cylinder",
               "cylinder-box", "cylinder-hull", "capsule-capsule",
-              "capsule-cylinder", "cylinder-cylinder", "sphere-capsule")
+              "capsule-cylinder", "cylinder-cylinder", "sphere-capsule",
+              "capsule-hull")
 ADROIT = {"AdroitHandDoor-v1": 14, "AdroitHandHammer-v1": 11,
           "AdroitHandPen-v1": 11, "AdroitHandRelocate-v1": 11}   # pressed seeds
+KITCHEN_SEED = 15   # the kitchen's pressed arms (chip_smoke.kitchen_pressed)
 
 
 def build_parent(parent, names):
@@ -331,6 +335,15 @@ def main():
         paths[id_] = (m, [pipeline.forward(m, env.state.data),
                           CS.adroit_pressed(torch, pipeline, env.env,
                                             CS.ADROIT_B, seed)[1]], None)
+    kitchen = registry.make(CS.KITCHEN_ID, num_envs=CS.KITCHEN_B)
+    kitchen.reset(seed=0)
+    for _ in range(2):
+        kitchen.step(torch.rand((CS.KITCHEN_B, 9), generator=gen, device=dev) * 2 - 1)
+    m_k = kitchen.env.model
+    paths[CS.KITCHEN_ID] = (m_k, [pipeline.forward(m_k, kitchen.state.data),
+                                  CS.kitchen_pressed(torch, pipeline, kitchen.env,
+                                                     CS.KITCHEN_B, KITCHEN_SEED)],
+                            m_k.hull_vert)
     for path, (m, ds, hv) in paths.items():
         hf = None if hv is None else m.hull_face
         tp = m.plan("pruned", collision._PrunedPlan)
@@ -354,8 +367,8 @@ def main():
                 torch, lambda: narrowphase.narrowphase(sub, *ops, out=out))
         if plib and (plib["faces"] or path != "FetchSlide-v4"):
             lib, faces = plib["narrowphase"], plib["faces"]
-            adroit = path in ADROIT
-            if adroit:   # the kinds the parent has; no Cholesky (nv 30, 33)
+            adroit = path in ADROIT or path == CS.KITCHEN_ID
+            if adroit:   # the kinds the parent has; no Cholesky (nv 29-33)
                 table = table.only([k for k in kinds if k < len(plib["kinds"])])
                 line["parent_kinds"] = sorted({g.kind for g in table.groups})
             eq = []
