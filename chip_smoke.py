@@ -4,7 +4,10 @@ card and check it: the quickest proof that the port starts on the GPU.
 
     python3 chip_smoke.py
 
-Phases (any failure ends the run with a non-zero exit; nothing is caught):
+Phases (any failure ends the run with a non-zero exit; nothing is caught).
+The CPU plain path's steps of the references of phases 13, 24, 28, 31,
+36, 39, 41, 45 and 50 run in REF_WORKERS spawned processes while the
+card's phases go on; their checks run at the end, in phase 53:
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every kernel from csrc/ (one nvcc per source, in
      parallel) and prints the build seconds and ptxas' register report;
@@ -85,8 +88,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      beside those counted, and the poses the site's last FK wrote held
      within 2e-4 of the plain version; then 50 launches traced back to
      back;
-  16. reference and kernel: for two states (the main path's, then that
-     state one env step on) and two action seeds, one physics step with
+  16. reference and kernel: for the main path's state and one action seed
+     (cut from two states and seeds to keep the run's time), one physics
+     step with
      the FK kernel, the default (pointer-jumping) FK and the level pass,
      held on 64 envs to the default path run in float64 on the CPU: the FK
      kernel path's median env within 2e-4 and its largest env error no
@@ -107,7 +111,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      newton_nv2 launch and no newton launch; prints ms/step;
   18. reference: the card's single env against the CPU's (device="cpu")
      over 30 steps from the same parity reset, pushed into a wall;
-  19. AntMaze_UMaze-v5 and FetchPush-v4 through make_gym, 3 steps each, with
+  19. AntMaze_UMaze-v5 and FetchPush-v4 through make_gym, 1 step each
+     (GYM_STEPS_SHORT, cut from 3 to keep the run's time), with
      their kernels' launches counted (Newton at nv = 14 and 21: the per-env
      path keeps the fused Newton there);
   20. kernel: newton2_kernel's determinant route (solve_newton_nv2)
@@ -149,9 +154,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      or no further than twice the float32 plain version's median env);
      with the times as in phase 10;
   26. the single env: make_gym("HandManipulateBlock_ContinuousTouchSensors-
-     v1", parity=True) on the card, a seeded parity reset (its settle), 3
-     steps; launches per step as in phase 22 and 92 touch readings in the
-     observation;
+     v1", parity=True) on the card, a seeded parity reset (its settle), 1
+     step (GYM_STEPS_SHORT); launches per step as in phase 22 and 92 touch
+     readings in the observation;
   FetchSlide-v4 (B4's plane-cylinder, cylinder-box and cylinder-hull
   kinds, topk_select at (4, 85) -> 8 and (2, 177) -> 24) and FetchReach-v4
   (chol and Newton at nv = 15, topk_select at (3, 85) -> 8 and
@@ -182,7 +187,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      versions in float64 as at nv = 21, timed, with solve_ex beside the
      Cholesky;
   33. make_gym("FetchSlide-v4") and make_gym("FetchReach-v4"): a parity
-     reset and 3 steps each, launches per step as in phase 27;
+     reset and 1 step each (GYM_STEPS_SHORT), launches per step as in
+     phase 27;
   The Adroit family (B4's capsule-capsule, capsule-cylinder,
   cylinder-cylinder and sphere-capsule kinds, the whole pruned table inside
   the kernel; chol and Newton at nv = 30 (Door, Pen), 33 (Hammer) and 36
@@ -231,14 +237,16 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
   42. kernels: the Cholesky and the Newton solve at nv = 24 on random
      systems, the main path's and pressed hands (every joint drawn from
      its range widened past both limits), held as at nv = 30 (phase 37);
-  43. make_gym("HandReach-v3"), parity reset and 3 steps, launches per step
+  43. make_gym("HandReach-v3"), parity reset and 1 step (GYM_STEPS_SHORT),
+     launches per step
      as in phase 40;
   FrankaKitchen-v1 (B4's capsule-hull kind and the kitchen's whole pruned
   table, topk_select at its two shapes, chol and Newton at nv = 29 with 188
   rows and 8 Newton iterations):
   44. main path: registry.make("FrankaKitchen-v1", num_envs=512,
-     max_episode_steps=2), reset, 3 steps with random actions, so every env
-     auto-resets (the limit of 280 cut to 2, printed); per step 80 chol, 40
+     max_episode_steps=1), reset, 2 steps with random actions, so every env
+     auto-resets (the limit of 280 cut to 1, printed; cut from 3 steps to
+     keep the run's time); per step 80 chol, 40
      Newton, 80 topk_select (40 of each shape) and 40 narrowphase launches;
      prints ms/step and env-steps/s, then a trace as in phase 12 (4 of its
      40 substeps);
@@ -262,7 +270,37 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      card: a seeded parity reset and a step; launches per step as in phase
      44; the step within 2e-4 of step_with_values given the next draws of
      the reset's np_random sequence (the adapter's step-time hook);
-  21. (run after phases 22-47) edge checks of the redesigned kernels
+  The locomotion family (B1 and B2 at nv = 3, 4, 5, 6, 9, 11 and 23, B1
+  at nv = 14 past 96 rows; the unpruned tables, sphere-sphere and the
+  fluid model in plain PyTorch):
+  48. main path: registry.make("HalfCheetah-v5", num_envs=8192,
+     max_episode_steps=4), reset, 6 steps with random actions, so every
+     env auto-resets; per step 10 chol (the smooth solve and the Euler's
+     damped velocity solve, 5 substeps) and 5 Newton launches, no
+     narrowphase or topk_select; prints ms/step and env-steps/s, then a
+     whole-step trace as in phase 4;
+  49. the other ten v5 models x 8192 (Ant, Hopper, Walker2d, Swimmer,
+     Humanoid, HumanoidStandup, InvertedPendulum, InvertedDoublePendulum,
+     Reacher, Pusher; RK4 models 4 forwards a substep) and the 17 legacy
+     v2/v3 IDs x 1024: 3 and 2 steps, the limit cut to 2 and 1 (every env
+     resets), launches per step as the model's integrator and damping
+     give them, each model's rows and newton_tile_kernel shape printed
+     (Ant's 108 rows through <14, 1, 4, 8>);
+  50. reference: 8 envs of each v5 model's state stepped once on the
+     card, on the CPU plain path and on it in float64: where the CPU
+     float32 path is within 2e-4 of float64 in every env, the card within
+     2e-4 of the CPU float32 path in every env, else held to float64 by
+     the median env (check_reference);
+  51. kernels: B1 and B2 at each new nv (InvertedDoublePendulum 3,
+     Reacher 4, Swimmer 5, Hopper 6, HalfCheetah 9, Pusher 11, Humanoid
+     23; B1 alone on Ant's 108 rows, `newton_nv14_r128`) on random
+     systems, the main path's state and pressed states (limbs past their
+     ranges, roots lowered into the floor), held as at nv = 30 (phase
+     37), timed, with solve_ex beside the Cholesky;
+  52. make_gym on Hopper-v5 (the per-env path's fused Newton at nv = 6),
+     InvertedPendulum-v5 (the closed-form nv = 2 route, B6) and
+     HalfCheetah-v3: 3 steps each, launches per step counted;
+  21. (run after phases 22-52) edge checks of the redesigned kernels
      (topk_select_kernel,
      newton_tile_kernel, chol_tile_kernel, narrowphase_kernel,
      newton2_kernel, fk_kernel) against
@@ -271,12 +309,14 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      hand's (2, 160) -> 16 at B = 1 and 1023 and with a NaN lane, with K
      larger than the unmasked count, with an all-masked group and a NaN
      lane; the Newton solve at nv = 14, 15, 21, 30, 33 and 36 at the row
-     caps (96, 256, 256, 288, 288, 288), at an ne that is not a multiple of
-     32, at B = 1 and B = 2047 (and the hand's 272 rows, Door's 278 and
-     Hammer's 275 at B = 1023), with n_iter = 0, with every row inactive
-     and with a strided J (nv = 24 and 29 at those edges, with HandReach's
-     272 and the kitchen's 188 rows: tests/test_torch_solver.py's cuda
-     tests); the Cholesky at nv = 14, 15, 21, 30, 33 and 36 at
+     caps of every instantiation (96 and 128 at nv = 14: AntMaze's shape
+     and Ant's; 256, 256, 288, 288, 288) and one row under each at B = 1,
+     at an ne that is not a multiple of 32, at 72 rows and B = 2047
+     (and the hand's 272 rows, Door's 278 and Hammer's 275 at B = 1023),
+     with n_iter = 0, with every row inactive and with a strided J (nv =
+     24 and 29 at those edges, with HandReach's 272 and the kitchen's 188
+     rows, and the locomotion nv at theirs: tests/test_torch_solver.py's
+     cuda tests); the Cholesky at nv = 14, 15, 21, 30, 33 and 36 at
      B = 1, 1023 and 2047, with M transposed
      and sliced, envs on the 1e-20 floor and a NaN env; the narrowphase on
      the pressed AntMaze, FetchPush, FetchSlide and AdroitHandDoor states at
@@ -288,6 +328,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      float64, timed and bounded; and the FK kernel on the random poses of
      phase 16 at the edges of its launch (B = 1, 33 and 2047, qpos
      batch-leading);
+  53. the reference checks of phases 13, 24, 28, 31, 36, 39, 41, 45 and
+     50, in that order, each printing its errors, and the seconds the run
+     waited on the CPU paths;
   then a JSON line of the kernels (the redesigned kernels' rows, fk and
   the nv = 2 rows included, also carry ptxas' registers and spill bytes,
   the blocks per SM cudaOccupancyMaxActiveBlocksPerMultiprocessor gives,
@@ -323,7 +366,7 @@ FK_PER_STEP = 22      # 20 substeps' forwards, the gripper refresh, the reset
 FK_STEP_SHARE = 0.9   # envs within TOL after one env step, FK kernel vs not
 FK_LEVEL_SLACK = 2    # FK kernel path's largest error vs float64 <= 2x level's
 FK_REF_ENVS = 64      # envs stepped in float64 on the CPU as the reference
-FK_SEEDS = (1, 2)     # the env-step action's seed
+FK_SEEDS = (1,)       # the env-step action's seed (one, to keep the run's time)
 FK_BURST = 50         # fk_kernel launches traced back to back
 GYM_STEPS = 310       # past PointMaze's 300-step limit
 HAND_ID = "HandManipulateBlockRotateXYZ-v1"
@@ -378,13 +421,41 @@ REACH_LIMIT = 3       # max_episode_steps cut from 50: every env resets
 REACH_REF_ENVS = 32
 KITCHEN_ID = "FrankaKitchen-v1"
 KITCHEN_B = 512       # bench.py's rung of FrankaKitchen-v1
-KITCHEN_STEPS = 3
-KITCHEN_LIMIT = 2     # max_episode_steps cut from 280: every env resets
+KITCHEN_STEPS = 2     # cut from 3 to keep the run's time
+KITCHEN_LIMIT = 1     # max_episode_steps cut from 280: every env resets
 KITCHEN_REF_ENVS = 8
 KITCHEN_NEW_KINDS = (14,)   # capsule-hull
 KETTLE_Z = 25               # the kettle's free joint: its height in qpos
+LOCO_ID = "HalfCheetah-v5"   # bench.py's rung of the locomotion family
+LOCO_B = 8192
+LOCO_STEPS = 6
+LOCO_LIMIT = 4        # max_episode_steps cut from 1000: every env resets
+LOCO_OTHER_STEPS = 3  # the other v5 models, each with the limit cut to 2
+LOCO_OTHERS = ("Ant-v5", "Hopper-v5", "Walker2d-v5", "Swimmer-v5",
+               "Humanoid-v5", "HumanoidStandup-v5", "InvertedPendulum-v5",
+               "InvertedDoublePendulum-v5", "Reacher-v5", "Pusher-v5")
+LEGACY_IDS = ("Reacher-v2", "Pusher-v2", "InvertedPendulum-v2",
+              "InvertedDoublePendulum-v2", "HalfCheetah-v2", "HalfCheetah-v3",
+              "Hopper-v2", "Hopper-v3", "Swimmer-v2", "Swimmer-v3",
+              "Walker2d-v2", "Walker2d-v3", "Ant-v2", "Ant-v3", "Humanoid-v2",
+              "Humanoid-v3", "HumanoidStandup-v2")
+LEGACY_B = 1024
+LEGACY_STEPS = 2      # the limit cut to 1: every env resets
+LOCO_REF_ENVS = 8
+# the new B1/B2 instantiations, each on one model's rows: (id, the Newton
+# row's name (None: newton_nv<nv>), whether B2 at its nv is new too)
+LOCO_KERNELS = (("InvertedDoublePendulum-v5", None, True),
+                ("Reacher-v5", None, True), ("Swimmer-v5", None, True),
+                ("Hopper-v5", None, True), ("HalfCheetah-v5", None, True),
+                ("Pusher-v5", None, True), ("Ant-v5", "newton_nv14_r128", False),
+                ("Humanoid-v5", None, True))
+LOCO_GYM_IDS = ("Hopper-v5", "InvertedPendulum-v5", "HalfCheetah-v3")
 BIG = 1e9             # contact distances above this: slots far from touching
 TRACE_SUBSTEPS = 4    # substeps of a traced step (trace's window)
+GYM_STEPS_SHORT = 1   # steps of the single envs of 20 substeps a step (the
+                      # hand, HandReach, the Fetch tasks; cut from 3)
+REF_WORKERS = 4       # processes stepping the CPU references of phases 13,
+                      # 24, 28, 31, 36, 39, 41, 45 and 50 beside the card
 GEOMS = ("plane", "hfield", "sphere", "capsule", "ellipsoid", "cylinder",
          "box", "hull")
 
@@ -617,6 +688,17 @@ def per_step(n, chol=0, newton=0, newton_nv2=0, topk=0, narrowphase=0, fk=0):
             "narrowphase": narrowphase * n, "fk": fk * n}
 
 
+def set_substeps(env, attr, n):
+    """Cut ``env``'s substeps a step (its ``attr``, ``n_substeps`` or
+    ``frame_skip``) to n, and its control step ``dt`` (where it has one)
+    with them: a whole env step of n substeps."""
+    full = getattr(env, attr)
+    setattr(env, attr, n)
+    if getattr(env, "dt", None) is not None:
+        env.dt = env.dt * n / full
+    return full
+
+
 def trace(torch, run, n, card, label, cpu=True, counts=None, window=None):
     """n steps of ``run`` timed on the host clock, then n traced with
     torch.profiler (host operators too unless cpu=False, which keeps a
@@ -634,10 +716,8 @@ def trace(torch, run, n, card, label, cpu=True, counts=None, window=None):
 
     if window is not None:
         env, attr = window
-        full, dt = getattr(env, attr), getattr(env, "dt", None)
-        setattr(env, attr, TRACE_SUBSTEPS)
-        if dt is not None:
-            env.dt = dt * TRACE_SUBSTEPS / full
+        dt = getattr(env, "dt", None)
+        full = set_substeps(env, attr, TRACE_SUBSTEPS)
         try:
             return trace(torch, run, n, card,
                          f"{label} ({TRACE_SUBSTEPS}-substep step, of {full})",
@@ -1239,12 +1319,12 @@ def fetchpush(torch, dev, card, solver, constraint, narrowphase, collision,
         ((3, 85, 8), (2, 169, 24)), 25, traced=True)
 
     # --- 13. the card against the CPU plain path from one state
-    t_phase = time.perf_counter()
-    err = fetch_reference(torch, dev, convert, registry, "FetchPush-v4")[0]
-    assert err <= TOL, f"card vs CPU path after 1 step: relerr {err:.3e}"
-    print(f"fetch reference: card vs CPU plain path, {FETCH_REF_ENVS} envs, "
-          f"relerr {err:.3e} after 1 step ({time.perf_counter() - t_phase:.1f} s)",
-          flush=True)
+    def check(ref):
+        assert ref[0] <= TOL, f"card vs CPU path after 1 step: relerr {ref[0]:.3e}"
+        print(f"fetch reference: card vs CPU plain path, {FETCH_REF_ENVS} envs, "
+              f"relerr {ref[0]:.3e} after 1 step", flush=True)
+
+    fetch_reference(torch, dev, convert, registry, "FetchPush-v4", check)
 
     # --- 14. kernels against their plain versions, B = 2048
     t_phase = time.perf_counter()
@@ -1452,16 +1532,97 @@ def cast_state(state, dtype):
         info=cast(state.info), goal=cast(state.goal), aux=cast(state.aux))
 
 
+class CpuRefs:
+    """The CPU references' env steps, run in REF_WORKERS spawned processes
+    (one torch thread each) while the card's phases go on, and the checks
+    that read them, run at the end (phase 53, ``run``) in the order they
+    were made."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            REF_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=one_thread)
+        self.checks = []
+
+    def step(self, id_, dtype, fields, a, values=None):
+        """A future of cpu_step's arrays."""
+        return self.pool.submit(cpu_step, id_, dtype, fields, a, values)
+
+    def defer(self, check):
+        self.checks.append(check)
+
+    def run(self):
+        t0 = time.perf_counter()
+        for check in self.checks:
+            check()
+        print(f"reference checks: {len(self.checks)}, "
+              f"{time.perf_counter() - t0:.1f} s waiting on the CPU paths",
+              flush=True)
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+CPU_REFS = []   # the run's CpuRefs, made in main
+
+
+def one_thread():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def step_fields(torch, convert, e, fields, a, values=None):
+    """One step of the batched env ``e`` from ``fields`` (env_state_to_numpy's
+    arrays of its envs, float64) with the actions ``a`` (numpy); with
+    ``values`` (the kitchen's observation noise, host-drawn: each device's
+    generator would draw other noise) through step_with_values. Returns the
+    observation's arrays (keyed "obs" or by the observation's keys) and the
+    sensordata, (n, .) float64 numpy, and the task mask (None without
+    ``values``)."""
+    where, dtype = e.env.device, e.env.dtype
+    e.state = cast_state(convert.env_state_from_numpy(fields, where), dtype)
+    e.generator = torch.Generator(device=where).manual_seed(3)
+    a_t = torch.as_tensor(a, dtype=dtype, device=where)
+    mask = None
+    if values is None:
+        o = e.step(a_t)[0]
+    else:
+        e.state = e.env.step_with_values(e.state, a_t, values)
+        o = {"observation": e.state.obs["observation"]}
+        mask = e.state.info["tasks_to_complete"].cpu().numpy()
+    out = {k: v.double().cpu().numpy() for k, v in (
+        o.items() if isinstance(o, dict) else (("obs", o),))}
+    sd = e.state.data.sensordata.double().cpu().T
+    if sd.numel():
+        out["sensordata"] = sd.numpy()
+    return out, mask
+
+
+def cpu_step(id_, dtype, fields, a, values=None):
+    """step_fields on the CPU plain path in ``dtype`` ("float32" or
+    "float64"), on len(a) fresh envs of ``id_``: CpuRefs' worker."""
+    import torch
+
+    from gymnasium_robotics_tpu_torch import convert, registry
+
+    e = registry.make(id_, num_envs=len(a), device="cpu",
+                      dtype=getattr(torch, dtype))
+    return step_fields(torch, convert, e, fields, a, values)
+
+
 def env_reference(torch, dev, convert, registry, id_, state, amp, n,
                   values=None):
     """n envs of ``state`` (an ``id_`` batch) stepped once with the same
-    seeded actions of amplitude ``amp`` on the card, on the CPU plain path
-    and on the CPU plain path in float64: per env the largest relative
-    error over the observation and sensordata of (card vs CPU float32, card
-    vs CPU float64, CPU float32 vs CPU float64), numpy (3, n). With
-    ``values`` (the kitchen's observation noise, host-drawn: each device's
-    generator would draw other noise) the envs step through
-    step_with_values, and their task masks must agree."""
+    seeded actions of amplitude ``amp`` on the card, and, in CpuRefs'
+    processes, on the CPU plain path and on it in float64 (step_fields).
+    Returns a function that waits for the CPU steps and gives per env the
+    largest relative error over the observation and sensordata of (card vs
+    CPU float32, card vs CPU float64, CPU float32 vs CPU float64), numpy
+    (3, n); the task masks must agree."""
 
     def cut(x):          # the first envs of B-leading leaves, in float64
         if isinstance(x, dict):
@@ -1472,43 +1633,35 @@ def env_reference(torch, dev, convert, registry, id_, state, amp, n,
         return x.astype(np.float64) if x.dtype.kind == "f" else x
 
     fields = cut(convert.env_state_to_numpy(state))
-    res, a, masks = [], None, []
-    for where, dtype in ((dev, torch.float32), ("cpu", torch.float32),
-                         ("cpu", torch.float64)):
-        e = registry.make(id_, num_envs=n, device=where, dtype=dtype)
-        if a is None:
-            a = np.random.default_rng(0).uniform(-amp, amp, (n, e.env.action_dim))
-        e.state = cast_state(convert.env_state_from_numpy(fields, where), dtype)
-        e.generator = torch.Generator(device=where).manual_seed(3)
-        a_t = torch.as_tensor(a, dtype=dtype, device=where)
-        if values is None:
-            o = e.step(a_t)[0]
-        else:
-            e.state = e.env.step_with_values(e.state, a_t, values)
-            o = {"observation": e.state.obs["observation"]}
-            masks.append(e.state.info["tasks_to_complete"].cpu())
-        sd = e.state.data.sensordata.double().cpu().T
-        res.append([v.double().cpu() for v in (o.values() if isinstance(o, dict)
-                                               else (o,))]
-                   + ([sd] if sd.numel() else []))
+    e = registry.make(id_, num_envs=n, device=dev)
+    a = np.random.default_rng(0).uniform(-amp, amp, (n, e.env.action_dim))
+    cpu = [CPU_REFS[0].step(id_, dtype, fields, a, values)
+           for dtype in ("float32", "float64")]
+    card = step_fields(torch, convert, e, fields, a, values)
 
     def per_env(x, y):   # (n,): each env's largest error over the fields
-        return np.max([((u - v).abs().amax(1) / v.abs().amax(1).clamp(min=1.0)).numpy()
-                       for u, v in zip(x, y)], axis=0)
+        return np.max([np.abs(x[k] - y[k]).max(1)
+                       / np.maximum(np.abs(y[k]).max(1), 1.0) for k in y], axis=0)
 
-    assert all(torch.equal(masks[0], k) for k in masks[1:]), "task masks differ"
-    return np.stack([per_env(res[0], res[1]), per_env(res[0], res[2]),
-                     per_env(res[1], res[2])])
+    def errors():
+        c32, c64 = (f.result() for f in cpu)
+        if values is not None:
+            assert all(np.array_equal(card[1], k[1]) for k in (c32, c64)), (
+                "task masks differ")
+        return np.stack([per_env(card[0], c32[0]), per_env(card[0], c64[0]),
+                         per_env(c32[0], c64[0])])
+
+    return errors
 
 
-def reference_gate(label, readings, n, t_phase, strict=()):
-    """Phases 24, 36, 39, 41 and 45: each state's per-env errors
-    (env_reference) summarised and printed; the card is held to the CPU
-    path in float64: its median env within TOL of it, or no further than
-    NEWTON_SLACK times the CPU float32 path's median env (the float32
-    solves of the hands are ill-conditioned: tendon rows at their limits).
-    The states named in ``strict`` (well-conditioned ones) are instead held
-    to the CPU float32 path within TOL in every env."""
+def check_reference(label, readings, n, strict=()):
+    """Each state's per-env errors (env_reference's, waited for) summarised
+    and printed; the card is held to the CPU path in float64: its median
+    env within TOL of it, or no further than NEWTON_SLACK times the CPU
+    float32 path's median env (the float32 solves of the hands are
+    ill-conditioned: tendon rows at their limits). The states named in
+    ``strict`` (well-conditioned ones) are instead held to the CPU float32
+    path within TOL in every env."""
     stats = {
         key: {name: {"median": float(np.median(e)), "p90": float(np.quantile(e, 0.9)),
                      "max": float(e.max()), "within_tol": float((e <= TOL).mean())}
@@ -1516,8 +1669,7 @@ def reference_gate(label, readings, n, t_phase, strict=()):
                                   "cpu32_vs_cpu64"), errs)}
         for key, errs in readings.items()}
     print(f"{label} reference: {n} envs, 1 env step, per-env relerr over the "
-          f"observation and sensordata: {json.dumps(stats)} "
-          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+          f"observation and sensordata: {json.dumps(stats)}", flush=True)
     for key, r in stats.items():
         if key in strict:
             assert r["card_vs_cpu32"]["max"] <= TOL, (
@@ -1528,6 +1680,13 @@ def reference_gate(label, readings, n, t_phase, strict=()):
         assert card <= max(TOL, NEWTON_SLACK * cpu), (
             f"{label} reference ({key}): the card's median env {card:.3e} from "
             f"the CPU float64 path, the CPU float32 path's {cpu:.3e}")
+
+
+def reference_gate(label, pending, n, strict=()):
+    """Phases 24, 36, 39, 41 and 45: check_reference on env_reference's
+    errors, at the end of the run (CpuRefs)."""
+    CPU_REFS[0].defer(lambda: check_reference(
+        label, {k: errors() for k, errors in pending.items()}, n, strict))
 
 
 def handmanipulate(torch, dev, card, solver, constraint, narrowphase,
@@ -1592,7 +1751,6 @@ def handmanipulate(torch, dev, card, solver, constraint, narrowphase,
     print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # --- 24. the card against the CPU plain path from one state
-    t_phase = time.perf_counter()
     # the main path's state with full-range actions, then settled hands
     # (fresh resets from the pool) with small actions
     reference_gate("hand", {
@@ -1601,7 +1759,7 @@ def handmanipulate(torch, dev, card, solver, constraint, narrowphase,
         for label, state, amp in (
             ("main", env.state, 1.0),
             ("settled", hm.reset(env.state, gen), HAND_GENTLE))},
-        HAND_REF_ENVS, t_phase)
+        HAND_REF_ENVS)
 
     # --- 25. kernels against their plain versions on the main path's arrays
     t_phase = time.perf_counter()
@@ -1752,16 +1910,17 @@ def handmanipulate(torch, dev, card, solver, constraint, narrowphase,
     zero_counters(solver, narrowphase)
     grng = np.random.default_rng(2)
     touch = 0.0
-    for _ in range(3):
+    for _ in range(GYM_STEPS_SHORT):
         obs = genv.step(grng.uniform(-1, 1, 20))[0]
         assert obs["observation"].shape == (61 + 92,), obs["observation"].shape
         assert all(np.isfinite(v).all() for v in obs.values()), HAND_GYM_ID
         touch = max(touch, float(obs["observation"][61:].max()))
     torch.cuda.synchronize()
     launches = launch_counts(solver, narrowphase)
-    assert launches == per_step(3, chol=40, newton=20, topk=20), launches
-    print(f"single env {HAND_GYM_ID}: parity reset, 3 steps, launches "
-          f"{launches}; largest touch reading {touch:.4f} "
+    assert launches == per_step(GYM_STEPS_SHORT, chol=40, newton=20,
+                                topk=20), launches
+    print(f"single env {HAND_GYM_ID}: parity reset, {GYM_STEPS_SHORT} "
+          f"steps, launches {launches}; largest touch reading {touch:.4f} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return rows, (m, d_press)
 
@@ -1796,13 +1955,14 @@ def slide_poses(env, n, seed):
     return qpos.T, qvel.T
 
 
-def fetch_reference(torch, dev, convert, registry, id_):
+def fetch_reference(torch, dev, convert, registry, id_, check):
     """Phases 13, 28 and 31: FETCH_REF_ENVS envs of ``id_`` stepped on the
-    card for FETCH_REF_WARM steps from a seeded reset, then once more on the card and, from
-    the carried state, on the CPU plain path: (card vs CPU float32 relerr;
-    when that exceeds TOL, card vs CPU float64 and CPU float32 vs CPU
-    float64, else None), each the largest over the envs and the
-    observation."""
+    card for FETCH_REF_WARM steps from a seeded reset, then once more on
+    the card and, from the carried state, in CpuRefs' processes on the CPU
+    plain path in float32 and float64; at the end of the run ``check`` is
+    given (card vs CPU float32 relerr; when that exceeds TOL, card vs CPU
+    float64 and CPU float32 vs CPU float64, else None), each the largest
+    over the envs and the observation."""
     n = FETCH_REF_ENVS
     env_g = registry.make(id_, num_envs=n)
     env_g.reset(seed=3)
@@ -1812,20 +1972,23 @@ def fetch_reference(torch, dev, convert, registry, id_):
                                    dtype=torch.float32, device=dev))
     fields = convert.env_state_to_numpy(env_g.state)
     a = rng.uniform(-1, 1, (n, 4)).astype(np.float32)
-    og = env_g.step(torch.as_tensor(a, device=dev))[0]
+    cpu = [CPU_REFS[0].step(id_, dtype, fields, a)
+           for dtype in ("float32", "float64")]
+    og = {k: v.double().cpu().numpy()
+          for k, v in env_g.step(torch.as_tensor(a, device=dev))[0].items()}
 
-    def cpu_step(dtype):
-        e = registry.make(id_, num_envs=n, device="cpu", dtype=dtype)
-        e.state = cast_state(convert.env_state_from_numpy(fields, "cpu"), dtype)
-        return e.step(torch.as_tensor(a, dtype=dtype))[0]
+    def err(x, ref):
+        return max(float(np.abs(x[k] - ref[k]).max()
+                         / max(1.0, float(np.abs(ref[k]).max()))) for k in og)
 
-    oc = cpu_step(torch.float32)
-    err32 = max(rel_err(og[k].cpu(), oc[k]) for k in oc)
-    if err32 <= TOL:
-        return err32, None, None
-    o64 = cpu_step(torch.float64)
-    return (err32, max(rel_err(og[k].cpu(), o64[k]) for k in o64),
-            max(rel_err(oc[k], o64[k]) for k in o64))
+    def errors():
+        (o32, _), (o64, _) = (f.result() for f in cpu)
+        err32 = err(og, o32)
+        if err32 <= TOL:
+            return err32, None, None
+        return err32, err(og, o64), err(o32, o64)
+
+    CPU_REFS[0].defer(lambda: check(errors()))
 
 
 def fetch_main(torch, dev, card, solver, narrowphase, registry, id_, shapes,
@@ -1927,20 +2090,20 @@ def fetch_slice(torch, dev, card, solver, constraint, narrowphase, collision,
         ((4, 85, 8), (2, 177, 24)), 25, traced=True)
 
     # --- 28. the card against the CPU plain path from one state
-    t_phase = time.perf_counter()
-    ref = fetch_reference(torch, dev, convert, registry, "FetchSlide-v4")
     # as FetchPush's: within TOL of the CPU float32 path; where the state
     # squeezes a puck between the welded gripper and the table, float32
     # rounding alone moves the solve, and the card is held to the CPU
     # float64 path instead, no further from it than NEWTON_SLACK times the
     # CPU float32 path
-    assert ref[0] <= TOL or ref[1] <= max(TOL, NEWTON_SLACK * ref[2]), (
-        f"FetchSlide card vs CPU path after 1 step: {ref}")
-    print(f"slide reference: card vs CPU plain path, {FETCH_REF_ENVS} envs, "
-          f"relerr after 1 step (card vs CPU float32, card vs CPU float64, "
-          f"CPU float32 vs float64; the last two only where the first "
-          f"exceeds {TOL}) {ref} ({time.perf_counter() - t_phase:.1f} s)",
-          flush=True)
+    def check(ref):
+        assert ref[0] <= TOL or ref[1] <= max(TOL, NEWTON_SLACK * ref[2]), (
+            f"FetchSlide card vs CPU path after 1 step: {ref}")
+        print(f"slide reference: card vs CPU plain path, {FETCH_REF_ENVS} envs, "
+              f"relerr after 1 step (card vs CPU float32, card vs CPU float64, "
+              f"CPU float32 vs float64; the last two only where the first "
+              f"exceeds {TOL}) {ref}", flush=True)
+
+    fetch_reference(torch, dev, convert, registry, "FetchSlide-v4", check)
 
     # --- 29. FetchSlide's kernels: B4's new kinds and topk_select
     t_phase = time.perf_counter()
@@ -2050,13 +2213,13 @@ def fetch_slice(torch, dev, card, solver, constraint, narrowphase, collision,
         ((3, 85, 8), (2, 156, 24)), 10, traced=False)
 
     # --- 31. the card against the CPU plain path from one state
-    t_phase = time.perf_counter()
-    ref = fetch_reference(torch, dev, convert, registry, "FetchReach-v4")
-    assert ref[0] <= TOL or ref[1] <= max(TOL, NEWTON_SLACK * ref[2]), (
-        f"FetchReach card vs CPU path after 1 step: {ref}")
-    print(f"reach reference: card vs CPU plain path, {FETCH_REF_ENVS} envs, "
-          f"relerr after 1 step {ref} ({time.perf_counter() - t_phase:.1f} s)",
-          flush=True)
+    def check(ref):
+        assert ref[0] <= TOL or ref[1] <= max(TOL, NEWTON_SLACK * ref[2]), (
+            f"FetchReach card vs CPU path after 1 step: {ref}")
+        print(f"reach reference: card vs CPU plain path, {FETCH_REF_ENVS} envs, "
+              f"relerr after 1 step {ref}", flush=True)
+
+    fetch_reference(torch, dev, convert, registry, "FetchReach-v4", check)
 
     # --- 32. FetchReach's kernels: B1 and B2 at nv = 15, topk_select
     t_phase = time.perf_counter()
@@ -2155,14 +2318,15 @@ def fetch_slice(torch, dev, card, solver, constraint, narrowphase, collision,
         genv = registry.make_gym(id_, parity=True)
         genv.reset(seed=1)
         zero_counters(solver, narrowphase)
-        for _ in range(3):
+        for _ in range(GYM_STEPS_SHORT):
             obs = genv.step(grng.uniform(-1, 1, 4))[0]
             assert all(np.isfinite(v).all() for v in obs.values()), id_
         torch.cuda.synchronize()
         launches = launch_counts(solver, narrowphase)
-        assert launches == per_step(3, chol=40, newton=20, topk=40,
-                                    narrowphase=20), (id_, launches)
-        print(f"single env {id_}: parity reset, 3 steps, launches {launches}, "
+        assert launches == per_step(GYM_STEPS_SHORT, chol=40, newton=20,
+                                    topk=40, narrowphase=20), (id_, launches)
+        print(f"single env {id_}: parity reset, {GYM_STEPS_SHORT} steps, "
+              f"launches {launches}, "
               f"observation {obs['observation'].shape}", flush=True)
     print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return rows, slide_ctx, tables
@@ -2387,8 +2551,9 @@ def penetrating(narrowphase, table, d):
 
 
 def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
-                launches, rs, label):
-    """B1 and B2 at m's nv (phase 37): the Cholesky on random SPD systems,
+                launches, rs, label, newton_name=None, chol=True):
+    """B1 and B2 at m's nv (phase 37; B1 alone, in a row named
+    ``newton_name``, with chol=False): the Cholesky on random SPD systems,
     the main path's and the pressed state's qM and damped systems, within
     TOL of its plain version and held to the plain version in float64; the
     Newton solve on random rows, the main path's and the pressed state's,
@@ -2413,26 +2578,28 @@ def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
     def envs(sys_):
         return tuple(x[..., keep] for x in sys_)
 
-    systems = {"main qM": real,
-               "main damped system": pipeline.damped_system(m, d_main),
-               "pressed qM": envs((d_press.qM, d_press.qfrc_smooth)),
-               "pressed damped system": envs(pipeline.damped_system(m, d_press))}
-    chol_err, chol_abs = check_pair(solver.solve_pos, solver.solve_pos_plain,
-                                    [(M, b)] + list(systems.values()))
-    assert chol_err <= TOL, f"chol_solve nv={nv}: relerr {chol_err:.3e}"
-    f64 = chol_f64_gate(torch, solver, f"{label} chol nv={nv}", systems)
-    Mb = d_main.qM.permute(2, 0, 1).contiguous()
-    bb = d_main.qfrc_smooth.T.contiguous()[:, :, None]
+    rows = []
     nm = nv * (nv + 1) // 2
-    rows = [kernel_row(
-        f"chol_solve_nv{nv}", SOLVER_SRC,
-        "gymnasium_robotics_tpu/physics/solver_pallas.py:455",
-        launches["chol"], chol_abs, chol_err,
-        time_ms(torch, lambda: solver.solve_pos(*real)),
-        time_ms(torch, lambda: solver.solve_pos_plain(*real), n=10),
-        bound((nm + 2 * nv) * 4 * nb, chol_ops(nv) * nb),
-        time_ms(torch, lambda: torch.linalg.solve_ex(Mb, bb), graph=False),
-        [nv, nb], f64_rel_err=f64[0], plain32_f64_rel_err=f64[1])]
+    if chol:
+        systems = {"main qM": real,
+                   "main damped system": pipeline.damped_system(m, d_main),
+                   "pressed qM": envs((d_press.qM, d_press.qfrc_smooth)),
+                   "pressed damped system": envs(pipeline.damped_system(m, d_press))}
+        chol_err, chol_abs = check_pair(solver.solve_pos, solver.solve_pos_plain,
+                                        [(M, b)] + list(systems.values()))
+        assert chol_err <= TOL, f"chol_solve nv={nv}: relerr {chol_err:.3e}"
+        f64 = chol_f64_gate(torch, solver, f"{label} chol nv={nv}", systems)
+        Mb = d_main.qM.permute(2, 0, 1).contiguous()
+        bb = d_main.qfrc_smooth.T.contiguous()[:, :, None]
+        rows.append(kernel_row(
+            f"chol_solve_nv{nv}", SOLVER_SRC,
+            "gymnasium_robotics_tpu/physics/solver_pallas.py:455",
+            launches["chol"], chol_abs, chol_err,
+            time_ms(torch, lambda: solver.solve_pos(*real)),
+            time_ms(torch, lambda: solver.solve_pos_plain(*real), n=10),
+            bound((nm + 2 * nv) * 4 * nb, chol_ops(nv) * nb),
+            time_ms(torch, lambda: torch.linalg.solve_ex(Mb, bb), graph=False),
+            [nv, nb], f64_rel_err=f64[0], plain32_f64_rel_err=f64[1]))
     n_iter = min(m.opt.iterations, 20)
     n_ls = min(m.opt.ls_iterations, 8)
     sets = []
@@ -2501,7 +2668,7 @@ def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
             f"{st['plain32_median']:.3e}")
     real = sets[1]
     rows.append(kernel_row(
-        f"newton_nv{nv}", SOLVER_SRC,
+        newton_name or f"newton_nv{nv}", SOLVER_SRC,
         "gymnasium_robotics_tpu/physics/solver_pallas.py:249",
         launches["newton"], k_abs,
         max(st["kernel_median"] for st in stats.values()),
@@ -2536,10 +2703,9 @@ def adroit_slice(torch, dev, card, solver, constraint, narrowphase, collision,
                                         ADROIT_LIMIT, traced=True)
 
     # --- 36. the card against the CPU plain path from one state
-    t_phase = time.perf_counter()
     reference_gate(door_id, {"main": env_reference(
         torch, dev, convert, registry, door_id, env.state, 1.0,
-        ADROIT_REF_ENVS)}, ADROIT_REF_ENVS, t_phase)
+        ADROIT_REF_ENVS)}, ADROIT_REF_ENVS)
 
     # --- 37. Door's kernels: B4's new kinds, B1 and B2 at nv = 30, B3
     t_phase = time.perf_counter()
@@ -2623,7 +2789,7 @@ def adroit_slice(torch, dev, card, solver, constraint, narrowphase, collision,
         t_phase = time.perf_counter()
         reference_gate(id_, {"main": env_reference(
             torch, dev, convert, registry, id_, e.state, 1.0,
-            ADROIT_REF_ENVS)}, ADROIT_REF_ENVS, t_phase)
+            ADROIT_REF_ENVS)}, ADROIT_REF_ENVS)
         te = e.env
         m = te._model_for(e.state.aux)
         d_main = pipeline.forward(m, e.state.data)
@@ -2748,10 +2914,9 @@ def reach_slice(torch, dev, card, solver, constraint, narrowphase, pipeline,
     print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # --- 41. the card against the CPU plain path from one state
-    t_phase = time.perf_counter()
     reference_gate(REACH_ID, {"main": env_reference(
         torch, dev, convert, registry, REACH_ID, env.state, 1.0,
-        REACH_REF_ENVS)}, REACH_REF_ENVS, t_phase)
+        REACH_REF_ENVS)}, REACH_REF_ENVS)
 
     # --- 42. B1 and B2 at nv = 24 on random, the main path's and pressed rows
     t_phase = time.perf_counter()
@@ -2771,14 +2936,15 @@ def reach_slice(torch, dev, card, solver, constraint, narrowphase, pipeline,
     genv.reset(seed=1)
     grng = np.random.default_rng(2)
     zero_counters(solver, narrowphase)
-    for _ in range(3):
+    for _ in range(GYM_STEPS_SHORT):
         obs = genv.step(grng.uniform(-1, 1, 20))[0]
         assert obs["observation"].shape == (63,) and all(
             np.isfinite(v).all() for v in obs.values()), REACH_ID
     torch.cuda.synchronize()
     launches = launch_counts(solver, narrowphase)
-    assert launches == per_step(3, **per), launches
-    print(f"single env {REACH_ID}: parity reset, 3 steps, launches {launches} "
+    assert launches == per_step(GYM_STEPS_SHORT, **per), launches
+    print(f"single env {REACH_ID}: parity reset, {GYM_STEPS_SHORT} steps, "
+          f"launches {launches} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return rows
 
@@ -2900,7 +3066,6 @@ def kitchen_slice(torch, dev, card, solver, constraint, narrowphase, collision,
     # --- 45. step_with_values: the card against the CPU plain path, from
     # the main path's state (its kettle on the stove: float64 by the median
     # env) and from a reset with the kettle lifted (CPU float32, every env)
-    t_phase = time.perf_counter()
     reference_gate(KITCHEN_ID, {
         name: env_reference(torch, dev, convert, registry, KITCHEN_ID, st, 1.0,
                             KITCHEN_REF_ENVS,
@@ -2908,7 +3073,7 @@ def kitchen_slice(torch, dev, card, solver, constraint, narrowphase, collision,
         for name, st in (("main", env.state),
                          ("lifted", kitchen_lifted(torch, registry,
                                                    KITCHEN_REF_ENVS, 5)))},
-        KITCHEN_REF_ENVS, t_phase, strict=("lifted",))
+        KITCHEN_REF_ENVS, strict=("lifted",))
 
     # --- 46. kernels: the whole table and capsule-hull alone, B3, B1, B2
     t_phase = time.perf_counter()
@@ -2990,6 +3155,193 @@ def kitchen_slice(torch, dev, card, solver, constraint, narrowphase, collision,
           f"draws ({time.perf_counter() - t_phase:.1f} s)", flush=True)
     assert err <= TOL, f"make_gym {KITCHEN_ID}: relerr {err:.3e}"
     return rows, tables
+
+
+def loco_launches(m, frame_skip, nv2=False):
+    """Per-env-step launches of a locomotion model: a forward per Euler
+    substep, four per RK4 substep, each with a Cholesky for qacc_smooth
+    and a Newton solve (the closed-form nv = 2 route with ``nv2``); the
+    Euler's damped velocity solve with joint damping; no narrowphase or
+    topk_select (unpruned tables, no contact cap)."""
+    rk4 = m.meta.opt.integrator == 1
+    fwd = frame_skip * (4 if rk4 else 1)
+    chol = fwd + (frame_skip if not rk4 and m.meta.has_damping else 0)
+    return dict(chol=chol, **({"newton_nv2": fwd} if nv2 else {"newton": fwd}))
+
+
+def loco_run(torch, dev, card, solver, narrowphase, registry, id_, nb, steps,
+             limit, label="main path"):
+    """registry.make(id_, num_envs=nb, max_episode_steps=limit), reset,
+    ``steps`` steps with random actions in [-1, 1] (past the limit: every
+    env resets); the launches per step must be the model's
+    (loco_launches), the observations finite and of the env's width.
+    Returns (the batched env, the launches, ms/step over steps 1..)."""
+    t_phase = time.perf_counter()
+    env = registry.make(id_, num_envs=nb, max_episode_steps=limit)
+    env.reset(seed=0)
+    lenv, m = env.env, env.env.model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    finite = torch.ones(nb, dtype=torch.bool, device=dev)
+    was_reset = torch.zeros(nb, dtype=torch.bool, device=dev)
+    diverged = torch.zeros(nb, dtype=torch.bool, device=dev)
+    warm = 1
+    zero_counters(solver, narrowphase)
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        a = torch.rand((nb, lenv.action_dim), generator=gen, device=dev) * 2 - 1
+        obs, _, terminated, truncated, info = env.step(a)
+        finite &= torch.isfinite(obs).all(dim=1)
+        was_reset |= terminated | truncated
+        diverged |= info["diverged"]
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t_start) / (steps - warm) * 1e3
+    launches = launch_counts(solver, narrowphase)
+    per = loco_launches(m, lenv.cfg.frame_skip)
+    assert obs.shape == (nb, lenv.obs_dim), (id_, obs.shape)
+    assert bool(finite.all()), f"{id_}: non-finite observations"
+    if steps > limit:
+        assert bool(was_reset.all()), f"{id_}: {int((~was_reset).sum())} envs never reset"
+    assert launches == per_step(steps, **per), (id_, launches)
+    from gymnasium_robotics_tpu_torch.physics import constraint
+
+    ne = m.plan("rows", constraint._RowPlan).is_eq.numel()
+    shape = (solver.newton_shape(m.nv, ne) if m.nv in solver.NEWTON_TILE_SHAPES
+             else "newton2_kernel")
+    print(f"{label}: {id_} x{nb}, {steps} steps, limit {limit}, nv = {m.nv}, "
+          f"{ne} rows (newton_tile_kernel shape {shape}), launches {launches}; "
+          f"{ms_step:.4f} ms/step, {nb / ms_step * 1e3:.1f} env-steps/s over "
+          f"steps {warm}-{steps}; {int(was_reset.sum())} envs reset, "
+          f"{int(diverged.sum())} truncated as diverged [{card}] "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return env, launches, ms_step
+
+
+def loco_pressed(torch, pipeline, env, n, seed):
+    """Forwarded Data of n envs of a locomotion model pressed into the floor
+    and into its own limits: every limited joint drawn from its range
+    widened by 0.3 rad (or m) each way, an unlimited hinge turned within
+    0.5 rad, a vertical slide (the planar root's height) lowered by up to
+    0.3 m, a free root lowered to 30-80 % of its height; qvel normal, 0.5."""
+    rs = np.random.RandomState(seed)
+    m = env.model
+    mt = m.meta
+    q = np.repeat(m.qpos0[:, 0].double().cpu().numpy()[None], n, axis=0)
+    rng = m.jnt_range[..., 0].double().cpu().numpy()
+    axis = m.jnt_axis[..., 0].double().cpu().numpy()
+    for j in range(mt.njnt):
+        a, t = mt.jnt_qposadr[j], mt.jnt_type[j]
+        if t == 0:                       # free: lower the root
+            q[:, a + 2] *= rs.uniform(0.3, 0.8, n)
+        elif mt.jnt_limited[j]:
+            lo, hi = rng[j]
+            q[:, a] = rs.uniform(lo - 0.3, hi + 0.3, n)
+        elif t == 2 and abs(axis[j, 2]) > 0.5:
+            q[:, a] -= rs.uniform(0.0, 0.3, n)
+        elif t == 3:
+            q[:, a] += rs.uniform(-0.5, 0.5, n)
+    d = pipeline.make_data(m, n)
+    d.qpos[:] = env._t(q.T)
+    d.qvel[:] = env._t(rs.normal(0, 0.5, (mt.nv, n)))
+    return pipeline.forward(m, d)
+
+
+def loco_reference(torch, dev, convert, registry, id_, state):
+    """Phase 50: LOCO_REF_ENVS envs of ``state`` stepped once on the card,
+    on the CPU plain path and on it in float64 (env_reference); at the end
+    of the run, where the CPU float32 path is itself within TOL of float64
+    in every env (a well-conditioned state) the card is held to the CPU
+    float32 path within TOL in every env, else to the float64 path by the
+    median env (check_reference)."""
+    errors = env_reference(torch, dev, convert, registry, id_, state, 1.0,
+                           LOCO_REF_ENVS)
+
+    def check():
+        errs = errors()
+        strict = ("main",) if errs[2].max() <= TOL else ()
+        gate = ("every env within TOL of the CPU float32 path" if strict
+                else "float64 median gate")
+        check_reference(f"{id_} ({gate})", {"main": errs}, LOCO_REF_ENVS,
+                        strict=strict)
+
+    CPU_REFS[0].defer(check)
+
+
+def loco_slice(torch, dev, card, solver, constraint, narrowphase, pipeline,
+               convert, registry):
+    """Phases 48-53 (the locomotion family: B1 and B2 at nv = 3, 4, 5, 6,
+    9, 11 and 23, B1 at nv = 14 past 96 rows); returns the kernels' JSON
+    rows."""
+    # --- 48. main path and trace
+    env, launches, _ = loco_run(torch, dev, card, solver, narrowphase, registry,
+                                LOCO_ID, LOCO_B, LOCO_STEPS, LOCO_LIMIT)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def run(k):
+        for _ in range(k):
+            env.step(torch.rand((LOCO_B, 6), generator=gen, device=dev) * 2 - 1)
+
+    trace(torch, run, 1, card, f"{LOCO_ID} trace", cpu=False,
+          counts=lambda: launch_counts(solver, narrowphase))
+    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    runs = {LOCO_ID: (env, launches)}
+
+    # --- 49. the other v5 models x LOCO_B, the legacy IDs x LEGACY_B
+    for id_ in LOCO_OTHERS:
+        runs[id_] = loco_run(torch, dev, card, solver, narrowphase, registry,
+                             id_, LOCO_B, LOCO_OTHER_STEPS, LOCO_OTHER_STEPS - 1,
+                             "v5 model")[:2]
+    t_phase = time.perf_counter()
+    for id_ in LEGACY_IDS:
+        loco_run(torch, dev, card, solver, narrowphase, registry, id_, LEGACY_B,
+                 LEGACY_STEPS, LEGACY_STEPS - 1, "legacy ID")
+    print(f"legacy IDs ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # --- 50. the card against the CPU plain path from each v5 model's state
+    for id_, (e, _) in runs.items():
+        loco_reference(torch, dev, convert, registry, id_, e.state)
+
+    # --- 51. B1 and B2 at each new nv on random, the main path's and
+    # pressed rows
+    rows = []
+    for id_, name, chol in LOCO_KERNELS:
+        t_phase = time.perf_counter()
+        e, launched = runs[id_]
+        m = e.env.model
+        d_main = pipeline.forward(m, e.state.data)
+        d_press = loco_pressed(torch, pipeline, e.env, LOCO_B, m.nv)
+        n_pen = [int((d.contact.dist < 0).any(dim=0).sum()) if d.contact.dist.numel()
+                 else 0 for d in (d_main, d_press)]
+        rows += solver_rows(torch, dev, solver, constraint, pipeline, m, d_main,
+                            d_press, launched, np.random.RandomState(m.nv),
+                            id_, newton_name=name, chol=chol)
+        print(f"{id_} kernels (nv = {m.nv}): envs with a penetrating slot "
+              f"(main path, pressed) {n_pen} ({time.perf_counter() - t_phase:.1f} s)",
+              flush=True)
+
+    # --- 52. make_gym: the per-env path (InvertedPendulum: B6)
+    t_phase = time.perf_counter()
+    for id_ in LOCO_GYM_IDS:
+        genv = registry.make_gym(id_)
+        genv.reset(seed=1)
+        grng = np.random.default_rng(2)
+        zero_counters(solver, narrowphase)
+        for _ in range(3):
+            obs = genv.step(genv.env.action_low + grng.uniform(0, 1, genv.env.action_dim)
+                            * (genv.env.action_high - genv.env.action_low))[0]
+            assert obs.shape == (genv.env.obs_dim,) and np.isfinite(obs).all(), id_
+        torch.cuda.synchronize()
+        got = launch_counts(solver, narrowphase)
+        per = loco_launches(genv.env.model, genv.env.cfg.frame_skip,
+                            nv2=genv.env.model.nv == 2)
+        assert got == per_step(3, **per), (id_, got)
+        print(f"single env {id_}: 3 steps, launches {got}", flush=True)
+    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return rows
 
 
 def kind_row(torch, narrowphase, table, k, ops, out, launches, m, counts, label):
@@ -3342,13 +3694,14 @@ def single_env(torch, dev, card, solver, constraint, narrowphase, registry,
         genv = registry.make_gym(id_, parity=True)
         genv.reset(seed=1)
         zero_counters(solver, narrowphase)
-        for _ in range(3):
+        for _ in range(GYM_STEPS_SHORT):
             obs = genv.step(rng.uniform(-1, 1, nu))[0]
             assert all(np.isfinite(v).all() for v in obs.values()), id_
         torch.cuda.synchronize()
         launches = launch_counts(solver, narrowphase)
-        assert launches == per_step(3, **want), (id_, launches)
-        print(f"single env {id_}: 3 steps, launches {launches}", flush=True)
+        assert launches == per_step(GYM_STEPS_SHORT, **want), (id_, launches)
+        print(f"single env {id_}: {GYM_STEPS_SHORT} steps, launches {launches}",
+              flush=True)
     print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # --- 20. the determinant route against its plain version, B = 8192
@@ -3461,12 +3814,15 @@ def redesign_fields(rows, ptx, solver, narrowphase, kinematics, tables, fk_model
             assert geo["smem"] == nlib.grt_topk_smem_bytes(maxk, geo["kcap"]), geo
             entry = f"topk_select_kernelILi{geo['kcap']}E"
             blocks = nlib.grt_topk_blocks_per_sm(geo["kcap"], geo["smem"])
-        elif row["name"] in [f"newton_nv{nv}" for nv in solver.NEWTON_TILE_SHAPES]:
+        elif (re.fullmatch(r"newton_nv\d+(_r\d+)?", row["name"])
+              and row["shape"][0] in solver.NEWTON_TILE_SHAPES):
             nv, ne, nb = row["shape"][:3]
             geo = solver.newton_geometry(nv, ne, nb)
-            assert geo["smem"] == slib.grt_newton_smem_bytes(nv), geo
-            entry = f"newton_tile_kernelILi{nv}E"
-            blocks = slib.grt_newton_blocks_per_sm(nv)
+            assert geo["smem"] == slib.grt_newton_smem_bytes(nv, ne), geo
+            w, r, e = solver.newton_shape(nv, ne)
+            entry = f"newton_tile_kernelILi{nv}ELi{w}ELi{r}ELi{e}E"
+            blocks = slib.grt_newton_blocks_per_sm(nv, ne)
+            row.update(template=[nv, w, r, e])
         elif row["name"] in [f"chol_solve_nv{nv}" for nv in solver.CHOL_TILE_NV]:
             nv, nb = row["shape"]
             geo = solver.chol_geometry(nv, nb)
@@ -3512,9 +3868,11 @@ def edge_checks(torch, dev, solver, narrowphase):
     (also at the hand's shape). The Newton solve (nv = 14 within TOL of
     the float32 plain version; nv = 15, 21, 30, 33 and 36 within max(TOL,
     NEWTON_SLACK x the float32 plain version's error) of the float64 plain
-    version): random rows at the row caps (96, 256, 256, 288, 288, 288), at
-    an ne that is not a multiple of 32, at B = 1 and at a B that is not a
-    multiple of the env tile (at nv = 36 also the hand's 272 rows, at
+    version): random rows at every instantiation's row cap (96 and 128,
+    AntMaze's shape and Ant's; 256, 256, 288, 288, 288) and one under it
+    at B = 1, at an ne that is not a multiple of 32, and at 72 rows at a
+    B that is not a multiple of the env tile (at
+    nv = 36 also the hand's 272 rows, at
     nv = 30 and 33 Door's 278 and Hammer's 275, at B = 1023), with
     n_iter = 0, with every row inactive, and with J in a batch-leading
     layout (the strided staging path)."""
@@ -3565,15 +3923,17 @@ def edge_checks(torch, dev, solver, narrowphase):
 
     errs = {}
     for nv, n_iter in ((14, 5), (15, 4), (21, 4), (30, 5), (33, 5), (36, 5)):
-        cap = solver.NEWTON_MAX_ROWS[nv]
+        # every instantiation's row cap (nv = 14: AntMaze's 96, Ant's 128)
+        caps = [32 * w * r for w, r, _ in solver.NEWTON_TILE_SHAPES[nv]]
         hand = {36: [("hand rows, B % 4 != 0", 272, HAND_B - 1, n_iter, 0.4)],
                 30: [("door rows, B % 4 != 0", 278, ADROIT_B - 1, n_iter, 0.4)],
                 33: [("hammer rows, B % 4 != 0", 275, ADROIT_B - 1, n_iter, 0.4)]
                 }.get(nv, [])
         for name, ne, nb, it, p_act in [
-                ("row cap", cap, ANT_B, n_iter, 0.6),
+                c for cap in caps for c in (
+                    (f"row cap {cap}", cap, ANT_B, n_iter, 0.6),
+                    (f"B = 1, cap {cap}", cap - 1, 1, n_iter, 0.6))] + [
                 ("ne % 32 != 0", 45, 13, n_iter, 0.6),
-                ("B = 1", cap - 1, 1, n_iter, 0.6),
                 ("B % 8 != 0", 72, 2047, n_iter, 0.6),
                 ("n_iter = 0", 72, 64, 0, 0.6),
                 ("rows inactive", 72, 64, n_iter, 0.0),
@@ -3757,6 +4117,11 @@ def nv2_checks(torch, dev, solver, constraint, registry, rows):
 def main():
     import torch
 
+    # The CPU reference paths step batches of 1-64 envs, whose small
+    # operators torch's intra-op threads slow down: a FetchPush float64
+    # env step of 8 envs took 10.0 s on 8 threads and 3.3 s on one (an
+    # 8-core host). The card's path runs no CPU operator that they help.
+    torch.set_num_threads(1)
     # --- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3769,6 +4134,7 @@ def main():
         collision, constraint, kinematics, narrowphase, pipeline, solver)
 
     dev = torch.device("cuda")
+    CPU_REFS.append(CpuRefs())
 
     # --- 2. build
     t0 = time.perf_counter()
@@ -3841,6 +4207,10 @@ def main():
     tables.update(tabs)
     print(f"kitchen phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    kern += loco_slice(torch, dev, card, solver, constraint, narrowphase,
+                       pipeline, convert, registry)
+    print(f"locomotion phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     edge_checks(torch, dev, solver, narrowphase)
     chol_edges(torch, dev, solver)
     narrowphase_edges(torch, narrowphase, collision,
@@ -3853,6 +4223,8 @@ def main():
           f"strided qpos: relerr {edge:.3e} ({time.perf_counter() - t1:.1f} s)",
           flush=True)
     print(f"edge checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    # --- 53. the reference checks, on the CPU paths' steps
+    CPU_REFS[0].run()
     redesign_fields(kern, ptx, solver, narrowphase, kinematics, tables, fk[0])
     print(json.dumps({"kernels": kern}))
     print(card)
@@ -3863,4 +4235,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for refs in CPU_REFS:
+            refs.close()

@@ -1,15 +1,17 @@
 // Per-env dense solves of the constraint pipeline.
 //
 // chol_solve_kernel<2> (one env per thread) and chol_tile_kernel<NV,
-//   COL_BACK> (NV = 14, 15, 21, 24, 29, 30, 33, 36; a tile of 16 envs a block, 8
-//   past NV = 32, a half-warp or a warp an env, below) replace the TPU kernel
+//   COL_BACK> (GRT_CHOL_TILES: NV = 3, 4, 5, 6, 9, 11, 14, 15, 21, 23, 24,
+//   29, 30, 33, 36; a tile of 16 envs a block, 8 past NV = 32, a half-warp
+//   or a warp an env, below) replace the TPU kernel
 //   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol (entered
 //   through solve_pos_soa): the batched SPD solve M x = b by an unrolled
 //   LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
 // newton2_kernel<G, CHOL> (NV = 2; a group of G lanes an env, below) and
-// newton_tile_kernel<NV, WPE, RPL, ET> (NV = 14, 15, 21, 24, 29, 30, 33, 36;
-//   a tile of ET = 8, 8, 8 and from NV = 24 on 4 envs a block, one, two,
-//   two and from NV = 24 on three warps an env, below) replace
+// newton_tile_kernel<NV, WPE, RPL, ET> (GRT_NEWTON_TILES: NV = 3, 4, 5, 6,
+//   9, 11, 14 (two row caps), 15, 21, 23, 24, 29, 30, 33, 36; a tile of
+//   ET = 8 envs a block up to NV = 21 and 4 from NV = 23 on, one warp an
+//   env up to NV = 14, two at 15 and 21, three from 23 on, below) replace
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
@@ -70,6 +72,14 @@
 // it too: 272 rows need the 288-row cap, and at NV = 29 a tile of eight
 // envs or of two warps an env over 256 rows would pass the 227 KB of
 // shared memory a block, so both keep NV = 30's three warps and 4 envs.
+// The locomotion models run it at NV = 3 (the double pendulum, 1 row), 4
+// (Reacher, 3), 5 (Swimmer, 2), 6 (Hopper, 38), 9 (HalfCheetah and
+// Walker2d, 70 and 62), 11 (Pusher, 22), 14 (Ant, 108: past AntMaze's
+// 96-row cap, hence a second instantiation at 128 rows; AntMaze keeps
+// <14, 1, 3, 8>) and 23 (the humanoids, 244): each the smallest shape of
+// one warp an env (three at NV = 23, as at 24) whose rows hold the
+// model's. At NV <= 6 one warp an env leaves most lanes idle over 1-38
+// rows; the design is kept for them for now.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsolver.so solver.cu
@@ -1168,6 +1178,8 @@ int newton_tile_blocks_per_sm() {
 //   with 16 bytes of spill (ptxas trading them for two blocks an SM).
 // - Outputs through the tile's region, written with 16-byte stores where
 //   B % 4 == 0.
+// The locomotion nv (3, 4, 5, 6, 9, 11, 23) are new and take the plain
+// version's order, COL_BACK = false.
 // Shared memory: TILE (NT + NV) floats a block: 7.6 KB at NV = 14, 8.4 KB
 // at NV = 15,
 // 16.1 KB at NV = 21, 22.5 KB at NV = 36 (RPL = 2, 8 envs), under the 48 KB of
@@ -1412,6 +1424,23 @@ int chol_tile_blocks_per_sm() {
 
 inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
 
+// newton_tile_kernel's instantiations X(NV, WPE, RPL, ET), each nv's in
+// ascending row cap (32 WPE RPL rows): the entry points take the first of
+// nv whose rows hold ne. physics/solver.py::NEWTON_TILE_SHAPES lists the
+// same.
+#define GRT_NEWTON_TILES(X)                                                \
+  X(3, 1, 2, 8) X(4, 1, 2, 8) X(5, 1, 2, 8) X(6, 1, 2, 8) X(9, 1, 3, 8)    \
+  X(11, 1, 1, 8) X(14, 1, 3, 8) X(14, 1, 4, 8) X(15, 2, 4, 8)               \
+  X(21, 2, 4, 8) X(23, 3, 3, 4) X(24, 3, 3, 4) X(29, 3, 3, 4)               \
+  X(30, 3, 3, 4) X(33, 3, 3, 4) X(36, 3, 3, 4)
+
+// chol_tile_kernel's instantiations X(NV, COL_BACK) (its note above);
+// physics/solver.py::CHOL_TILE_NV lists the same nv.
+#define GRT_CHOL_TILES(X)                                                  \
+  X(3, false) X(4, false) X(5, false) X(6, false) X(9, false) X(11, false) \
+  X(14, false) X(15, false) X(21, true) X(23, false) X(24, false)          \
+  X(29, true) X(30, true) X(33, true) X(36, true)
+
 Str2 str2(const long long* p) { return {p[0], p[1]}; }
 Str3 str3(const long long* p) { return {p[0], p[1], p[2]}; }
 
@@ -1420,8 +1449,8 @@ Str3 str3(const long long* p) { return {p[0], p[1], p[2]}; }
 extern "C" {
 
 // strides: the element strides of M (3) and b (2), in that order. nv = 2
-// runs chol_solve_kernel (one env per thread), nv = 14, 15, 21, 24, 29,
-// 30, 33 and 36 chol_tile_kernel; smem: the latter's block shared memory bytes
+// runs chol_solve_kernel (one env per thread), the nv of GRT_CHOL_TILES
+// chol_tile_kernel; smem: the latter's block shared memory bytes
 // (physics/solver.py::chol_geometry), at least grt_chol_smem_bytes(nv).
 int grt_chol_solve_f32(const float* M, const float* b, float* x,
                        const long long* strides, int nv, int B, int smem,
@@ -1430,64 +1459,42 @@ int grt_chol_solve_f32(const float* M, const float* b, float* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Str3 sM = str3(strides);
   const Str2 sb = str2(strides + 3);
-  switch (nv) {
-    case 2:
-      chol_solve_kernel<2><<<grid_for(B), kThreads, 0, s>>>(M, sM, b, sb, x, B);
-      return static_cast<int>(cudaGetLastError());
-    case 14:
-      return launch_chol_tile<14, false>(M, sM, b, sb, x, B, smem, s);
-    case 15:
-      return launch_chol_tile<15, false>(M, sM, b, sb, x, B, smem, s);
-    case 21:
-      return launch_chol_tile<21, true>(M, sM, b, sb, x, B, smem, s);
-    case 24:
-      return launch_chol_tile<24, false>(M, sM, b, sb, x, B, smem, s);
-    case 29:
-      return launch_chol_tile<29, true>(M, sM, b, sb, x, B, smem, s);
-    case 30:
-      return launch_chol_tile<30, true>(M, sM, b, sb, x, B, smem, s);
-    case 33:
-      return launch_chol_tile<33, true>(M, sM, b, sb, x, B, smem, s);
-    case 36:
-      return launch_chol_tile<36, true>(M, sM, b, sb, x, B, smem, s);
-    default:
-      return -1;
+  if (nv == 2) {
+    chol_solve_kernel<2><<<grid_for(B), kThreads, 0, s>>>(M, sM, b, sb, x, B);
+    return static_cast<int>(cudaGetLastError());
   }
+#define GRT_LAUNCH(NV_, CB_) \
+  if (nv == NV_) return launch_chol_tile<NV_, CB_>(M, sM, b, sb, x, B, smem, s);
+  GRT_CHOL_TILES(GRT_LAUNCH)
+#undef GRT_LAUNCH
+  return -1;
 }
 
-// Shared memory bytes of a chol_tile_kernel block at nv (14, 15, 21, 24, 29,
-// 30, 33 or 36), and
-// the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1
-// for another nv.
+// Shared memory bytes of a chol_tile_kernel block at nv (GRT_CHOL_TILES),
+// and the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// -1 for another nv.
 int grt_chol_smem_bytes(int nv) {
-  return nv == 14   ? CholLayout<14>::block_bytes
-         : nv == 15 ? CholLayout<15>::block_bytes
-         : nv == 21 ? CholLayout<21>::block_bytes
-         : nv == 24 ? CholLayout<24>::block_bytes
-         : nv == 29 ? CholLayout<29>::block_bytes
-         : nv == 30 ? CholLayout<30>::block_bytes
-         : nv == 33 ? CholLayout<33>::block_bytes
-         : nv == 36 ? CholLayout<36>::block_bytes
-                    : -1;
+#define GRT_SMEM(NV_, CB_) \
+  if (nv == NV_) return CholLayout<NV_>::block_bytes;
+  GRT_CHOL_TILES(GRT_SMEM)
+#undef GRT_SMEM
+  return -1;
 }
 int grt_chol_blocks_per_sm(int nv) {
-  return nv == 14   ? chol_tile_blocks_per_sm<14, false>()
-         : nv == 15 ? chol_tile_blocks_per_sm<15, false>()
-         : nv == 21 ? chol_tile_blocks_per_sm<21, true>()
-         : nv == 24 ? chol_tile_blocks_per_sm<24, false>()
-         : nv == 29 ? chol_tile_blocks_per_sm<29, true>()
-         : nv == 30 ? chol_tile_blocks_per_sm<30, true>()
-         : nv == 33 ? chol_tile_blocks_per_sm<33, true>()
-         : nv == 36 ? chol_tile_blocks_per_sm<36, true>()
-                    : -1;
+#define GRT_BLOCKS(NV_, CB_) \
+  if (nv == NV_) return chol_tile_blocks_per_sm<NV_, CB_>();
+  GRT_CHOL_TILES(GRT_BLOCKS)
+#undef GRT_BLOCKS
+  return -1;
 }
 
 // strides: the element strides of M (3), a_smooth, a_warm (2 each), J (3),
 // aref, D, active and is_eq (2 each), in that order. nv = 2 runs
-// newton2_kernel<G, true> (G lanes an env, up to 64 rows), nv = 14, 15, 21,
-// 24, 29, 30, 33 and 36 newton_tile_kernel (8, 8, 8, 4, 4, 4, 4 and 4 envs a
-// block, up to 96, 256, 256, 288, 288, 288, 288 and 288 rows); smem: its block's shared memory bytes
-// (physics/solver.py::newton_geometry), at least grt_newton_smem_bytes(nv).
+// newton2_kernel<G, true> (G lanes an env, up to 64 rows), the nv of
+// GRT_NEWTON_TILES newton_tile_kernel, the first instantiation of nv whose
+// rows hold ne; smem: its block's shared memory bytes
+// (physics/solver.py::newton_geometry), at least grt_newton_smem_bytes(nv,
+// ne).
 int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
                    const float* J, const float* aref, const float* D,
                    const unsigned char* active, const unsigned char* is_eq,
@@ -1503,67 +1510,36 @@ int grt_newton_f32(const float* M, const float* a_smooth, const float* a_warm,
   if (nv == 2) {
     return launch_newton2<true>(M, a_smooth, a_warm, J, aref, D, active,
                                 is_eq, st, qacc, f, ne, B, n_iter, n_ls, s);
-  } else if (nv == 14) {
-    return launch_newton_tile<14, 1, 3, 8>(M, a_smooth, a_warm, J, aref, D,
-                                           active, is_eq, st, qacc, f, ne, B,
-                                           n_iter, n_ls, smem, s);
-  } else if (nv == 15) {
-    return launch_newton_tile<15, 2, 4, 8>(M, a_smooth, a_warm, J, aref, D,
-                                           active, is_eq, st, qacc, f, ne, B,
-                                           n_iter, n_ls, smem, s);
-  } else if (nv == 21) {
-    return launch_newton_tile<21, 2, 4, 8>(M, a_smooth, a_warm, J, aref, D,
-                                           active, is_eq, st, qacc, f, ne, B,
-                                           n_iter, n_ls, smem, s);
-  } else if (nv == 24) {
-    return launch_newton_tile<24, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
-                                           active, is_eq, st, qacc, f, ne, B,
-                                           n_iter, n_ls, smem, s);
-  } else if (nv == 29) {
-    return launch_newton_tile<29, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
-                                           active, is_eq, st, qacc, f, ne, B,
-                                           n_iter, n_ls, smem, s);
-  } else if (nv == 30) {
-    return launch_newton_tile<30, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
-                                           active, is_eq, st, qacc, f, ne, B,
-                                           n_iter, n_ls, smem, s);
-  } else if (nv == 33) {
-    return launch_newton_tile<33, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
-                                           active, is_eq, st, qacc, f, ne, B,
-                                           n_iter, n_ls, smem, s);
-  } else if (nv == 36) {
-    return launch_newton_tile<36, 3, 3, 4>(M, a_smooth, a_warm, J, aref, D,
-                                           active, is_eq, st, qacc, f, ne, B,
-                                           n_iter, n_ls, smem, s);
   }
+#define GRT_LAUNCH(NV_, W_, R_, E_)                                          \
+  if (nv == NV_ && ne <= TileLayout<NV_, W_, R_, E_>::NEC)                  \
+    return launch_newton_tile<NV_, W_, R_, E_>(M, a_smooth, a_warm, J, aref, \
+                                               D, active, is_eq, st, qacc, f, \
+                                               ne, B, n_iter, n_ls, smem, s);
+  GRT_NEWTON_TILES(GRT_LAUNCH)
+#undef GRT_LAUNCH
   return -1;
 }
 
-// Shared memory bytes of a newton_tile_kernel block at nv (14, 15, 21, 24, 29,
-// 30, 33 or 36),
-// and the blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
-// -1 for another nv.
-int grt_newton_smem_bytes(int nv) {
-  return nv == 14   ? TileLayout<14, 1, 3, 8>::block_bytes
-         : nv == 15 ? TileLayout<15, 2, 4, 8>::block_bytes
-         : nv == 21 ? TileLayout<21, 2, 4, 8>::block_bytes
-         : nv == 24 ? TileLayout<24, 3, 3, 4>::block_bytes
-         : nv == 29 ? TileLayout<29, 3, 3, 4>::block_bytes
-         : nv == 30 ? TileLayout<30, 3, 3, 4>::block_bytes
-         : nv == 33 ? TileLayout<33, 3, 3, 4>::block_bytes
-         : nv == 36 ? TileLayout<36, 3, 3, 4>::block_bytes
-                    : -1;
+// Shared memory bytes of the newton_tile_kernel block that takes ne rows
+// at nv (GRT_NEWTON_TILES), and the blocks one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 for another nv or
+// more rows.
+int grt_newton_smem_bytes(int nv, int ne) {
+#define GRT_SMEM(NV_, W_, R_, E_)                              \
+  if (nv == NV_ && ne <= TileLayout<NV_, W_, R_, E_>::NEC)    \
+    return TileLayout<NV_, W_, R_, E_>::block_bytes;
+  GRT_NEWTON_TILES(GRT_SMEM)
+#undef GRT_SMEM
+  return -1;
 }
-int grt_newton_blocks_per_sm(int nv) {
-  return nv == 14   ? newton_tile_blocks_per_sm<14, 1, 3, 8>()
-         : nv == 15 ? newton_tile_blocks_per_sm<15, 2, 4, 8>()
-         : nv == 21 ? newton_tile_blocks_per_sm<21, 2, 4, 8>()
-         : nv == 24 ? newton_tile_blocks_per_sm<24, 3, 3, 4>()
-         : nv == 29 ? newton_tile_blocks_per_sm<29, 3, 3, 4>()
-         : nv == 30 ? newton_tile_blocks_per_sm<30, 3, 3, 4>()
-         : nv == 33 ? newton_tile_blocks_per_sm<33, 3, 3, 4>()
-         : nv == 36 ? newton_tile_blocks_per_sm<36, 3, 3, 4>()
-                    : -1;
+int grt_newton_blocks_per_sm(int nv, int ne) {
+#define GRT_BLOCKS(NV_, W_, R_, E_)                            \
+  if (nv == NV_ && ne <= TileLayout<NV_, W_, R_, E_>::NEC)    \
+    return newton_tile_blocks_per_sm<NV_, W_, R_, E_>();
+  GRT_NEWTON_TILES(GRT_BLOCKS)
+#undef GRT_BLOCKS
+  return -1;
 }
 
 // The nv = 2 solve of the per-env route (newton2_kernel<G, false>: the

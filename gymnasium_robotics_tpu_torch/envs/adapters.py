@@ -44,8 +44,10 @@ def _spaces(env):
     """(observation_space, action_space) of ``env``: for a goal env (one
     with ``goal_dim``) a Dict of observation / achieved_goal /
     desired_goal Boxes, for the kitchen (``goal_shapes``) goals that are
-    Dicts of a Box by task, else one flat Box (Adroit); a [-1, 1] action
-    Box; (None, None) without gymnasium."""
+    Dicts of a Box by task, else one flat Box (Adroit, locomotion); the
+    action Box of the env's ``action_low``/``action_high`` where it has
+    them (locomotion: the model's ctrlrange), else [-1, 1]; (None, None)
+    without gymnasium."""
     if gym is None:
         return None, None
     from gymnasium import spaces
@@ -62,6 +64,9 @@ def _spaces(env):
     if hasattr(env, "goal_dim") or hasattr(env, "goal_shapes"):
         obs = spaces.Dict(dict(observation=obs, achieved_goal=goal(),
                                desired_goal=goal()))
+    if hasattr(env, "action_low"):
+        return obs, spaces.Box(env.action_low, env.action_high,
+                               dtype=ACTION_DTYPE)
     return obs, spaces.Box(-1.0, 1.0, (env.action_dim,), ACTION_DTYPE)
 
 
@@ -107,8 +112,10 @@ class GymAdapter(gym.Env if gym else object):
     def reset(self, *, seed: Optional[int] = None,
               options: Optional[dict] = None):
         """A fresh episode: with ``parity`` the reset values are drawn from
-        ``np_random`` in the reference's order (utils/parity.py), else from
-        a torch Generator seeded from it; ``options`` may name a maze
+        ``np_random`` in the reference's order (utils/parity.py) where the
+        family has a sampler (an env whose ``host_reset_values`` is False,
+        locomotion's, has none, as in the JAX package), else from a torch
+        Generator seeded from it; ``options`` may name a maze
         ``goal_cell`` / ``reset_cell`` and an ``initial_state_dict`` (a
         ``get_env_state`` result) to start from."""
         if seed is not None:
@@ -118,7 +125,7 @@ class GymAdapter(gym.Env if gym else object):
         self._gen.manual_seed(seed)
         options = dict(options or {})
         init_state = options.pop("initial_state_dict", None)
-        if self.parity:
+        if self.parity and getattr(self.env, "host_reset_values", True):
             values = P.sample_reset_values(self.env, self.np_random, options)
             self._state = self.env.reset_with_values(
                 self.env.initial(1, self._gen),

@@ -391,6 +391,10 @@ def _sphere_sphere_at(c1, r1, c2, r2):
     return dist[None], pos[None], n[None]
 
 
+def _sphere_sphere(p1, R1, s1, p2, R2, s2):
+    return _sphere_sphere_at(p1, s1[0], p2, s2[0])
+
+
 def _sphere_capsule(p1, R1, s1, p2, R2, s2):
     """The sphere against the closest point of the capsule's segment."""
     axis = R2[:, 2]
@@ -758,6 +762,7 @@ PRIMITIVES = {
     (T.PLANE, T.CAPSULE): _plane_capsule,
     (T.PLANE, T.BOX): _plane_box,
     (T.PLANE, T.CYLINDER): _plane_cylinder,
+    (T.SPHERE, T.SPHERE): _sphere_sphere,
     (T.SPHERE, T.BOX): _sphere_box,
     (T.CAPSULE, T.BOX): _capsule_box,
     (T.CYLINDER, T.BOX): _capsule_box,
@@ -802,8 +807,8 @@ def _check_ported(meta: T.Meta, t1, t2):
             f"it comes with {_HULL_FAMILY.get((t1, t2), 'ROADMAP B4')}")
     raise NotImplementedError(
         f"narrowphase for {name} pairs is not ported yet (the port has "
-        "plane-sphere, plane-capsule, plane-box, plane-cylinder, sphere-box, "
-        "sphere-capsule, capsule-capsule, capsule-box, capsule-cylinder, "
+        "plane-sphere, plane-capsule, plane-box, plane-cylinder, sphere-sphere, "
+        "sphere-box, sphere-capsule, capsule-capsule, capsule-box, capsule-cylinder, "
         "cylinder-box, cylinder-cylinder, box-box and plane, capsule, "
         "cylinder, box and mesh against convex hulls)")
 
@@ -1055,6 +1060,12 @@ class _PrunedPlan:
         plan = prune_plan(meta)
         for g in plan.groups:
             _check_ported(meta, *g.tp)
+            if g.tp not in NP.KINDS and T.MESH not in g.tp:
+                raise NotImplementedError(
+                    f"{_TYPE_NAMES[g.tp[0]]}-{_TYPE_NAMES[g.tp[1]]} pairs on a "
+                    "pair-topk table need their kind in the narrowphase "
+                    "kernel, which is not ported yet (ROADMAP B4); the "
+                    "unpruned table has them")
         slot_base = _pair_slot_base(meta)
         pruned = [g for g in plan.groups if g.pruned]
         self.K = pruned[0].K

@@ -1,14 +1,14 @@
 """Batch-last smooth dynamics (port of gymnasium_robotics_tpu/physics/soa.py
 :206-391 jump FK, the FK routing of ``kinematics`` :392-411, com_pos :572,
 com_vel :642, crb :661, rne :681, tendon :713, transmission :787,
-fwd_actuation :837, fwd_passive :923).
+fwd_actuation :837, fwd_passive :923, _inertia_box_fluid :953).
 
 Each stage takes and returns a batch-last ``Data``. Static index tables and
 the 0/1 tree matrices are built once per model (``Model.plan``) on the
-model's device. Fixed tendons and their springs are ported; stages a
-later slice brings (spatial tendons, fluid forces, tendon and free/ball
-actuation, activation dynamics) raise ``NotImplementedError`` when a model
-needs them.
+model's device. Fixed tendons and their springs and the inertia-box fluid
+model (soa._inertia_box_fluid :953) are ported; stages a later slice
+brings (spatial tendons, tendon and free/ball actuation, activation
+dynamics) raise ``NotImplementedError`` when a model needs them.
 """
 
 from __future__ import annotations
@@ -496,16 +496,64 @@ def fwd_actuation(m: T.Model, d: T.Data) -> T.Data:
 class _PassivePlan:
     def __init__(self, m: T.Model):
         mt = m.meta
-        if mt.opt.density > 0 or mt.opt.viscosity > 0:
-            raise NotImplementedError(
-                "the inertia-box fluid model (soa._inertia_box_fluid :953) "
-                "is not ported yet"
-            )
         sel = [j for j in range(mt.njnt) if mt.jnt_type[j] in (T.HINGE, T.SLIDE)]
         dev = m.device
         self.j = _ix(sel, dev)
         self.q = _ix([mt.jnt_qposadr[j] for j in sel], dev)
         self.d = _ix([mt.jnt_dofadr[j] for j in sel], dev)
+        self.fluid = mt.opt.density > 0 or mt.opt.viscosity > 0
+        if self.fluid:
+            from gymnasium_robotics_tpu_torch.physics.constraint import (
+                _body_dof_masks)
+
+            # bodies 1.., their roots, and which dofs move each (nb-1, nv, 1)
+            self.roots = _ix(mt.body_rootid[1:], dev)
+            self.masks = torch.as_tensor(
+                _body_dof_masks(mt)[1:, :, None], dtype=m.qpos0.dtype,
+                device=dev)
+
+
+def _inertia_box_fluid(m: T.Model, d: T.Data, pp: _PassivePlan):
+    """The inertia-box fluid model (soa._inertia_box_fluid :953), every
+    body but the world at once: each body as the box of its inertia, in
+    the medium's density (quadratic drag on the box's faces) and viscosity
+    (Stokes drag of a sphere of the box's mean diameter), its local force
+    and torque mapped to the dofs through the body's point Jacobian."""
+    mt = m.meta
+    rho, beta = mt.opt.density, mt.opt.viscosity
+    mass, inert = m.body_mass[1:], m.body_inertia[1:]        # (n, Bm), (n, 3, Bm)
+    i0, i1, i2 = inert[:, 0], inert[:, 1], inert[:, 2]
+    box = torch.sqrt(torch.clamp(
+        torch.stack([i1 + i2 - i0, i0 + i2 - i1, i0 + i1 - i2], dim=1)
+        / torch.clamp(mass, min=1e-12)[:, None] * 6.0, min=1e-12)) / 2.0
+    o = d.subtree_com[pp.roots]                              # (n, 3, B)
+    off = d.xipos[1:] - o
+    w_world = d.cvel[1:, :3]
+    v_world = d.cvel[1:, 3:] + M.cross3(w_world, off)
+    Rm = d.ximat[1:]                                         # (n, 3, 3, B)
+    w = torch.einsum("nijb,nib->njb", Rm, w_world)
+    v = torch.einsum("nijb,nib->njb", Rm, v_world)
+    lfrc_f = torch.zeros_like(v)
+    lfrc_t = torch.zeros_like(w)
+    if beta > 0:
+        diam = torch.mean(box, dim=1) * 2.0                  # (n, Bm)
+        lfrc_f = lfrc_f - 3.0 * torch.pi * diam[:, None] * beta * v
+        lfrc_t = lfrc_t - torch.pi * diam[:, None] ** 3 * beta * w
+    if rho > 0:
+        b0, b1, b2 = box[:, 0], box[:, 1], box[:, 2]
+        area = torch.stack([b1 * b2, b0 * b2, b0 * b1], dim=1) * 4.0
+        lfrc_f = lfrc_f - 0.5 * rho * area * torch.abs(v) * v
+        scl = torch.stack([b0 * (b1 ** 4 + b2 ** 4), b1 * (b0 ** 4 + b2 ** 4),
+                           b2 * (b0 ** 4 + b1 ** 4)], dim=1)
+        lfrc_t = lfrc_t - rho * scl * torch.abs(w) * w / 64.0 * 32.0
+    f_world = torch.einsum("nijb,njb->nib", Rm, lfrc_f)
+    t_world = torch.einsum("nijb,njb->nib", Rm, lfrc_t)
+    cdof = d.cdof                                            # (nv, 6, B)
+    jacp = (cdof[None, :, 3:] + M.cross3(cdof[None, :, :3], off[:, None])
+            ) * pp.masks[..., None, :]                       # (n, nv, 3, B)
+    jacr = cdof[None, :, :3] * pp.masks[..., None, :]
+    return (torch.einsum("nvcb,ncb->vb", jacp, f_world)
+            + torch.einsum("nvcb,ncb->vb", jacr, t_world))
 
 
 def fwd_passive(m: T.Model, d: T.Data) -> T.Data:
@@ -524,4 +572,6 @@ def fwd_passive(m: T.Model, d: T.Data) -> T.Data:
                           torch.where(L > hi, L - hi, torch.zeros_like(L)))
         frc = -m.tendon_stiffness * dsp - m.tendon_damping * d.ten_velocity
         qfrc = qfrc + torch.einsum("tvb,tb->vb", d.ten_J, frc)
+    if pp.fluid:
+        qfrc = qfrc + _inertia_box_fluid(m, d, pp)
     return dataclasses.replace(d, qfrc_passive=qfrc)

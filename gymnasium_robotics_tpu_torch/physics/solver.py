@@ -28,19 +28,22 @@ import torch
 from gymnasium_robotics_tpu_torch import kernels
 
 LAUNCHES = {"chol": 0, "newton": 0, "newton_nv2": 0}
+# newton_tile_kernel's instantiations (csrc/solver.cu GRT_NEWTON_TILES):
+# nv -> its shapes (warps an env, rows a lane, envs a tile) in ascending
+# row cap, 32 x warps x rows; a solve takes the first whose rows hold ne
+# (nv = 14: AntMaze's 72 rows the 96-row shape, Ant's 108 the 128-row one)
+NEWTON_TILE_SHAPES = {3: ((1, 2, 8),), 4: ((1, 2, 8),), 5: ((1, 2, 8),),
+                      6: ((1, 2, 8),), 9: ((1, 3, 8),), 11: ((1, 1, 8),),
+                      14: ((1, 3, 8), (1, 4, 8)), 15: ((2, 4, 8),),
+                      21: ((2, 4, 8),), 23: ((3, 3, 4),), 24: ((3, 3, 4),),
+                      29: ((3, 3, 4),), 30: ((3, 3, 4),), 33: ((3, 3, 4),),
+                      36: ((3, 3, 4),)}
 # nv values csrc/solver.cu instantiates
-KERNEL_NV = (2, 14, 15, 21, 24, 29, 30, 33, 36)
-# largest row count the Newton kernel takes, per nv: newton2_kernel (a
-# group of lanes an env), newton_tile_kernel<14, 1, 3, 8>, <15, 2, 4, 8>,
-# <21, 2, 4, 8>, then <nv, 3, 3, 4> from nv = 24 on (a tile of envs a
-# block, one to three warps an env, three or four rows a lane)
-NEWTON_MAX_ROWS = {2: 64, 14: 96, 15: 256, 21: 256, 24: 288, 29: 288,
-                   30: 288, 33: 288, 36: 288}
-# newton_tile_kernel's instantiations: nv -> (warps an env, rows a lane,
-# envs a tile)
-NEWTON_TILE_SHAPES = {14: (1, 3, 8), 15: (2, 4, 8), 21: (2, 4, 8),
-                      24: (3, 3, 4), 29: (3, 3, 4), 30: (3, 3, 4),
-                      33: (3, 3, 4), 36: (3, 3, 4)}
+KERNEL_NV = (2,) + tuple(NEWTON_TILE_SHAPES)
+# largest row count the Newton kernel takes, per nv: newton2_kernel's (a
+# group of lanes an env) at nv = 2, else the largest tile shape's
+NEWTON_MAX_ROWS = {2: 64, **{nv: 32 * s[-1][0] * s[-1][1]
+                             for nv, s in NEWTON_TILE_SHAPES.items()}}
 NEWTON_BLOCK = 3   # side of the block of H a lane sums
 NEWTON_NV2_MAX_ROWS = 64  # newton2_kernel, the per-env route
 # newton2_kernel<G, CHOL>: NV2_ROWS_PER_LANE rows a lane, G lanes an env
@@ -48,13 +51,13 @@ NEWTON_NV2_MAX_ROWS = 64  # newton2_kernel, the per-env route
 NV2_ROWS_PER_LANE = 8
 NV2_LANES = (4, 8)
 NV2_THREADS = 128
-# chol_tile_kernel (CHOL_TILE_NV): a tile of CHOL_TILE envs a block
-# (CHOL_TILE_WIDE where a lane holds two rows, past nv = 32), a half-warp
-# an env where nv <= 16, else a warp; nv = 2 runs chol_solve_kernel, one
-# env per thread
+# chol_tile_kernel (CHOL_TILE_NV, csrc/solver.cu GRT_CHOL_TILES): a tile
+# of CHOL_TILE envs a block (CHOL_TILE_WIDE where a lane holds two rows,
+# past nv = 32), a half-warp an env where nv <= 16, else a warp; nv = 2
+# runs chol_solve_kernel, one env per thread
 CHOL_TILE = 16
 CHOL_TILE_WIDE = 8
-CHOL_TILE_NV = (14, 15, 21, 24, 29, 30, 33, 36)
+CHOL_TILE_NV = KERNEL_NV[1:]
 
 
 def solve_pos_plain(M, b):
@@ -203,8 +206,10 @@ def _lib():
     lib.grt_chol_solve_f32.restype = _i
     lib.grt_newton_f32.argtypes = [_vp] * 11 + [_i] * 6 + [_vp]
     lib.grt_newton_f32.restype = _i
-    for fn in (lib.grt_newton_smem_bytes, lib.grt_newton_blocks_per_sm,
-               lib.grt_chol_smem_bytes, lib.grt_chol_blocks_per_sm):
+    for fn in (lib.grt_newton_smem_bytes, lib.grt_newton_blocks_per_sm):
+        fn.argtypes = [_i, _i]
+        fn.restype = _i
+    for fn in (lib.grt_chol_smem_bytes, lib.grt_chol_blocks_per_sm):
         fn.argtypes = [_i]
         fn.restype = _i
     lib.grt_newton2_f32.argtypes = [_vp] * 11 + [_i] * 4 + [_vp]
@@ -266,7 +271,7 @@ def solve_newton(M, a_smooth, a_warm, J, aref, D, active, is_eq,
     (nv, nv, B), a_smooth/a_warm (nv, B), J (ne, nv, B), aref/D/active
     (ne, B), is_eq (ne,) per model row or (ne, B) -> (qacc (nv, B),
     f (ne, B)). CUDA tensors launch newton2_kernel<G, true> (nv = 2) or
-    newton_tile_kernel (NEWTON_TILE_SHAPES); CPU tensors take the plain
+    newton_tile_kernel (newton_shape); CPU tensors take the plain
     version."""
     nv, ne, B = _check_newton_shapes(M, a_smooth, a_warm, J, aref, D,
                                      active, is_eq)
@@ -359,23 +364,32 @@ def chol_geometry(nv: int, B: int) -> dict:
             "smem": tile * nv * (nv + 3) // 2 * 4}
 
 
+def newton_shape(nv: int, ne: int) -> tuple:
+    """(warps an env, rows a lane, envs a tile) of the newton_tile_kernel
+    instantiation that takes ne rows at nv: the first of NEWTON_TILE_SHAPES
+    [nv] whose rows hold ne."""
+    if nv not in NEWTON_TILE_SHAPES:
+        raise NotImplementedError(f"newton_tile_kernel has no nv={nv}")
+    for shape in NEWTON_TILE_SHAPES[nv]:
+        if ne <= 32 * shape[0] * shape[1]:
+            return shape
+    raise NotImplementedError(
+        f"the Newton kernel at nv={nv} is instantiated for up to "
+        f"{NEWTON_MAX_ROWS[nv]} rows, not {ne}; add a larger row cap to "
+        "csrc/solver.cu")
+
+
 def newton_geometry(nv: int, ne: int, B: int) -> dict:
-    """Launch geometry of newton_tile_kernel (NEWTON_TILE_SHAPES) at ne rows
+    """Launch geometry of newton_tile_kernel (newton_shape) at ne rows
     and B envs: its tile, grid, threads a block and dynamic shared memory
     bytes (per env: J^T with a zero column where the blocks of H overhang
     nv and its rows padded to the row cap + 4, each row's weight and D x,
     M's triangle and H's, five vectors of 32 floats a 32 components, 16
     scalars and a byte per row; padded to 4 mod 32 floats), as
     csrc/solver.cu's TileLayout computes them."""
-    if nv not in NEWTON_TILE_SHAPES:
-        raise NotImplementedError(f"newton_tile_kernel has no nv={nv}")
-    wpe, rpl, tile = NEWTON_TILE_SHAPES[nv]
+    wpe, rpl, tile = newton_shape(nv, ne)
     bs = NEWTON_BLOCK
     nec = 32 * wpe * rpl
-    if ne > nec:
-        raise NotImplementedError(
-            f"the Newton kernel at nv={nv} is instantiated for up to {nec} "
-            f"rows, not {ne}; add a larger row cap to csrc/solver.cu")
     njc = nv + 1 if -(-nv // bs) * bs > nv else nv   # + a zero column
     nt = nv * (nv + 1) // 2
     vw = 32 * -(-nv // 32)

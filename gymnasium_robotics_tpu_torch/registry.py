@@ -3,12 +3,13 @@
 ``_register_ant_maze`` and ``_register_fetch`` :53-109, of
 envs/hand/hand.py ``register_hand_envs`` :540-586 for HandReach and
 HandManipulateBlock, of envs/adroit/adroit.py ``register_adroit_envs``
-:479-496 and of envs/kitchen/kitchen.py ``register_kitchen_envs``).
+:479-496, of envs/kitchen/kitchen.py ``register_kitchen_envs`` and of
+envs/__init__.py ``_register_locomotion`` :112-150).
 
 The port registers the PointMaze, AntMaze, Fetch (reach, push, slide,
-pick-and-place), HandReach, HandManipulateBlock, Adroit and
-FrankaKitchen-v1 IDs; any other ID raises ``KeyError`` naming the slice
-of the port that brings its family.
+pick-and-place), HandReach, HandManipulateBlock, Adroit, FrankaKitchen-v1
+and locomotion (the 11 v5 and 17 legacy v2/v3) IDs; any other ID raises
+``KeyError`` naming the slice of the port that brings its family.
 """
 
 from __future__ import annotations
@@ -168,9 +169,41 @@ def _kitchen_specs() -> Dict[str, EnvSpec]:
                                         max_episode_steps=280)}
 
 
+def _locomotion_specs() -> Dict[str, EnvSpec]:
+    """The 11 locomotion IDs of v5 semantics and the 17 legacy v2/v3 IDs,
+    with their step limits (JAX envs/__init__.py:127-150)."""
+    from gymnasium_robotics_tpu_torch.envs.locomotion import classic as C
+    from gymnasium_robotics_tpu_torch.envs.locomotion import legacy as LG
+    from gymnasium_robotics_tpu_torch.envs.locomotion import locomotion as L
+
+    makers = {
+        "Ant": (L.make_ant, 1000),
+        "HalfCheetah": (L.make_half_cheetah, 1000),
+        "Hopper": (L.make_hopper, 1000),
+        "Walker2d": (L.make_walker2d, 1000),
+        "Swimmer": (L.make_swimmer, 1000),
+        "Humanoid": (C.make_humanoid, 1000),
+        "HumanoidStandup": (C.make_humanoid_standup, 1000),
+        "InvertedPendulum": (C.make_inverted_pendulum, 1000),
+        "InvertedDoublePendulum": (C.make_inverted_double_pendulum, 1000),
+        "Reacher": (C.make_reacher, 50),
+        "Pusher": (C.make_pusher, 100),
+    }
+    out = {f"{name}-v5": EnvSpec(id=f"{name}-v5", entry_point=maker,
+                                 kwargs={}, max_episode_steps=steps)
+           for name, (maker, steps) in makers.items()}
+    for name, (maker, versions, steps) in LG.LEGACY_REGISTRY.items():
+        for ver in versions:
+            id_ = f"{name}-{ver}"
+            out[id_] = EnvSpec(id=id_, entry_point=maker,
+                               kwargs={"version": ver}, max_episode_steps=steps)
+    return out
+
+
 def _specs() -> Dict[str, EnvSpec]:
     return {**_point_maze_specs(), **_ant_maze_specs(), **_fetch_specs(),
-            **_hand_specs(), **_adroit_specs(), **_kitchen_specs()}
+            **_hand_specs(), **_adroit_specs(), **_kitchen_specs(),
+            **_locomotion_specs()}
 
 
 _SLICES = (
@@ -189,8 +222,9 @@ def spec(id: str) -> EnvSpec:
         )
         raise KeyError(
             f"{id!r} is not in the port: it registers only the PointMaze, "
-            f"AntMaze, Fetch, HandReach, HandManipulateBlock, Adroit and "
-            f"FrankaKitchen-v1 IDs so far; this family comes with {brings}"
+            f"AntMaze, Fetch, HandReach, HandManipulateBlock, Adroit, "
+            f"FrankaKitchen-v1 and locomotion IDs so far; this family comes "
+            f"with {brings}"
         )
     return specs[id]
 

@@ -375,7 +375,7 @@ def test_registry_matches_jax():
     ids = [i for i in registry.ids() if i.startswith("Adroit")]
     jids = [i for i in jreg.ids() if i.startswith("Adroit")]
     assert sorted(ids) == sorted(jids) and len(ids) == 16
-    assert len(registry.ids()) == 169
+    assert len(registry.ids()) == 197
     for id_ in ids:
         s, js = registry.spec(id_), jreg.spec(id_)
         assert s.kwargs == js.kwargs and s.max_episode_steps == js.max_episode_steps == 200

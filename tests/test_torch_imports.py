@@ -63,6 +63,11 @@ def test_building_the_env_imports_no_jax():
         "hreach.reset(seed=0)\n"
         "kitchen = registry.make('FrankaKitchen-v1', num_envs=2, device='cpu')\n"
         "kitchen.reset(seed=0)\n"
+        "for id_ in ('HalfCheetah-v5', 'Humanoid-v2', 'Swimmer-v3'):\n"
+        "    loco = registry.make(id_, num_envs=2, device='cpu')\n"
+        "    loco.reset(seed=0)\n"
+        "    loco.step(torch.zeros(2, loco.env.action_dim))\n"
+        "registry.make_gym('InvertedPendulum-v5', device='cpu').reset(seed=0)\n"
         "from gymnasium_robotics_tpu_torch.physics import kinematics, pipeline\n"
         "m = env.env.model.with_options(fk_kernel=True)\n"
         "kinematics.kinematics(m, pipeline.make_data(m, 2))\n"

@@ -317,6 +317,25 @@ def _random_nv2_rows(rs, B, ne=19):
     ]
 
 
+@pytest.mark.parametrize("nv,ne", [(3, 1), (4, 3), (5, 2), (6, 38), (9, 70),
+                                   (9, 62), (11, 22), (14, 108)])
+def test_plain_solves_match_kernel_bodies_locomotion(nv, ne):
+    """solve_newton_plain and solve_pos_plain at the locomotion models' nv
+    and rows (InvertedDoublePendulum, Reacher, Swimmer, Hopper,
+    HalfCheetah, Walker2d, Pusher, Ant past AntMaze's 96 rows; the
+    humanoids' nv = 23 in tests/test_torch_humanoid.py) against the TPU
+    kernels' bodies, solver_pallas._kernel_nv and _kernel_chol run op by op
+    with their lanes the batch (random rows, B = 2), float64."""
+    import _jax_ref as R
+
+    assert nv in solver.KERNEL_NV and ne <= solver.NEWTON_MAX_ROWS[nv]
+    args, qacc, f, x = R.kernel_body_solves(nv, ne, 4, 3, seed=nv + ne)
+    q_got, f_got = solver.solve_newton_plain(*args, n_iter=4, n_ls=3)
+    assert rel_err(q_got.numpy(), qacc) <= 1e-12
+    assert rel_err(f_got.numpy(), f) <= 1e-12
+    assert rel_err(solver.solve_pos_plain(args[0], args[1]).numpy(), x) <= 1e-12
+
+
 @pytest.mark.parametrize("rows", ["pointmaze", "random"])
 def test_solve_newton_nv2_plain_matches_pallas(rows):
     """float32, at 2e-4: PointMaze rows pushed into the walls (per-model
@@ -367,37 +386,47 @@ def test_wrappers_route_and_check():
 
 def test_newton_geometry_covers_row_caps():
     """newton_tile_kernel's launch geometry for every ported system with a
-    tile Newton (the AntMaze IDs at nv = 14, FetchReach at nv = 15, the
-    other Fetch IDs at nv = 21, HandReach at nv = 24, FrankaKitchen-v1 at
-    nv = 29, AdroitHandDoor and Pen at nv = 30, Hammer at nv = 33, the
+    tile Newton (the locomotion models at nv = 3, 4, 5, 6, 9, 11, 14 and
+    23, the AntMaze IDs at nv = 14, FetchReach at nv = 15, the other Fetch
+    IDs at nv = 21, HandReach at nv = 24, FrankaKitchen-v1 at nv = 29,
+    AdroitHandDoor and Pen at nv = 30, Hammer at nv = 33, the
     HandManipulateBlock IDs and AdroitHandRelocate at nv = 36) and at the
-    row caps, at B from 1
-    up: the grid covers every env, a block's shared memory fits, the lanes
-    hold the row cap; other nv and more rows raise."""
+    row caps, at B from 1 up: the grid covers every env, a block's shared
+    memory fits, the lanes hold the rows and the shape is the smallest of
+    the nv's that does (nv = 14: 96 rows for AntMaze's 72, 128 for Ant's
+    108); other nv and more rows raise."""
     systems = set()
     for id_ in registry.ids():
         m = registry.make(id_, num_envs=1, device="cpu").env.model
         if m.nv in solver.NEWTON_TILE_SHAPES:
             systems.add((m.nv, m.plan("rows", constraint._RowPlan).is_eq.numel()))
-    assert systems == {(14, 72), (15, 255), (21, 255), (24, 272), (29, 188),
-                       (30, 278), (30, 272), (33, 275), (36, 272), (36, 278)}
+    assert systems == {(3, 1), (4, 3), (5, 2), (6, 38), (9, 70), (9, 62),
+                       (11, 22), (14, 72), (14, 108), (15, 255), (21, 255),
+                       (23, 244), (24, 272), (29, 188), (30, 278), (30, 272),
+                       (33, 275), (36, 272), (36, 278)}
     for nv in solver.NEWTON_TILE_SHAPES:
         cap = solver.NEWTON_MAX_ROWS[nv]
-        for ne in sorted({1, 45, cap} | {n for v, n in systems if v == nv}):
+        caps = [32 * w * r for w, r, _ in solver.NEWTON_TILE_SHAPES[nv]]
+        assert caps == sorted(caps) and caps[-1] == cap
+        for ne in sorted({1, 31, cap} | {n for v, n in systems if v == nv}):
             for B in (1, 7, 8, 2047, 2048, 8192):
                 geo = solver.newton_geometry(nv, ne, B)
                 assert (geo["grid"] - 1) * geo["tile"] < B <= geo["grid"] * geo["tile"]
                 assert geo["smem"] <= kernels.SMEM_MAX
                 assert geo["threads"] == geo["tile"] * 32 * geo["warps_per_env"]
-                assert 32 * geo["warps_per_env"] * geo["rows_per_lane"] == cap
+                held = 32 * geo["warps_per_env"] * geo["rows_per_lane"]
+                assert held == min(c for c in caps if c >= ne)
         with pytest.raises(NotImplementedError, match="rows"):
             solver.newton_geometry(nv, cap + 1, 1)
-    with pytest.raises(NotImplementedError, match="nv=23"):
-        solver.newton_geometry(23, 10, 1)
+    assert solver.newton_shape(14, 96) == (1, 3, 8)
+    assert solver.newton_shape(14, 97) == (1, 4, 8)
+    with pytest.raises(NotImplementedError, match="nv=22"):
+        solver.newton_geometry(22, 10, 1)
 
 
 def test_chol_geometry_matches_source():
-    """chol_tile_kernel's launch geometry (nv 14, 15, 21, 24, 29, 30, 33 and 36) against the
+    """chol_tile_kernel's launch geometry (nv 3, 4, 5, 6, 9, 11, 14, 15, 21,
+    23, 24, 29, 30, 33 and 36) against the
     constants of csrc/solver.cu (the tiles, the lanes an env, the triangle
     and right-hand side a block stages) at B from 1 up: the grid covers
     every env, the shared memory fits a static launch, up to nv = 36;
@@ -423,7 +452,7 @@ def test_chol_geometry_matches_source():
             assert geo["rows_per_lane"] * lanes >= nv
             assert geo["smem"] == tile * (nv * (nv + 1) // 2 + nv) * 4 <= 48 * 1024
     assert tile16 * (36 * 37 // 2 + 36) * 4 <= 48 * 1024   # nv = 36, the design's top
-    for nv in (2, 23):
+    for nv in (2, 22):
         with pytest.raises(NotImplementedError, match=f"nv={nv}"):
             solver.chol_geometry(nv, 1)
 
@@ -697,15 +726,19 @@ def test_kernels_match_plain_on_card_nv15(cuda_device):
 @pytest.mark.cuda
 def test_newton_edges_on_card(cuda_device):
     """newton_tile_kernel at the edges of its shapes against its plain
-    version (nv = 14: within 2e-4 of it in float32; nv = 15, 21, 24, 29
-    and 36, whose random systems float32 itself moves: within max(2e-4, 2x
+    version (nv = 14 but Ant's rows: within 2e-4 of it in float32; the
+    rest, whose random systems float32 itself moves: within max(2e-4, 2x
     the float32 plain version's error) of the plain version run in
-    float64): the row caps 96, 256, 256 and 288, an ne that is not a
-    multiple of 32, B = 1, a B that is not a multiple of the env tile (and
-    at nv = 36 and 24 the hands' 272 rows at B = 1023, at nv = 29 the
-    kitchen's 188 at B = 511, 8 iterations), n_iter = 0, every row inactive and J in a
-    batch-leading layout (the strided staging). The wrapper's shared
-    memory is the source's."""
+    float64): the row cap of every instantiation (64 at nv = 3-6, 96 at 9,
+    32 at 11, 96 and 128 at 14 (AntMaze's shape and Ant's), 256 at 15 and
+    21, 288 from 23 on) and one row under it at B = 1, an ne that is not a
+    multiple of 32, and at 72 rows (the cap less 3 where that is smaller)
+    a B that is not a multiple of the env tile, n_iter = 0, every row
+    inactive and J in a batch-leading layout (the strided staging); at
+    nv = 36 and 24 the hands' 272 rows at B = 1023, at nv = 29 the
+    kitchen's 188 at B = 511, 8 iterations, and each locomotion model's
+    rows at B = 8191, 20 iterations and 8 line-search steps. The
+    wrapper's shared memory is the source's."""
     rs = np.random.RandomState(9)
 
     def cuda(x):
@@ -713,14 +746,28 @@ def test_newton_edges_on_card(cuda_device):
         return torch.tensor(x, dtype=torch.bool if x.dtype == bool
                             else torch.float32, device=cuda_device)
 
-    for nv, n_iter in ((14, 5), (15, 4), (21, 4), (24, 5), (29, 8), (36, 5)):
-        cap = solver.NEWTON_MAX_ROWS[nv]
-        hand = {36: [(272, 1023, n_iter, "")], 24: [(272, 1023, n_iter, "")],
-                29: [(188, 511, n_iter, "")]}.get(nv, [])
-        for ne, B, it, case in [(cap, 2048, n_iter, ""), (45, 13, n_iter, ""),
-                                (cap - 1, 1, n_iter, ""), (72, 2047, n_iter, ""),
-                                (72, 64, 0, ""), (72, 64, n_iter, "inactive"),
-                                (72, 64, n_iter, "strided")] + hand:
+    # the locomotion models' rows, at their 20 iterations and 8 line-search
+    # steps (the nv they bring in run every case so)
+    loco = {3: 1, 4: 3, 5: 2, 6: 38, 9: 70, 11: 22, 14: 108, 23: 244}
+    for nv, n_iter in ((3, 20), (4, 20), (5, 20), (6, 20), (9, 20), (11, 20),
+                       (14, 5), (15, 4), (21, 4), (23, 20), (24, 5), (29, 8),
+                       (36, 5)):
+        n_ls = 8 if n_iter == 20 else 4
+        # every instantiation's row cap (nv = 14: AntMaze's 96, Ant's 128)
+        caps = [32 * w * r for w, r, _ in solver.NEWTON_TILE_SHAPES[nv]]
+        mid = min(72, caps[0] - 3)
+        extra = {36: [(272, 1023, n_iter, n_ls, "")],
+                 24: [(272, 1023, n_iter, n_ls, "")],
+                 29: [(188, 511, n_iter, n_ls, "")]}.get(nv, [])
+        if nv in loco:
+            extra += [(loco[nv], 8191, 20, 8, "loco")]
+        cases = [c for cap in caps for c in ((cap, 2048, n_iter, n_ls, ""),
+                                             (cap - 1, 1, n_iter, n_ls, ""))]
+        cases += [(min(45, mid), 13, n_iter, n_ls, ""),
+                  (mid, 2047, n_iter, n_ls, ""), (mid, 64, 0, n_ls, ""),
+                  (mid, 64, n_iter, n_ls, "inactive"),
+                  (mid, 64, n_iter, n_ls, "strided")] + extra
+        for ne, B, it, ls, case in cases:
             A = rs.normal(size=(nv, nv, B))
             is_eq = np.zeros(ne, bool)
             is_eq[:6] = True
@@ -733,23 +780,25 @@ def test_newton_edges_on_card(cuda_device):
             if case == "strided":   # (B, ne, nv) storage: batch stride ne nv
                 args[3] = args[3].permute(2, 0, 1).contiguous().permute(1, 2, 0)
             n0 = solver.LAUNCHES["newton"]
-            if nv == 14:
-                got = solver.solve_newton(*args, n_iter=it, n_ls=4)
+            if nv == 14 and case != "loco":
+                got = solver.solve_newton(*args, n_iter=it, n_ls=ls)
                 torch.cuda.synchronize()
-                plain = solver.solve_newton_plain(*args, n_iter=it, n_ls=4)
+                plain = solver.solve_newton_plain(*args, n_iter=it, n_ls=ls)
                 err = max(rel_err(g.cpu(), p.cpu()) for g, p in zip(got, plain))
                 assert err <= TOL32, (nv, ne, B, it, case, err)
             else:
-                err, p32 = gate64(args, it, 4)
+                err, p32 = gate64(args, it, ls)
                 assert err <= max(TOL32, 2 * p32), (nv, ne, B, it, case, err, p32)
             assert solver.LAUNCHES["newton"] == n0 + 1
-        assert (solver._lib().grt_newton_smem_bytes(nv)
-                == solver.newton_geometry(nv, cap, 1)["smem"])
+        for ne in (mid, *caps):
+            assert (solver._lib().grt_newton_smem_bytes(nv, ne)
+                    == solver.newton_geometry(nv, ne, 1)["smem"])
 
 
 @pytest.mark.cuda
 def test_chol_edges_on_card(cuda_device):
-    """chol_tile_kernel at nv 14, 15, 21, 24, 29 and 36 against its plain version: B = 1 and
+    """chol_tile_kernel at nv 3, 4, 5, 6, 9, 11, 14, 15, 21, 23, 24, 29 and
+    36 against its plain version: B = 1 and
     B = 2047, M as a transposed and as a sliced view, b transposed, envs
     whose factor takes the 1e-20 floor exactly (equal to the plain
     version), an env with a NaN entry (NaN in both); and the same solves
@@ -757,7 +806,7 @@ def test_chol_edges_on_card(cuda_device):
     than twice the float32 plain version). The wrapper's shared memory is
     the source's."""
     rs = np.random.RandomState(12)
-    for nv in (14, 15, 21, 24, 29, 36):
+    for nv in (3, 4, 5, 6, 9, 11, 14, 15, 21, 23, 24, 29, 36):
         def spd(B):
             A = rs.normal(size=(nv, nv, B))
             return torch.tensor(np.einsum("ikb,jkb->ijb", A, A)
