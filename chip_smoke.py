@@ -6,7 +6,7 @@ card and check it: the quickest proof that the port starts on the GPU.
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught).
 The CPU plain path's steps of the references of phases 13, 24, 28, 31,
-36, 39, 41, 45 and 50 run in REF_WORKERS spawned processes while the
+36, 39, 41, 45, 50 and 55 run in REF_WORKERS spawned processes while the
 card's phases go on; their checks run at the end, in phase 53:
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every kernel from csrc/ (one nvcc per source, in
@@ -50,7 +50,7 @@ card's phases go on; their checks run at the end, in phase 53:
   topk_select at (3, 85) -> 8 and (2, 169) -> 24, chol and Newton at
   nv = 21; box-hull and hull-hull run with MPR as plain PyTorch):
   11. main path: registry.make("FetchPush-v4", num_envs=2048,
-     max_episode_steps=3), reset, 4 steps with random actions, so every env
+     max_episode_steps=2), reset, 3 steps with random actions, so every env
      auto-resets; per step 40 chol, 20 Newton, 40 topk_select (20 of each
      shape) and 20 narrowphase launches; prints ms/step and env-steps/s;
   12. trace: 1 step traced, as in phase 4 (device activity only), with the
@@ -76,8 +76,8 @@ card's phases go on; their checks run at the end, in phase 53:
   FetchPush-v4 under Option.fk_kernel=True (the FK kernel beside the four
   above):
   15. main path: registry.make("FetchPush-v4", num_envs=2048,
-     max_episode_steps=2) with the env's model set to
-     with_options(fk_kernel=True), reset, 3 steps with random actions, so
+     max_episode_steps=1) with the env's model set to
+     with_options(fk_kernel=True), reset, 2 steps with random actions, so
      every env auto-resets; per step 22 FK launches (the 20 substeps'
      forwards, the blocked gripper's refresh, the auto-reset's fresh
      state) beside 40 chol, 20 Newton, 40 topk_select and 20 narrowphase;
@@ -124,15 +124,15 @@ card's phases go on; their checks run at the end, in phase 53:
   topk_select at (2, 160) -> 16; the unpruned table, box-hull with MPR as
   plain PyTorch; tendons and touch sensors):
   22. main path: registry.make("HandManipulateBlockRotateXYZ-v1",
-     num_envs=1024, max_episode_steps=3), reset (the initial settle of a
+     num_envs=1024, max_episode_steps=2), reset (the initial settle of a
      pool of 16 poses an env, one batch of 16384, 200 substeps; its
-     seconds printed), 4 steps with random actions, so every env
+     seconds printed), 3 steps with random actions, so every env
      auto-resets; per step 40 chol (the smooth solve and the Euler's damped
      velocity solve, each substep), 20 Newton and 20 topk_select launches,
      no narrowphase; prints ms/step and env-steps/s;
   23. trace: 1 step traced, as in phase 12, with the launches counted
      during it;
-  24. reference: 32 envs stepped once on the card, on the CPU plain path
+  24. reference: 128 envs stepped once on the card, on the CPU plain path
      and on the CPU plain path in float64, from the main path's state
      (full-range actions) and from settled hands (fresh resets from the
      pool, actions of amplitude 0.1); per env the largest relative error
@@ -141,8 +141,9 @@ card's phases go on; their checks run at the end, in phase 53:
      CPU's own float32 path leaves most envs more than 2e-4 from float64
      after one env step, so the card is held to the float64 path: its
      median env within 2e-4 of it, or no further than twice the CPU
-     float32 path's median env; medians, 90th percentiles, maxima and the
-     shares within 2e-4 printed;
+     float32 path's median env (over 128 envs: a median of 32 moved 3x
+     with the state); medians, 90th percentiles, maxima and the shares
+     within 2e-4 printed;
   25. kernels: each hand kernel against its plain version at B = 1024 on
      random inputs (forced ties for topk_select), on the main path's arrays
      and on a pressed state (the block on the fingertips, in the palm, in
@@ -162,7 +163,7 @@ card's phases go on; their checks run at the end, in phase 53:
   (chol and Newton at nv = 15, topk_select at (3, 85) -> 8 and
   (2, 156) -> 24):
   27. main path: registry.make("FetchSlide-v4", num_envs=2048,
-     max_episode_steps=3), reset, 4 steps with random actions, so every env
+     max_episode_steps=2), reset, 3 steps with random actions, so every env
      auto-resets; per step 40 chol, 20 Newton, 40 topk_select (20 of each
      shape) and 20 narrowphase launches; prints ms/step, env-steps/s and
      the shapes, then a 1-step trace as in phase 12 with the launches
@@ -228,7 +229,7 @@ card's phases go on; their checks run at the end, in phase 53:
   HandReach-v3 (chol and Newton at nv = 24, 272 rows; the unpruned table,
   topk_select at the hand's (2, 160) -> 16):
   40. main path: registry.make("HandReach-v3", num_envs=1024,
-     max_episode_steps=3), reset, 4 steps with random actions, so every env
+     max_episode_steps=2), reset, 3 steps with random actions, so every env
      auto-resets and draws a new goal; per step 40 chol, 20 Newton and 20
      topk_select launches, no narrowphase; prints ms/step and env-steps/s,
      then a trace as in phase 12;
@@ -282,7 +283,7 @@ card's phases go on; their checks run at the end, in phase 53:
   49. the other ten v5 models x 8192 (Ant, Hopper, Walker2d, Swimmer,
      Humanoid, HumanoidStandup, InvertedPendulum, InvertedDoublePendulum,
      Reacher, Pusher; RK4 models 4 forwards a substep) and the 17 legacy
-     v2/v3 IDs x 1024: 3 and 2 steps, the limit cut to 2 and 1 (every env
+     v2/v3 IDs x 1024: 2 steps, the limit cut to 1 (every env
      resets), launches per step as the model's integrator and damping
      give them, each model's rows and newton_tile_kernel shape printed
      (Ant's 108 rows through <14, 1, 4, 8>);
@@ -300,7 +301,24 @@ card's phases go on; their checks run at the end, in phase 53:
   52. make_gym on Hopper-v5 (the per-env path's fused Newton at nv = 6),
      InvertedPendulum-v5 (the closed-form nv = 2 route, B6) and
      HalfCheetah-v3: 3 steps each, launches per step counted;
-  21. (run after phases 22-52) edge checks of the redesigned kernels
+  MaMuJoCo (mamujoco_v1: the multi-agent layer over the locomotion
+  models; CoupledHalfCheetah's spatial tendon; chol and Newton at nv = 18,
+  142 rows, and at nv = 9):
+  54. main paths: MultiAgentMujocoEnv("HalfCheetah", "2x3", agent_obsk=1)
+     and MultiAgentMujocoEnv("CoupledHalfCheetah", "1p1") under
+     BatchedEnv x 8192 (limit cut to 4), 6 steps with random actions for
+     each agent, so every env auto-resets; per step 10 chol and 5 Newton
+     launches; every agent's observation finite and of its width; prints
+     ms/step and env-steps/s, then a whole-step trace each as in phase 4;
+  55. reference: 8 envs of each main path's state stepped once on the
+     card, on the CPU plain path and on it in float64, held as in phase 50
+     (every agent's observation);
+  56. kernels: B1 and B2 at nv = 18 on random systems, the coupled main
+     path's state (142 rows) and a pressed state, held as at nv = 30
+     (phase 37), timed, with solve_ex beside the Cholesky;
+  57. parallel_env (the per-env path, B = 1) on both scenarios, 3 steps
+     each: the reward shared by every agent, launches per step counted;
+  21. (run after phases 22-57) edge checks of the redesigned kernels
      (topk_select_kernel,
      newton_tile_kernel, chol_tile_kernel, narrowphase_kernel,
      newton2_kernel, fk_kernel) against
@@ -328,8 +346,8 @@ card's phases go on; their checks run at the end, in phase 53:
      float64, timed and bounded; and the FK kernel on the random poses of
      phase 16 at the edges of its launch (B = 1, 33 and 2047, qpos
      batch-leading);
-  53. the reference checks of phases 13, 24, 28, 31, 36, 39, 41, 45 and
-     50, in that order, each printing its errors, and the seconds the run
+  53. the reference checks of phases 13, 24, 28, 31, 36, 39, 41, 45, 50
+     and 55, in that order, each printing its errors, and the seconds the run
      waited on the CPU paths;
   then a JSON line of the kernels (the redesigned kernels' rows, fk and
   the nv = 2 rows included, also carry ptxas' registers and spill bytes,
@@ -358,10 +376,10 @@ ANT_STEPS = 13        # every env resets; kept short for the later phases
 ANT_LIMIT = 10        # max_episode_steps cut from 700
 ANT_REF_STEPS = 2     # reference steps on the CPU, the first gated
 FETCH_B = 2048
-FETCH_STEPS = 4
-FETCH_LIMIT = 3       # max_episode_steps cut from 50: every env resets
-FK_STEPS = 3
-FK_LIMIT = 2          # max_episode_steps cut from 50: every env resets
+FETCH_STEPS = 3
+FETCH_LIMIT = 2       # max_episode_steps cut from 50: every env resets
+FK_STEPS = 2
+FK_LIMIT = 1          # max_episode_steps cut from 50: every env resets
 FK_PER_STEP = 22      # 20 substeps' forwards, the gripper refresh, the reset
 FK_STEP_SHARE = 0.9   # envs within TOL after one env step, FK kernel vs not
 FK_LEVEL_SLACK = 2    # FK kernel path's largest error vs float64 <= 2x level's
@@ -372,9 +390,9 @@ GYM_STEPS = 310       # past PointMaze's 300-step limit
 HAND_ID = "HandManipulateBlockRotateXYZ-v1"
 HAND_GYM_ID = "HandManipulateBlock_ContinuousTouchSensors-v1"
 HAND_B = 1024         # bench.py's rung of the hand
-HAND_STEPS = 4
-HAND_LIMIT = 3        # max_episode_steps cut from 100: every env resets
-HAND_REF_ENVS = 32    # cut from 64 to keep the run's time
+HAND_STEPS = 3
+HAND_LIMIT = 2        # max_episode_steps cut from 100: every env resets
+HAND_REF_ENVS = 128   # the settled hands' median env is steady over 128
 HAND_GENTLE = 0.1     # action amplitude of the settled reference
 TOL = 2e-4            # relative error, scaled by max(1, |ref|), float32
 NEWTON_SLACK = 2      # nv = 21: kernel's error vs float64 <= 2x float32 plain's
@@ -382,6 +400,7 @@ NEWTON_SLACK = 2      # nv = 21: kernel's error vs float64 <= 2x float32 plain's
 # copies, and each input's relative perturbation (~8 ulp, the rounding a
 # float32 sum over a few hundred rows can leave)
 SPREAD_REPS, SPREAD_REL = 8, 1e-6
+BEYOND_SHOWN = 16    # envs past the slack printed per Newton set
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 FP32_OPS_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 NP_SRC = "gymnasium_robotics_tpu_torch/csrc/narrowphase.cu"
@@ -416,8 +435,8 @@ FETCH_REF_ENVS = 4
 FETCH_REF_WARM = 2    # card steps before the compared one
 REACH_ID = "HandReach-v3"
 REACH_B = 1024        # the hand's rung
-REACH_STEPS = 4
-REACH_LIMIT = 3       # max_episode_steps cut from 50: every env resets
+REACH_STEPS = 3
+REACH_LIMIT = 2       # max_episode_steps cut from 50: every env resets
 REACH_REF_ENVS = 32
 KITCHEN_ID = "FrankaKitchen-v1"
 KITCHEN_B = 512       # bench.py's rung of FrankaKitchen-v1
@@ -430,7 +449,7 @@ LOCO_ID = "HalfCheetah-v5"   # bench.py's rung of the locomotion family
 LOCO_B = 8192
 LOCO_STEPS = 6
 LOCO_LIMIT = 4        # max_episode_steps cut from 1000: every env resets
-LOCO_OTHER_STEPS = 3  # the other v5 models, each with the limit cut to 2
+LOCO_OTHER_STEPS = 2  # the other v5 models, each with the limit cut to 1
 LOCO_OTHERS = ("Ant-v5", "Hopper-v5", "Walker2d-v5", "Swimmer-v5",
                "Humanoid-v5", "HumanoidStandup-v5", "InvertedPendulum-v5",
                "InvertedDoublePendulum-v5", "Reacher-v5", "Pusher-v5")
@@ -450,12 +469,19 @@ LOCO_KERNELS = (("InvertedDoublePendulum-v5", None, True),
                 ("Pusher-v5", None, True), ("Ant-v5", "newton_nv14_r128", False),
                 ("Humanoid-v5", None, True))
 LOCO_GYM_IDS = ("Hopper-v5", "InvertedPendulum-v5", "HalfCheetah-v3")
+# MaMuJoCo (mamujoco_v1): (scenario, agent_conf), each x MA_B, agent_obsk 1
+MA_CASES = (("HalfCheetah", "2x3"), ("CoupledHalfCheetah", "1p1"))
+MA_B = 8192
+MA_STEPS = 6
+MA_LIMIT = 4          # max_episode_steps cut from 1000: every env resets
+MA_COUPLED_ROWS = 142  # CoupledHalfCheetah's rows: 12 joint limits, 2 x 16
+                       # plane-capsule slots of 4, the tendon's 2
 BIG = 1e9             # contact distances above this: slots far from touching
 TRACE_SUBSTEPS = 4    # substeps of a traced step (trace's window)
 GYM_STEPS_SHORT = 1   # steps of the single envs of 20 substeps a step (the
                       # hand, HandReach, the Fetch tasks; cut from 3)
 REF_WORKERS = 4       # processes stepping the CPU references of phases 13,
-                      # 24, 28, 31, 36, 39, 41, 45 and 50 beside the card
+                      # 24, 28, 31, 36, 39, 41, 45, 50 and 55 beside the card
 GEOMS = ("plane", "hfield", "sphere", "capsule", "ellipsoid", "cylinder",
          "box", "hull")
 
@@ -1239,6 +1265,28 @@ def newton_spread(torch, solver, args, envs, n_iter, n_ls, seed):
     return worst
 
 
+def newton_flips(torch, solver, args, bad, n_iter, n_ls, seed):
+    """For each of SPREAD_REPS copies of a Newton set's inputs perturbed as
+    in newton_spread, the number of envs where the float32 plain version
+    is not finite while it is on the unperturbed inputs (``bad``: where it
+    is not): a list of SPREAD_REPS counts."""
+    g = torch.Generator(device=args[0].device).manual_seed(seed)
+    flips = []
+    for _ in range(SPREAD_REPS):
+        y = []
+        for i, a in enumerate(args):
+            if i < 6:
+                u = torch.rand(a.shape, generator=g, device=a.device) * 2 - 1
+                if i == 0:
+                    u = (u + u.transpose(0, 1)) / 2
+                a = a * (1 + SPREAD_REL * u)
+            y.append(a)
+        q, f = solver.solve_newton_plain(*y, n_iter=n_iter, n_ls=n_ls)
+        fin = (torch.isfinite(q).all(dim=0) & torch.isfinite(f).all(dim=0)).cpu().numpy()
+        flips.append(int((~fin & ~bad).sum()))
+    return flips
+
+
 def chol_vs_f64(torch, solver, M, b):
     """The Cholesky kernel on one system against its plain version run in
     float64 on the same inputs, beside the float32 plain version against
@@ -1532,6 +1580,13 @@ def cast_state(state, dtype):
         info=cast(state.info), goal=cast(state.goal), aux=cast(state.aux))
 
 
+def registry_envs(id_, n, device, **kw):
+    """registry.make(id_, num_envs=n): env_reference's default maker."""
+    from gymnasium_robotics_tpu_torch import registry
+
+    return registry.make(id_, num_envs=n, device=device, **kw)
+
+
 class CpuRefs:
     """The CPU references' env steps, run in REF_WORKERS spawned processes
     (one torch thread each) while the card's phases go on, and the checks
@@ -1547,9 +1602,9 @@ class CpuRefs:
             initializer=one_thread)
         self.checks = []
 
-    def step(self, id_, dtype, fields, a, values=None):
+    def step(self, id_, dtype, fields, a, values=None, make=registry_envs):
         """A future of cpu_step's arrays."""
-        return self.pool.submit(cpu_step, id_, dtype, fields, a, values)
+        return self.pool.submit(cpu_step, id_, dtype, fields, a, values, make)
 
     def defer(self, check):
         self.checks.append(check)
@@ -1602,40 +1657,43 @@ def step_fields(torch, convert, e, fields, a, values=None):
     return out, mask
 
 
-def cpu_step(id_, dtype, fields, a, values=None):
+def cpu_step(id_, dtype, fields, a, values=None, make=registry_envs):
     """step_fields on the CPU plain path in ``dtype`` ("float32" or
-    "float64"), on len(a) fresh envs of ``id_``: CpuRefs' worker."""
+    "float64"), on len(a) fresh envs ``make(id_, ...)``: CpuRefs' worker."""
     import torch
 
-    from gymnasium_robotics_tpu_torch import convert, registry
+    from gymnasium_robotics_tpu_torch import convert
 
-    e = registry.make(id_, num_envs=len(a), device="cpu",
-                      dtype=getattr(torch, dtype))
+    e = make(id_, len(a), "cpu", dtype=getattr(torch, dtype))
     return step_fields(torch, convert, e, fields, a, values)
 
 
-def env_reference(torch, dev, convert, registry, id_, state, amp, n,
-                  values=None):
-    """n envs of ``state`` (an ``id_`` batch) stepped once with the same
-    seeded actions of amplitude ``amp`` on the card, and, in CpuRefs'
+def first_envs(x, n):
+    """The first n envs of env_state_to_numpy's B-leading arrays, float
+    ones in float64."""
+    if isinstance(x, dict):
+        return {k: first_envs(v, n) for k, v in x.items()}
+    if x is None:
+        return None
+    x = np.asarray(x)[:n]
+    return x.astype(np.float64) if x.dtype.kind == "f" else x
+
+
+def env_reference(torch, dev, convert, id_, state, amp, n, values=None,
+                  make=registry_envs):
+    """n envs of ``state`` (an ``id_`` batch, made by ``make``, a
+    module-level function for the spawned workers) stepped once with the
+    same seeded actions of amplitude ``amp`` on the card, and, in CpuRefs'
     processes, on the CPU plain path and on it in float64 (step_fields).
     Returns a function that waits for the CPU steps and gives per env the
     largest relative error over the observation and sensordata of (card vs
     CPU float32, card vs CPU float64, CPU float32 vs CPU float64), numpy
     (3, n); the task masks must agree."""
 
-    def cut(x):          # the first envs of B-leading leaves, in float64
-        if isinstance(x, dict):
-            return {k: cut(v) for k, v in x.items()}
-        if x is None:
-            return None
-        x = np.asarray(x)[:n]
-        return x.astype(np.float64) if x.dtype.kind == "f" else x
-
-    fields = cut(convert.env_state_to_numpy(state))
-    e = registry.make(id_, num_envs=n, device=dev)
+    fields = first_envs(convert.env_state_to_numpy(state), n)
+    e = make(id_, n, dev)
     a = np.random.default_rng(0).uniform(-amp, amp, (n, e.env.action_dim))
-    cpu = [CPU_REFS[0].step(id_, dtype, fields, a, values)
+    cpu = [CPU_REFS[0].step(id_, dtype, fields, a, values, make)
            for dtype in ("float32", "float64")]
     card = step_fields(torch, convert, e, fields, a, values)
 
@@ -1754,7 +1812,7 @@ def handmanipulate(torch, dev, card, solver, constraint, narrowphase,
     # the main path's state with full-range actions, then settled hands
     # (fresh resets from the pool) with small actions
     reference_gate("hand", {
-        label: env_reference(torch, dev, convert, registry, HAND_ID, state,
+        label: env_reference(torch, dev, convert, HAND_ID, state,
                              amp, HAND_REF_ENVS)
         for label, state, amp in (
             ("main", env.state, 1.0),
@@ -2551,12 +2609,13 @@ def penetrating(narrowphase, table, d):
 
 
 def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
-                launches, rs, label, newton_name=None, chol=True):
+                launches, rs, label, newton_name=None, chol=True, extra=()):
     """B1 and B2 at m's nv (phase 37; B1 alone, in a row named
     ``newton_name``, with chol=False): the Cholesky on random SPD systems,
-    the main path's and the pressed state's qM and damped systems, within
-    TOL of its plain version and held to the plain version in float64; the
-    Newton solve on random rows, the main path's and the pressed state's,
+    the main path's and the pressed state's qM and damped systems (and the
+    qM of each (name, Data) in ``extra``), within TOL of its plain
+    version and held to the plain version in float64; the Newton solve on
+    random rows, the main path's, the pressed state's and ``extra``'s,
     held to the plain version in float64 env by env (its median env within
     TOL, or no further than NEWTON_SLACK times the float32 plain version's
     median env), as at nv = 36; the JSON rows with times, bounds and
@@ -2585,6 +2644,8 @@ def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
                    "main damped system": pipeline.damped_system(m, d_main),
                    "pressed qM": envs((d_press.qM, d_press.qfrc_smooth)),
                    "pressed damped system": envs(pipeline.damped_system(m, d_press))}
+        for name, d in extra:
+            systems[f"{name} qM"] = (d.qM, d.qfrc_smooth)
         chol_err, chol_abs = check_pair(solver.solve_pos, solver.solve_pos_plain,
                                         [(M, b)] + list(systems.values()))
         assert chol_err <= TOL, f"chol_solve nv={nv}: relerr {chol_err:.3e}"
@@ -2603,7 +2664,7 @@ def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
     n_iter = min(m.opt.iterations, 20)
     n_ls = min(m.opt.ls_iterations, 8)
     sets = []
-    for d in (d_main, d_press):
+    for d in (d_main, d_press) + tuple(d for _, d in extra):
         J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
         sets.append((d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq))
     ne = sets[0][3].shape[0]
@@ -2622,19 +2683,34 @@ def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
     # reach) is held to NEWTON_SLACK x the float32 plain version's spread
     # over inputs perturbed at the rounding's scale (newton_spread)
     stats, k_abs = {}, 0.0
-    for si, (name, x) in enumerate(zip(("random", "main", "pressed"), sets)):
+    names = ("random", "main", "pressed") + tuple(name for name, _ in extra)
+    for si, (name, x) in enumerate(zip(names, sets)):
         e = newton_env_errs(torch, solver, x, n_iter, n_ls)
         bad = ~np.isfinite(e[:2])
-        assert not (bad[0] & ~bad[1]).any(), (
-            f"newton nv={nv} ({name}): envs {np.nonzero(bad[0] & ~bad[1])[0]} "
-            "not finite in the kernel only")
-        ok = ~bad[1]
+        only = int((bad[0] & ~bad[1]).sum())
+        if si < 3:
+            assert not only, (
+                f"newton nv={nv} ({name}): envs {np.nonzero(bad[0] & ~bad[1])[0]} "
+                "not finite in the kernel only")
+        else:
+            # an extra set may overflow in float32 where it is ill-posed
+            # there (CoupledHalfCheetah's stretched tendon): which envs
+            # overflow moves with the rounding, so the kernel's envs that
+            # overflow where the float32 plain version does not are counted
+            # against the plain version's own such envs over inputs
+            # perturbed at the rounding's scale (newton_flips)
+            flips = newton_flips(torch, solver, x, bad[1], n_iter, n_ls, si)
+            assert only <= NEWTON_SLACK * max(flips), (
+                f"newton nv={nv} ({name}): {only} envs not finite in the kernel "
+                f"only, the float32 plain version's perturbed runs {flips}")
+        ok = ~(bad[0] | bad[1])
         k, p, kp = e[0][ok], e[1][ok], e[2][ok]
         beyond = np.nonzero(k > np.maximum(TOL, NEWTON_SLACK * p))[0]
         spread = (newton_spread(torch, solver, x, np.nonzero(ok)[0][beyond],
                                 n_iter, n_ls, si) if beyond.size else np.zeros(0))
         w = int(np.argmax(k))
-        stats[name] = {"kernel_median": float(np.median(k)),
+        stats[name] = {"envs_not_finite_kernel_only": only,
+                       "kernel_median": float(np.median(k)),
                        "plain32_median": float(np.median(p)),
                        "kernel_max": float(k.max()),
                        "plain32_max": float(p.max()),
@@ -2646,13 +2722,18 @@ def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
                            "kernel_plain32": float(kp[w]),
                            "plain32_spread": (float(spread[beyond == w][0])
                                               if (beyond == w).any() else None)},
-                       "beyond": [[float(k[j]), float(p[j]), float(kp[j]),
-                                   float(sp)] for j, sp in zip(beyond, spread)]}
+                       # the BEYOND_SHOWN worst of them
+                       "beyond": [[float(k[j]), float(p[j]), float(kp[j]), float(sp)]
+                                  for j, sp in sorted(zip(beyond, spread),
+                                                      key=lambda js: -k[js[0]])
+                                  [:BEYOND_SHOWN]]}
         for j, sp in zip(beyond, spread):
             assert k[j] <= NEWTON_SLACK * max(TOL, sp), (
                 f"newton nv={nv} ({name}): env {int(np.nonzero(ok)[0][j])} relerr "
                 f"{k[j]:.3e} against float64, the float32 plain version's "
                 f"{p[j]:.3e} and its spread over perturbed inputs {sp:.3e}")
+        if si >= 3:      # an extra set: in by_set, not in the row's maxima
+            continue
         got = solver.solve_newton(*x, n_iter=n_iter, n_ls=n_ls)
         ref = solver.solve_newton_plain(*x, n_iter=n_iter, n_ls=n_ls)
         k_abs = max(k_abs, max(float((g.double() - r.double()).abs().nan_to_num(
@@ -2671,7 +2752,7 @@ def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
         newton_name or f"newton_nv{nv}", SOLVER_SRC,
         "gymnasium_robotics_tpu/physics/solver_pallas.py:249",
         launches["newton"], k_abs,
-        max(st["kernel_median"] for st in stats.values()),
+        max(stats[name]["kernel_median"] for name in names[:3]),
         time_ms(torch, lambda: solver.solve_newton(*real, n_iter=n_iter,
                                                    n_ls=n_ls)),
         time_ms(torch, lambda: solver.solve_newton_plain(
@@ -2680,9 +2761,13 @@ def solver_rows(torch, dev, solver, constraint, pipeline, m, d_main, d_press,
               newton_ops(nv, ne, n_iter, n_ls) * nb),
         None, [nv, ne, nb, n_iter, n_ls], by_set=stats,
         gate="max_rel_err: the largest median env relerr against the plain "
-             "version in float64 over the sets (by_set); max_abs_err against "
-             "it in float32; each set's median env <= max(tolerance, "
-             f"{NEWTON_SLACK} x the float32 plain version's), and each env "
+             "version in float64 over the random, main and pressed sets "
+             "(by_set); max_abs_err against it in float32 on those; sets "
+             "past them (ill-posed in float32) only in by_set, their envs "
+             "not finite in the kernel alone within the float32 plain "
+             f"version's own ({NEWTON_SLACK}x); each set's median env <= "
+             f"max(tolerance, {NEWTON_SLACK} x the float32 plain version's), "
+             "and each env "
              f"finite in both <= max(tolerance, {NEWTON_SLACK} x the float32 "
              f"plain version's) or <= {NEWTON_SLACK} x max(tolerance, its "
              f"spread over inputs perturbed by {SPREAD_REL:g})"))
@@ -2704,7 +2789,7 @@ def adroit_slice(torch, dev, card, solver, constraint, narrowphase, collision,
 
     # --- 36. the card against the CPU plain path from one state
     reference_gate(door_id, {"main": env_reference(
-        torch, dev, convert, registry, door_id, env.state, 1.0,
+        torch, dev, convert, door_id, env.state, 1.0,
         ADROIT_REF_ENVS)}, ADROIT_REF_ENVS)
 
     # --- 37. Door's kernels: B4's new kinds, B1 and B2 at nv = 30, B3
@@ -2788,7 +2873,7 @@ def adroit_slice(torch, dev, card, solver, constraint, narrowphase, collision,
                                 id_, 3, 2, traced=False)
         t_phase = time.perf_counter()
         reference_gate(id_, {"main": env_reference(
-            torch, dev, convert, registry, id_, e.state, 1.0,
+            torch, dev, convert, id_, e.state, 1.0,
             ADROIT_REF_ENVS)}, ADROIT_REF_ENVS)
         te = e.env
         m = te._model_for(e.state.aux)
@@ -2915,7 +3000,7 @@ def reach_slice(torch, dev, card, solver, constraint, narrowphase, pipeline,
 
     # --- 41. the card against the CPU plain path from one state
     reference_gate(REACH_ID, {"main": env_reference(
-        torch, dev, convert, registry, REACH_ID, env.state, 1.0,
+        torch, dev, convert, REACH_ID, env.state, 1.0,
         REACH_REF_ENVS)}, REACH_REF_ENVS)
 
     # --- 42. B1 and B2 at nv = 24 on random, the main path's and pressed rows
@@ -3067,7 +3152,7 @@ def kitchen_slice(torch, dev, card, solver, constraint, narrowphase, collision,
     # the main path's state (its kettle on the stove: float64 by the median
     # env) and from a reset with the kettle lifted (CPU float32, every env)
     reference_gate(KITCHEN_ID, {
-        name: env_reference(torch, dev, convert, registry, KITCHEN_ID, st, 1.0,
+        name: env_reference(torch, dev, convert, KITCHEN_ID, st, 1.0,
                             KITCHEN_REF_ENVS,
                             values=kitchen_noise(KITCHEN_REF_ENVS, 3))
         for name, st in (("main", env.state),
@@ -3248,22 +3333,23 @@ def loco_pressed(torch, pipeline, env, n, seed):
     return pipeline.forward(m, d)
 
 
-def loco_reference(torch, dev, convert, registry, id_, state):
+def loco_reference(torch, dev, convert, id_, state, make=registry_envs,
+                   label=None):
     """Phase 50: LOCO_REF_ENVS envs of ``state`` stepped once on the card,
     on the CPU plain path and on it in float64 (env_reference); at the end
     of the run, where the CPU float32 path is itself within TOL of float64
     in every env (a well-conditioned state) the card is held to the CPU
     float32 path within TOL in every env, else to the float64 path by the
     median env (check_reference)."""
-    errors = env_reference(torch, dev, convert, registry, id_, state, 1.0,
-                           LOCO_REF_ENVS)
+    errors = env_reference(torch, dev, convert, id_, state, 1.0,
+                           LOCO_REF_ENVS, make=make)
 
     def check():
         errs = errors()
         strict = ("main",) if errs[2].max() <= TOL else ()
         gate = ("every env within TOL of the CPU float32 path" if strict
                 else "float64 median gate")
-        check_reference(f"{id_} ({gate})", {"main": errs}, LOCO_REF_ENVS,
+        check_reference(f"{label or id_} ({gate})", {"main": errs}, LOCO_REF_ENVS,
                         strict=strict)
 
     CPU_REFS[0].defer(check)
@@ -3303,7 +3389,7 @@ def loco_slice(torch, dev, card, solver, constraint, narrowphase, pipeline,
 
     # --- 50. the card against the CPU plain path from each v5 model's state
     for id_, (e, _) in runs.items():
-        loco_reference(torch, dev, convert, registry, id_, e.state)
+        loco_reference(torch, dev, convert, id_, e.state)
 
     # --- 51. B1 and B2 at each new nv on random, the main path's and
     # pressed rows
@@ -3340,6 +3426,227 @@ def loco_slice(torch, dev, card, solver, constraint, narrowphase, pipeline,
                             nv2=genv.env.model.nv == 2)
         assert got == per_step(3, **per), (id_, got)
         print(f"single env {id_}: 3 steps, launches {got}", flush=True)
+    print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return rows
+
+
+def cpu_diverged(id_, dtype, fields, a, make):
+    """info["diverged"] of len(a) envs ``make(id_)`` stepped once from
+    ``fields`` with the flat actions ``a`` on the CPU plain path in
+    ``dtype``: CpuRefs' worker."""
+    import torch
+
+    from gymnasium_robotics_tpu_torch import convert
+
+    e = make(id_, len(a), "cpu", dtype=getattr(torch, dtype))
+    e.state = cast_state(convert.env_state_from_numpy(fields, "cpu"), e.env.dtype)
+    return e.step(torch.as_tensor(a, dtype=e.env.dtype))[4]["diverged"].numpy()
+
+
+def stretched_step(torch, dev, convert, e, d_far):
+    """Phase 56's env step from CoupledHalfCheetah's stretched state
+    (coupled_stretched) on the card, every env, and in CpuRefs' processes
+    on the CPU plain path in float32 and float64, its first LOCO_REF_ENVS
+    envs, with the same actions: the envs truncated as diverged
+    (info["diverged"]) counted on each; the float64 path's must be none."""
+    t_phase = time.perf_counter()
+    n = LOCO_REF_ENVS
+    e.state = dataclasses.replace(e.state, data=d_far)
+    a = np.random.default_rng(3).uniform(-1, 1, (MA_B, e.env.action_dim))
+    fields = first_envs(convert.env_state_to_numpy(e.state), n)
+    cpu = {dt: CPU_REFS[0].pool.submit(cpu_diverged, ("CoupledHalfCheetah", "1p1"),
+                                       dt, fields, a[:n], ma_envs)
+           for dt in ("float32", "float64")}
+    obs, _, _, _, info = e.step(e.env.map_global_action_to_local_actions(
+        torch.as_tensor(a, dtype=torch.float32, device=dev)))
+    card = info["diverged"].cpu().numpy()
+    finite = all(bool(torch.isfinite(v).all()) for v in obs.values())
+    print(f"CoupledHalfCheetah stretched step on the card: {int(card.sum())} of "
+          f"{MA_B} envs truncated as diverged (reset), observations finite "
+          f"{finite} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    assert finite
+
+    def check():
+        got = {dt: f.result() for dt, f in cpu.items()}
+        print(f"CoupledHalfCheetah stretched step, envs truncated as diverged of "
+              f"the first {n}: card {int(card[:n].sum())}, CPU float32 "
+              f"{int(got['float32'].sum())}, CPU float64 {int(got['float64'].sum())}",
+              flush=True)
+        assert not got["float64"].any(), "the CPU float64 path diverged"
+
+    CPU_REFS[0].defer(check)
+
+
+def coupled_stretched(pipeline, env, d, seed):
+    """Forwarded Data of CoupledHalfCheetah's envs of ``d`` with the second
+    cheetah moved 3-4 m ahead of the first along x: the tendon between
+    their torsos past its 3.5 upper limit, whose rows (D = 1e10: the
+    tendon's invweight0 is 0) make the solve ill-conditioned."""
+    m = env.model
+    mt = m.meta
+    x0, x1 = (mt.jnt_qposadr[mt.joint_names.index(n)] for n in ("rootx0", "rootx1"))
+    n = d.qpos.shape[-1]
+    out = pipeline.make_data(m, n)
+    out.qpos[:] = d.qpos
+    out.qpos[x1] = d.qpos[x0] + env._t(np.random.RandomState(seed).uniform(3.0, 4.0, n))
+    out.qvel[:] = d.qvel
+    out = pipeline.forward(m, out)
+    # the solve's warm start: qacc_smooth (the forward's own float32 solve
+    # overflows in most of these envs)
+    return dataclasses.replace(out, qacc=out.qacc_smooth.clone())
+
+
+def ma_envs(id_, n, device, **kw):
+    """n envs of MaMuJoCo's (scenario, agent_conf) pair ``id_`` (agent_obsk
+    1) under BatchedEnv, stepped with the inner env's flat (n, nu) action:
+    env_reference's maker for phase 55."""
+    from gymnasium_robotics_tpu_torch import mamujoco_v1
+    from gymnasium_robotics_tpu_torch.envs.batched import BatchedEnv
+
+    class FlatActions(BatchedEnv):
+        def step(self, action):
+            return super().step(self.env.map_global_action_to_local_actions(action))
+
+    return FlatActions(mamujoco_v1.MultiAgentMujocoEnv(*id_, device=device, **kw), n)
+
+
+def ma_run(torch, dev, card, solver, narrowphase, scenario, conf, nb, steps,
+           limit):
+    """mamujoco_v1.MultiAgentMujocoEnv(scenario, conf, agent_obsk=1,
+    max_episode_steps=limit) under BatchedEnv x nb, reset, ``steps`` steps
+    with random actions in [-1, 1] for each agent (past the limit: every
+    env resets); the launches per step must be the inner model's
+    (loco_launches), every agent's observation finite and of its width,
+    the reward shared. Returns (the batched env, the launches, ms/step
+    over steps 1..)."""
+    from gymnasium_robotics_tpu_torch import mamujoco_v1
+    from gymnasium_robotics_tpu_torch.envs.batched import BatchedEnv
+
+    t_phase = time.perf_counter()
+    ma = mamujoco_v1.MultiAgentMujocoEnv(scenario, conf, agent_obsk=1,
+                                         max_episode_steps=limit)
+    env = BatchedEnv(ma, nb)
+    env.reset(seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    finite = torch.ones(nb, dtype=torch.bool, device=dev)
+    was_reset = torch.zeros(nb, dtype=torch.bool, device=dev)
+    warm = 1
+    zero_counters(solver, narrowphase)
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        acts = {a: torch.rand((nb, n), generator=gen, device=dev) * 2 - 1
+                for a, n in ma.action_dims.items()}
+        obs, _, terminated, truncated, info = env.step(acts)
+        for v in obs.values():
+            finite &= torch.isfinite(v).all(dim=1)
+        was_reset |= terminated | truncated
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t_start) / (steps - warm) * 1e3
+    launches = launch_counts(solver, narrowphase)
+    m = ma.env.model
+    assert {a: tuple(v.shape) for a, v in obs.items()} == {
+        a: (nb, n) for a, n in ma.obs_dims.items()}, (scenario, obs.keys())
+    assert bool(finite.all()), f"{scenario}: non-finite observations"
+    assert bool(was_reset.all()), f"{scenario}: {int((~was_reset).sum())} envs never reset"
+    assert launches == per_step(steps, **loco_launches(m, ma.env.cfg.frame_skip)), (
+        scenario, launches)
+    from gymnasium_robotics_tpu_torch.physics import constraint
+
+    ne = m.plan("rows", constraint._RowPlan).is_eq.numel()
+    print(f"main path: MultiAgentMujocoEnv({scenario!r}, {conf!r}) x{nb}, "
+          f"{steps} steps, limit {limit}, agents {ma.obs_dims} (obs widths), "
+          f"nv = {m.nv}, {ne} rows (newton_tile_kernel shape "
+          f"{solver.newton_shape(m.nv, ne)}), launches {launches}; "
+          f"{ms_step:.4f} ms/step, {nb / ms_step * 1e3:.1f} env-steps/s over "
+          f"steps {warm}-{steps}; {int(was_reset.sum())} envs reset, "
+          f"{int(info['diverged'].sum())} truncated as diverged on the last "
+          f"[{card}] ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return env, launches, ms_step
+
+
+def mamujoco_slice(torch, dev, card, solver, constraint, narrowphase, pipeline,
+                   convert, registry):
+    """Phases 54-58 (MaMuJoCo's multi-agent layer over the locomotion
+    models, CoupledHalfCheetah's spatial tendon; B1 and B2 at nv = 18);
+    returns the kernels' JSON rows."""
+    rows, runs = [], {}
+    for scenario, conf in MA_CASES:
+        # --- 54. main path and a whole-step trace
+        env, launches, _ = ma_run(torch, dev, card, solver, narrowphase,
+                                  scenario, conf, MA_B, MA_STEPS, MA_LIMIT)
+        t_phase = time.perf_counter()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2)
+
+        def run(k, env=env):
+            for _ in range(k):
+                env.step({a: torch.rand((MA_B, n), generator=gen, device=dev) * 2 - 1
+                          for a, n in env.env.action_dims.items()})
+
+        trace(torch, run, 1, card, f"MultiAgentMujocoEnv({scenario}, {conf}) trace",
+              cpu=False, counts=lambda: launch_counts(solver, narrowphase))
+        print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+        runs[scenario] = (env, launches)
+        # --- 55. the card against the CPU plain path from the main path's state
+        loco_reference(torch, dev, convert, (scenario, conf), env.state,
+                       make=ma_envs)
+
+    # --- 56. B1 and B2 at nv = 18 on random, the main path's and pressed rows
+    t_phase = time.perf_counter()
+    e, launched = runs["CoupledHalfCheetah"]
+    inner = e.env.env
+    m = inner.model
+    d_main = pipeline.forward(m, e.state.data)
+    d_press = loco_pressed(torch, pipeline, inner, MA_B, m.nv)
+    d_far = coupled_stretched(pipeline, inner, d_main, 18)
+    rows_far = constraint.build_rows(m, d_far)
+    ne = rows_far[0].shape[0]
+    # the tendon's upper limit row (after the joint limits' and the
+    # tendon's lower one) active in every env
+    lim = sum(m.meta.jnt_limited) + 1
+    assert (m.nv, ne) == (18, MA_COUPLED_ROWS), (m.nv, ne)
+    assert bool((d_far.ten_length > 3.5).all() & rows_far[4][lim].all()), (
+        float(d_far.ten_length.min()))
+    rows += solver_rows(torch, dev, solver, constraint, pipeline, m, d_main,
+                        d_press, launched, np.random.RandomState(m.nv),
+                        "CoupledHalfCheetah", extra=(("stretched", d_far),))
+    n_pen = [int((d.contact.dist < 0).any(dim=0).sum()) for d in (d_main, d_press)]
+    print(f"CoupledHalfCheetah kernels (nv = {m.nv}, {ne} rows): envs with a "
+          f"penetrating slot (main path, pressed) {n_pen}, tendon length "
+          f"{float(d_main.ten_length.min()):.4f}-{float(d_main.ten_length.max()):.4f} "
+          f"(main path), {float(d_far.ten_length.min()):.4f}-"
+          f"{float(d_far.ten_length.max()):.4f} (stretched) "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    stretched_step(torch, dev, convert, e, d_far)
+
+    # --- 57. parallel_env (the per-env path, B = 1): 3 steps each, the
+    # reward shared by the agents
+    from gymnasium_robotics_tpu_torch import mamujoco_v1
+
+    t_phase = time.perf_counter()
+    for scenario, conf in MA_CASES:
+        penv = mamujoco_v1.parallel_env(scenario, conf, agent_obsk=1)
+        obs, _ = penv.reset(seed=1)
+        grng = np.random.default_rng(2)
+        zero_counters(solver, narrowphase)
+        for _ in range(3):
+            acts = {a: grng.uniform(-1, 1, penv.env.action_dims[a])
+                    for a in penv.agents}
+            obs, rew, term, trunc, _ = penv.step(acts)
+            assert len(set(rew.values())) == 1 and len(rew) == len(penv.possible_agents), rew
+            assert all(np.isfinite(v).all() and v.shape == (penv.env.obs_dims[a],)
+                       for a, v in obs.items()), scenario
+        torch.cuda.synchronize()
+        got = launch_counts(solver, narrowphase)
+        inner = penv.env.env
+        assert inner.model.meta.opt.soa is False
+        assert got == per_step(3, **loco_launches(inner.model, inner.cfg.frame_skip)), (
+            scenario, got)
+        print(f"parallel_env({scenario!r}, {conf!r}): 3 steps, shared reward "
+              f"{list(rew.values())[0]:.6f}, launches {got}", flush=True)
     print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return rows
 
@@ -3866,14 +4173,15 @@ def edge_checks(torch, dev, solver, narrowphase):
     B = 1 and 2047, and at the hand's (2, 160) -> 16 at B = 1 and 1023;
     K larger than the unmasked count; an all-masked group and a NaN lane
     (also at the hand's shape). The Newton solve (nv = 14 within TOL of
-    the float32 plain version; nv = 15, 21, 30, 33 and 36 within max(TOL,
-    NEWTON_SLACK x the float32 plain version's error) of the float64 plain
-    version): random rows at every instantiation's row cap (96 and 128,
-    AntMaze's shape and Ant's; 256, 256, 288, 288, 288) and one under it
-    at B = 1, at an ne that is not a multiple of 32, and at 72 rows at a
-    B that is not a multiple of the env tile (at
+    the float32 plain version; nv = 15, 18, 21, 30, 33 and 36 within
+    max(TOL, NEWTON_SLACK x the float32 plain version's error) of the
+    float64 plain version): random rows at every instantiation's row cap
+    (96 and 128, AntMaze's shape and Ant's; 256, 192, 256, 288, 288, 288)
+    and one under it at B = 1, at an ne that is not a multiple of 32, and
+    at 72 rows at a B that is not a multiple of the env tile (at
     nv = 36 also the hand's 272 rows, at
-    nv = 30 and 33 Door's 278 and Hammer's 275, at B = 1023), with
+    nv = 30 and 33 Door's 278 and Hammer's 275, at B = 1023; at nv = 18
+    CoupledHalfCheetah's 142 rows at B = 8191), with
     n_iter = 0, with every row inactive, and with J in a batch-leading
     layout (the strided staging path)."""
     t_phase = time.perf_counter()
@@ -3922,10 +4230,13 @@ def edge_checks(torch, dev, solver, narrowphase):
                 cuda(rs.uniform(size=(ne, nb)) < p_act), cuda(is_eq)]
 
     errs = {}
-    for nv, n_iter in ((14, 5), (15, 4), (21, 4), (30, 5), (33, 5), (36, 5)):
+    for nv, n_iter in ((14, 5), (15, 4), (18, 5), (21, 4), (30, 5), (33, 5),
+                       (36, 5)):
         # every instantiation's row cap (nv = 14: AntMaze's 96, Ant's 128)
         caps = [32 * w * r for w, r, _ in solver.NEWTON_TILE_SHAPES[nv]]
         hand = {36: [("hand rows, B % 4 != 0", 272, HAND_B - 1, n_iter, 0.4)],
+                18: [("coupled rows, B % 8 != 0", MA_COUPLED_ROWS, MA_B - 1,
+                      n_iter, 0.4)],
                 30: [("door rows, B % 4 != 0", 278, ADROIT_B - 1, n_iter, 0.4)],
                 33: [("hammer rows, B % 4 != 0", 275, ADROIT_B - 1, n_iter, 0.4)]
                 }.get(nv, [])
@@ -3958,7 +4269,7 @@ def edge_checks(torch, dev, solver, narrowphase):
 
 
 def chol_edges(torch, dev, solver):
-    """Phase 21, the Cholesky kernel (chol_tile_kernel) at nv = 14, 15, 21,
+    """Phase 21, the Cholesky kernel (chol_tile_kernel) at nv = 14, 15, 18, 21,
     30, 33 and 36 against its plain version (24 and 29: the cuda tests), within TOL of it on every env and NaN
     where it is NaN: random SPD systems at B = 1, 1023 and 2047, M as a
     transposed
@@ -3969,7 +4280,7 @@ def chol_edges(torch, dev, solver):
     t_phase = time.perf_counter()
     rs = np.random.RandomState(11)
     errs = {}
-    for nv in (14, 15, 21, 30, 33, 36):
+    for nv in (14, 15, 18, 21, 30, 33, 36):
         def spd(nb):
             A = rs.normal(size=(nv, nv, nb))
             return (np.einsum("ikb,jkb->ijb", A, A)
@@ -4114,6 +4425,9 @@ def nv2_checks(torch, dev, solver, constraint, registry, rows):
     print(f"  ({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
 
+T_START = time.perf_counter()
+
+
 def main():
     import torch
 
@@ -4211,6 +4525,10 @@ def main():
                        pipeline, convert, registry)
     print(f"locomotion phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    kern += mamujoco_slice(torch, dev, card, solver, constraint, narrowphase,
+                           pipeline, convert, registry)
+    print(f"mamujoco phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     edge_checks(torch, dev, solver, narrowphase)
     chol_edges(torch, dev, solver)
     narrowphase_edges(torch, narrowphase, collision,
@@ -4226,6 +4544,7 @@ def main():
     # --- 53. the reference checks, on the CPU paths' steps
     CPU_REFS[0].run()
     redesign_fields(kern, ptx, solver, narrowphase, kinematics, tables, fk[0])
+    print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

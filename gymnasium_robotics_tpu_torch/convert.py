@@ -128,8 +128,9 @@ def _env_leaf(x, dev):
 
 def _map_obs(obs, fn):
     """fn on an observation: a dict of leaves or of dicts of leaves (the
-    goal envs; the kitchen's goals are dicts by task) or one leaf
-    (Adroit's flat vector)."""
+    goal envs; the kitchen's goals are dicts by task; MaMuJoCo's agents'
+    observations by agent) or one leaf (Adroit's and locomotion's flat
+    vector)."""
     if isinstance(obs, dict):
         return {k: _map_obs(v, fn) for k, v in obs.items()}
     return fn(obs)
@@ -137,7 +138,8 @@ def _map_obs(obs, fn):
 
 def env_state_from_numpy(fields: dict, device=None):
     """The port's ``EnvState`` from B-leading numpy leaves: ``data`` (as for
-    ``data_from_numpy``), ``obs`` (a dict, or one array: Adroit's),
+    ``data_from_numpy``), ``obs`` (a dict, MaMuJoCo's by agent, or one
+    array: Adroit's),
     ``reward``, ``terminated``, ``truncated``, ``info`` (dict: ``success``
     and, when present, ``diverged``), ``goal``, ``steps`` and, where given,
     ``aux`` (dict: the hand's pool of settled poses, Adroit's scene). Per-env

@@ -1,7 +1,7 @@
 // Per-env dense solves of the constraint pipeline.
 //
 // chol_solve_kernel<2> (one env per thread) and chol_tile_kernel<NV,
-//   COL_BACK> (GRT_CHOL_TILES: NV = 3, 4, 5, 6, 9, 11, 14, 15, 21, 23, 24,
+//   COL_BACK> (GRT_CHOL_TILES: NV = 3, 4, 5, 6, 9, 11, 14, 15, 18, 21, 23, 24,
 //   29, 30, 33, 36; a tile of 16 envs a block, 8 past NV = 32, a half-warp
 //   or a warp an env, below) replace the TPU kernel
 //   gymnasium_robotics_tpu/physics/solver_pallas.py::_kernel_chol (entered
@@ -9,9 +9,9 @@
 //   LL^T with the diagonal floored at sqrt(max(s, 1e-20)).
 // newton2_kernel<G, CHOL> (NV = 2; a group of G lanes an env, below) and
 // newton_tile_kernel<NV, WPE, RPL, ET> (GRT_NEWTON_TILES: NV = 3, 4, 5, 6,
-//   9, 11, 14 (two row caps), 15, 21, 23, 24, 29, 30, 33, 36; a tile of
+//   9, 11, 14 (two row caps), 15, 18, 21, 23, 24, 29, 30, 33, 36; a tile of
 //   ET = 8 envs a block up to NV = 21 and 4 from NV = 23 on, one warp an
-//   env up to NV = 14, two at 15 and 21, three from 23 on, below) replace
+//   env up to NV = 14, two at 15, 18 and 21, three from 23 on, below) replace
 //   the TPU kernel gymnasium_robotics_tpu/physics/solver_pallas.py::
 //   _kernel_nv (entered through solve_small_soa): the warm-started primal
 //   Newton solve of the soft-constraint problem with exact line search.
@@ -79,7 +79,14 @@
 // <14, 1, 3, 8>) and 23 (the humanoids, 244): each the smallest shape of
 // one warp an env (three at NV = 23, as at 24) whose rows hold the
 // model's. At NV <= 6 one warp an env leaves most lanes idle over 1-38
-// rows; the design is kept for them for now.
+// rows; the design is kept for them for now. MaMuJoCo's CoupledHalfCheetah
+// (NV = 18, 142 rows: two HalfCheetahs' 12 joint limits and 2 x 16
+// plane-capsule slots of 4 rows, and the spatial tendon's two limit rows)
+// runs two warps an env as NV = 15 and 21 do, three rows a lane (a
+// 192-row cap): its 21 3x3 blocks of H leave 11 lanes of each warp idle
+// over the rows, one row slice a warp, so the two warps halve the
+// stream over the rows; 17.9 KB of shared memory an env, one 8-env block
+// an SM.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsolver.so solver.cu
@@ -1179,7 +1186,9 @@ int newton_tile_blocks_per_sm() {
 // - Outputs through the tile's region, written with 16-byte stores where
 //   B % 4 == 0.
 // The locomotion nv (3, 4, 5, 6, 9, 11, 23) are new and take the plain
-// version's order, COL_BACK = false.
+// version's order, COL_BACK = false. At NV = 18 (MaMuJoCo's
+// CoupledHalfCheetah) that order compiled to 64 registers with 12 bytes
+// of spill, so NV = 18 takes the column order, COL_BACK = true.
 // Shared memory: TILE (NT + NV) floats a block: 7.6 KB at NV = 14, 8.4 KB
 // at NV = 15,
 // 16.1 KB at NV = 21, 22.5 KB at NV = 36 (RPL = 2, 8 envs), under the 48 KB of
@@ -1431,15 +1440,15 @@ inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
 #define GRT_NEWTON_TILES(X)                                                \
   X(3, 1, 2, 8) X(4, 1, 2, 8) X(5, 1, 2, 8) X(6, 1, 2, 8) X(9, 1, 3, 8)    \
   X(11, 1, 1, 8) X(14, 1, 3, 8) X(14, 1, 4, 8) X(15, 2, 4, 8)               \
-  X(21, 2, 4, 8) X(23, 3, 3, 4) X(24, 3, 3, 4) X(29, 3, 3, 4)               \
-  X(30, 3, 3, 4) X(33, 3, 3, 4) X(36, 3, 3, 4)
+  X(18, 2, 3, 8) X(21, 2, 4, 8) X(23, 3, 3, 4) X(24, 3, 3, 4)               \
+  X(29, 3, 3, 4) X(30, 3, 3, 4) X(33, 3, 3, 4) X(36, 3, 3, 4)
 
 // chol_tile_kernel's instantiations X(NV, COL_BACK) (its note above);
 // physics/solver.py::CHOL_TILE_NV lists the same nv.
 #define GRT_CHOL_TILES(X)                                                  \
   X(3, false) X(4, false) X(5, false) X(6, false) X(9, false) X(11, false) \
-  X(14, false) X(15, false) X(21, true) X(23, false) X(24, false)          \
-  X(29, true) X(30, true) X(33, true) X(36, true)
+  X(14, false) X(15, false) X(18, true) X(21, true) X(23, false)           \
+  X(24, false) X(29, true) X(30, true) X(33, true) X(36, true)
 
 Str2 str2(const long long* p) { return {p[0], p[1]}; }
 Str3 str3(const long long* p) { return {p[0], p[1], p[2]}; }

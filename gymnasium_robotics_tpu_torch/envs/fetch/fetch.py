@@ -29,7 +29,7 @@ import torch
 from gymnasium_robotics_tpu_torch import core
 from gymnasium_robotics_tpu_torch import device as _device
 from gymnasium_robotics_tpu_torch.mjcf import serialize
-from gymnasium_robotics_tpu_torch.physics import constraint, pipeline
+from gymnasium_robotics_tpu_torch.physics import pipeline, smooth
 from gymnasium_robotics_tpu_torch.physics import math as M
 from gymnasium_robotics_tpu_torch.utils import rotations
 
@@ -87,7 +87,7 @@ class FetchEnv:
         fingers = [mt.joint_names.index(n) for n in _FINGERS]
         self._finger_qadr = [mt.jnt_qposadr[j] for j in fingers]
         self._finger_dofadr = [mt.jnt_dofadr[j] for j in fingers]
-        masks = constraint._body_dof_masks(mt)
+        masks = smooth.body_dof_masks(mt)
         self._dof_mask = {b: t(masks[b])[:, None, None] for b in bodies}
         self.dt = mt.opt.timestep * self.n_substeps
         self.obs_dim = 25 if self.has_object else 10

@@ -56,6 +56,16 @@ class HumanoidEnv(LocomotionEnv):
         nb = mt.nbody - 1
         return (mt.nq - 2) + mt.nv + nb * 10 + nb * 6 + (mt.nv - 6) + nb * 6
 
+    @property
+    def observation_structure(self):
+        mt = self.model.meta
+        nb = mt.nbody - 1
+        return {
+            "skipped_qpos": 2, "qpos": mt.nq - 2, "qvel": mt.nv,
+            "cinert": nb * 10, "cvel": nb * 6,
+            "qfrc_actuator": mt.nv - 6, "cfrc_ext": nb * 6,
+        }
+
     def _get_obs(self, data):
         return torch.cat([data.qpos[2:].T, data.qvel.T, _flat(data.cinert[1:]),
                           _flat(data.cvel[1:]), data.qfrc_actuator[6:].T,

@@ -80,6 +80,16 @@ class LegacyRunnerEnv(LocomotionEnv):
             n += mt.nbody * 6  # legacy ant: every body, the world's too
         return n
 
+    @property
+    def observation_structure(self):
+        mt = self.model.meta
+        return {
+            "skipped_qpos": self.cfg.exclude_xy,
+            "qpos": mt.nq - self.cfg.exclude_xy,
+            "qvel": mt.nv,
+            "cfrc_ext": mt.nbody * 6 if self.cfg.include_cfrc else 0,
+        }
+
     def _get_obs(self, data):
         qvel = data.qvel
         if self.cfg.clip_qvel_obs is not None:
@@ -191,6 +201,16 @@ class LegacyHumanoidEnv(C.HumanoidEnv):
             (mt.nq - self.cfg.exclude_xy) + mt.nv
             + mt.nbody * 10 + mt.nbody * 6 + mt.nv + mt.nbody * 6
         )
+
+    @property
+    def observation_structure(self):
+        mt = self.model.meta
+        return {
+            "skipped_qpos": self.cfg.exclude_xy,
+            "qpos": mt.nq - self.cfg.exclude_xy, "qvel": mt.nv,
+            "cinert": mt.nbody * 10, "cvel": mt.nbody * 6,
+            "qfrc_actuator": mt.nv, "cfrc_ext": mt.nbody * 6,
+        }
 
     def _get_obs(self, data):
         return torch.cat([data.qpos[self.cfg.exclude_xy:].T, data.qvel.T,

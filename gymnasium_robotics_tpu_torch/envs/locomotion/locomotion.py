@@ -105,6 +105,19 @@ class LocomotionEnv:
             n += (mt.nbody - 1) * 6
         return n
 
+    @property
+    def observation_structure(self):
+        """The observation's segments (gymnasium *_v5
+        ``observation_structure``): MaMuJoCo's state <-> local observation
+        mapping reads them (envs/mamujoco/mujoco_multi.py)."""
+        mt = self.model.meta
+        return {
+            "skipped_qpos": self.cfg.exclude_xy,
+            "qpos": mt.nq - self.cfg.exclude_xy,
+            "qvel": mt.nv,
+            "cfrc_ext": (mt.nbody - 1) * 6 if self.cfg.include_cfrc else 0,
+        }
+
     # --- obs / reward hooks (overridden per env) ---
     def _get_obs(self, data):
         qvel = data.qvel

@@ -25,6 +25,7 @@ import torch
 from gymnasium_robotics_tpu_torch.physics import collision as COL
 from gymnasium_robotics_tpu_torch.physics import math as M
 from gymnasium_robotics_tpu_torch.physics import narrowphase as NP
+from gymnasium_robotics_tpu_torch.physics import smooth as SM
 from gymnasium_robotics_tpu_torch.physics import solver
 from gymnasium_robotics_tpu_torch.physics import types as T
 
@@ -55,18 +56,6 @@ def _kbi(solref, solimp, pos, dt):
         1.0 / (dmax * dmax * tc * tc * torch.clamp(dampratio, min=1e-8) ** 2),
     )
     return d_, b, k
-
-
-def _body_dof_masks(mt: T.Meta) -> np.ndarray:
-    """mask[b, i] = 1 if dof i belongs to body b or an ancestor of b."""
-    mask = np.zeros((mt.nbody, mt.nv))
-    for b in range(mt.nbody):
-        bb = b
-        while bb > 0:
-            adr, num = mt.body_dofadr[bb], mt.body_dofnum[bb]
-            mask[b, adr:adr + num] = 1.0
-            bb = mt.body_parentid[bb]
-    return mask
 
 
 def _need_con_force(mt: T.Meta) -> bool:
@@ -111,7 +100,7 @@ class _RowPlan:
         def ix(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
 
-        masks = _body_dof_masks(mt)
+        masks = SM.body_dof_masks(mt)
         roots = np.array(mt.body_rootid)
         self.masks = torch.as_tensor(masks, dtype=dtype, device=dev)
         welds = [e for e in range(mt.neq) if eq_on and mt.eq_type[e] == T.EQ_WELD]

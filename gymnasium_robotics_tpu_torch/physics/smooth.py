@@ -6,9 +6,10 @@ fwd_actuation :837, fwd_passive :923, _inertia_box_fluid :953).
 Each stage takes and returns a batch-last ``Data``. Static index tables and
 the 0/1 tree matrices are built once per model (``Model.plan``) on the
 model's device. Fixed tendons and their springs and the inertia-box fluid
-model (soa._inertia_box_fluid :953) are ported; stages a later slice
-brings (spatial tendons, tendon and free/ball actuation, activation
-dynamics) raise ``NotImplementedError`` when a model needs them.
+model (soa._inertia_box_fluid :953) and site-to-site spatial tendons are
+ported; stages a later slice brings (tendon and free/ball actuation,
+activation dynamics) raise ``NotImplementedError`` when a model needs
+them.
 """
 
 from __future__ import annotations
@@ -358,21 +359,38 @@ def rne(m: T.Model, d: T.Data) -> T.Data:
     return dataclasses.replace(d, qfrc_bias=torch.sum(d.cdof * cfrc_dof, dim=-2))
 
 
+def body_dof_masks(mt: T.Meta) -> np.ndarray:
+    """mask[b, i] = 1 if dof i belongs to body b or an ancestor of b."""
+    mask = np.zeros((mt.nbody, mt.nv))
+    for b in range(mt.nbody):
+        bb = b
+        while bb > 0:
+            adr, num = mt.body_dofadr[bb], mt.body_dofnum[bb]
+            mask[b, adr:adr + num] = 1.0
+            bb = mt.body_parentid[bb]
+    return mask
+
+
 class _TendonPlan:
-    """Fixed tendons' wrap tables (soa.tendon): per wrap entry its tendon,
-    joint qpos and dof addresses and its coefficient's row of wrap_prm."""
+    """Tendon tables (soa.tendon): for the fixed tendons, per wrap entry its
+    tendon, joint qpos and dof addresses and its coefficient's row of
+    wrap_prm; for the site-to-site spatial tendons (``spatial2``), per
+    tendon its two sites, their bodies' roots and the dofs that move each
+    body."""
 
     def __init__(self, m: T.Model):
         mt = m.meta
         kinds = mt.tendon_kind or ("fixed",) * mt.ntendon
-        if "spatial2" in kinds:
-            raise NotImplementedError(
-                "spatial tendons (soa.tendon :750-776) come with the first "
-                "model that has them: no shipped asset does; the MJCF "
-                "importer's models may (ROADMAP queue A)")
         w_idx, w_q, w_d, w_t = [], [], [], []
+        sp_t, sp_s0, sp_s1 = [], [], []
         for t in range(mt.ntendon):
-            for w in range(mt.tendon_adr[t], mt.tendon_adr[t] + mt.tendon_num[t]):
+            adr = mt.tendon_adr[t]
+            if kinds[t] == "spatial2":
+                sp_t.append(t)
+                sp_s0.append(mt.wrap_objid[adr])
+                sp_s1.append(mt.wrap_objid[adr + 1])
+                continue
+            for w in range(adr, adr + mt.tendon_num[t]):
                 j = mt.wrap_objid[w]
                 w_idx.append(w)
                 w_q.append(mt.jnt_qposadr[j])
@@ -380,12 +398,34 @@ class _TendonPlan:
                 w_t.append(t)
         dev = m.device
         self.w, self.q, self.d, self.t = (_ix(x, dev) for x in (w_idx, w_q, w_d, w_t))
+        self.spatial = bool(sp_t)
+        if self.spatial:
+            masks = body_dof_masks(mt)
+            self.sp_t = _ix(sp_t, dev)
+            self.sp_ends = []
+            for sites in (sp_s0, sp_s1):
+                bodies = [mt.site_bodyid[s] for s in sites]
+                # sites, their bodies' roots, (n, nv, 1, 1) dof masks
+                self.sp_ends.append((
+                    _ix(sites, dev), _ix([mt.body_rootid[b] for b in bodies], dev),
+                    torch.as_tensor(masks[bodies][:, :, None, None],
+                                    dtype=m.qpos0.dtype, device=dev)))
+
+
+def _site_jacp(d: T.Data, sites, roots, masks):
+    """(n, nv, 3, B) translational Jacobians of sites, each about its body's
+    root's subtree com (soa.tendon's jacp)."""
+    off = d.site_xpos[sites] - d.subtree_com[roots]          # (n, 3, B)
+    cdof = d.cdof[None]                                      # (1, nv, 6, B)
+    return (cdof[..., 3:, :] + M.cross3(cdof[..., :3, :], off[:, None])) * masks
 
 
 def tendon(m: T.Model, d: T.Data) -> T.Data:
-    """Fixed tendons (soa.tendon :713-783): length = sum of coef * qpos over
-    the tendon's joints, ten_J scattered from the coefficients, velocity =
-    ten_J qvel."""
+    """Tendons (soa.tendon :713-783). Fixed: length = sum of coef * qpos
+    over the tendon's joints, ten_J scattered from the coefficients.
+    Site-to-site spatial (:750-776): length |p1 - p0|, ten_J the two
+    sites' translational Jacobians' difference along the direction
+    (p1 - p0) / max(length, 1e-10). Velocity = ten_J qvel."""
     mt = m.meta
     B = d.qpos.shape[-1]
     ten_length = d.qpos.new_zeros((mt.ntendon, B))
@@ -395,6 +435,14 @@ def tendon(m: T.Model, d: T.Data) -> T.Data:
         coefs = m.wrap_prm[tp.w]                             # (nw, Bm)
         ten_length.index_add_(0, tp.t, coefs * d.qpos[tp.q])
         ten_J.index_put_((tp.t, tp.d), M.bB(coefs, B), accumulate=True)
+        if tp.spatial:
+            (s0, r0, m0), (s1, r1, m1) = tp.sp_ends
+            dvec = d.site_xpos[s1] - d.site_xpos[s0]          # (n, 3, B)
+            L = torch.sqrt(torch.sum(dvec * dvec, dim=1))
+            direction = dvec / torch.clamp(L, min=1e-10)[:, None]
+            jac = _site_jacp(d, s1, r1, m1) - _site_jacp(d, s0, r0, m0)
+            ten_J[tp.sp_t] = torch.einsum("nvcb,ncb->nvb", jac, direction)
+            ten_length[tp.sp_t] = L
     return dataclasses.replace(
         d, ten_length=ten_length,
         ten_velocity=torch.einsum("tvb,vb->tb", ten_J, d.qvel), ten_J=ten_J,
@@ -503,13 +551,10 @@ class _PassivePlan:
         self.d = _ix([mt.jnt_dofadr[j] for j in sel], dev)
         self.fluid = mt.opt.density > 0 or mt.opt.viscosity > 0
         if self.fluid:
-            from gymnasium_robotics_tpu_torch.physics.constraint import (
-                _body_dof_masks)
-
             # bodies 1.., their roots, and which dofs move each (nb-1, nv, 1)
             self.roots = _ix(mt.body_rootid[1:], dev)
             self.masks = torch.as_tensor(
-                _body_dof_masks(mt)[1:, :, None], dtype=m.qpos0.dtype,
+                body_dof_masks(mt)[1:, :, None], dtype=m.qpos0.dtype,
                 device=dev)
 
 

@@ -35,7 +35,8 @@ LAUNCHES = {"chol": 0, "newton": 0, "newton_nv2": 0}
 NEWTON_TILE_SHAPES = {3: ((1, 2, 8),), 4: ((1, 2, 8),), 5: ((1, 2, 8),),
                       6: ((1, 2, 8),), 9: ((1, 3, 8),), 11: ((1, 1, 8),),
                       14: ((1, 3, 8), (1, 4, 8)), 15: ((2, 4, 8),),
-                      21: ((2, 4, 8),), 23: ((3, 3, 4),), 24: ((3, 3, 4),),
+                      18: ((2, 3, 8),), 21: ((2, 4, 8),), 23: ((3, 3, 4),),
+                      24: ((3, 3, 4),),
                       29: ((3, 3, 4),), 30: ((3, 3, 4),), 33: ((3, 3, 4),),
                       36: ((3, 3, 4),)}
 # nv values csrc/solver.cu instantiates

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import _jax_ref as R
 from gymnasium_robotics_tpu.envs.adroit import adroit as JA
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
 from gymnasium_robotics_tpu_torch import convert, registry
@@ -39,8 +40,6 @@ B = 2
 LIMIT = 200
 TOLS = {"float32": 2e-4, "float64": 1e-9}
 BIG = 1e9
-FAST_COMPILE = {"xla_backend_optimization_level": 0,
-                "xla_llvm_disable_expensive_passes": True}
 JAX_CLASSES = {"door": JA.AdroitHandDoorEnv, "hammer": JA.AdroitHandHammerEnv,
                "pen": JA.AdroitHandPenEnv, "relocate": JA.AdroitHandRelocateEnv}
 IDS = {"door": "AdroitHandDoor-v1", "hammer": "AdroitHandHammer-v1",
@@ -159,7 +158,7 @@ def jax_run(task):
             aux={k: jnp.asarray(x) for k, x in aux.items()},
             steps=jnp.asarray(steps, jnp.int32))
         if step is None:
-            step = jb._step_fn.lower(state, action).compile(FAST_COMPILE)
+            step = R.compiled_step(jb, state, action)
         runs[name] = (jax_state_to_numpy(state),
                       jax_state_to_numpy(step(state, action)))
     return runs, np.asarray(action)

@@ -1,7 +1,9 @@
-"""Shared by tests/test_torch_hand_reach.py and tests/test_torch_kitchen.py
-(pytest does not collect it): the JAX package's env functions run op by op
+"""Shared by the port's test files that step JAX envs (pytest does not
+collect it): the JAX package's env functions run op by op
 (``jax.disable_jit``) around one compiled function, its batch-last substep
-``soa.step``; and the TPU solver kernels' bodies run op by op.
+``soa.step`` (``SubstepRef``), or compiled with each model's substep
+compiled apart and called back (``SubstepCallbacks``); and the TPU solver
+kernels' bodies run op by op.
 
 Compiling a whole JAX env step of the HandReach hand or the kitchen, or
 running one of its substeps op by op, takes minutes on the CPU; the env
@@ -32,6 +34,16 @@ FAST_COMPILE = {"xla_backend_optimization_level": 0,
 _STEP = soa.step
 
 
+def poisoned(d):
+    """``d`` with every float leaf NaN: what a stand-in traced for shapes
+    only returns, so that a path which reaches it with values (a call
+    outside custom_vmap's batching rule) fails every comparison instead of
+    passing its input through as a step."""
+    return jax.tree_util.tree_map(
+        lambda x: x * jnp.nan if jnp.issubdtype(jnp.result_type(x), jnp.floating)
+        else x, d)
+
+
 class SubstepRef:
     """soa.step of ``model`` (the package's Model, unbatched) for B envs,
     compiled at its first call on a batch-last Data."""
@@ -46,12 +58,62 @@ class SubstepRef:
             # a trace for shapes only (custom_vmap traces the loop it wraps
             # before its batching rule runs on the values): the substep
             # keeps every leaf's shape and dtype
-            return ds
+            return poisoned(ds)
         with jax.disable_jit(False):
             if self._compiled is None:
                 self._compiled = jax.jit(lambda d: _STEP(self.ms, d)).lower(
                     ds).compile(FAST_COMPILE)
             return self._compiled(ds)
+
+
+class SubstepCallbacks:
+    """The package's batch-last substep soa.step, compiled for each model
+    layout and batch it is called with (its model as an argument, so a
+    model rebound per env passes its own fields). Inside ``traced()``
+    soa.step is a host callback to it, so that a jitted env step traces and
+    compiles its env layer only, and calls the compiled substep each
+    substep; the single env's loop, which custom_vmap traces for shapes
+    only before its batching rule, returns its input with every float leaf
+    NaN there (``poisoned``), so that a path reaching it with values fails
+    every comparison. The arithmetic is the package's own."""
+
+    def __init__(self):
+        self._compiled = {}
+
+    def run(self, ms, ds):
+        """soa.step(ms, ds), compiled at the first call of its layout."""
+        leaves, tree = jax.tree_util.tree_flatten((ms, ds))
+        key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
+        f = self._compiled.get(key)
+        if f is None:
+            f = self._compiled[key] = jax.jit(_STEP).lower(ms, ds).compile(
+                FAST_COMPILE)
+        return f(ms, ds)
+
+    def _callback(self, ms, ds):
+        shapes = jax.tree_util.tree_map(
+            lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), ds)
+        return jax.pure_callback(self.run, shapes, ms, ds)
+
+    @contextlib.contextmanager
+    def traced(self):
+        def loop(m, d, ctrl, n):
+            return poisoned(dataclasses.replace(d, ctrl=ctrl))
+
+        saved = soa.step, jpipe.step_n_loop
+        soa.step, jpipe.step_n_loop = self._callback, loop
+        try:
+            yield
+        finally:
+            soa.step, jpipe.step_n_loop = saved
+
+
+def compiled_step(jb, *args):
+    """A JAX BatchedEnv's step (``jb._step_fn``) compiled for ``args``
+    around its model's substep, compiled apart and called back
+    (SubstepCallbacks): the same arithmetic, about half the compile."""
+    with SubstepCallbacks().traced():
+        return jb._step_fn.lower(*args).compile(FAST_COMPILE)
 
 
 def to_soa(d, B):
@@ -151,8 +213,6 @@ def kernel_body_solves(nv, ne, n_iter, n_ls, seed, B=2):
     layout, qacc, f, the Cholesky solve of M x = a_smooth), float64."""
     import torch
 
-    from gymnasium_robotics_tpu.physics import solver_pallas as SP
-
     rs = np.random.RandomState(seed)
     A = rs.normal(size=(nv, nv, B))
     M = np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(nv)[:, :, None]
@@ -162,15 +222,28 @@ def kernel_body_solves(nv, ne, n_iter, n_ls, seed, B=2):
     active = rs.uniform(size=(ne, B)) < 0.4
     is_eq = np.zeros(ne, bool)
     is_eq[:5] = True
+    args = [torch.tensor(a) for a in (M, asm, a0, J, aref, D, active, is_eq)]
+    return (args,) + kernel_bodies_on(args, n_iter, n_ls)
+
+
+def kernel_bodies_on(args, n_iter, n_ls):
+    """The TPU kernels' answers, run op by op with their lanes the batch
+    (solver_pallas._kernel_nv and _kernel_chol), on the port's solve
+    operands ``args`` (M (nv, nv, B), a_smooth, a_warm, J (ne, nv, B),
+    aref, D, active, is_eq (ne,)): (qacc, f, the Cholesky solve of
+    M x = a_smooth), float64 numpy."""
+    from gymnasium_robotics_tpu.physics import solver_pallas as SP
+
+    M, asm, a0, J, aref, D, active, is_eq = (
+        a.detach().cpu().double().numpy() for a in args)
+    ne, nv, B = J.shape
     tri = np.stack([M[i, j] for i in range(nv) for j in range(i + 1)])
     qacc, f = _Ref(np.zeros((nv, B))), _Ref(np.zeros((ne, B)))
     x = _Ref(np.zeros((nv, B)))
     with jax.disable_jit():
         SP._kernel_nv(nv, n_iter, n_ls, _Ref(tri), _Ref(asm), _Ref(a0),
                       _Ref(J.transpose(1, 0, 2)), _Ref(aref), _Ref(D),
-                      _Ref(active.astype(np.float64)),
-                      _Ref(np.broadcast_to(is_eq[:, None], (ne, B)).astype(np.float64)),
+                      _Ref(active), _Ref(np.broadcast_to(is_eq[:, None], (ne, B))),
                       qacc, f)
         SP._kernel_chol(nv, _Ref(tri), _Ref(asm), x)
-    args = [torch.tensor(a) for a in (M, asm, a0, J, aref, D, active, is_eq)]
-    return args, np.asarray(qacc.a), np.asarray(f.a), np.asarray(x.a)
+    return np.asarray(qacc.a), np.asarray(f.a), np.asarray(x.a)

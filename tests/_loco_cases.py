@@ -7,6 +7,8 @@ States, per model, B = 2 envs: "moving", the JAX reset's state after
 WARM steps of random actions (legs on the floor where the model has
 contacts), and "falling" for a hopper: "moving" with env 1 tilted past
 the healthy angle, so that it terminates and auto-resets on the step.
+The JAX side compiles a file's envs' resets and env layers as one
+function, and each model's substep apart, called back from it.
 
 One env step of the port's BatchedEnv (auto-reset and all) against the
 JAX BatchedEnv's from the same state with the same action: obs, reward,
@@ -25,6 +27,7 @@ import torch
 import _jax_ref as R
 from gymnasium_robotics_tpu import registry as jreg
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
+from gymnasium_robotics_tpu.physics import soa
 from gymnasium_robotics_tpu_torch import convert, registry
 
 B = 2
@@ -67,43 +70,75 @@ def _tilt(jenv, s):
         s.data, qpos=jnp.asarray(qpos)))
 
 
+def _stand_in(shapes, key):
+    """Arrays of ``shapes`` (ShapeDtypeStructs): zeros, and keys split
+    from ``key`` where the leaf holds PRNG keys."""
+    def leaf(s):
+        if jax.dtypes.issubdtype(s.dtype, jax.dtypes.prng_key):
+            return jax.random.split(key, s.shape)
+        return jnp.zeros(s.shape, s.dtype)
+
+    return jax.tree_util.tree_map(leaf, shapes)
+
+
 def jax_runs(ids, falling=(), env_step_only=()):
-    """{(id, state name): (the state, the action, the stepped state)} as
-    numpy, for each id's float64 JAX BatchedEnv: the resets run op by op,
-    the steps of every id through one compiled function. The ids of
-    ``env_step_only`` step through the env's own step, vmapped, without
-    the BatchedEnv's auto-reset (whose pick their reset's info cannot
-    pass)."""
-    jbs, states = {}, {}
-    rs = np.random.RandomState(7)
-    with jax.disable_jit():
-        for id_ in ids:
-            jenv = jreg.make(id_, dtype=jnp.float64)
-            jenv.model = jenv.model.with_options(soa="force")
-            jbs[id_] = JBatched(jenv, B)
-            jbs[id_].reset(seed=1)
-            states[id_] = jbs[id_].state
-            if id_ in env_step_only:   # the info of the env's step
-                states[id_] = dataclasses.replace(states[id_], info=jax.vmap(
-                    jenv._zero_info)(states[id_].data))
-    actions = {id_: [jnp.asarray(rs.uniform(-1, 1, (B, jb.env.model.nu)))
-                     for _ in range(WARM + 1)] for id_, jb in jbs.items()}
+    """({(id, state name): (the state, the action, the stepped state)} as
+    numpy, {id: the JAX BatchedEnv}) for each id's float64 JAX BatchedEnv,
+    each keeping its reset's state as numpy (``reset_numpy``, check_reset's
+    reference) and its model's compiled substep (``jb.substep(ds)`` on B
+    envs' batch-last Data): every id's reset (seed 1) and env step
+    compiled as one function (its resets part recomputed, unused, at each
+    step) around the models' substeps, compiled apart and called back
+    (tests/_jax_ref.py SubstepCallbacks). The ids of ``env_step_only``
+    step through the env's own step, vmapped, without the BatchedEnv's
+    auto-reset (whose pick their reset's info cannot pass)."""
+    jbs = {}
+    for id_ in ids:
+        jenv = jreg.make(id_, dtype=jnp.float64)
+        jenv.model = jenv.model.with_options(soa="force")
+        jbs[id_] = JBatched(jenv, B)
+    key = jax.random.key(1)
+
+    def initial(k, id_):
+        s = jbs[id_]._init(k)
+        if id_ in env_step_only:   # the info of the env's step
+            s = dataclasses.replace(s, info=jax.vmap(jbs[id_].env._zero_info)(s.data))
+        return s
+
     fns = {k: jax.vmap(jb.env.step) if k in env_step_only else jb._step_fn
            for k, jb in jbs.items()}
-    step_all = jax.jit(lambda S, A: {k: fns[k](S[k], A[k]) for k in S})
-    compiled = step_all.lower(states, {k: a[0] for k, a in actions.items()}
-                              ).compile(R.FAST_COMPILE)
+    S = {k: jax.eval_shape(lambda k_, i=k: initial(k_, i), key) for k in jbs}
+    A = {k: jax.ShapeDtypeStruct((B, jb.env.model.nu), jnp.float64)
+         for k, jb in jbs.items()}
+    sub = R.SubstepCallbacks()
+    with sub.traced():
+        compiled = jax.jit(lambda k, S, A: (
+            {i: (jbs[i]._init(k), initial(k, i)) for i in S},
+            {i: fns[i](S[i], A[i]) for i in S})).lower(key, S, A).compile(
+                R.FAST_COMPILE)
+    A0 = _stand_in(A, key)
+    resets = compiled(key, _stand_in(S, key), A0)[0]
+    states = {k: s for k, (_, s) in resets.items()}
+    for k, jb in jbs.items():
+        jb.reset_numpy = R.state_to_numpy(resets[k][0])
+        jb.substep = lambda ds, m=jb.env.model: sub.run(
+            soa._model_to_soa(m, None), ds)
+
+    def step(S, A):
+        out = compiled(key, {**states, **S}, {**A0, **A})[1]
+        return {k: out[k] for k in S}
+
+    rs = np.random.RandomState(7)
+    actions = {id_: [jnp.asarray(rs.uniform(-1, 1, (B, jb.env.model.nu)))
+                     for _ in range(WARM + 1)] for id_, jb in jbs.items()}
     for i in range(WARM):
-        states = compiled(states, {k: a[i] for k, a in actions.items()})
+        states = step(states, {k: a[i] for k, a in actions.items()})
     A = {k: actions[k][WARM] for k in states}
     runs = {}
     for name, S in (("moving", states),
-                    ("falling", {k: _tilt(jbs[k].env, s) if k in falling else s
-                                 for k, s in states.items()})):
-        if name == "falling" and not falling:
-            continue
-        out = compiled(S, A)
-        for k in (S if name == "moving" else falling):
+                    ("falling", {k: _tilt(jbs[k].env, states[k]) for k in falling})):
+        out = step(S, {k: A[k] for k in S})
+        for k in S:
             runs[(k, name)] = (R.state_to_numpy(S[k]), np.asarray(A[k]),
                                R.state_to_numpy(out[k]))
     return runs, jbs
@@ -156,19 +191,12 @@ def check_step(id_, run, dtype):
     return done
 
 
-def jax_reset_values(jb, seed):
-    """(qpos, qvel, the JAX reset's state as numpy) of B fresh JAX episodes
-    drawn op by op."""
-    with jax.disable_jit():
-        jb.reset(seed=seed)
-    s = R.state_to_numpy(jb.state)
-    return s["data"]["qpos"], s["data"]["qvel"], s
-
-
-def check_reset(id_, jb, seed=3):
+def check_reset(id_, jb):
     """reset_with_values of the JAX reset's qpos and qvel against the JAX
-    reset's state: the observation, info and the refreshed kinematics."""
-    qpos, qvel, ref = jax_reset_values(jb, seed)
+    reset's state (jax_runs' ``jb.reset_numpy``): the observation, info and
+    the refreshed kinematics."""
+    ref = jb.reset_numpy
+    qpos, qvel = ref["data"]["qpos"], ref["data"]["qvel"]
     env = registry.make(id_, device="cpu", dtype=torch.float64)
     template = env.initial(B, torch.Generator().manual_seed(0))
     ts = env.reset_with_values(template, {"qpos": qpos, "qvel": qvel})

@@ -22,6 +22,8 @@ import torch
 
 import _port_cpu  # noqa: F401
 
+import _jax_ref as R
+
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
 from gymnasium_robotics_tpu.envs.maze.ant_maze import AntMazeEnv as JAnt
 from gymnasium_robotics_tpu.physics import pipeline as jpipe
@@ -89,6 +91,7 @@ def jax_run():
     jb.state = dataclasses.replace(jb.state, data=data)
     s0 = jax_state_to_numpy(jb.state)
     actions = rs.uniform(-1, 1, (STEPS, B, m.nu))
+    jb._step_fn = R.compiled_step(jb, jb.state, jnp.asarray(actions[0]))
     out = []
     for a in actions:
         o, r, te, tr, info = jb.step(a)

@@ -25,6 +25,8 @@ import torch
 
 import _port_cpu  # noqa: F401
 
+import _jax_ref as R
+
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
 from gymnasium_robotics_tpu.envs.fetch.fetch import FetchPushEnv as JPush
 from gymnasium_robotics_tpu_torch import convert, core, registry
@@ -33,8 +35,6 @@ from gymnasium_robotics_tpu_torch.envs.fetch.fetch import FetchPushEnv
 B = 2
 STEPS = 2
 TOLS = {"float32": 2e-4, "float64": 1e-9}
-FAST_COMPILE = {"xla_backend_optimization_level": 0,
-                "xla_llvm_disable_expensive_passes": True}
 
 
 def rel_err(x, ref):
@@ -91,8 +91,7 @@ def jax_run():
     jb.state = dataclasses.replace(jb.state, data=data)
     s0 = jax_state_to_numpy(jb.state)
     actions = rs.uniform(-1, 1, (STEPS, B, 4))
-    step = jb._step_fn.lower(jb.state, jnp.asarray(actions[0])).compile(
-        FAST_COMPILE)
+    step = R.compiled_step(jb, jb.state, jnp.asarray(actions[0]))
     out = []
     for a in actions:
         jb.state = step(jb.state, jnp.asarray(a))

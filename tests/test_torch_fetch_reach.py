@@ -32,6 +32,8 @@ import torch
 
 import _port_cpu  # noqa: F401
 
+import _jax_ref as R
+
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
 from gymnasium_robotics_tpu.envs.fetch.fetch import FetchReachEnv as JReach
 from gymnasium_robotics_tpu_torch import convert, core, registry
@@ -41,8 +43,6 @@ from gymnasium_robotics_tpu_torch.utils import parity as tparity
 
 B = 2
 TOLS = {"float32": 2e-4, "float64": 1e-9}
-FAST_COMPILE = {"xla_backend_optimization_level": 0,
-                "xla_llvm_disable_expensive_passes": True}
 LOWER = 0.119   # env 1's robot and mocap body lowered: fingers 2.5 mm deep
 
 
@@ -103,7 +103,7 @@ def jax_run():
     pressed = dataclasses.replace(moving, data=dataclasses.replace(
         moving.data, qpos=jnp.asarray(qpos), mocap_pos=jnp.asarray(mp)))
     action = rs.uniform(-1, 1, (B, 4))
-    step = jb._step_fn.lower(moving, jnp.asarray(action)).compile(FAST_COMPILE)
+    step = R.compiled_step(jb, moving, jnp.asarray(action))
     runs = {name: jax_step(step, st, action)
             for name, st in (("moving", moving), ("pressed", pressed))}
     return runs, action, s_reset, jenv

@@ -38,6 +38,8 @@ import torch
 
 import _port_cpu  # noqa: F401
 
+import _jax_ref as R
+
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
 from gymnasium_robotics_tpu.envs.fetch.fetch import FetchSlideEnv as JSlide
 from gymnasium_robotics_tpu.physics import collision_vec as CV
@@ -51,8 +53,6 @@ B = 2
 TOLS = {"float32": 2e-4, "float64": 1e-9}
 TOL_F64 = 1e-12
 BIG = 1e9
-FAST_COMPILE = {"xla_backend_optimization_level": 0,
-                "xla_llvm_disable_expensive_passes": True}
 
 
 def rel_err(x, ref):
@@ -259,8 +259,7 @@ def jax_run():
         jb.state.data, qpos=jnp.asarray(q), qvel=jnp.asarray(qvel)))
         for name, q in puck_states(np.asarray(jb.state.data.qpos), oq).items()}
     action = rs.uniform(-1, 1, (B, 4)) * 0.1
-    step = jb._step_fn.lower(states["pressed"], jnp.asarray(action)).compile(
-        FAST_COMPILE)
+    step = R.compiled_step(jb, states["pressed"], jnp.asarray(action))
     runs = {name: jax_step(step, st, action) for name, st in states.items()}
     return runs, action, s_reset, jenv
 

@@ -38,6 +38,8 @@ import torch
 
 import _port_cpu  # noqa: F401
 
+import _jax_ref as R
+
 from gymnasium_robotics_tpu import core as jcore
 from gymnasium_robotics_tpu.envs.batched import BatchedEnv as JBatched
 from gymnasium_robotics_tpu.envs.hand.hand import HandManipulateBlockEnv as JBlock
@@ -50,8 +52,6 @@ POOL = 2
 STEPS = 2
 TOLS = {"float32": 2e-2, "float64": 1e-9}
 QACC_TOL = 1e-8      # float64 qacc, the ill-conditioned solve's output
-FAST_COMPILE = {"xla_backend_optimization_level": 0,
-                "xla_llvm_disable_expensive_passes": True}
 KW = dict(target_position="random", target_rotation="xyz",
           reward_type="dense", touch_obs="sensordata")
 
@@ -153,8 +153,7 @@ def jax_run():
             jnp.asarray(pv)))
         s0 = jax_state_to_numpy(state)
         if step is None:
-            step = jb._step_fn.lower(state, jnp.asarray(actions[0])).compile(
-                FAST_COMPILE)
+            step = R.compiled_step(jb, state, jnp.asarray(actions[0]))
         out = []
         for a in actions:
             state = step(state, jnp.asarray(a))

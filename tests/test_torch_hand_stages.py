@@ -287,15 +287,25 @@ def test_build_rows_matches_soa(models, chain):
 
 
 def test_unported_models_raise(models):
-    """A spatial tendon, and a hull kind the unpruned table does not have,
-    raise naming what brings them."""
+    """A hull kind the unpruned table does not have raises naming what
+    brings it. (A site-to-site spatial tendon, which raised until the
+    MaMuJoCo slice ported it, now takes its length between its sites: the
+    hand's first two-joint tendon made one between two of its sites.)"""
     _, _, tm = models
     mt = tm.meta
-    spatial = dataclasses.replace(
-        tm, meta=dataclasses.replace(mt, tendon_kind=("spatial2",) * mt.ntendon))
+    t = mt.tendon_num.index(2)
+    wrap = list(mt.wrap_objid)
+    wrap[mt.tendon_adr[t]:mt.tendon_adr[t] + 2] = [0, 1]
+    kinds = ["fixed"] * mt.ntendon
+    kinds[t] = "spatial2"
+    spatial = dataclasses.replace(tm, meta=dataclasses.replace(
+        mt, tendon_kind=tuple(kinds), wrap_objid=tuple(wrap)))
     d = tpipe.make_data(spatial, 1)
-    with pytest.raises(NotImplementedError, match="spatial"):
-        tsm.tendon(spatial, d)
+    d.site_xpos[1] = d.site_xpos[0] + torch.tensor([0.3, 0.4, 0.0],
+                                                   dtype=d.qpos.dtype)[:, None]
+    out = tsm.tendon(spatial, d)
+    assert abs(float(out.ten_length[t, 0]) - 0.5) < 1e-6
+    assert bool(torch.isfinite(out.ten_J).all())
     obj = mt.geom_names.index("object")
     hull = mt.geom_names.index("robot0:C_forearm")
     for kind, brings in ((4, "HandManipulateEgg"), (3, "HandManipulatePen")):

@@ -2,8 +2,9 @@
 244 rows, 128 contact pairs, 10 of them sphere-sphere, 2 fixed tendons,
 RK4), through the registry's BatchedEnv on the CPU.
 
-The JAX side runs its batch-last path in float64, its env steps of both
-models compiled as one function (tests/_loco_cases.py). One env step from
+The JAX side runs its batch-last path in float64: both models' resets and
+env layers compiled as one function around each model's substep, compiled
+apart (tests/_loco_cases.py). One env step from
 each model's moving state (after three steps of random actions, the feet
 on the floor) is held at 1e-9 with the port in float64 and at 2e-4 with
 the port in float32 against the same float64 reference; the reset's
@@ -90,7 +91,7 @@ def test_pressed_table_matches_jax(jax_runs):
     d.qpos[7:] = torch.tensor((lo - 0.5)[:, None] + rs.uniform(
         size=(len(lo), L.B)) * (hi - lo + 1.0)[:, None])
     d.qpos[2] = 0.3
-    ref = R.SubstepRef(jenv.model, L.B)(R.data_from_port(d, jT))
+    ref = jax_runs[1]["Humanoid-v5"].substep(R.data_from_port(d, jT))
     got = pipeline.step(m, d)
     geoms = m.meta.geom_type
     ss = [i for i, (g1, g2) in enumerate(m.meta.pairs)

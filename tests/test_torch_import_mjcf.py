@@ -5,10 +5,8 @@ JAX package's, and the locomotion model files it writes.
   envs use, in float32 and float64: every Model field bit for bit (the
   candidate pairs' slot parameters con_* too), the Meta JSON equal (the
   pairs, their condims, the options, the names).
-- Each committed assets/locomotion/<xml>.npz against a fresh float64
-  import: every array bit for bit, the Meta equal; loaded in float32, each
-  field the float64 value rounded once and import_model's float32 Model
-  equal to it.
+- Each committed assets/locomotion/<xml>.npz against a fresh import:
+  tests/test_torch_import_mjcf_committed.py.
 - The writer refuses any path outside the port's own assets directory.
 - registry.make("HalfCheetah-v5", num_envs=2, device="cpu") resets and
   steps with ``mujoco`` and ``gymnasium`` blocked in sys.modules (the
@@ -50,36 +48,6 @@ def test_import_matches_jax(name):
             ref = np.asarray(ref)
             assert arrays[k].dtype == ref.dtype, k
             np.testing.assert_array_equal(arrays[k], ref, err_msg=k)
-
-
-@pytest.mark.parametrize("name", BL.XMLS)
-def test_committed_model_files_match_fresh_import(name):
-    import mujoco
-
-    arrays, meta_json = import_mjcf.import_arrays(
-        mujoco.MjModel.from_xml_path(BL.gym_xml(name)), np.float64)
-    path = serialize.asset_path(BL.asset_name(name), serialize.OWN_ASSETS_DIR)
-    with np.load(path) as z:
-        assert bytes(z["__meta__"]).decode() == meta_json
-        stored = {k: z[k] for k in z.files if k != "__meta__"}
-    assert set(stored) == {k for k, v in arrays.items() if v is not None}
-    for k, v in stored.items():
-        assert v.dtype == np.float64, k
-        np.testing.assert_array_equal(v, arrays[k], err_msg=k)
-    m32, extra = serialize.load_asset(BL.asset_name(name), torch.float32, "cpu",
-                                      root=serialize.OWN_ASSETS_DIR)
-    assert extra == {}
-    fresh = import_mjcf.import_model(
-        mujoco.MjModel.from_xml_path(BL.gym_xml(name)), np.float32, "cpu")
-    assert fresh.meta == m32.meta
-    for k in T.array_fields():
-        t = getattr(m32, k)
-        if t is None:
-            continue
-        ref = arrays[k].astype(np.float32)
-        got = t.numpy() if k in T.HULL_FIELDS else t[..., 0].numpy()
-        np.testing.assert_array_equal(got, ref, err_msg=k)
-        assert torch.equal(getattr(fresh, k), t), k
 
 
 def test_writer_stays_in_own_assets(tmp_path):

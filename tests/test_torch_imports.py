@@ -2,8 +2,6 @@
 chip_smoke.py) imports jax or the JAX package, building the env leaves
 neither in sys.modules, and no entry point falls back to the CPU unasked."""
 
-import ast
-import glob
 import os
 import subprocess
 import sys
@@ -13,31 +11,17 @@ import torch
 
 import _port_cpu  # noqa: F401
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_FILES = sorted(
-    p for p in glob.glob(
-        os.path.join(REPO, "gymnasium_robotics_tpu_torch", "**", "*.py"),
-        recursive=True)
-    # _build/ holds what the kernel builds leave, not sources of the port
-    if "_build" not in os.path.relpath(p, REPO).split(os.sep)
-) + [os.path.join(REPO, "chip_smoke.py")]
-FORBIDDEN = ("jax", "jaxlib", "gymnasium_robotics_tpu")
+import _port_imports as P
+
+REPO = P.REPO
 
 
-def _imported(path):
-    tree = ast.parse(open(path).read(), path)
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
-            yield node.module
-
-
-@pytest.mark.parametrize("path", PORT_FILES,
-                         ids=lambda p: os.path.relpath(p, REPO))
+# the port's files outside physics/ and the env families, chip_smoke.py
+# among them (tests/test_torch_imports_physics.py and _envs.py hold the
+# others)
+@pytest.mark.parametrize("path", P.files("core"), ids=P.case_id)
 def test_no_jax_import(path):
-    for name in _imported(path):
-        assert name.split(".")[0] not in FORBIDDEN, (path, name)
+    P.check_no_jax_import(path)
 
 
 def test_building_the_env_imports_no_jax():
@@ -68,6 +52,13 @@ def test_building_the_env_imports_no_jax():
         "    loco.reset(seed=0)\n"
         "    loco.step(torch.zeros(2, loco.env.action_dim))\n"
         "registry.make_gym('InvertedPendulum-v5', device='cpu').reset(seed=0)\n"
+        "from gymnasium_robotics_tpu_torch import mamujoco_v1\n"
+        "from gymnasium_robotics_tpu_torch.envs.batched import BatchedEnv\n"
+        "ma = BatchedEnv(mamujoco_v1.MultiAgentMujocoEnv('CoupledHalfCheetah',\n"
+        "                '1p1', device='cpu'), 2)\n"
+        "ma.reset(seed=0)\n"
+        "ma.step({a: torch.zeros(2, 6) for a in ma.env.possible_agents})\n"
+        "mamujoco_v1.parallel_env('HalfCheetah', '2x3', device='cpu').reset(seed=0)\n"
         "from gymnasium_robotics_tpu_torch.physics import kinematics, pipeline\n"
         "m = env.env.model.with_options(fk_kernel=True)\n"
         "kinematics.kinematics(m, pipeline.make_data(m, 2))\n"
@@ -93,6 +84,12 @@ def test_make_without_device_needs_a_card():
         registry.make("PointMaze_UMaze-v3", num_envs=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         registry.make_gym("PointMaze_UMaze-v3")
+    from gymnasium_robotics_tpu_torch import mamujoco_v1
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mamujoco_v1.MultiAgentMujocoEnv("HalfCheetah", "2x3")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mamujoco_v1.parallel_env("CoupledHalfCheetah", "1p1")
 
 
 def test_unported_id_names_its_slice():

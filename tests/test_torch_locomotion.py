@@ -4,7 +4,7 @@ InvertedDoublePendulum, Reacher and Pusher (-v5), through the registry's
 BatchedEnv on the CPU.
 
 The JAX side runs its batch-last path (soa="force") in float64: its resets
-op by op, its env steps of all nine models compiled as one function
+and env steps of all nine models compiled as one function
 (tests/_loco_cases.py). One env step from each model's "moving" state
 (and from Hopper's "falling" one, where env 1 terminates and
 auto-resets) is held at 1e-9 with the port in float64 and at 2e-4 with the

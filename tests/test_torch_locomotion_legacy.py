@@ -3,8 +3,8 @@ frozen observation, reward and info conventions on the v5 models; the
 legacy Walker2d on walker2d.xml), through the registry's BatchedEnv on
 the CPU.
 
-The JAX side runs its batch-last path in float64, its env steps of all 17
-IDs compiled as one function (tests/_loco_cases.py). For each ID one env
+The JAX side runs its batch-last path in float64: the 17 IDs' resets and
+env steps compiled as one function (tests/_loco_cases.py). For each ID one env
 step from its moving state (after three steps of random actions) is held
 at 1e-9 with the port in float64 and at 2e-4 with the port in float32
 against the same float64 reference, and the reset's refresh from injected

@@ -1,6 +1,7 @@
 """The port's model loader (gymnasium_robotics_tpu_torch.mjcf.serialize)
 against the JAX package's serialize.load_model, for every shipped PointMaze
-and AntMaze model. Tolerance: exact equality of every field and of Meta (both sides
+and AntMaze model (where they lie and float64:
+tests/test_torch_model_assets.py). Tolerance: exact equality of every field and of Meta (both sides
 cast the same stored arrays)."""
 
 import dataclasses
@@ -9,7 +10,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 import _port_cpu  # noqa: F401
 
@@ -24,12 +24,6 @@ def _assets(family):
 
 ASSETS = _assets("point_maze")
 ANT_ASSETS = _assets("ant_maze")
-
-
-def test_port_reads_the_jax_assets():
-    assert os.path.samefile(tser.ASSETS_DIR, jser.ASSETS_DIR)
-    assert len(ASSETS) == 12
-    assert len(ANT_ASSETS) == 10
 
 
 @pytest.mark.parametrize("path", ASSETS + ANT_ASSETS, ids=os.path.basename)
@@ -51,11 +45,3 @@ def test_load_model_matches_jax(path):
             tv = tv[..., 0]
         assert tv.dtype == np.asarray(jv).dtype, name
         np.testing.assert_array_equal(tv, np.asarray(jv), err_msg=name)
-
-
-def test_load_model_float64():
-    jm, _ = jser.load_model(ASSETS[0], dtype=np.float64)
-    tm, _ = tser.load_model(ASSETS[0], dtype=torch.float64, device="cpu")
-    assert tm.body_mass.dtype == torch.float64
-    np.testing.assert_array_equal(tm.geom_size.numpy()[..., 0],
-                                  np.asarray(jm.geom_size))

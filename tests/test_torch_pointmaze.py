@@ -211,18 +211,6 @@ def test_reset_target_respawns_far_goal():
     np.testing.assert_array_equal(obs["desired_goal"].numpy(), new_goal)
 
 
-@pytest.mark.parametrize(
-    "env_id", [i for i in registry.ids() if i.startswith("PointMaze")])
-def test_every_point_maze_id_steps(env_id):
-    env = registry.make(env_id, num_envs=3, device="cpu")
-    env.reset(seed=0)
-    obs, reward, _, truncated, _ = env.step(torch.ones(3, 2))
-    assert obs["observation"].shape == (3, 4)
-    assert torch.isfinite(obs["observation"]).all()
-    assert env.env.max_episode_steps in (300, 600, 800)
-    assert (reward >= 0).all() and not truncated.any()
-
-
 def test_reset_with_values_matches_jax():
     jb, tb = make_pair("float64", seed=4)
     rng = np.random.default_rng(4)

@@ -250,19 +250,24 @@ def test_solve_newton_plain_matches_pallas_fetch():
 
 def test_solve_pos_plain_matches_pallas_nv36():
     """The HandManipulateBlock system size, with the floored lanes of
-    _spd."""
-    import jax.numpy as jnp
+    _spd, against the TPU kernel's body (solver_pallas._kernel_chol) run op
+    by op with its lanes the batch (its interpret-mode pallas_call takes
+    tens of seconds to trace at this nv)."""
+    import jax
 
+    import _jax_ref as R
     from gymnasium_robotics_tpu.physics import solver_pallas as SP
 
     nv, B = 36, 4
     rs = np.random.RandomState(36)
     M = _spd(rs, nv, B)
     b = rs.normal(size=(nv, B))
-    ref = np.asarray(SP.solve_pos_soa(jnp.asarray(M), jnp.asarray(b),
-                                      interpret=True))
+    tri = np.stack([M[i, j] for i in range(nv) for j in range(i + 1)])
+    x = R._Ref(np.zeros((nv, B)))
+    with jax.disable_jit():
+        SP._kernel_chol(nv, R._Ref(tri), R._Ref(b), x)
     out = solver.solve_pos_plain(torch.tensor(M), torch.tensor(b)).numpy()
-    assert rel_err(out, ref) <= TOL64
+    assert rel_err(out, np.asarray(x.a)) <= TOL64
 
 
 def _hand_rows(rs, B, ne=272):
@@ -280,10 +285,19 @@ def _hand_rows(rs, B, ne=272):
 
 
 def test_solve_newton_plain_matches_pallas_hand():
-    """nv = 36 at 40 rows (the interpret run's time is the unrolled nv = 36
-    solve's, whatever the rows), with the hand's iterations."""
-    args = _hand_rows(np.random.RandomState(36), 2, ne=40)
-    _check_newton(args, n_iter=5, n_ls=4)
+    """nv = 36 at 40 rows, with the hand's iterations, against the TPU
+    kernel's body (solver_pallas._kernel_nv) run op by op with its lanes
+    the batch (its interpret-mode pallas_call takes a minute to trace at
+    this nv); the wrapper on CPU tensors gives the plain version's
+    result."""
+    import _jax_ref as R
+
+    args, qacc, f, _ = R.kernel_body_solves(36, 40, 5, 4, seed=36)
+    q_got, f_got = solver.solve_newton_plain(*args, n_iter=5, n_ls=4)
+    assert rel_err(q_got.numpy(), qacc) <= TOL64
+    assert rel_err(f_got.numpy(), f) <= TOL64
+    qw, fw = solver.solve_newton(*args, n_iter=5, n_ls=4)
+    assert torch.equal(qw, q_got) and torch.equal(fw, f_got)
 
 
 def _nv2_ref(args, n_iter, n_ls):
@@ -318,11 +332,12 @@ def _random_nv2_rows(rs, B, ne=19):
 
 
 @pytest.mark.parametrize("nv,ne", [(3, 1), (4, 3), (5, 2), (6, 38), (9, 70),
-                                   (9, 62), (11, 22), (14, 108)])
+                                   (9, 62), (11, 22), (14, 108), (18, 142)])
 def test_plain_solves_match_kernel_bodies_locomotion(nv, ne):
     """solve_newton_plain and solve_pos_plain at the locomotion models' nv
     and rows (InvertedDoublePendulum, Reacher, Swimmer, Hopper,
-    HalfCheetah, Walker2d, Pusher, Ant past AntMaze's 96 rows; the
+    HalfCheetah, Walker2d, Pusher, Ant past AntMaze's 96 rows, MaMuJoCo's
+    CoupledHalfCheetah; the
     humanoids' nv = 23 in tests/test_torch_humanoid.py) against the TPU
     kernels' bodies, solver_pallas._kernel_nv and _kernel_chol run op by op
     with their lanes the batch (random rows, B = 2), float64."""
@@ -394,14 +409,21 @@ def test_newton_geometry_covers_row_caps():
     row caps, at B from 1 up: the grid covers every env, a block's shared
     memory fits, the lanes hold the rows and the shape is the smallest of
     the nv's that does (nv = 14: 96 rows for AntMaze's 72, 128 for Ant's
-    108); other nv and more rows raise."""
+    108); MaMuJoCo's CoupledHalfCheetah at nv = 18; other nv and more
+    rows raise."""
+    from gymnasium_robotics_tpu_torch import mamujoco_v1
+
     systems = set()
-    for id_ in registry.ids():
-        m = registry.make(id_, num_envs=1, device="cpu").env.model
+    models = [registry.make(id_, num_envs=1, device="cpu").env.model
+              for id_ in registry.ids()]
+    models.append(mamujoco_v1.MultiAgentMujocoEnv(
+        "CoupledHalfCheetah", "1p1", device="cpu").env.model)
+    for m in models:
         if m.nv in solver.NEWTON_TILE_SHAPES:
             systems.add((m.nv, m.plan("rows", constraint._RowPlan).is_eq.numel()))
     assert systems == {(3, 1), (4, 3), (5, 2), (6, 38), (9, 70), (9, 62),
-                       (11, 22), (14, 72), (14, 108), (15, 255), (21, 255),
+                       (11, 22), (14, 72), (14, 108), (15, 255), (18, 142),
+                       (21, 255),
                        (23, 244), (24, 272), (29, 188), (30, 278), (30, 272),
                        (33, 275), (36, 272), (36, 278)}
     for nv in solver.NEWTON_TILE_SHAPES:
@@ -425,8 +447,8 @@ def test_newton_geometry_covers_row_caps():
 
 
 def test_chol_geometry_matches_source():
-    """chol_tile_kernel's launch geometry (nv 3, 4, 5, 6, 9, 11, 14, 15, 21,
-    23, 24, 29, 30, 33 and 36) against the
+    """chol_tile_kernel's launch geometry (nv 3, 4, 5, 6, 9, 11, 14, 15, 18,
+    21, 23, 24, 29, 30, 33 and 36) against the
     constants of csrc/solver.cu (the tiles, the lanes an env, the triangle
     and right-hand side a block stages) at B from 1 up: the grid covers
     every env, the shared memory fits a static launch, up to nv = 36;
@@ -724,6 +746,60 @@ def test_kernels_match_plain_on_card_nv15(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernels_match_plain_on_card_nv18(cuda_device):
+    """nv = 18 (MaMuJoCo's CoupledHalfCheetah): chol_tile_kernel<18, true>
+    on random SPD systems within 2e-4 of its plain version, and
+    newton_tile_kernel<18, 2, 3, 8> on random rows and on a
+    CoupledHalfCheetah batch's own rows (B = 2048, 142 rows, 20 and 8
+    iterations), within max(2e-4, 2x the float32 plain version) of the
+    plain version run in float64."""
+    from gymnasium_robotics_tpu_torch import mamujoco_v1
+    from gymnasium_robotics_tpu_torch.envs.batched import BatchedEnv
+
+    B, nv = 2048, 18
+    rs = np.random.RandomState(nv)
+
+    def cuda(x):
+        x = np.asarray(x)
+        return torch.tensor(x, dtype=torch.bool if x.dtype == bool
+                            else torch.float32, device=cuda_device)
+
+    M, b = cuda(_spd(rs, nv, B)), cuda(rs.normal(size=(nv, B)))
+    n0 = dict(solver.LAUNCHES)
+    x = solver.solve_pos(M, b)
+    torch.cuda.synchronize()
+    assert solver.LAUNCHES["chol"] == n0["chol"] + 1
+    ok = slice(3, None)
+    assert rel_err(x[:, ok].cpu(), solver.solve_pos_plain(M, b)[:, ok].cpu()) <= TOL32
+
+    ma = mamujoco_v1.MultiAgentMujocoEnv("CoupledHalfCheetah", "1p1",
+                                         device=cuda_device)
+    env = BatchedEnv(ma, B)
+    env.reset(seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(2):
+        env.step({a: torch.rand((B, n), generator=gen, device=cuda_device) * 2 - 1
+                  for a, n in ma.action_dims.items()})
+    m, d = ma.env.model, env.state.data
+    J, aref, D, _, active, is_eq, _ = constraint.build_rows(m, d)
+    ne = J.shape[0]
+    assert (ne, J.shape[1]) == (142, nv)
+    real = (d.qM, d.qacc_smooth, d.qacc, J, aref, D, active, is_eq)
+    A = rs.normal(size=(nv, nv, B))
+    rand = [cuda(a) for a in (
+        np.einsum("ikb,jkb->ijb", A, A) + 0.5 * np.eye(nv)[:, :, None],
+        rs.normal(size=(nv, B)), rs.normal(size=(nv, B)),
+        rs.normal(size=(ne, nv, B)), rs.normal(size=(ne, B)),
+        np.exp(rs.normal(size=(ne, B))), rs.uniform(size=(ne, B)) < 0.6,
+        np.arange(ne) < 6)]
+    for args in (rand, real):
+        n0 = solver.LAUNCHES["newton"]
+        err, p32 = gate64(args, 20, 8)
+        assert solver.LAUNCHES["newton"] == n0 + 1
+        assert err <= max(TOL32, 2 * p32), (err, p32)
+
+
+@pytest.mark.cuda
 def test_newton_edges_on_card(cuda_device):
     """newton_tile_kernel at the edges of its shapes against its plain
     version (nv = 14 but Ant's rows: within 2e-4 of it in float32; the
@@ -731,13 +807,14 @@ def test_newton_edges_on_card(cuda_device):
     the float32 plain version's error) of the plain version run in
     float64): the row cap of every instantiation (64 at nv = 3-6, 96 at 9,
     32 at 11, 96 and 128 at 14 (AntMaze's shape and Ant's), 256 at 15 and
-    21, 288 from 23 on) and one row under it at B = 1, an ne that is not a
+    21, 192 at 18, 288 from 23 on) and one row under it at B = 1, an ne that is not a
     multiple of 32, and at 72 rows (the cap less 3 where that is smaller)
     a B that is not a multiple of the env tile, n_iter = 0, every row
     inactive and J in a batch-leading layout (the strided staging); at
     nv = 36 and 24 the hands' 272 rows at B = 1023, at nv = 29 the
     kitchen's 188 at B = 511, 8 iterations, and each locomotion model's
-    rows at B = 8191, 20 iterations and 8 line-search steps. The
+    (and CoupledHalfCheetah's 142 at nv = 18) rows at B = 8191, 20
+    iterations and 8 line-search steps. The
     wrapper's shared memory is the source's."""
     rs = np.random.RandomState(9)
 
@@ -748,10 +825,10 @@ def test_newton_edges_on_card(cuda_device):
 
     # the locomotion models' rows, at their 20 iterations and 8 line-search
     # steps (the nv they bring in run every case so)
-    loco = {3: 1, 4: 3, 5: 2, 6: 38, 9: 70, 11: 22, 14: 108, 23: 244}
+    loco = {3: 1, 4: 3, 5: 2, 6: 38, 9: 70, 11: 22, 14: 108, 18: 142, 23: 244}
     for nv, n_iter in ((3, 20), (4, 20), (5, 20), (6, 20), (9, 20), (11, 20),
-                       (14, 5), (15, 4), (21, 4), (23, 20), (24, 5), (29, 8),
-                       (36, 5)):
+                       (14, 5), (15, 4), (18, 20), (21, 4), (23, 20), (24, 5),
+                       (29, 8), (36, 5)):
         n_ls = 8 if n_iter == 20 else 4
         # every instantiation's row cap (nv = 14: AntMaze's 96, Ant's 128)
         caps = [32 * w * r for w, r, _ in solver.NEWTON_TILE_SHAPES[nv]]
@@ -797,8 +874,8 @@ def test_newton_edges_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_chol_edges_on_card(cuda_device):
-    """chol_tile_kernel at nv 3, 4, 5, 6, 9, 11, 14, 15, 21, 23, 24, 29 and
-    36 against its plain version: B = 1 and
+    """chol_tile_kernel at nv 3, 4, 5, 6, 9, 11, 14, 15, 18, 21, 23, 24, 29
+    and 36 against its plain version: B = 1 and
     B = 2047, M as a transposed and as a sliced view, b transposed, envs
     whose factor takes the 1e-20 floor exactly (equal to the plain
     version), an env with a NaN entry (NaN in both); and the same solves
@@ -806,7 +883,7 @@ def test_chol_edges_on_card(cuda_device):
     than twice the float32 plain version). The wrapper's shared memory is
     the source's."""
     rs = np.random.RandomState(12)
-    for nv in (3, 4, 5, 6, 9, 11, 14, 15, 21, 23, 24, 29, 36):
+    for nv in (3, 4, 5, 6, 9, 11, 14, 15, 18, 21, 23, 24, 29, 36):
         def spd(B):
             A = rs.normal(size=(nv, nv, B))
             return torch.tensor(np.einsum("ikb,jkb->ijb", A, A)
